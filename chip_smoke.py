@@ -7,9 +7,7 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
 
 1. prints the card's name and power limit, as ``nvidia-smi`` gives them;
 2. builds every CUDA kernel of the port from ``csrc/`` (one nvcc each, in
-   parallel) and holds each against its plain PyTorch version on the card at
-   the shapes the serving path gives it, in float32 and bfloat16, with its
-   time, its plain version's time and a library call's time (CUDA events);
+   parallel);
 3. drives the port's main path: NRMS cached serving at full width (D = 300,
    15 heads, query 200, vocab 60,000, bf16 parameters) over the workload of
    ``bench.py`` regenerated from a seed (32,768 articles, 16,384 impressions,
@@ -17,6 +15,12 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    launch counts are read across the timed epoch.  The served metrics must be
    finite and equal those of the same pipeline with the plain attention
    forced, over the first 2,048 impressions;
+   then holds each kernel against its plain PyTorch version on the card at
+   the shapes the serving path gives it, in float32 and bfloat16, with its
+   time, its plain version's time and a library call's time
+   (``newsreclib_tpu_torch/kernel_bench.py``: device time per launch from
+   ``torch.profiler``, inputs rotated past the L2; the per-call CUDA event
+   time, host cost included, is on each ``kernel_shape`` line);
 4. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
@@ -29,19 +33,12 @@ import copy
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores, bf16 tensor cores
-# (U, L) held and timed beside the serving path's own shapes (see main_path_shapes)
-MHSA_SHAPES = [(4096, 16), (1024, 30), (256, 50)]
-D, H = 300, 15
-ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
-RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+D = 300
 # Served metrics, kernel pipeline vs plain-attention pipeline.  The two differ
 # only by the order of float32 sums inside the attention; in bf16 that can move
 # an attention output by one bf16 step, which can swap near-tied candidates.
@@ -58,52 +55,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` calls, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def mhsa_inputs(u, l, dtype, seed):
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((u, l, 3 * D), generator=g, device="cuda").to(dtype)
-    lens = torch.randint(1, l + 1, (u,), generator=g, device="cuda")
-    mask = torch.arange(l, device="cuda")[None, :] < lens[:, None]
-    mask[0] = False  # the padding article: no valid key at all
-    return qkv, mask.contiguous()
-
-
-def mhsa_bound_ms(u, l, dtype_name) -> tuple:
-    """Least time for the attention of (U, L) on the card, and what bounds it:
-    qkv read and context written once (plus the mask), against the
-    q.k and p.v products at the peak rate of the input type."""
-    es = 4 if dtype_name == "float32" else 2
-    nbytes = u * l * 3 * D * es + u * l + u * l * D * es
-    flops = 2 * 2 * u * H * l * l * (D // H)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def main_path_shapes(store):
     """The (U, L) the serving epoch gives the attention kernel: the chunks of
     each title-length segment of the corpus encode, and one batch of
@@ -118,42 +69,18 @@ def main_path_shapes(store):
 
 
 def kernel_phase(shapes):
-    """Hold fused_small_mhsa against mhsa_plain at every shape given; time
-    the kernel, the plain version and SDPA.  Returns the per-shape records."""
+    """Hold fused_small_mhsa against mhsa_plain at every shape given, in
+    float32 and bfloat16, and time it, the plain version and SDPA
+    (``kernel_bench.measure_shape``).  Returns the per-shape records."""
     import torch
-    import torch.nn.functional as Fn
 
+    from newsreclib_tpu_torch.kernel_bench import measure_shape
     from newsreclib_tpu_torch.ops import mhsa
 
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
         for u, l in shapes:
-            qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l)
-            got = mhsa.fused_small_mhsa(qkv, mask, H)
-            torch.cuda.synchronize()
-            want = mhsa.mhsa_plain(qkv, mask, H)
-            torch.cuda.synchronize()
-            if got.shape != (u, l, D) or got.dtype != dtype:
-                raise AssertionError(f"kernel output {got.shape} {got.dtype}")
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"kernel output not finite at U={u} L={l} {name}")
-            err = (got.float() - want.float()).abs()
-            limit = ATOL[name] + RTOL[name] * want.float().abs()
-            if not bool((err <= limit).all()):
-                raise AssertionError(
-                    f"kernel != plain at U={u} L={l} {name}: max abs err {err.max().item()}"
-                )
-
-            q, k, v = qkv.view(u, l, 3, H, D // H).permute(2, 0, 3, 1, 4)
-            sdpa_mask = mask[:, None, None, :]
-            ms = cuda_ms(lambda: mhsa.fused_small_mhsa(qkv, mask, H))
-            plain_ms = cuda_ms(lambda: mhsa.mhsa_plain(qkv, mask, H))
-            library_ms = cuda_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
-            bound_ms, bound_by = mhsa_bound_ms(u, l, name)
-            rec = dict(U=u, L=l, dtype=name, max_abs_err=err.max().item(), ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)])
             log("kernel_shape " + json.dumps(rec))
             records.append(rec)
     return records
@@ -229,6 +156,7 @@ def main() -> int:
     import numpy as np
 
     from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+    from newsreclib_tpu_torch.kernel_bench import EXTRA_SHAPES, card_line
     from newsreclib_tpu_torch.ops import build
 
     t_start = time.time()
@@ -249,8 +177,10 @@ def main() -> int:
     shapes = main_path_shapes(store)
     log(f"attention shapes (U, L) of the serving path: {shapes}")
 
-    records = kernel_phase(shapes + [s for s in MHSA_SHAPES if s not in shapes])
+    # The serving epoch runs before the kernel phase, whose many profiler
+    # windows leave the process slower to launch kernels.
     launches = serving_phase(card, store, imp)
+    records = kernel_phase(shapes + [s for s in EXTRA_SHAPES if s not in shapes])
 
     main_shape = next(r for r in records if (r["U"], r["L"], r["dtype"]) == (4096, 16, "bfloat16"))
     kernels = [{

@@ -50,10 +50,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, src: Path = None, target: Path = None):
     """Start nvcc for one source unless its library is built; returns
     ``(target, tmp, process)`` or None."""
-    target = library_path(name)
+    src = CSRC / f"{name}.cu" if src is None else src
+    target = library_path(name) if target is None else target
     if target.exists():
         return None
     nvcc = _nvcc()
@@ -62,7 +63,7 @@ def _start(name: str):
     if stale_lock.exists():
         stale_lock.unlink()
     tmp = target.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc
 
@@ -74,7 +75,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, target)  # atomic: a reader never sees a half-written .so
 
 
@@ -99,3 +100,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def load_source(src: Path) -> ctypes.CDLL:
+    """Build and load a CUDA source from outside ``csrc/`` (for instance an
+    earlier version of a kernel, to time against), keyed by its text, into
+    ``build/kernels/extra/``."""
+    src = Path(src)
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    target = BUILD_DIR / "extra" / f"lib{src.stem}-{digest}.so"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    _finish(src.stem, _start(src.stem, src, target))
+    return ctypes.CDLL(str(target))

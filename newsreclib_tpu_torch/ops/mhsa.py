@@ -11,6 +11,10 @@ output, ``mask (U, L)`` bool marks the valid keys, the result is the context
 ``(U, L, D)`` in the input type, with sums in float32.  Masked keys take the
 finite logit -1e30, so fully masked rows come out finite (uniform softmax);
 rows at masked query positions hold values the caller zeroes.
+
+The kernel has no backward yet: on a CUDA tensor that requires grad, with
+grad enabled, the wrapper raises instead of returning a result cut off from
+the graph.  The CPU route (``mhsa_plain``) is differentiable.
 """
 
 from __future__ import annotations
@@ -47,6 +51,19 @@ def mhsa_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.T
     return o.transpose(1, 2).reshape(u, l, d).to(qkv.dtype)
 
 
+def smem_bytes(l: int, d: int, elem_size: int) -> int:
+    """Shared memory the kernel needs for one sequence (``csrc/mhsa.cu``,
+    ``smem_bytes`` with S = 1): the (L, 3D) slab in the input type plus 16
+    bytes of alignment slack, rounded up to 16, then the L mask bytes
+    rounded up to 16 (float32) or 64 float32 key biases (bfloat16)."""
+
+    def align16(x):
+        return (x + 15) // 16 * 16
+
+    extra = align16(l) if elem_size == 4 else MAX_LEN * 4
+    return align16(16 + l * 3 * d * elem_size) + extra
+
+
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (U, L, 3D), got {tuple(qkv.shape)}")
@@ -64,8 +81,12 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
     if l > MAX_LEN or d // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"L={l} > {MAX_LEN} or head dim {d // num_heads} > {MAX_HEAD_DIM}")
-    if (2 * l * d + l) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"L={l}, D={d}: k and v do not fit in one block's shared memory")
+    # The kernel stages a sequence's whole qkv slab in the input type: a
+    # sequence whose slab does not fit one block is refused: float32 from
+    # L * D of about 19,370 (L = 64 at D > 302), bfloat16 from about 38,700.
+    if smem_bytes(l, d, qkv.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"L={l}, D={d}, {qkv.dtype}: one sequence does not fit a block's "
+                         "shared memory")
 
 
 def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -76,6 +97,9 @@ def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> t
         return mhsa_plain(qkv, mask, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise RuntimeError("fused_small_mhsa: the CUDA kernel has no backward yet; call it under "
+                           "torch.no_grad() / torch.inference_mode(), or use mhsa_plain to train")
     u, l, d3 = qkv.shape
     out = torch.empty((u, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     if u == 0:

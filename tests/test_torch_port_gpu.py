@@ -59,6 +59,78 @@ def test_kernel_matches_plain(cuda, u, l, d, h, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _edge_inputs(u, l, d, dtype, seed, masking):
+    """qkv and a key mask with row 0 and every 7th row fully masked; the
+    others hold a prefix ("prefix") or a random subset ("random") of keys."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(size=(u, l, 3 * d)).astype(np.float32)).to(dtype)
+    if masking == "prefix":
+        mask = np.arange(l)[None, :] < rng.integers(1, l + 1, size=(u, 1))
+    else:
+        mask = rng.random((u, l)) < 0.6
+    mask[::7] = False
+    return qkv.cuda(), torch.from_numpy(mask).cuda()
+
+
+def _check_against_plain(qkv, mask, h):
+    before = mhsa.launches
+    got = mhsa.fused_small_mhsa(qkv, mask, h)
+    torch.cuda.synchronize()
+    assert mhsa.launches == before + 1
+    want = mhsa.mhsa_plain(qkv, mask, h)
+    u, l, d3 = qkv.shape
+    assert got.shape == (u, l, d3 // 3) and got.dtype == qkv.dtype
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[qkv.dtype])
+
+
+# Lengths that pad the keys to 32 and 64 (odd L: slabs that are not 16-byte
+# multiples), head dims 6 / 8 / 20 / 32, U = 1 and U not a multiple of the
+# sequences per block (three at L = 16 and two at L = 30 in bf16).
+EDGE_SHAPES = [(64, 17, 300, 15), (40, 30, 300, 15), (33, 49, 300, 15), (65, 50, 300, 15),
+               (9, 64, 300, 15), (50, 17, 24, 4), (50, 33, 32, 4), (50, 16, 60, 3),
+               (20, 64, 96, 3), (1, 16, 300, 15), (1, 50, 300, 15), (1, 1, 300, 15),
+               (4097, 16, 300, 15), (1001, 30, 300, 15), (263, 50, 300, 15)]
+
+
+@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l,d,h", EDGE_SHAPES)
+def test_kernel_edge_shapes_match_plain(cuda, u, l, d, h, dtype, masking):
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 131 + l, masking=masking)
+    _check_against_plain(qkv, mask, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l", [(6, 16), (5, 49)])
+def test_kernel_on_unaligned_storage_matches_plain(cuda, u, l, dtype):
+    """qkv and out that start off a 16-byte boundary: the staging and the
+    output copy take their byte / element paths."""
+    base, mask = _edge_inputs(u, l, 300, dtype, seed=l, masking="random")
+    for shift in (1, 3):
+        buf = torch.zeros(base.numel() + shift, dtype=dtype, device=base.device)
+        qkv = buf[shift:].view(base.shape)
+        qkv.copy_(base)
+        _check_against_plain(qkv, mask, 15)
+
+
+def test_kernel_refuses_grad_and_runs_without(cuda):
+    qkv, mask = _edge_inputs(8, 30, 300, torch.float32, seed=3, masking="prefix")
+    x = qkv.clone().requires_grad_(True)
+    before = mhsa.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        mhsa.fused_small_mhsa(x, mask, 15)
+    assert mhsa.launches == before
+    want = mhsa.mhsa_plain(qkv, mask, 15)
+    with torch.no_grad():
+        got = mhsa.fused_small_mhsa(x, mask, 15)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    with torch.inference_mode():
+        got = mhsa.fused_small_mhsa(x, mask, 15)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert mhsa.launches == before + 2
+
+
 def test_kernel_raises_on_unsupported_input(cuda):
     qkv, mask = _inputs(2, 65, 24, torch.float32, seed=0)
     with pytest.raises(ValueError):

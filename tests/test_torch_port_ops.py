@@ -87,6 +87,55 @@ def test_plain_bf16_sums_in_float32():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("u,l,d,h", [(8, 6, 24, 4), (6, 17, 60, 3), (5, 50, 300, 15)])
+def test_plain_gradient_matches_jax_grad_of_reference(u, l, d, h):
+    """What the kernel's backward will have to match: d(sum(w * out)) / d qkv
+    of ``mhsa_plain`` against ``jax.grad`` of ``mhsa_reference``, with a
+    fully masked sequence among the inputs."""
+    import jax
+
+    qkv, mask = _inputs(u, l, d, seed=3 * u + l)
+    mask[1] = False
+    w = np.random.default_rng(l).normal(size=(u, l, d)).astype(np.float32)
+    want = np.asarray(jax.grad(
+        lambda x: (mhsa_reference(x, jnp.asarray(mask), h) * jnp.asarray(w)).sum()
+    )(jnp.asarray(qkv)))
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    (mhsa.mhsa_plain(x, torch.from_numpy(mask), h) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), want, **TOL)
+
+
+def test_wrapper_on_cpu_stays_differentiable():
+    """On the CPU the wrapper is the plain version, gradient included (the
+    CUDA route refuses a tensor that requires grad)."""
+    qkv, mask = _inputs(4, 16, 60, seed=2)
+    m = torch.from_numpy(mask)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    mhsa.fused_small_mhsa(x, m, 3).square().sum().backward()
+    y = torch.from_numpy(qkv).requires_grad_(True)
+    mhsa.mhsa_plain(y, m, 3).square().sum().backward()
+    np.testing.assert_array_equal(x.grad.numpy(), y.grad.numpy())
+
+
+@pytest.mark.parametrize("l,d,h,dtype,fits", [
+    (64, 300, 15, torch.float32, True), (50, 300, 15, torch.float32, True),
+    (64, 303, 101, torch.float32, False), (64, 600, 20, torch.float32, False),
+    (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, False)])
+def test_wrapper_refuses_what_one_block_cannot_stage(l, d, h, dtype, fits):
+    """The kernel stages one sequence's (L, 3D) slab in the input type: the
+    wrapper refuses, on every device, a shape whose slab does not fit one
+    block's shared memory."""
+    assert (mhsa.smem_bytes(l, d, torch.tensor([], dtype=dtype).element_size())
+            <= 232448) == fits
+    qkv = torch.zeros(2, l, 3 * d, dtype=dtype)
+    mask = torch.ones(2, l, dtype=torch.bool)
+    if fits:
+        assert mhsa.fused_small_mhsa(qkv, mask, h).shape == (2, l, d)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            mhsa.fused_small_mhsa(qkv, mask, h)
+
+
 def _bad_inputs():
     ok = torch.zeros(2, 16, 900), torch.ones(2, 16, dtype=torch.bool), 15
     qkv, mask, h = ok
