@@ -12,16 +12,33 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    15 heads, query 200, vocab 60,000, bf16 parameters) over the workload of
    ``bench.py`` regenerated from a seed (32,768 articles, 16,384 impressions,
    history 50, 32 candidates).  One epoch warms up, one is timed; the kernel
-   launch counts are read across the timed epoch.  The served metrics must be
-   finite and equal those of the same pipeline with the plain attention
-   forced, over the first 2,048 impressions;
-   then holds each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, in float32 and bfloat16, with its
-   time, its plain version's time and a library call's time
+   launch count of the timed epoch must equal what its shapes give (one per
+   chunk of the corpus encode, one per impression batch).  The served
+   metrics must be finite and equal those of the same pipeline with the
+   plain attention forced, over the first 2,048 impressions;
+4. drives NRMS training at the same width (float32 master parameters,
+   bf16 compute, Adam lr 1e-4, dropout 0.2), fed by ``TrainBatcher`` over
+   the same store and impressions at the data config's values (batch 64,
+   K = 4, history 50, ``u_bucket_min`` 512, split at 16): 5 warm-up steps,
+   then 50 timed steps, batching and host-to-device copies included; the
+   kernel launch count of the timed steps must equal what their shapes give
+   (one per news segment and one for the user encoder).  Then, from the
+   same init, batch and dropout seeds, 20 steps at lr 1e-3 on one
+   planted-signal batch with the kernel, with the plain attention and with
+   two deliberately wrong attentions, in float32 and in bf16 compute: the
+   kernel's per-step losses must agree with the plain ones
+   (``ROUTE_ATOL``) and the wrong attentions' must not (``ROUTE_FAULTS``);
+   ``FusedSmallMHSA``'s output and gradient against the plain version and
+   autograd of it at every attention shape of the timed steps, in float32
+   and bf16; and 50 steps at lr 1e-3 on the planted-signal batch, which must
+   at least halve the loss;
+5. holds each kernel against its plain PyTorch version on the card at the
+   shapes the serving and training paths give it, in float32 and bfloat16,
+   with its time, its plain version's time and a library call's time
    (``newsreclib_tpu_torch/kernel_bench.py``: device time per launch from
    ``torch.profiler``, inputs rotated past the L2; the per-call CUDA event
    time, host cost included, is on each ``kernel_shape`` line);
-4. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+6. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build under ``build/``.
@@ -49,6 +66,20 @@ COMPARE_IMPRESSIONS = 2048
 ENCODE_BATCH, TARGET_CELLS = 4096, 16384  # corpus chunk rows; cells per impression batch
 EVAL = dict(max_history_len=SERVING["hist_len"], target_cells=TARGET_CELLS,
             encode_batch=ENCODE_BATCH)
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 64, 5, 50
+# Per-step losses over 20 steps on one planted-signal batch at lr 1e-3 (the
+# loss falls from ln 5 to about 1e-3, so the trajectory depends on what the
+# attention computes), kernel route vs plain route.  Readings on an H100
+# (chip_smoke.py itself, three runs): correct routes 1.10e-5 to 1.17e-5
+# (float32) and 1.86e-3 to 1.89e-3 (bf16); the planted faults: keys unmasked
+# 0.677 / 0.678, logits 10% too large 6.1e-4 / 5.9e-4 to 1.3e-3.  A fault named in ROUTE_FAULTS[dtype]
+# must differ by more than the tolerance, or the run fails; the 10% logit
+# fault is under the bf16 routes' own spread, and is left to the element
+# checks at the same shapes (kernel phase, check_backward).
+ROUTE_STEPS = 20
+ROUTE_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+ROUTE_FAULTS = {"float32": ("unmasked", "scaled"), "bfloat16": ("unmasked",)}
+PLANTED_STEPS, PLANTED_LR = 50, 1e-3
 
 
 def log(*a):
@@ -66,6 +97,19 @@ def main_path_shapes(store):
         sizes = {min(ENCODE_BATCH, len(rows) - i) for i in range(0, len(rows), ENCODE_BATCH)}
         shapes += [(u, width) for u in sorted(sizes, reverse=True)]
     return shapes + [(TARGET_CELLS // SERVING["num_candidates"], SERVING["hist_len"])]
+
+
+def serving_launches(store, imp):
+    """Kernel launches of one serving epoch: one per chunk of the corpus
+    encode and one per impression batch (the user encoder)."""
+    from newsreclib_tpu_torch.data.batching import BucketedAssembler
+    from newsreclib_tpu_torch.serving import corpus_segments
+
+    encode = sum(math.ceil(len(rows) / ENCODE_BATCH)
+                 for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
+    buckets = BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS).buckets
+    return encode + sum(math.ceil(len(idx) / max(1, TARGET_CELLS // c))
+                        for c, idx in buckets.items())
 
 
 def kernel_phase(shapes):
@@ -87,15 +131,10 @@ def kernel_phase(shapes):
 
 
 def plain_copy(model):
-    """``model`` with every MHSA forced onto the plain attention."""
-    from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
-    from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
+    """A copy of ``model`` with every MHSA forced onto the plain attention."""
+    from newsreclib_tpu_torch.models.components.attention import use_plain_attention
 
-    plain = copy.deepcopy(model)
-    for m in plain.modules():
-        if isinstance(m, MultiHeadSelfAttention):
-            m.attention = mhsa_plain
-    return plain
+    return use_plain_attention(copy.deepcopy(model))
 
 
 def serving_phase(card: str, store, imp):
@@ -123,13 +162,14 @@ def serving_phase(card: str, store, imp):
     t0 = time.perf_counter()
     metrics = scorer.evaluate(store, imp, **EVAL)  # ends in one device-to-host fetch
     epoch_s = time.perf_counter() - t0
-    launches = mhsa.launches
+    launches, expected = mhsa.launches, serving_launches(store, imp)
     log(f"serving epoch: {epoch_s:.4f} s for {len(imp)} impressions -> "
         f"{len(imp) / epoch_s:.1f} impressions/s on {card}; "
-        f"fused_small_mhsa launches {launches}")
+        f"fused_small_mhsa launches {launches} ({expected} expected)")
     log("metrics " + json.dumps(metrics, sort_keys=True))
-    if launches == 0:
-        raise AssertionError("the serving epoch launched no fused_small_mhsa kernel")
+    if launches != expected:
+        raise AssertionError(f"the serving epoch launched fused_small_mhsa {launches} times "
+                             f"({expected} expected)")
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     if bad or len(metrics) < 10:
         raise AssertionError(f"metrics not finite or missing: {metrics}")
@@ -144,6 +184,134 @@ def serving_phase(card: str, store, imp):
         if set(got) != set(want) or diff > METRIC_ATOL[name]:
             raise AssertionError(f"served metrics differ ({name}): {got} vs {want}")
     return launches
+
+
+def unmasked_attention(qkv, mask, num_heads):
+    """A planted fault: the plain attention with every key valid."""
+    import torch
+
+    from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
+
+    return mhsa_plain(qkv, torch.ones_like(mask), num_heads)
+
+
+def scaled_attention(qkv, mask, num_heads):
+    """A planted fault: the plain attention with logits 10% too large."""
+    import torch
+
+    from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
+
+    q, kv = qkv.split([qkv.shape[-1] // 3, 2 * qkv.shape[-1] // 3], dim=-1)
+    return mhsa_plain(torch.cat([q * 1.1, kv], dim=-1).contiguous(), mask, num_heads)
+
+
+FAULTS = {"unmasked": unmasked_attention, "scaled": scaled_attention}
+
+
+def route_losses(store, imp, batches, cdtype, lr, attention):
+    """Per-step losses of a fresh cell over ``batches`` with every MHSA's
+    attention set to ``attention`` (None: the kernel)."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components.attention import (
+        MultiHeadSelfAttention,
+        use_plain_attention,
+    )
+    from newsreclib_tpu_torch.profile_train import make_cell
+
+    st, _, stp = make_cell(store, imp, TRAIN_BATCH, "cuda", compute_dtype=cdtype,
+                           learning_rate=lr)
+    if attention == "plain":
+        use_plain_attention(st.model)
+    elif attention is not None:
+        for m in st.model.modules():
+            if isinstance(m, MultiHeadSelfAttention):
+                m.attention = attention
+    return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu()
+
+
+def training_phase(card: str, store, imp):
+    """The training path, then its checks (see module doc).  Returns the
+    kernel launches of the timed steps, the step time in seconds and the
+    attention shapes (U, L) of the timed steps."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from newsreclib_tpu_torch.kernel_bench import check_backward
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, attention_launches, make_cell
+
+    state, batcher, step = make_cell(store, imp, TRAIN_BATCH, "cuda")
+    log(f"training: {batcher.num_samples()} positives -> {len(batcher)} steps an epoch at "
+        f"batch {TRAIN_BATCH}")
+    batches = batcher.epoch(0)
+    for _ in range(TRAIN_WARMUP):
+        step(state, to_device(next(batches), "cuda"))
+    torch.cuda.synchronize()
+    shapes, losses, expected = set(), [], 0
+    mhsa.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        b = next(batches)
+        expected += attention_launches(b)
+        shapes.add(tuple(tuple(seg.title.shape) for seg in (b.news, b.news2) if seg is not None))
+        losses.append(step(state, to_device(b, "cuda"))[1]["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = mhsa.launches
+    losses = torch.stack(losses).cpu()
+    log(f"train step (batching and copies included): {step_s * 1e3:.4f} ms, "
+        f"{TRAIN_BATCH / step_s:.1f} impressions/s on {card}; news segments {sorted(shapes)}; "
+        f"fused_small_mhsa launches {launches} ({launches / TRAIN_TIMED} a step, "
+        f"{expected} expected); loss {losses[0].item():.4f} -> {losses[-1].item():.4f}")
+    if launches != expected:
+        raise AssertionError(f"{launches} kernel launches ({expected} expected)")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"train losses not finite: {losses}")
+    del state
+
+    # kernel route vs plain route, same init, batch and dropout seeds; the
+    # planted faults show that the comparison can fail
+    cfg = SyntheticConfig(vocab_size=SERVING["vocab_size"])
+    planted = to_device(make_batch(np.random.default_rng(0), batch_size=TRAIN_BATCH,
+                                   hist_len=DATA["max_history_len"], num_candidates=5,
+                                   unique_news=1024, cfg=cfg, planted_signal=True), "cuda")
+    for name, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+        route = [planted] * ROUTE_STEPS
+        kernel = route_losses(store, imp, route, cdtype, PLANTED_LR, None)
+        plain = route_losses(store, imp, route, cdtype, PLANTED_LR, "plain")
+        diff = (kernel - plain).abs().max().item()
+        faults = {f: (route_losses(store, imp, route, cdtype, PLANTED_LR, fn)
+                      - plain).abs().max().item() for f, fn in FAULTS.items()}
+        log(f"train losses over {ROUTE_STEPS} steps on a planted-signal batch at lr "
+            f"{PLANTED_LR}, kernel vs plain attention, {name}: max abs diff {diff:.3g} "
+            f"(tolerance {ROUTE_ATOL[name]}); planted faults vs plain: {json.dumps(faults)}; "
+            f"kernel {kernel[0].item():.5f} -> {kernel[-1].item():.5f}")
+        if not bool(torch.isfinite(kernel).all()) or diff > ROUTE_ATOL[name]:
+            raise AssertionError(f"train losses differ ({name}): {kernel} vs {plain}")
+        missed = [f for f in ROUTE_FAULTS[name] if not faults[f] > ROUTE_ATOL[name]]
+        if missed:
+            raise AssertionError(f"the route check ({name}) does not tell the planted "
+                                 f"faults {missed} from the plain attention: {faults}")
+
+    # the output and gradient at the step's attention shapes
+    grad_shapes = sorted({seg for sh in shapes for seg in sh}, reverse=True)
+    grad_shapes.append((TRAIN_BATCH, DATA["max_history_len"]))
+    for dtype in (torch.float32, torch.bfloat16):
+        for u, l in grad_shapes:
+            fwd_err, err, _ = check_backward(u, l, dtype)
+            log(f"FusedSmallMHSA vs plain at ({u}, {l}) {dtype}: output max abs err "
+                f"{fwd_err:.3g}, gradient max abs err {err:.3g}")
+
+    # planted signal: the loss falls on one fixed batch
+    curve = route_losses(store, imp, [planted] * PLANTED_STEPS, "bfloat16", PLANTED_LR, None)
+    log(f"planted signal, {PLANTED_STEPS} steps at lr {PLANTED_LR}: loss "
+        f"{curve[0].item():.4f} -> {curve[-1].item():.4f}")
+    if not curve[-1].item() <= curve[0].item() / 2:
+        raise AssertionError(f"the planted-signal loss did not halve: {curve.tolist()}")
+    return launches, step_s, grad_shapes
 
 
 def main() -> int:
@@ -180,7 +348,12 @@ def main() -> int:
     # The serving epoch runs before the kernel phase, whose many profiler
     # windows leave the process slower to launch kernels.
     launches = serving_phase(card, store, imp)
-    records = kernel_phase(shapes + [s for s in EXTRA_SHAPES if s not in shapes])
+    train_launches, train_step_s, train_shapes = training_phase(card, store, imp)
+    checked = list(shapes)
+    for s in train_shapes + EXTRA_SHAPES:
+        if s not in checked:
+            checked.append(s)
+    records = kernel_phase(checked)
 
     main_shape = next(r for r in records if (r["U"], r["L"], r["dtype"]) == (4096, 16, "bfloat16"))
     kernels = [{
@@ -195,6 +368,10 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "train_launches": train_launches,
+        "train_launches_per_step": train_launches / TRAIN_TIMED,
+        "train_step_ms": train_step_s * 1e3,
+        "backward": "torch ops (recompute)",
     }]
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 bf16 on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,7 @@
 version and a library call, at the shapes the serving path gives it.
 
     python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.kernel_bench --backward [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20) and the
 two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
@@ -25,6 +26,19 @@ two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
 * ``bound_ms`` is the larger of the bytes (qkv and mask read once, the
   context written once, at 3.35 TB/s) and the q.k and p.v operations (at
   989 TFLOP/s bf16 or 67 TFLOP/s f32).
+
+``--backward`` times forward + backward instead, at the shapes the NRMS
+train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
+``profile_train.py``), in bfloat16 and float32: ``FusedSmallMHSA`` (the
+kernel, then ``mhsa_backward``'s tensor ops), ``mhsa_backward`` alone
+(``bwd_ms``), autograd of ``mhsa_plain`` (``plain_ms``) and SDPA with the
+efficient backend forced, forward + backward (``library_ms``), each as
+``torch.autograd.grad`` of the output against a fixed output gradient.
+The output is held against ``mhsa_plain`` and the gradient against
+autograd of it (same tolerances; ``fwd_max_abs_err``, ``max_abs_err``).
+The bound counts qkv, the mask and the context once each way plus the
+output gradient and dqkv, and the products of the forward (q.k, p.v) and
+of the backward (dP, dQ, dK, dV): 12 U H L^2 hd operations.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
 point), checks it the same way and times it in turns with the kernel
@@ -51,6 +65,12 @@ import torch
 D, H = 300, 15
 SERVING_SHAPES = [(4096, 16), (2272, 16), (1825, 30), (512, 50)]
 EXTRA_SHAPES = [(1024, 30), (256, 50)]
+# (U, L) of the train step's attentions (TrainBatcher over the bench workload
+# of seed 0, split at 16): batch 64 alternates (3584, 16) + (512, 30) and
+# (1792, 16) + (256, 30), with (64, 50) for the user encoder; batch 256 gives
+# (7168, 16) + (1024, 30) and (256, 50).
+TRAIN_SHAPES = [(3584, 16), (1792, 16), (512, 30), (256, 30), (64, 50),
+                (7168, 16), (1024, 30), (256, 50)]
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -83,12 +103,15 @@ def mhsa_inputs(u, l, dtype, seed):
     return qkv, mask.contiguous()
 
 
-def bound(u, l, name) -> tuple:
+def bound(u, l, name, backward=False) -> tuple:
     """(least ms on the card, "bytes" or "operations") for the attention of
-    (U, L) in type ``name``."""
+    (U, L) in type ``name``, forward only or forward + backward."""
     es = 4 if name == "float32" else 2
     nbytes = u * l * 3 * D * es + u * l + u * l * D * es
     flops = 2 * 2 * u * H * l * l * (D // H)
+    if backward:  # read qkv, mask and dO, write dqkv; dP, dQ, dK, dV products
+        nbytes += u * l * (3 * D + D + 3 * D) * es + u * l
+        flops *= 3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -108,6 +131,16 @@ def event_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof):
+    """The profiler's device-side records of kernels and copies, summed by
+    name: every CUDA record but the user-annotation ranges (a
+    ``record_function`` range, such as ``Optimizer.step#Adam.step``, also
+    appears on the device timeline, spanning its kernels and the gaps
+    between them)."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not e.is_user_annotation]
+
+
 def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 3) -> float:
     """Device milliseconds per call of ``fn(i)``: the self time of every CUDA
     kernel it launched, from ``torch.profiler``, over ``iters`` calls.  A
@@ -123,8 +156,7 @@ def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 3) -
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type.name == "CUDA")
+        us = sum(e.self_device_time_total for e in device_events(prof))
         if us > 0:
             return us / iters / 1e3
     raise RuntimeError(f"torch.profiler recorded no device time in {attempts} windows")
@@ -170,6 +202,14 @@ def sdpa_call(qkv, mask, num_heads):
     return call
 
 
+def _rotated(qkv, mask, extra=()):
+    """Copies of the inputs enough to move ROTATE_BYTES in one pass."""
+    nbytes = qkv.numel() * qkv.element_size() * 4 // 3
+    n = max(1, math.ceil(ROTATE_BYTES / nbytes))
+    return [(qkv, mask, *extra)] + [(qkv.clone(), mask.clone(), *(e.clone() for e in extra))
+                                    for _ in range(n - 1)]
+
+
 def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
     """Check each ``(name, launch)`` of ``variants`` against ``mhsa_plain``
     at (U, L), then time them in turns (forward, then backward order), the
@@ -200,9 +240,7 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
         rec[("" if i == 0 else vname + "_") + "max_abs_err"] = err.max().item()
     del want, limit
 
-    nbytes = qkv.numel() * qkv.element_size() * 4 // 3
-    sets = [(qkv, mask)] + [(qkv.clone(), mask.clone())
-                            for _ in range(max(0, math.ceil(ROTATE_BYTES / nbytes) - 1))]
+    sets = _rotated(qkv, mask)
     n = len(sets)
     times = {vname: [] for vname, _ in variants}
     for vname, launch in variants + variants[::-1]:
@@ -226,13 +264,109 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
     return rec
 
 
+def sdpa_grad_call(qkv, mask, num_heads, grad_out):
+    """SDPA forward + backward (efficient backend forced) on the layout of
+    ``sdpa_call``, as one call returning (dq, dk, dv)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    u, l, d3 = qkv.shape
+    hd = d3 // 3 // num_heads
+    pad = -hd % 8
+    q, k, v = (F.pad(t, (0, pad)).contiguous().requires_grad_(True)
+               for t in qkv.view(u, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4))
+    g = F.pad(grad_out.view(u, l, num_heads, hd).transpose(1, 2), (0, pad)).contiguous()
+    m = mask[:, None, None, :]
+    scale = 1.0 / math.sqrt(hd)
+
+    def call():
+        with sdpa_kernel(getattr(SDPBackend, LIBRARY_BACKEND)):
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+    return call
+
+
+def _fused_grad(x, mask, grad_out):
+    from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA
+
+    x = x.detach().requires_grad_(True)
+    return torch.autograd.grad(FusedSmallMHSA.apply(x, mask, H), x, grad_out)[0]
+
+
+def _plain_grad(x, mask, grad_out):
+    from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
+
+    x = x.detach().requires_grad_(True)
+    return torch.autograd.grad(mhsa_plain(x, mask, H), x, grad_out)[0]
+
+
+def check_backward(u, l, dtype):
+    """Hold ``FusedSmallMHSA`` at (U, L) against the plain version with a
+    random output gradient: its output (the kernel's) against ``mhsa_plain``
+    and its gradient (``mhsa_backward``) against autograd of ``mhsa_plain``,
+    each within ATOL + RTOL * |plain|.  Returns ``(max abs output err,
+    max abs gradient err, (qkv, mask, grad_out))``."""
+    from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA, mhsa_plain
+
+    name = dtype_name(dtype)
+    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l)
+    g = torch.randn((u, l, D), generator=torch.Generator(device="cuda").manual_seed(l),
+                    device="cuda").to(dtype)
+    x = qkv.detach().requires_grad_(True)
+    out = FusedSmallMHSA.apply(x, mask, H)
+    got = torch.autograd.grad(out, x, g)[0].float()
+    want = _plain_grad(qkv, mask, g).float()
+    want_out = mhsa_plain(qkv, mask, H).float()
+    torch.cuda.synchronize()
+    errs = []
+    for what, a, b in (("output", out.detach().float(), want_out), ("gradient", got, want)):
+        err = (a - b).abs()
+        if not bool(torch.isfinite(a).all()) or not bool(
+                (err <= ATOL[name] + RTOL[name] * b.abs()).all()):
+            raise AssertionError(f"FusedSmallMHSA {what} != plain at U={u} L={l} {name}: "
+                                 f"max abs err {err.max().item()}")
+        errs.append(err.max().item())
+    return errs[0], errs[1], (qkv, mask, g)
+
+
+def measure_backward(u, l, dtype) -> dict:
+    """Forward + backward at (U, L): ``check_backward``, then the times of
+    ``FusedSmallMHSA``, its backward alone, the plain version and SDPA (see
+    module doc)."""
+    from newsreclib_tpu_torch.ops.mhsa import mhsa_backward
+
+    fwd_err, err, (qkv, mask, g) = check_backward(u, l, dtype)
+    rec = dict(U=u, L=l, dtype=dtype_name(dtype), max_abs_err=err, fwd_max_abs_err=fwd_err)
+    sets = _rotated(qkv, mask, (g,))
+    n = len(sets)
+    runs = [device_ms(lambda i: _fused_grad(*sets[i % n])) for _ in range(2)]
+    rec["ms"], rec["ms_runs"] = sum(runs) / 2, runs
+    rec["event_ms"] = event_ms(lambda i: _fused_grad(*sets[i % n]))
+    rec["bwd_ms"] = device_ms(lambda i: mhsa_backward(sets[i % n][0], sets[i % n][1], H,
+                                                      sets[i % n][2]))
+    rec["plain_ms"] = device_ms(lambda i: _plain_grad(*sets[i % n]))
+    calls = [sdpa_grad_call(x, m, H, go) for x, m, go in sets]
+    calls[0]()
+    torch.cuda.synchronize()
+    rec["library_ms"] = device_ms(lambda i: calls[i % n]())
+    rec["library_backend"] = LIBRARY_BACKEND
+    rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], backward=True)
+    rec["rotated_sets"] = n
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="another version of csrc/mhsa.cu to time against")
     ap.add_argument("--unchecked", action="store_true",
                     help="do not hold the baseline to the tolerance (diagnostic builds)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time forward + backward at the train step's shapes")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
+    if args.backward and args.baseline is not None:
+        ap.error("--backward takes no --baseline")
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 1
@@ -248,17 +382,20 @@ def main(argv=None) -> int:
         variants.append(("baseline", raw_launcher(build.load_source(args.baseline))))
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for u, l in SERVING_SHAPES + EXTRA_SHAPES:
-            rec = measure_shape(u, l, dtype, variants,
-                                unchecked=("baseline",) if args.unchecked else ())
+        for u, l in (TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES):
+            if args.backward:
+                rec = measure_backward(u, l, dtype)
+            else:
+                rec = measure_shape(u, l, dtype, variants,
+                                    unchecked=("baseline",) if args.unchecked else ())
             rec["card"] = card
             print("kernel_bench " + json.dumps(rec), flush=True)
             records.append(rec)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
-    cols = ["U", "L", "dtype", "ms", "baseline_ms", "bound_ms", "plain_ms", "library_ms",
-            "event_ms", "max_abs_err"]
+    cols = ["U", "L", "dtype", "ms", "bwd_ms" if args.backward else "baseline_ms", "bound_ms",
+            "plain_ms", "library_ms", "event_ms", "max_abs_err"]
     print(" | ".join(cols))
     for r in records:
         print(" | ".join(str(r.get(c, "")) for c in cols))

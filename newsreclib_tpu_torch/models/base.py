@@ -1,7 +1,8 @@
 """Shared glue of the recommenders (counterpart of
 ``newsreclib_tpu/models/base.py:28-95``): gathering per-article vectors into
 history/candidate slots, encoding a (possibly length-split) unique news
-table, late-fusion users and score masking."""
+table, per-row news fields over both segments, late-fusion users and score
+masking."""
 
 from __future__ import annotations
 
@@ -24,6 +25,22 @@ def encode_all_news(encode_fn: Callable[[NewsFeatures], torch.Tensor], batch: Re
     if batch.news2 is not None:
         vecs = torch.cat([vecs, encode_fn(batch.news2)], dim=0)
     return vecs
+
+
+def news_field(batch: RecBatch, name: str) -> torch.Tensor:
+    """A per-row news feature over the FULL unique table (both segments)."""
+    v = getattr(batch.news, name)
+    if batch.news2 is None:
+        return v
+    return torch.cat([v, getattr(batch.news2, name)], dim=0)
+
+
+def news_valid(batch: RecBatch) -> torch.Tensor:
+    """(U_total,) bool: the row holds a real article (any title token)."""
+    v = batch.news.title_mask.any(dim=-1)
+    if batch.news2 is not None:
+        v = torch.cat([v, batch.news2.title_mask.any(dim=-1)], dim=0)
+    return v
 
 
 def late_fusion_user(hist_vecs: torch.Tensor, hist_mask: torch.Tensor) -> torch.Tensor:

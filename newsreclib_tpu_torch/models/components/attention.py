@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from newsreclib_tpu_torch.models.components.linear import Dense, uniform
-from newsreclib_tpu_torch.ops.mhsa import fused_small_mhsa
+from newsreclib_tpu_torch.ops import mhsa
 
 _MASK_MIN = -1e30
 
@@ -28,6 +28,16 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor], dim: int 
         return torch.softmax(logits, dim=dim)
     out = torch.softmax(torch.where(mask, logits, _MASK_MIN), dim=dim)
     return torch.where(mask, out, 0.0)
+
+
+def use_plain_attention(model: nn.Module) -> nn.Module:
+    """Set every ``MultiHeadSelfAttention`` of ``model`` to ``mhsa_plain``,
+    in place, and return ``model``: the plain route the kernel route is
+    held against."""
+    for m in model.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            m.attention = mhsa.mhsa_plain
+    return model
 
 
 class AdditiveAttention(nn.Module):
@@ -52,10 +62,11 @@ class MultiHeadSelfAttention(nn.Module):
     ``(..., L, D)`` + key mask ``(..., L)`` -> ``(..., L, D)``.
 
     The attention itself is ``self.attention``, by default
-    ``ops.mhsa.fused_small_mhsa`` (the CUDA kernel on the card); leading dims
-    are flattened into its sequence axis.  Assigning
-    ``ops.mhsa.mhsa_plain`` runs the plain version on any device, which is
-    how the kernel is held against it end to end.
+    ``ops.mhsa.fused_small_mhsa``: the CUDA kernel on the card, which raises
+    on a shape it does not take (``ops.mhsa.kernel_supports``), and the plain
+    version at any shape on the CPU; leading dims are flattened into its
+    sequence axis.  Assigning ``ops.mhsa.mhsa_plain`` runs the plain version
+    on any device, which is how the kernel is held against it end to end.
     """
 
     def __init__(self, dim: int, num_heads: int, generator: Optional[torch.Generator] = None):
@@ -65,7 +76,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.qkv = Dense(dim, 3 * dim, generator)
         self.out = Dense(dim, dim, generator)
-        self.attention = fused_small_mhsa
+        self.attention = mhsa.fused_small_mhsa
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         lead, l = x.shape[:-2], x.shape[-2]

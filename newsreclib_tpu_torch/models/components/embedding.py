@@ -19,12 +19,15 @@ from newsreclib_tpu_torch.models.components.linear import normal
 
 
 class TokenEmbedding(nn.Module):
-    """Trainable token table, optionally from a pretrained matrix."""
+    """Token table, optionally from a pretrained matrix.  ``frozen`` detaches
+    the table in the forward (the JAX ``stop_gradient``), so it gets no
+    gradient."""
 
     def __init__(self, vocab_size: int, embed_dim: int,
                  pretrained: Optional[np.ndarray] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, frozen: bool = False):
         super().__init__()
+        self.frozen = frozen
         if pretrained is not None:
             table = torch.tensor(np.asarray(pretrained, dtype=np.float32))
             if tuple(table.shape) != (vocab_size, embed_dim):
@@ -35,5 +38,6 @@ class TokenEmbedding(nn.Module):
         self.weight = nn.Parameter(table)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = F.embedding(ids, self.weight)
+        table = self.weight.detach() if self.frozen else self.weight
+        out = F.embedding(ids, table)
         return out * (ids != 0).unsqueeze(-1).to(out.dtype)

@@ -18,6 +18,7 @@ from newsreclib_tpu_torch.models.components.attention import (
     AdditiveAttention,
     MultiHeadSelfAttention,
 )
+from newsreclib_tpu_torch.models.components.dropout import Dropout
 from newsreclib_tpu_torch.models.components.embedding import TokenEmbedding
 
 
@@ -31,11 +32,15 @@ class MHSAAddAtt(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embedding = TokenEmbedding(vocab_size, embed_dim, pretrained, generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.mhsa = MultiHeadSelfAttention(embed_dim, num_heads, generator)
         self.add_att = AdditiveAttention(embed_dim, query_dim, generator)
 
-    def forward(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.dropout(self.embedding(tokens))
-        x = self.dropout(self.mhsa(x, mask))
+    def forward(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Dropout is on when ``deterministic`` is False and then draws from
+        ``generator`` (``components/dropout.py``)."""
+        x = self.dropout(self.embedding(tokens), deterministic, generator)
+        x = self.dropout(self.mhsa(x, mask), deterministic, generator)
         return self.add_att(x, mask)

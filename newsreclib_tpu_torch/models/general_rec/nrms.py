@@ -57,12 +57,14 @@ class NRMS(nn.Module):
         )
         self.to(device)
 
-    def encode_news(self, news: NewsFeatures) -> torch.Tensor:
+    def encode_news(self, news: NewsFeatures, deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(U, L) unique news -> (U, D) vectors (cacheable)."""
-        return self.news_encoder(news.title, news.title_mask)
+        return self.news_encoder(news.title, news.title_mask, deterministic, generator)
 
     def score_with_vectors(self, batch: RecBatch, news_vecs: torch.Tensor) -> torch.Tensor:
-        """Score a batch whose hist/cand indices point into ``news_vecs``."""
+        """Score a batch whose hist/cand indices point into ``news_vecs``
+        (the user encoder has no dropout)."""
         hist = gather_news(news_vecs, batch.hist_idx)
         cand = gather_news(news_vecs, batch.cand_idx)
         if self.late_fusion:
@@ -71,6 +73,12 @@ class NRMS(nn.Module):
             user = self.user_encoder(hist, batch.hist_mask)
         return dot_product_scores(user, cand)
 
-    def forward(self, batch: RecBatch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        news_vecs = encode_all_news(self.encode_news, batch)
+    def forward(self, batch: RecBatch, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(scores (B, C), aux losses {})``.  As the JAX ``deterministic``
+        / ``rngs``: dropout runs when ``deterministic`` is False, drawing
+        from ``generator``; the default leaves every generator untouched."""
+        news_vecs = encode_all_news(
+            lambda news: self.encode_news(news, deterministic, generator), batch)
         return self.score_with_vectors(batch, news_vecs), {}

@@ -3,8 +3,9 @@
 ``fused_small_mhsa`` is the port of the TPU kernel
 ``newsreclib_tpu/ops/mhsa.py::fused_small_mhsa``: on a CUDA tensor it
 launches the hand-written kernel ``csrc/mhsa.cu``; on a CPU tensor it runs
-``mhsa_plain``, the same function in plain PyTorch.  There is no fallback
-from one to the other: a CUDA tensor the kernel does not take raises.
+``mhsa_plain``, the same function in plain PyTorch, at any shape.  There is
+no fallback from one to the other: a CUDA tensor whose shape the kernel does
+not take (``kernel_supports``) raises.
 
 Contract (as the TPU kernel's): ``qkv (U, L, 3D)`` is the fused in-projection
 output, ``mask (U, L)`` bool marks the valid keys, the result is the context
@@ -12,9 +13,10 @@ output, ``mask (U, L)`` bool marks the valid keys, the result is the context
 finite logit -1e30, so fully masked rows come out finite (uniform softmax);
 rows at masked query positions hold values the caller zeroes.
 
-The kernel has no backward yet: on a CUDA tensor that requires grad, with
-grad enabled, the wrapper raises instead of returning a result cut off from
-the graph.  The CPU route (``mhsa_plain``) is differentiable.
+``FusedSmallMHSA`` makes the kernel differentiable: its forward is
+``fused_small_mhsa`` and its backward recomputes the probabilities from the
+saved qkv in float32 with tensor ops (the JAX package trains through XLA
+autodiff of the plain attention and has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -34,21 +36,49 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(U, L, D) -> (U, H, L, hd)."""
+    u, l, d = t.shape
+    return t.reshape(u, l, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _probabilities(q, k, mask, num_heads):
+    """Softmax of the masked, scaled q.k logits: (U, H, L, L) float32."""
+    hd = q.shape[-1] // num_heads
+    logits = _heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2) / math.sqrt(hd)
+    logits = torch.where(mask[:, None, None, :], logits, _MASK_MIN)
+    return torch.softmax(logits, dim=-1)
+
+
 def mhsa_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Plain PyTorch version: ``newsreclib_tpu/ops/mhsa.py::mhsa_reference``,
     computed in float32 and returned in the input type."""
     u, l, d3 = qkv.shape
+    q, k, v = qkv.float().split(d3 // 3, dim=-1)
+    o = _probabilities(q, k, mask, num_heads) @ _heads(v, num_heads)
+    return o.transpose(1, 2).reshape(u, l, d3 // 3).to(qkv.dtype)
+
+
+def mhsa_backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                  grad_out: torch.Tensor) -> torch.Tensor:
+    """d(loss)/d(qkv) of the attention, given d(loss)/d(context), recomputed
+    in float32 and returned in the type of qkv.  With P the probabilities and
+    dO the output gradient per head: dP = dO V^T,
+    dS = P * (dP - rowsum(dP * P)) at valid keys and 0 at masked ones (the
+    -1e30 replaces the logit there, so no gradient reaches it),
+    dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd), dV = P^T dO."""
+    u, l, d3 = qkv.shape
     d = d3 // 3
-    hd = d // num_heads
+    scale = 1.0 / math.sqrt(d // num_heads)
     q, k, v = qkv.float().split(d, dim=-1)
-
-    def heads(t):  # (U, L, D) -> (U, H, L, hd)
-        return t.reshape(u, l, num_heads, hd).transpose(1, 2)
-
-    logits = heads(q) @ heads(k).transpose(-1, -2) / math.sqrt(hd)
-    logits = torch.where(mask[:, None, None, :], logits, _MASK_MIN)
-    o = torch.softmax(logits, dim=-1) @ heads(v)
-    return o.transpose(1, 2).reshape(u, l, d).to(qkv.dtype)
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
+    p = _probabilities(q, k, mask, num_heads)
+    do = _heads(grad_out.float(), num_heads)
+    dp = do @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = torch.where(mask[:, None, None, :], ds, 0.0)
+    grads = (ds @ kh * scale, ds.transpose(-1, -2) @ qh * scale, p.transpose(-1, -2) @ do)
+    return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
 
 
 def smem_bytes(l: int, d: int, elem_size: int) -> int:
@@ -64,7 +94,21 @@ def smem_bytes(l: int, d: int, elem_size: int) -> int:
     return align16(16 + l * 3 * d * elem_size) + extra
 
 
+def kernel_supports(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether ``csrc/mhsa.cu`` takes sequences of length ``l``, width ``d``
+    and ``num_heads`` heads in ``dtype``: float32 or bfloat16, L <= 64, head
+    dim <= 32, and one sequence's (L, 3D) slab in the input type fits one
+    block's shared memory (float32 up to L * D of about 19,370, bfloat16 up
+    to about 38,700).  NRMS (D = 300, 15 heads of 20, L <= 50) is inside."""
+    if dtype not in _DTYPES or num_heads <= 0 or d % num_heads:
+        return False
+    elem_size = torch.tensor([], dtype=dtype).element_size()
+    return (l <= MAX_LEN and d // num_heads <= MAX_HEAD_DIM
+            and smem_bytes(l, d, elem_size) <= _SMEM_LIMIT)
+
+
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
+    """The input contract, on every device."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (U, L, 3D), got {tuple(qkv.shape)}")
     u, l, d3 = qkv.shape
@@ -79,28 +123,22 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
         raise ValueError("qkv and mask must be contiguous")
     if num_heads <= 0 or d % num_heads:
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
-    if l > MAX_LEN or d // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"L={l} > {MAX_LEN} or head dim {d // num_heads} > {MAX_HEAD_DIM}")
-    # The kernel stages a sequence's whole qkv slab in the input type: a
-    # sequence whose slab does not fit one block is refused: float32 from
-    # L * D of about 19,370 (L = 64 at D > 302), bfloat16 from about 38,700.
-    if smem_bytes(l, d, qkv.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"L={l}, D={d}, {qkv.dtype}: one sequence does not fit a block's "
-                         "shared memory")
 
 
-def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(U, L, 3D) qkv + (U, L) key mask -> (U, L, D) context; see module doc."""
+def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
     global launches
     _check(qkv, mask, num_heads)
     if qkv.device.type == "cpu":
         return mhsa_plain(qkv, mask, num_heads)
+    u, l, d3 = qkv.shape
+    if not kernel_supports(l, d3 // 3, num_heads, qkv.dtype):
+        raise ValueError(
+            f"the attention kernel does not take L={l}, D={d3 // 3}, {num_heads} heads, "
+            f"{qkv.dtype}: it needs L <= {MAX_LEN}, head dim <= {MAX_HEAD_DIM} and one "
+            "sequence's slab within a block's shared memory (kernel_supports)")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise RuntimeError("fused_small_mhsa: the CUDA kernel has no backward yet; call it under "
-                           "torch.no_grad() / torch.inference_mode(), or use mhsa_plain to train")
-    u, l, d3 = qkv.shape
     out = torch.empty((u, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     if u == 0:
         return out
@@ -113,6 +151,29 @@ def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> t
         raise RuntimeError(f"nrl_mhsa_fwd launch failed: cudaError {rc}")
     launches += 1
     return out
+
+
+class FusedSmallMHSA(torch.autograd.Function):
+    """``fused_small_mhsa`` with a gradient: the forward launches the kernel
+    (``mhsa_plain`` on the CPU) and saves qkv and the mask; the backward is
+    ``mhsa_backward``.  The mask and the head count get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, num_heads):
+        ctx.save_for_backward(qkv, mask)
+        ctx.num_heads = num_heads
+        return _forward(qkv, mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        qkv, mask = ctx.saved_tensors
+        return mhsa_backward(qkv, mask, ctx.num_heads, grad_out), None, None
+
+
+def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(U, L, 3D) qkv + (U, L) key mask -> (U, L, D) context; see module doc.
+    Differentiable on every device through ``FusedSmallMHSA``."""
+    return FusedSmallMHSA.apply(qkv, mask, num_heads)
 
 
 def _kernel():

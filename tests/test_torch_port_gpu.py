@@ -1,6 +1,7 @@
 """Card tests of the port: the CUDA attention kernel against its plain
-version, and the NRMS serving path with the kernel against the same path
-with the plain attention.  They need an NVIDIA card and skip without one;
+version, its gradient (``FusedSmallMHSA``) against autograd of the plain
+version, the NRMS serving path and train step with the kernel against the
+same paths with the plain attention.  They need an NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from newsreclib_tpu_torch.data.synthetic import make_serving_workload
-from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
+from newsreclib_tpu_torch.models.components.attention import use_plain_attention
 from newsreclib_tpu_torch.models.general_rec import NRMS
 from newsreclib_tpu_torch.ops import mhsa
 from newsreclib_tpu_torch.serving import CachedScorer
@@ -114,21 +115,46 @@ def test_kernel_on_unaligned_storage_matches_plain(cuda, u, l, dtype):
         _check_against_plain(qkv, mask, 15)
 
 
-def test_kernel_refuses_grad_and_runs_without(cuda):
+def test_kernel_runs_with_and_without_grad(cuda):
+    """With grad the wrapper goes through ``FusedSmallMHSA`` (one launch,
+    a graph to backpropagate); under no_grad / inference_mode it launches
+    the kernel alone."""
     qkv, mask = _edge_inputs(8, 30, 300, torch.float32, seed=3, masking="prefix")
     x = qkv.clone().requires_grad_(True)
-    before = mhsa.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        mhsa.fused_small_mhsa(x, mask, 15)
-    assert mhsa.launches == before
     want = mhsa.mhsa_plain(qkv, mask, 15)
+    before = mhsa.launches
+    got = mhsa.fused_small_mhsa(x, mask, 15)
+    assert got.grad_fn is not None and mhsa.launches == before + 1
+    torch.testing.assert_close(got.detach(), want, **TOL[torch.float32])
     with torch.no_grad():
         got = mhsa.fused_small_mhsa(x, mask, 15)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     with torch.inference_mode():
         got = mhsa.fused_small_mhsa(x, mask, 15)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
-    assert mhsa.launches == before + 2
+    assert mhsa.launches == before + 3
+
+
+TRAIN_SHAPES = [(1792, 16), (256, 30), (64, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l", TRAIN_SHAPES)
+def test_fused_gradient_matches_plain_autograd(cuda, u, l, dtype):
+    """At the NRMS train step's shapes: the output and d(sum(w * out))/d qkv
+    of ``FusedSmallMHSA`` against autograd of ``mhsa_plain``; both compute
+    in float32 and round once to the input type."""
+    qkv, mask = _edge_inputs(u, l, 300, dtype, seed=u + l, masking="prefix")
+    w = torch.randn((u, l, 300), generator=torch.Generator().manual_seed(l)).to(dtype).cuda()
+    x = qkv.clone().requires_grad_(True)
+    y = qkv.clone().requires_grad_(True)
+    out = mhsa.FusedSmallMHSA.apply(x, mask, 15)
+    (out * w).sum().backward()
+    ref = mhsa.mhsa_plain(y, mask, 15)
+    (ref * w).sum().backward()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()
+    torch.testing.assert_close(x.grad.float(), y.grad.float(), **TOL[dtype])
 
 
 def test_kernel_raises_on_unsupported_input(cuda):
@@ -139,12 +165,29 @@ def test_kernel_raises_on_unsupported_input(cuda):
         mhsa.fused_small_mhsa(qkv[:, :16].half().contiguous(), mask[:, :16].contiguous(), 4)
 
 
+@pytest.mark.parametrize("l,d,h,dtype", [(50, 300, 6, torch.float32),
+                                         (100, 300, 15, torch.bfloat16),
+                                         (50, 400, 20, torch.float32)])
+def test_refused_shapes_raise_in_the_wrapper_and_in_the_model(cuda, l, d, h, dtype):
+    """A shape ``kernel_supports`` refuses raises on the card, in the wrapper
+    and in ``MultiHeadSelfAttention``: nothing gives way to the plain
+    version, and nothing is launched."""
+    from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
+
+    assert not mhsa.kernel_supports(l, d, h, dtype)
+    qkv, mask = _inputs(3, l, d, dtype, seed=l)
+    before = mhsa.launches
+    with pytest.raises(ValueError, match="kernel does not take"):
+        mhsa.fused_small_mhsa(qkv, mask, h)
+    module = MultiHeadSelfAttention(d, h).to(cuda, dtype)
+    x = torch.zeros((3, l, d), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="kernel does not take"):
+        module(x, mask)
+    assert mhsa.launches == before
+
+
 def _plain_model(model):
-    plain = copy.deepcopy(model)
-    for m in plain.modules():
-        if isinstance(m, MultiHeadSelfAttention):
-            m.attention = mhsa.mhsa_plain
-    return plain
+    return use_plain_attention(copy.deepcopy(model))
 
 
 def test_serving_with_kernel_matches_plain_and_cpu(cuda):
@@ -159,3 +202,31 @@ def test_serving_with_kernel_matches_plain_and_cpu(cuda):
     for k in plain:
         assert abs(got[k] - plain[k]) < 1e-4, (k, got[k], plain[k])
         assert abs(got[k] - on_cpu[k]) < 1e-4, (k, got[k], on_cpu[k])
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [(None, 1e-4), ("bfloat16", 2e-2)])
+def test_train_step_kernel_route_matches_plain_route(cuda, compute_dtype, tol):
+    """Three NRMS train steps at full width (dropout on, same seeds; AdamW
+    with the global-norm clip) with the kernel and with the plain
+    attention: per-step losses agree; the
+    kernel route launches the kernel twice a step (title encoder, user
+    encoder), the plain route never."""
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    cfg = SyntheticConfig(vocab_size=5000)
+    batches = [to_device(make_batch(np.random.default_rng(i), batch_size=16, unique_news=256,
+                                    cfg=cfg), cuda) for i in range(3)]
+    model = NRMS(5000, device=cuda)
+    losses = {}
+    for route, m in (("kernel", model), ("plain", _plain_model(model))):
+        state = create_train_state(m, make_optimizer(1e-3, weight_decay=0.01,
+                                                     grad_clip_norm=1.0), dropout_seed=0)
+        step = make_train_step(cross_entropy_loss, compute_dtype=compute_dtype)
+        before = mhsa.launches
+        losses[route] = [step(state, b)[1]["loss"].item() for b in batches]
+        assert mhsa.launches == before + (2 * len(batches) if route == "kernel" else 0)
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=tol, rtol=0)

@@ -1,6 +1,6 @@
 """The port runs without JAX: the machine with the card has no jax, flax,
 optax, pandas or yaml.  A subprocess blocks those imports and the JAX
-package, then drives the serving slice on the CPU; the port's sources,
+package, then drives the serving slice and two training steps on the CPU; the port's sources,
 ``chip_smoke.py`` and the card tests are also searched for such imports."""
 
 import json
@@ -29,9 +29,23 @@ model = NRMS(500, embed_dim=60, num_heads=6, query_dim=16, device="cpu",
              generator=torch.Generator().manual_seed(0))
 metrics = CachedScorer(model, device="cpu").evaluate(store, imp, max_history_len=10,
                                                      target_cells=64, encode_batch=64)
+
+from newsreclib_tpu_torch.data.batch import to_device
+from newsreclib_tpu_torch.data.batching import TrainBatcher
+from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+from newsreclib_tpu_torch.training.steps import make_train_step
+
+state = create_train_state(model, make_optimizer(1e-3, scheduler="cosine", warmup_steps=1,
+                                                 total_steps=4, grad_clip_norm=1.0))
+step = make_train_step(cross_entropy_loss, compute_dtype="bfloat16")
+batches = TrainBatcher(store, imp, batch_size=8, max_history_len=10, u_bucket_min=64,
+                       split_title_len=16).epoch(0)
+train_losses = [step(state, to_device(next(batches), "cpu"))[1]["loss"].item()
+                for _ in range(2)]
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in %r)
-print(json.dumps({"metrics": metrics, "loaded": loaded}))
+print(json.dumps({"metrics": metrics, "train_losses": train_losses, "loaded": loaded}))
 """ % (BLOCKED, BLOCKED)
 
 
@@ -44,6 +58,8 @@ def test_slice_runs_with_jax_blocked():
     assert out["loaded"] == []
     assert {"auc", "mrr", "ndcg@10", "sent_pers@5"} <= set(out["metrics"])
     assert all(abs(v) < 10 for v in out["metrics"].values())
+    assert len(out["train_losses"]) == 2
+    assert all(0 < v < 10 for v in out["train_losses"])
 
 
 def test_port_sources_import_no_jax():

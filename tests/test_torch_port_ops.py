@@ -1,7 +1,9 @@
 """The port's attention kernel wrapper on the CPU: its plain version against
 the JAX reference (``mhsa_reference``) and the Pallas kernel in interpret
-mode, and the wrapper's input checks.  The CUDA kernel itself is tested on
-the card (``test_torch_port_gpu.py``).
+mode, the backward of ``FusedSmallMHSA`` against ``jax.grad``, the shape
+rule ``kernel_supports``, the model's attention at shapes the kernel does
+not take, and the wrapper's input checks.  The CUDA kernel itself is tested
+on the card (``test_torch_port_gpu.py``).
 
 Tolerance: float32 atol/rtol 1e-5 — the three compute the same sums in a
 different order (the Pallas kernel online, the others by softmax), which
@@ -106,15 +108,21 @@ def test_plain_gradient_matches_jax_grad_of_reference(u, l, d, h):
 
 
 def test_wrapper_on_cpu_stays_differentiable():
-    """On the CPU the wrapper is the plain version, gradient included (the
-    CUDA route refuses a tensor that requires grad)."""
+    """On the CPU the wrapper's forward is the plain version, bit for bit,
+    and its gradient is ``FusedSmallMHSA``'s backward, which agrees with
+    autograd of the plain version."""
     qkv, mask = _inputs(4, 16, 60, seed=2)
     m = torch.from_numpy(mask)
     x = torch.from_numpy(qkv).requires_grad_(True)
-    mhsa.fused_small_mhsa(x, m, 3).square().sum().backward()
+    out = mhsa.fused_small_mhsa(x, m, 3)
+    out.square().sum().backward()
     y = torch.from_numpy(qkv).requires_grad_(True)
-    mhsa.mhsa_plain(y, m, 3).square().sum().backward()
-    np.testing.assert_array_equal(x.grad.numpy(), y.grad.numpy())
+    ref = mhsa.mhsa_plain(y, m, 3)
+    ref.square().sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
+    want = mhsa.mhsa_backward(x.detach(), m, 3, 2 * ref.detach())
+    np.testing.assert_array_equal(x.grad.numpy(), want.numpy())
+    np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("l,d,h,dtype,fits", [
@@ -122,26 +130,29 @@ def test_wrapper_on_cpu_stays_differentiable():
     (64, 303, 101, torch.float32, False), (64, 600, 20, torch.float32, False),
     (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, False)])
 def test_wrapper_refuses_what_one_block_cannot_stage(l, d, h, dtype, fits):
-    """The kernel stages one sequence's (L, 3D) slab in the input type: the
-    wrapper refuses, on every device, a shape whose slab does not fit one
-    block's shared memory."""
+    """The kernel stages one sequence's (L, 3D) slab in the input type:
+    ``kernel_supports`` refuses a shape whose slab does not fit one block's
+    shared memory, and the wrapper raises on it off the CPU (a meta tensor
+    stands for the card here); on the CPU it computes every shape."""
     assert (mhsa.smem_bytes(l, d, torch.tensor([], dtype=dtype).element_size())
             <= 232448) == fits
+    assert mhsa.kernel_supports(l, d, h, dtype) == fits
     qkv = torch.zeros(2, l, 3 * d, dtype=dtype)
     mask = torch.ones(2, l, dtype=torch.bool)
-    if fits:
-        assert mhsa.fused_small_mhsa(qkv, mask, h).shape == (2, l, d)
-    else:
+    assert mhsa.fused_small_mhsa(qkv, mask, h).shape == (2, l, d)
+    if not fits:
         with pytest.raises(ValueError, match="shared memory"):
-            mhsa.fused_small_mhsa(qkv, mask, h)
+            mhsa.fused_small_mhsa(qkv.to("meta"), mask.to("meta"), h)
 
 
 def _bad_inputs():
     ok = torch.zeros(2, 16, 900), torch.ones(2, 16, dtype=torch.bool), 15
     qkv, mask, h = ok
     return {
-        "long_sequence": (torch.zeros(2, 65, 900), torch.ones(2, 65, dtype=torch.bool), 15),
-        "wide_head": (torch.zeros(2, 16, 3 * 66), mask, 2),
+        # shapes the kernel does not take, off the CPU (meta stands for the card)
+        "long_sequence": (torch.zeros(2, 65, 900, device="meta"),
+                          torch.ones(2, 65, dtype=torch.bool, device="meta"), 15),
+        "wide_head": (torch.zeros(2, 16, 3 * 66, device="meta"), mask.to("meta"), 2),
         "heads_do_not_divide": (qkv, mask, 7),
         "float64": (qkv.double(), mask, h),
         "int_mask": (qkv, mask.int(), h),
@@ -157,6 +168,92 @@ def test_wrapper_raises_on_unsupported_input(case):
     qkv, mask, h = _bad_inputs()[case]
     with pytest.raises((ValueError, TypeError)):
         mhsa.fused_small_mhsa(qkv, mask, h)
+
+
+@pytest.mark.parametrize("u,l,d,h", [(8, 6, 24, 4), (6, 17, 60, 3), (5, 50, 300, 15),
+                                     (4, 16, 300, 15), (3, 70, 60, 4)])
+def test_fused_backward_matches_jax_grad_of_reference(u, l, d, h):
+    """``FusedSmallMHSA``'s backward (its explicit formula, run through the
+    CPU path) against ``jax.grad`` of ``mhsa_reference``, with a fully
+    masked sequence (the padding article) and partly masked ones."""
+    import jax
+
+    qkv, mask = _inputs(u, l, d, seed=5 * u + l)
+    mask[1] = False
+    w = np.random.default_rng(u * l).normal(size=(u, l, d)).astype(np.float32)
+    want = np.asarray(jax.grad(
+        lambda x: (mhsa_reference(x, jnp.asarray(mask), h) * jnp.asarray(w)).sum()
+    )(jnp.asarray(qkv)))
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = mhsa.FusedSmallMHSA.apply(x, torch.from_numpy(mask), h)
+    np.testing.assert_allclose(out.detach().numpy(), _plain(qkv, mask, h), **TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert np.all(np.isfinite(x.grad.numpy()))
+    np.testing.assert_allclose(x.grad.numpy(), want, **TOL)
+    # the fully masked sequence: no gradient reaches q or k, v gets the mean
+    np.testing.assert_array_equal(x.grad.numpy()[1, :, : 2 * d], 0.0)
+
+
+def test_fused_backward_returns_the_input_type():
+    qkv, mask = _inputs(3, 16, 60, seed=9)
+    x = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_(True)
+    m = torch.from_numpy(mask)
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 16, 60)).astype(np.float32))
+    mhsa.FusedSmallMHSA.apply(x, m, 3).backward(g.to(torch.bfloat16))
+    assert x.grad.dtype == torch.bfloat16
+    want = mhsa.mhsa_backward(x.detach(), m, 3, g.to(torch.bfloat16))
+    torch.testing.assert_close(x.grad, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("l,d,h,dtype,supported", [
+    (64, 300, 15, torch.float32, True), (65, 300, 15, torch.float32, False),
+    (16, 96, 3, torch.float32, True), (16, 99, 3, torch.float32, False),  # head dim 32 / 33
+    (50, 300, 6, torch.float32, False), (16, 300, 7, torch.float32, False),
+    (30, 300, 15, torch.float16, False), (30, 300, 15, torch.bfloat16, True),
+    (50, 400, 20, torch.float32, False), (50, 400, 20, torch.bfloat16, True),
+    (1, 3, 1, torch.float32, True), (50, 300, 0, torch.float32, False)])
+def test_kernel_supports_at_the_edges(l, d, h, dtype, supported):
+    """L <= 64, head dim <= 32, float32 or bfloat16, heads dividing D, and
+    one slab within shared memory (CenNewsRec's L = 50, D = 400 fits in
+    bf16 only)."""
+    assert mhsa.kernel_supports(l, d, h, dtype) == supported
+
+
+ZOO_SHAPES = {  # (L, D, heads): the zoo's attentions the kernel does not take
+    "mins_user": (50, 300, 6),
+    "caum_user": (50, 400, 4),
+    "plm_text": (32, 768, 16),
+    "long_history": (100, 300, 15),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_SHAPES))
+def test_mhsa_module_matches_jax_where_the_kernel_does_not_go(name):
+    """The port's ``MultiHeadSelfAttention`` on the CPU against the JAX
+    module at shapes ``kernel_supports`` refuses: any shape computes."""
+    import jax
+
+    from newsreclib_tpu.models.components.attention import (
+        MultiHeadSelfAttention as JMultiHeadSelfAttention,
+    )
+    from newsreclib_tpu_torch.convert import flax_to_state_dict
+    from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
+
+    l, d, h = ZOO_SHAPES[name]
+    assert not mhsa.kernel_supports(l, d, h, torch.float32)
+    rng = np.random.default_rng(l + d)
+    x = rng.normal(size=(3, l, d)).astype(np.float32)
+    mask = rng.random((3, l)) < 0.8
+    mask[0] = False
+    mask[1, 0] = True
+    jm = JMultiHeadSelfAttention(num_heads=h)
+    params = jm.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(mask))["params"]
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask)))
+    tm = MultiHeadSelfAttention(d, h)
+    tm.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_kernel_library_is_keyed_by_source_and_built_under_build():
