@@ -28,9 +28,12 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    two deliberately wrong attentions, in float32 and in bf16 compute: the
    kernel's per-step losses must agree with the plain ones
    (``ROUTE_ATOL``) and the wrong attentions' must not (``ROUTE_FAULTS``);
-   ``FusedSmallMHSA``'s output and gradient against the plain version and
-   autograd of it at every attention shape of the timed steps, in float32
-   and bf16; and 50 steps at lr 1e-3 on the planted-signal batch, which must
+   the backward kernel's launch count of the timed steps must equal the
+   forward's (one per attention call); ``FusedSmallMHSA``'s output and
+   gradient (both kernels) against the plain version and autograd of it at
+   every attention shape of the timed steps, in float32 and bf16, where a
+   planted wrong gradient (the rowsum term of dS dropped) must fail the same
+   check; and 50 steps at lr 1e-3 on the planted-signal batch, which must
    at least halve the loss;
 5. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, in float32 and bfloat16,
@@ -38,7 +41,11 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    (``newsreclib_tpu_torch/kernel_bench.py``: device time per launch from
    ``torch.profiler``, inputs rotated past the L2; the per-call CUDA event
    time, host cost included, is on each ``kernel_shape`` line);
-6. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+6. times the backward kernel alone against its plain version
+   (``mhsa_backward``) and SDPA's backward, and ``FusedSmallMHSA``'s forward
+   + backward against autograd of the plain version and SDPA's, at the
+   batch-64 training shapes in bfloat16 (``kernel_bench.measure_backward``);
+7. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build under ``build/``.
@@ -130,6 +137,22 @@ def kernel_phase(shapes):
     return records
 
 
+def backward_phase(shapes):
+    """Time the backward kernel at the training shapes given, in bfloat16
+    (``kernel_bench.measure_backward``, which checks it first).  Returns the
+    per-shape records."""
+    import torch
+
+    from newsreclib_tpu_torch.kernel_bench import measure_backward
+
+    records = []
+    for u, l in shapes:
+        rec = measure_backward(u, l, torch.bfloat16)
+        log("backward_shape " + json.dumps(rec))
+        records.append(rec)
+    return records
+
+
 def plain_copy(model):
     """A copy of ``model`` with every MHSA forced onto the plain attention."""
     from newsreclib_tpu_torch.models.components.attention import use_plain_attention
@@ -208,6 +231,25 @@ def scaled_attention(qkv, mask, num_heads):
 FAULTS = {"unmasked": unmasked_attention, "scaled": scaled_attention}
 
 
+def backward_without_rowsum(qkv, mask, num_heads, grad_out):
+    """A planted fault: the attention gradient with dS = P * dP, the
+    rowsum(dP * P) term dropped (``mhsa_backward`` otherwise)."""
+    import torch
+
+    from newsreclib_tpu_torch.ops.mhsa import _heads, _probabilities
+
+    u, l, d3 = qkv.shape
+    d = d3 // 3
+    scale = 1.0 / math.sqrt(d // num_heads)
+    q, k, v = qkv.float().split(d, dim=-1)
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
+    p = _probabilities(q, k, mask, num_heads)
+    do = _heads(grad_out.float(), num_heads)
+    ds = torch.where(mask[:, None, None, :], p * (do @ vh.transpose(-1, -2)), 0.0)
+    grads = (ds @ kh * scale, ds.transpose(-1, -2) @ qh * scale, p.transpose(-1, -2) @ do)
+    return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
+
+
 def route_losses(store, imp, batches, cdtype, lr, attention):
     """Per-step losses of a fresh cell over ``batches`` with every MHSA's
     attention set to ``attention`` (None: the kernel)."""
@@ -232,8 +274,9 @@ def route_losses(store, imp, batches, cdtype, lr, attention):
 
 def training_phase(card: str, store, imp):
     """The training path, then its checks (see module doc).  Returns the
-    kernel launches of the timed steps, the step time in seconds and the
-    attention shapes (U, L) of the timed steps."""
+    forward and the backward kernel launches of the timed steps, the step
+    time in seconds, the attention shapes (U, L) of the timed steps and the
+    largest gradient error of the checks."""
     import numpy as np
     import torch
 
@@ -251,7 +294,7 @@ def training_phase(card: str, store, imp):
         step(state, to_device(next(batches), "cuda"))
     torch.cuda.synchronize()
     shapes, losses, expected = set(), [], 0
-    mhsa.launches = 0
+    mhsa.launches = mhsa.bwd_launches = 0
     t0 = time.perf_counter()
     for _ in range(TRAIN_TIMED):
         b = next(batches)
@@ -260,14 +303,16 @@ def training_phase(card: str, store, imp):
         losses.append(step(state, to_device(b, "cuda"))[1]["loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_TIMED
-    launches = mhsa.launches
+    launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
     losses = torch.stack(losses).cpu()
     log(f"train step (batching and copies included): {step_s * 1e3:.4f} ms, "
         f"{TRAIN_BATCH / step_s:.1f} impressions/s on {card}; news segments {sorted(shapes)}; "
         f"fused_small_mhsa launches {launches} ({launches / TRAIN_TIMED} a step, "
-        f"{expected} expected); loss {losses[0].item():.4f} -> {losses[-1].item():.4f}")
-    if launches != expected:
-        raise AssertionError(f"{launches} kernel launches ({expected} expected)")
+        f"{expected} expected), its backward {bwd_launches} ({expected} expected); "
+        f"loss {losses[0].item():.4f} -> {losses[-1].item():.4f}")
+    if launches != expected or bwd_launches != expected:
+        raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
+                             f"({expected} each expected)")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"train losses not finite: {losses}")
     del state
@@ -299,11 +344,21 @@ def training_phase(card: str, store, imp):
     # the output and gradient at the step's attention shapes
     grad_shapes = sorted({seg for sh in shapes for seg in sh}, reverse=True)
     grad_shapes.append((TRAIN_BATCH, DATA["max_history_len"]))
+    grad_errs = []
     for dtype in (torch.float32, torch.bfloat16):
         for u, l in grad_shapes:
             fwd_err, err, _ = check_backward(u, l, dtype)
+            grad_errs.append(err)
             log(f"FusedSmallMHSA vs plain at ({u}, {l}) {dtype}: output max abs err "
                 f"{fwd_err:.3g}, gradient max abs err {err:.3g}")
+        u, l = grad_shapes[0]
+        try:
+            check_backward(u, l, dtype, backward=backward_without_rowsum)
+        except AssertionError as e:
+            log(f"planted wrong gradient (rowsum dropped) at ({u}, {l}) {dtype}: caught ({e})")
+        else:
+            raise AssertionError(f"the gradient check at ({u}, {l}) {dtype} does not tell a "
+                                 "gradient without the rowsum term from the plain one")
 
     # planted signal: the loss falls on one fixed batch
     curve = route_losses(store, imp, [planted] * PLANTED_STEPS, "bfloat16", PLANTED_LR, None)
@@ -311,7 +366,7 @@ def training_phase(card: str, store, imp):
         f"{curve[0].item():.4f} -> {curve[-1].item():.4f}")
     if not curve[-1].item() <= curve[0].item() / 2:
         raise AssertionError(f"the planted-signal loss did not halve: {curve.tolist()}")
-    return launches, step_s, grad_shapes
+    return launches, bwd_launches, step_s, grad_shapes, max(grad_errs)
 
 
 def main() -> int:
@@ -348,12 +403,15 @@ def main() -> int:
     # The serving epoch runs before the kernel phase, whose many profiler
     # windows leave the process slower to launch kernels.
     launches = serving_phase(card, store, imp)
-    train_launches, train_step_s, train_shapes = training_phase(card, store, imp)
+    train_launches, bwd_launches, train_step_s, train_shapes, grad_err = training_phase(
+        card, store, imp)
     checked = list(shapes)
     for s in train_shapes + EXTRA_SHAPES:
         if s not in checked:
             checked.append(s)
     records = kernel_phase(checked)
+    bwd_records = backward_phase(train_shapes)
+    bwd_main = bwd_records[0]
 
     main_shape = next(r for r in records if (r["U"], r["L"], r["dtype"]) == (4096, 16, "bfloat16"))
     kernels = [{
@@ -371,9 +429,26 @@ def main() -> int:
         "train_launches": train_launches,
         "train_launches_per_step": train_launches / TRAIN_TIMED,
         "train_step_ms": train_step_s * 1e3,
-        "backward": "torch ops (recompute)",
+    }, {
+        "name": "fused_small_mhsa_backward",
+        "route": "cuda",
+        "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
+        "replaces": "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference; "
+                    "the TPU kernel at :160 has no backward)",
+        "launches": bwd_launches,
+        "launches_per_step": bwd_launches / TRAIN_TIMED,
+        "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
+        "ms": bwd_main["bwd_ms"],
+        "plain_ms": bwd_main["plain_bwd_ms"],
+        "bound_ms": bwd_main["bwd_bound_ms"],
+        "bound_by": bwd_main["bwd_bound_by"],
+        "library_ms": bwd_main["library_bwd_ms"],
+        "fwd_bwd_ms": bwd_main["ms"],
+        "autograd_plain_fwd_bwd_ms": bwd_main["plain_ms"],
+        "library_fwd_bwd_ms": bwd_main["library_ms"],
     }]
-    log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 bf16 on {card}")
+    log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
+        f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

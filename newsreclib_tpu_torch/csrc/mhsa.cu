@@ -1,6 +1,7 @@
 // Masked multi-head self-attention over many short independent sequences,
-// forward only: the attention of the NRMS title encoder (L = 16 / 30) and of
-// its user encoder (L = 50), at D = 300, H = 15, hd = 20.
+// forward and backward: the attention of the NRMS title encoder (L = 16 /
+// 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20.  The
+// forward is described first; the backward (nrl_mhsa_bwd) after it.
 //
 // Replaces the TPU kernel newsreclib_tpu/ops/mhsa.py::fused_small_mhsa (body
 // _attention_kernel, pallas_call at ops/mhsa.py:198) and computes what
@@ -92,6 +93,64 @@
 // L <= 64, D / H <= 32.  Launches on `stream`, does not synchronise,
 // allocates nothing, and returns the cudaError_t of the launch (0 on
 // success).
+//
+// Backward.  The TPU kernel has none: the JAX package trains through XLA
+// autodiff of mhsa_reference, and this computes that gradient (what
+// ops/mhsa.py::mhsa_backward computes in plain PyTorch).  Per (sequence,
+// head), with s = 1 / sqrt(hd): P = softmax(s q.k^T) recomputed exactly
+// (masked keys -1e30, keys past L excluded), dP = dO V^T,
+// dS = P (dP - rowsum(dP P)) and 0 at masked keys, dQ = s dS K,
+// dK = s dS^T Q, dV = P^T dO.  A fully masked sequence gets dQ = dK = 0 and
+// dV = the mean of dO over its L rows.  L <= 64, so a whole logit row sits
+// in registers and the row sums come from P and dP directly: the forward
+// saves nothing (no output, no logsumexp) for it.
+//
+// What bounds it on the H100: memory again.  At U = 7168, L = 16 in bf16 it
+// reads qkv (206 MB), dO (69 MB) and the mask and writes dqkv (206 MB):
+// 0.144 ms at 3.35 TB/s, against 5.5 GFLOP of products (6 us on the
+// tensor cores).  The plain version (mhsa_backward) runs about 30 kernels
+// over f32 (U, H, L, L) tensors (4.8 ms there).  The design:
+//
+// * The forward's staging and plan: the same S sequences per block and the
+//   same shared memory (slab + mask bytes or key biases), so that every
+//   shape the forward takes, the backward takes.  dO is not staged: each
+//   warp reads its head's columns of dO from global memory (through L1),
+//   which leaves the slab the whole of a block's shared memory (f32 at
+//   (64, 50) would need 240,016 bytes with dO staged).  Blocks of 8 warps.
+// * One warp task per (sequence, head).  bf16: the five products on tensor
+//   cores (mma.sync m16n8k16, bf16 in, f32 sums).  Per 16-row query tile:
+//   q.k^T and dO.v^T, the exact softmax of the forward (then normalised),
+//   the row sums of dP * P over the quad, dS in registers, dQ = dS K; then
+//   dV += P^T dO and dK += dS^T Q into accumulators for all key rows, kept
+//   in registers across the query tiles.  P^T and dS^T, which the last two
+//   products need as A operands with keys as rows, come from the
+//   accumulator fragments of P and dS rounded to bf16 and transposed in
+//   registers (movmatrix.m8n8.trans, four per 16 x 16 tile), so neither P
+//   nor dS is written to shared or global memory, and no product is spent
+//   on recomputing the transposed logits.  P and dS are rounded to bf16
+//   only as those operands; P goes into dV = P^T dO as a bf16 hi + lo pair
+//   (two products), since one rounding moved dV by two bf16 steps of the
+//   plain version, past the tolerance, where one key takes most of the
+//   attention of many queries.  dO rows past L read as 0, so the clamped
+//   query rows of a padded tile add nothing.  L = 50 (KT = 4) instances
+//   keep 96 accumulator registers and run one 8-warp block per SM.
+// * f32: exact f32 FMAs on CUDA cores (TF32 would miss 1e-5).  One warp a
+//   task, lane j owns keys j and j + 32: per query row the logits, the
+//   softmax by warp shuffles, dP, the row sum and dS; dK and dV accumulate
+//   in the lane's registers; dQ is summed by lane d over the keys with dS
+//   broadcast by shuffles.
+// * Each task writes dQ over its own staged q values (after the tile's
+//   last read of them) and dK, dV over its k and v values (after the last
+//   tile); after a barrier the block copies its whole staged slab, now
+//   dqkv, to the output in one coalesced run.  No atomics: each output
+//   value is written by one lane, so the gradient is the same bits from
+//   run to run.
+//
+//   int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* dout,
+//                    void* dqkv, int U, int L, int D, int H, int dtype,
+//                    void* stream)
+// qkv (U, L, 3D), dout (U, L, D) and dqkv (U, L, 3D) contiguous in the
+// input type; the rest as nrl_mhsa_fwd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -223,6 +282,60 @@ __device__ __forceinline__ uint32_t ld_pair(const unsigned short* s, int off, in
                    d + 1 < hd ? s[off + d + 1] : (unsigned short)0);
 }
 
+// Exact softmax numerators of one 16-row tile in registers, in log2 units
+// (scale_log2 = log2(e) / sqrt(hd)): x = s * scale + bias is the logit,
+// -1e30 at a masked key (|s * scale| is far below half an ulp of 1e30) and
+// -inf past L, so that 2^(x - max) is 0 there and a fully masked row is
+// uniform over L.  sc holds the q.k^T accumulators of the tile (rows g and
+// g + 8, NJ n8 tiles of keys) and gets the numerators; sum0 and sum1 get
+// the row sums, over the quad.  Rows g + 8 of the tile are all padding when
+// r1_on is false (16 mt + 8 >= L; L = 50: rows 56..63): their softmax is
+// skipped, as is the all-padding last key tile (last_on false); p is 0
+// there.
+template <int NJ>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NJ][4], const float* bias,
+                                             float scale_log2, bool last_on, bool r1_on,
+                                             float& sum0, float& sum1) {
+  const int c = threadIdx.x & 3;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j < NJ - 1 || last_on) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
+      sc[j][0] = fmaf(sc[j][0], scale_log2, b.x);
+      sc[j][1] = fmaf(sc[j][1], scale_log2, b.y);
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      if (r1_on) {
+        sc[j][2] = fmaf(sc[j][2], scale_log2, b.x);
+        sc[j][3] = fmaf(sc[j][3], scale_log2, b.y);
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  sum0 = 0.f;
+  sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const bool on = j < NJ - 1 || last_on;
+    sc[j][0] = on ? ex2(sc[j][0] - mx0) : 0.f;
+    sc[j][1] = on ? ex2(sc[j][1] - mx0) : 0.f;
+    sc[j][2] = on && r1_on ? ex2(sc[j][2] - mx1) : 0.f;
+    sc[j][3] = on && r1_on ? ex2(sc[j][3] - mx1) : 0.f;
+    sum0 += sc[j][0] + sc[j][1];
+    sum1 += sc[j][2] + sc[j][3];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+}
+
 // One warp task: head h of the sequence whose staged rows start at `s` (bits
 // of bf16, row stride 3D), all its query tiles of 16 rows.  The k and v
 // fragments are loaded once and reused by every query tile.  `bias` holds
@@ -294,50 +407,9 @@ __device__ __forceinline__ void bf16_head(unsigned short* s, const float* bias, 
       }
     }
 
-    // Exact softmax in registers, in log2 units (scale_log2 = log2(e) /
-    // sqrt(hd)): x = s * scale + bias is the logit, -1e30 at a masked key
-    // (|s * scale| is far below half an ulp of 1e30) and -inf past L, so
-    // that 2^(x - max) is 0 there and a fully masked row is uniform over L.
-    // Rows g + 8 of the tile are all padding when 16 mt + 8 >= L (L = 50:
-    // rows 56..63): their softmax is skipped, as is the all-padding last
-    // key tile; p is 0 there.
     const bool r1_on = r0 - g + 8 < L;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (j < NJ - 1 || last_on) {
-        const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
-        sc[j][0] = fmaf(sc[j][0], scale_log2, b.x);
-        sc[j][1] = fmaf(sc[j][1], scale_log2, b.y);
-        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-        if (r1_on) {
-          sc[j][2] = fmaf(sc[j][2], scale_log2, b.x);
-          sc[j][3] = fmaf(sc[j][3], scale_log2, b.y);
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bool on = j < NJ - 1 || last_on;
-      sc[j][0] = on ? ex2(sc[j][0] - mx0) : 0.f;
-      sc[j][1] = on ? ex2(sc[j][1] - mx0) : 0.f;
-      sc[j][2] = on && r1_on ? ex2(sc[j][2] - mx1) : 0.f;
-      sc[j][3] = on && r1_on ? ex2(sc[j][3] - mx1) : 0.f;
-      sum0 += sc[j][0] + sc[j][1];
-      sum1 += sc[j][2] + sc[j][3];
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-    }
+    float sum0, sum1;
+    softmax_tile(sc, bias, scale_log2, last_on, r1_on, sum0, sum1);
 
     // p.v with p rounded to bf16, straight from the accumulators as the A
     // operand.
@@ -474,6 +546,452 @@ __global__ void __launch_bounds__(1024)
   write_rows(out + (size_t)blockIdx.x * S * L * D, slab, ns * L, D);
 }
 
+// ------------------------------------------------------------ backward ---
+
+// Warps of a backward block: one (sequence, head) task each.
+constexpr int kBwdWarps = 8;
+
+// The 8x8 transpose of a matrix of 16-bit values held one 32-bit pair a
+// lane (row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1, as in the
+// mma fragments), in registers.
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// x, y as a bf16 pair hi (as pack_f32) and the pair lo of what hi leaves
+// over, so that hi + lo carries about 16 bits of each.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = pack_f32(x, y);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack_f32(x - __low2float(h), y - __high2float(h));
+}
+
+// x, y as bf16 at s[off + d], s[off + d + 1], each only where its column is
+// below hd.
+template <bool PAIR>
+__device__ __forceinline__ void st_pair(unsigned short* s, int off, int d, int hd, float x,
+                                        float y) {
+  if (PAIR) {
+    if (d < hd) *reinterpret_cast<uint32_t*>(s + off + d) = pack_f32(x, y);
+  } else {
+    if (d < hd) s[off + d] = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+    if (d + 1 < hd) s[off + d + 1] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+  }
+}
+
+// One backward warp task, bf16: head h of the sequence whose staged rows
+// start at `s`, with its output gradient `dout` (global, rows of D).  Per
+// query tile of 16 rows it recomputes the logits and the exact softmax as
+// the forward does, adds the tile's share of dV = P^T dO, then computes
+// dP = dO V^T, the row sums of dP * P, dS and the tile's dQ = scale dS K,
+// and adds the tile's share of dK = scale dS^T Q.  dV and dK accumulate
+// over the query tiles for all key rows.  P^T and dS^T, the A operands with
+// keys as rows, are the accumulator fragments of P (as bf16 hi + lo) and
+// dS (bf16) transposed in registers (movmatrix, four per 16 x 16 tile).
+// dO rows past L are read as 0, so the clamped query rows of the last tile
+// add nothing to dK and dV.  dQ goes over the tile's own q values once they
+// are read; dK and dV over the k and v values after the last tile.
+template <int KT, int NT, int HDX, bool PAIR>
+__device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bias,
+                                              const unsigned short* dout, int h, int L, int D,
+                                              int hd_rt, float scale_log2, float scale) {
+  constexpr int HK = (NT * 8 + 15) / 16;
+  constexpr int NJ = 2 * KT;
+  const int hd = HDX > 0 ? HDX : hd_rt;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int D3 = 3 * D;
+  const int qcol = h * hd, kcol = D + qcol, vcol = 2 * D + qcol;
+  const bool last_on = (NJ - 1) * 8 < L;
+
+  float dk[KT][NT][4], dv[KT][NT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[kt][nt][e] = dv[kt][nt][e] = 0.f;
+
+  const int mts = (L + 15) / 16;
+  for (int mt = 0; mt < mts; ++mt) {
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    const int q0 = min(r0, L - 1) * D3 + qcol, q1 = min(r1, L - 1) * D3 + qcol;
+    const bool in0 = r0 < L, in1 = r1 < L;
+
+    // p = softmax(q.k^T scale), exactly as the forward computes it, then
+    // normalised (queries as rows).
+    float p[NJ][4];
+    {
+      uint32_t qa[HK][4];
+#pragma unroll
+      for (int ks = 0; ks < HK; ++ks) {
+        const int d = ks * 16 + 2 * c;
+        qa[ks][0] = ld_pair<PAIR>(s, q0, d, hd);
+        qa[ks][1] = ld_pair<PAIR>(s, q1, d, hd);
+        qa[ks][2] = ld_pair<PAIR>(s, q0, d + 8, hd);
+        qa[ks][3] = ld_pair<PAIR>(s, q1, d + 8, hd);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+        if (j < NJ - 1 || last_on) {
+          const int off = min(j * 8 + g, L - 1) * D3 + kcol;
+#pragma unroll
+          for (int ks = 0; ks < HK; ++ks)
+            mma_bf16(p[j], qa[ks], ld_pair<PAIR>(s, off, ks * 16 + 2 * c, hd),
+                     ld_pair<PAIR>(s, off, ks * 16 + 2 * c + 8, hd));
+        }
+      }
+    }
+    const bool r1_on = mt * 16 + 8 < L;
+    float sum0, sum1;
+    softmax_tile(p, bias, scale_log2, last_on, r1_on, sum0, sum1);
+    const float inv0 = 1.f / sum0, inv1 = r1_on ? 1.f / sum1 : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      p[j][0] *= inv0;
+      p[j][1] *= inv0;
+      p[j][2] *= inv1;
+      p[j][3] *= inv1;
+    }
+
+    // dV += P^T dO over this tile's queries (B: k = query, n = head column;
+    // dO rows past L read as 0).  P goes in as bf16 hi + lo parts, two
+    // products: one bf16 rounding of P (2^-9 of each weight) moved dV by
+    // two bf16 steps of the plain version where a key takes most of the
+    // attention of many queries.
+    {
+      const int k0 = mt * 16 + 2 * c;
+      uint32_t ob[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + g;
+        const bool ok = d < hd;
+        const unsigned short* dc = dout + qcol + d;
+        ob[nt][0] = pack_bits(ok && k0 < L ? dc[k0 * D] : (unsigned short)0,
+                              ok && k0 + 1 < L ? dc[(k0 + 1) * D] : (unsigned short)0);
+        ob[nt][1] = pack_bits(ok && k0 + 8 < L ? dc[(k0 + 8) * D] : (unsigned short)0,
+                              ok && k0 + 9 < L ? dc[(k0 + 9) * D] : (unsigned short)0);
+      }
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t hi[4], lo[4];
+        split_bf16(p[2 * kt][0], p[2 * kt][1], hi[0], lo[0]);
+        split_bf16(p[2 * kt][2], p[2 * kt][3], hi[1], lo[1]);
+        split_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1], hi[2], lo[2]);
+        split_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3], hi[3], lo[3]);
+        // A = P^T: rows keys kt*16 + (g, g + 8), k = queries (2c, 2c + 8)
+        const uint32_t th[4] = {transpose8(hi[0]), transpose8(hi[2]), transpose8(hi[1]),
+                                transpose8(hi[3])};
+        const uint32_t tl[4] = {transpose8(lo[0]), transpose8(lo[2]), transpose8(lo[1]),
+                                transpose8(lo[3])};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_bf16(dv[kt][nt], th, ob[nt][0], ob[nt][1]);
+          mma_bf16(dv[kt][nt], tl, ob[nt][0], ob[nt][1]);
+        }
+      }
+    }
+
+    // dp = dO V^T (queries as rows; dO rows past L read as 0).
+    float dp[NJ][4];
+    {
+      uint32_t oa[HK][4];
+#pragma unroll
+      for (int ks = 0; ks < HK; ++ks) {
+        const int d = ks * 16 + 2 * c;
+        oa[ks][0] = in0 ? ld_pair<PAIR>(dout, r0 * D + qcol, d, hd) : 0u;
+        oa[ks][1] = in1 ? ld_pair<PAIR>(dout, r1 * D + qcol, d, hd) : 0u;
+        oa[ks][2] = in0 ? ld_pair<PAIR>(dout, r0 * D + qcol, d + 8, hd) : 0u;
+        oa[ks][3] = in1 ? ld_pair<PAIR>(dout, r1 * D + qcol, d + 8, hd) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+        if (j < NJ - 1 || last_on) {
+          const int off = min(j * 8 + g, L - 1) * D3 + vcol;
+#pragma unroll
+          for (int ks = 0; ks < HK; ++ks)
+            mma_bf16(dp[j], oa[ks], ld_pair<PAIR>(s, off, ks * 16 + 2 * c, hd),
+                     ld_pair<PAIR>(s, off, ks * 16 + 2 * c + 8, hd));
+        }
+      }
+    }
+
+    // ds = p (dp - rowsum(dp p)) at valid keys, 0 at masked and padded ones,
+    // rounded to bf16 as the A operand (queries as rows).
+    float dd0 = 0.f, dd1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      dd0 += p[j][0] * dp[j][0] + p[j][1] * dp[j][1];
+      dd1 += p[j][2] * dp[j][2] + p[j][3] * dp[j][3];
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      dd0 += __shfl_xor_sync(0xffffffffu, dd0, o);
+      dd1 += __shfl_xor_sync(0xffffffffu, dd1, o);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
+      dp[j][0] = b.x == 0.f ? p[j][0] * (dp[j][0] - dd0) : 0.f;
+      dp[j][1] = b.y == 0.f ? p[j][1] * (dp[j][1] - dd0) : 0.f;
+      dp[j][2] = b.x == 0.f ? p[j][2] * (dp[j][2] - dd1) : 0.f;
+      dp[j][3] = b.y == 0.f ? p[j][3] * (dp[j][3] - dd1) : 0.f;
+    }
+    uint32_t sa[KT][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      sa[kt][0] = pack_f32(dp[2 * kt][0], dp[2 * kt][1]);
+      sa[kt][1] = pack_f32(dp[2 * kt][2], dp[2 * kt][3]);
+      sa[kt][2] = pack_f32(dp[2 * kt + 1][0], dp[2 * kt + 1][1]);
+      sa[kt][3] = pack_f32(dp[2 * kt + 1][2], dp[2 * kt + 1][3]);
+    }
+
+    // dQ = ds K (B: k = key, n = head column; padded keys have ds = 0).
+    float dq[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const int k0 = kt * 16 + 2 * c;
+      const int o0 = min(k0, L - 1) * D3 + kcol, o1 = min(k0 + 1, L - 1) * D3 + kcol;
+      const int o8 = min(k0 + 8, L - 1) * D3 + kcol, o9 = min(k0 + 9, L - 1) * D3 + kcol;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + g;
+        const bool ok = d < hd;
+        mma_bf16(dq[nt], sa[kt], ok ? pack_bits(s[o0 + d], s[o1 + d]) : 0u,
+                 ok ? pack_bits(s[o8 + d], s[o9 + d]) : 0u);
+      }
+    }
+
+    // dK += ds^T Q over this tile's queries (B: k = query, n = head column;
+    // the clamped rows past L have ds = 0).
+    {
+      const int k0 = mt * 16 + 2 * c;
+      const int o0 = min(k0, L - 1) * D3 + qcol, o1 = min(k0 + 1, L - 1) * D3 + qcol;
+      const int o8 = min(k0 + 8, L - 1) * D3 + qcol, o9 = min(k0 + 9, L - 1) * D3 + qcol;
+      uint32_t qb[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + g;
+        const bool ok = d < hd;
+        qb[nt][0] = ok ? pack_bits(s[o0 + d], s[o1 + d]) : 0u;
+        qb[nt][1] = ok ? pack_bits(s[o8 + d], s[o9 + d]) : 0u;
+      }
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const uint32_t st[4] = {transpose8(sa[kt][0]), transpose8(sa[kt][2]),
+                                transpose8(sa[kt][1]), transpose8(sa[kt][3])};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(dk[kt][nt], st, qb[nt][0], qb[nt][1]);
+      }
+    }
+
+    // Every lane has read this tile's q values: dQ goes over them.
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      if (in0) st_pair<PAIR>(s, q0, d, hd, dq[nt][0] * scale, dq[nt][1] * scale);
+      if (in1) st_pair<PAIR>(s, q1, d, hd, dq[nt][2] * scale, dq[nt][3] * scale);
+    }
+  }
+
+  // Every lane has read its last k and v values: dK and dV go over them.
+  __syncwarp();
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    const int k0 = kt * 16 + g, k1 = k0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      if (k0 < L) {
+        st_pair<PAIR>(s, k0 * D3 + kcol, d, hd, dk[kt][nt][0] * scale, dk[kt][nt][1] * scale);
+        st_pair<PAIR>(s, k0 * D3 + vcol, d, hd, dv[kt][nt][0], dv[kt][nt][1]);
+      }
+      if (k1 < L) {
+        st_pair<PAIR>(s, k1 * D3 + kcol, d, hd, dk[kt][nt][2] * scale, dk[kt][nt][3] * scale);
+        st_pair<PAIR>(s, k1 * D3 + vcol, d, hd, dv[kt][nt][2], dv[kt][nt][3]);
+      }
+    }
+  }
+}
+
+template <int KT, int NT, int HDX, bool PAIR>
+__global__ void __launch_bounds__(kBwdWarps * 32, KT <= 2 ? 2 : 1)
+    mhsa_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dqkv,
+                         int U, int L, int D, int H, int S, float scale_log2, float scale) {
+  extern __shared__ __align__(16) char smem[];
+  const int ns = min(S, U - (int)blockIdx.x * S);
+  __nv_bfloat16* slab = stage_slab(qkv, ns, S, L, D, smem);
+  float* sbias = reinterpret_cast<float*>(smem + slab_bytes(S, L, D, 2));
+  const uint8_t* msk = mask + (size_t)blockIdx.x * S * L;
+  for (int i = threadIdx.x; i < ns * kMaxLen; i += blockDim.x) {
+    const int sq = i / kMaxLen, key = i - sq * kMaxLen;
+    sbias[i] = key < L ? (msk[sq * L + key] ? 0.f : kMaskMin) : -INFINITY;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  unsigned short* bits = reinterpret_cast<unsigned short*>(slab);
+  const unsigned short* go = reinterpret_cast<const unsigned short*>(dout);
+  for (int t = warp; t < ns * H; t += nwarps) {
+    const int sq = t / H;
+    bf16_bwd_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kMaxLen,
+                                     go + ((size_t)blockIdx.x * S + sq) * L * D, t - sq * H, L,
+                                     D, D / H, scale_log2, scale);
+  }
+  __syncthreads();
+  // The block's dqkv rows are one contiguous run laid out as its staged slab.
+  write_rows(dqkv + (size_t)blockIdx.x * S * L * 3 * D, slab, 1, ns * L * 3 * D);
+}
+
+// One backward warp task, f32, on CUDA cores: lane j holds keys j and
+// j + 32 (KPL = 2 where L > 32).  Per query row i: the logits of its keys,
+// the exact softmax by warp shuffles, dP_ij = dO_i . V_j, the row sum of
+// dP * P, ds_ij; dK_j and dV_j accumulate in the lane's registers, and
+// dQ_i = scale sum_j ds_ij K_j is summed by lane d over the keys (ds
+// broadcast by shuffles) and goes over q_i.  dO_i is read once from global
+// memory, one column a lane, and broadcast by shuffles.
+template <int HD, bool EXACT, int KPL>
+__device__ __forceinline__ void f32_bwd_head(float* s, const uint8_t* msk, const float* dout,
+                                             int h, int L, int D, int hd_rt, float scale) {
+  const int hd = EXACT ? HD : hd_rt;
+  const int lane = threadIdx.x & 31;
+  const int D3 = 3 * D;
+  const int qcol = h * hd, kcol = D + qcol, vcol = 2 * D + qcol;
+  const int dl = min(lane, hd - 1);
+
+  int jr[KPL];
+  bool jin[KPL], jvalid[KPL];
+  float dk[KPL][HD], dv[KPL][HD];
+#pragma unroll
+  for (int kk = 0; kk < KPL; ++kk) {
+    const int j = lane + 32 * kk;
+    jin[kk] = j < L;
+    jr[kk] = min(j, L - 1);
+    jvalid[kk] = jin[kk] && msk[jr[kk]];
+#pragma unroll
+    for (int d = 0; d < HD; ++d) dk[kk][d] = dv[kk][d] = 0.f;
+  }
+
+  for (int i = 0; i < L; ++i) {
+    float* qi = s + (size_t)i * D3 + qcol;
+    const float dov = lane < hd ? dout[(size_t)i * D + qcol + lane] : 0.f;
+    float x[KPL], dp[KPL];
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) {
+      const float* kr = s + (size_t)jr[kk] * D3 + kcol;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d)
+        if (d < hd) dot = fmaf(qi[d], kr[d], dot);
+      x[kk] = !jin[kk] ? -INFINITY : (msk[jr[kk]] ? dot * scale : kMaskMin);
+      dp[kk] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      if (d < hd) {
+        const float o = __shfl_sync(0xffffffffu, dov, d);
+#pragma unroll
+        for (int kk = 0; kk < KPL; ++kk) dp[kk] = fmaf(o, s[(size_t)jr[kk] * D3 + vcol + d], dp[kk]);
+      }
+    }
+    float mx = x[0];
+#pragma unroll
+    for (int kk = 1; kk < KPL; ++kk) mx = fmaxf(mx, x[kk]);
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float p[KPL], sum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) {
+      p[kk] = expf(x[kk] - mx);  // 0 past L
+      sum += p[kk];
+    }
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;  // sum >= 1: the max term is exp(0)
+    float rs = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) {
+      p[kk] *= inv;
+      rs += p[kk] * dp[kk];
+    }
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
+    float ds[KPL];
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) ds[kk] = jvalid[kk] ? p[kk] * (dp[kk] - rs) : 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      if (d < hd) {
+        const float qd = qi[d];
+        const float o = __shfl_sync(0xffffffffu, dov, d);
+#pragma unroll
+        for (int kk = 0; kk < KPL; ++kk) {
+          dk[kk][d] = fmaf(ds[kk], qd, dk[kk][d]);
+          dv[kk][d] = fmaf(p[kk], o, dv[kk][d]);
+        }
+      }
+    }
+    float acc = 0.f;
+    const int l0 = min(L, 32);
+    for (int j = 0; j < l0; ++j)
+      acc = fmaf(__shfl_sync(0xffffffffu, ds[0], j), s[(size_t)j * D3 + kcol + dl], acc);
+    if (KPL > 1) {
+      for (int j = 32; j < L; ++j)
+        acc = fmaf(__shfl_sync(0xffffffffu, ds[KPL - 1], j - 32), s[(size_t)j * D3 + kcol + dl],
+                   acc);
+    }
+    __syncwarp();  // every lane has read q_i
+    if (lane < hd) qi[lane] = acc * scale;
+  }
+  __syncwarp();  // every lane has read its last k and v values
+#pragma unroll
+  for (int kk = 0; kk < KPL; ++kk) {
+    if (!jin[kk]) continue;
+    float* kr = s + (size_t)jr[kk] * D3 + kcol;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      if (d < hd) {
+        kr[d] = dk[kk][d] * scale;
+        kr[D + d] = dv[kk][d];
+      }
+    }
+  }
+}
+
+template <int HD, bool EXACT, int KPL>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    mhsa_bwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ dout, float* __restrict__ dqkv, int U, int L,
+                        int D, int H, int S, float scale) {
+  extern __shared__ __align__(16) char smem[];
+  const int ns = min(S, U - (int)blockIdx.x * S);
+  float* slab = stage_slab(qkv, ns, S, L, D, smem);
+  uint8_t* smask = reinterpret_cast<uint8_t*>(smem + slab_bytes(S, L, D, 4));
+  for (int i = threadIdx.x; i < ns * L; i += blockDim.x)
+    smask[i] = mask[(size_t)blockIdx.x * S * L + i];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int t = warp; t < ns * H; t += nwarps) {
+    const int sq = t / H;
+    f32_bwd_head<HD, EXACT, KPL>(slab + (size_t)sq * L * 3 * D, smask + sq * L,
+                                 dout + ((size_t)blockIdx.x * S + sq) * L * D, t - sq * H, L, D,
+                                 D / H, scale);
+  }
+  __syncthreads();
+  write_rows(dqkv + (size_t)blockIdx.x * S * L * 3 * D, slab, 1, ns * L * 3 * D);
+}
+
 // ---------------------------------------------------------------- host ---
 
 int num_sms(int dev) {
@@ -587,19 +1105,123 @@ cudaError_t launch_f32(const void* qkv, const uint8_t* mask, void* out, int U, i
   return launch_f32_hd<32, false>(qkv, mask, out, U, L, D, H, dev, stream);
 }
 
+// The backward's launches take the forward's plan (sequences per block,
+// shared memory) with kBwdWarps warps, so that it takes every shape the
+// forward takes: dO is read from global memory, not staged.
+template <int KT, int NT, int HDX, bool PAIR>
+cudaError_t launch_bwd_bf16_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                 void* dqkv, int U, int L, int D, int H, int dev,
+                                 cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_bwd_bf16_kernel<KT, NT, HDX, PAIR>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const Launch p = plan(U, L, D, 2, dev);
+  const int warps = p.S * H < kBwdWarps ? p.S * H : kBwdWarps;
+  const float scale = 1.f / sqrtf((float)(D / H));
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)(D / H));
+  kernel<<<p.blocks, warps * 32, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(dqkv), U, L, D, H, p.S, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void* dout,
+                               void* dqkv, int U, int L, int D, int H, int dev,
+                               cudaStream_t stream) {
+  const int hd = D / H;
+  if (hd == 20 && ((uintptr_t)qkv & 3) == 0 && ((uintptr_t)dout & 3) == 0)
+    return launch_bwd_bf16_inst<KT, 3, 20, true>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  switch ((hd + 7) / 8) {
+    case 1:
+      return launch_bwd_bf16_inst<KT, 1, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 2:
+      return launch_bwd_bf16_inst<KT, 2, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 3:
+      return launch_bwd_bf16_inst<KT, 3, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    default:
+      return launch_bwd_bf16_inst<KT, 4, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  }
+}
+
+cudaError_t launch_bwd_bf16(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_bwd_bf16_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 2: return launch_bwd_bf16_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 3: return launch_bwd_bf16_kt<3>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    default: return launch_bwd_bf16_kt<4>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  }
+}
+
+template <int HD, bool EXACT, int KPL>
+cudaError_t launch_bwd_f32_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                void* dqkv, int U, int L, int D, int H, int dev,
+                                cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_bwd_f32_kernel<HD, EXACT, KPL>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const Launch p = plan(U, L, D, 4, dev);
+  const int warps = p.S * H < kBwdWarps ? p.S * H : kBwdWarps;
+  const float scale = 1.f / sqrtf((float)(D / H));
+  kernel<<<p.blocks, warps * 32, p.smem, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<const float*>(dout),
+      static_cast<float*>(dqkv), U, L, D, H, p.S, scale);
+  return cudaGetLastError();
+}
+
+template <int HD, bool EXACT>
+cudaError_t launch_bwd_f32_hd(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                              int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  if (L <= 32)
+    return launch_bwd_f32_inst<HD, EXACT, 1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  return launch_bwd_f32_inst<HD, EXACT, 2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+}
+
+cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                           int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  const int hd = D / H;
+  if (hd == 20) return launch_bwd_f32_hd<20, true>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  if (hd <= 8) return launch_bwd_f32_hd<8, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  if (hd <= 16)
+    return launch_bwd_f32_hd<16, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  return launch_bwd_f32_hd<32, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+}
+
+// The arguments both entry points take; 0 if the kernels take them.
+int check_args(int U, int L, int D, int H, int dtype) {
+  if (U <= 0 || L <= 0 || L > kMaxLen || H <= 0 || D % H != 0 || D / H > kMaxHeadDim ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes(1, L, D, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out, int U, int L,
                             int D, int H, int dtype, void* stream) {
-  if (U <= 0 || L <= 0 || L > kMaxLen || H <= 0 || D % H != 0 || D / H > kMaxHeadDim ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const int es = dtype == 0 ? 4 : 2;
-  if (smem_bytes(1, L, D, es) > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const int bad = check_args(U, L, D, H, dtype);
+  if (bad) return bad;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, dev, s);
   return (int)launch_bf16(qkv, mask, out, U, L, D, H, dev, s);
+}
+
+extern "C" int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            int U, int L, int D, int H, int dtype, void* stream) {
+  const int bad = check_args(U, L, D, H, dtype);
+  if (bad) return bad;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
+  return (int)launch_bwd_bf16(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
 }

@@ -29,16 +29,21 @@ two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
-``profile_train.py``), in bfloat16 and float32: ``FusedSmallMHSA`` (the
-kernel, then ``mhsa_backward``'s tensor ops), ``mhsa_backward`` alone
-(``bwd_ms``), autograd of ``mhsa_plain`` (``plain_ms``) and SDPA with the
-efficient backend forced, forward + backward (``library_ms``), each as
-``torch.autograd.grad`` of the output against a fixed output gradient.
-The output is held against ``mhsa_plain`` and the gradient against
-autograd of it (same tolerances; ``fwd_max_abs_err``, ``max_abs_err``).
-The bound counts qkv, the mask and the context once each way plus the
-output gradient and dqkv, and the products of the forward (q.k, p.v) and
-of the backward (dP, dQ, dK, dV): 12 U H L^2 hd operations.
+``profile_train.py``), in bfloat16 and float32.  The output is held against
+``mhsa_plain`` and the gradient against autograd of it (same tolerances;
+``fwd_max_abs_err``, ``max_abs_err``).  Forward + backward, each as
+``torch.autograd.grad`` of the output against a fixed output gradient:
+``FusedSmallMHSA`` (the forward kernel, then the backward kernel; ``ms``),
+autograd of ``mhsa_plain`` (``plain_ms``) and SDPA with the efficient
+backend forced (``library_ms``).  The backward alone: the backward kernel
+(``bwd_ms``) and ``mhsa_backward``, its plain version (``plain_bwd_ms``),
+timed in turns (kernel, plain, plain, kernel), and SDPA's backward on a
+saved forward (``library_bwd_ms``).  ``bound_ms`` counts qkv, the mask and
+the context once each way plus the output gradient and dqkv, and the
+products of the forward (q.k, p.v) and of the backward (dP, dQ, dK, dV):
+12 U H L^2 hd operations.  ``bwd_bound_ms`` is the backward alone's: qkv,
+the mask and dO read, dqkv written, and q.k recomputed with the four
+backward products, 10 U H L^2 hd operations.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
 point), checks it the same way and times it in turns with the kernel
@@ -103,15 +108,18 @@ def mhsa_inputs(u, l, dtype, seed):
     return qkv, mask.contiguous()
 
 
-def bound(u, l, name, backward=False) -> tuple:
+def bound(u, l, name, part="forward") -> tuple:
     """(least ms on the card, "bytes" or "operations") for the attention of
-    (U, L) in type ``name``, forward only or forward + backward."""
+    (U, L) in type ``name``: its ``"forward"``, its ``"backward"`` alone or
+    ``"both"`` (see module doc)."""
     es = 4 if name == "float32" else 2
-    nbytes = u * l * 3 * D * es + u * l + u * l * D * es
-    flops = 2 * 2 * u * H * l * l * (D // H)
-    if backward:  # read qkv, mask and dO, write dqkv; dP, dQ, dK, dV products
-        nbytes += u * l * (3 * D + D + 3 * D) * es + u * l
-        flops *= 3
+    qkv, ctx, mask = u * l * 3 * D * es, u * l * D * es, u * l
+    product = 2 * u * H * l * l * (D // H)  # operations of one (L, L) x (L, hd) product
+    nbytes, flops = {
+        "forward": (qkv + mask + ctx, 2 * product),
+        "backward": (qkv + mask + ctx + qkv, 5 * product),
+        "both": (2 * (qkv + mask + ctx) + qkv, 6 * product),
+    }[part]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -264,9 +272,11 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
     return rec
 
 
-def sdpa_grad_call(qkv, mask, num_heads, grad_out):
+def sdpa_grad_call(qkv, mask, num_heads, grad_out, backward_only=False):
     """SDPA forward + backward (efficient backend forced) on the layout of
-    ``sdpa_call``, as one call returning (dq, dk, dv)."""
+    ``sdpa_call``, as one call returning (dq, dk, dv); with
+    ``backward_only``, the forward runs once here and the call is its
+    backward alone."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -279,12 +289,14 @@ def sdpa_grad_call(qkv, mask, num_heads, grad_out):
     m = mask[:, None, None, :]
     scale = 1.0 / math.sqrt(hd)
 
-    def call():
+    def forward():
         with sdpa_kernel(getattr(SDPBackend, LIBRARY_BACKEND)):
-            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
-        return torch.autograd.grad(out, (q, k, v), g)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
 
-    return call
+    if backward_only:
+        out = forward()
+        return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    return lambda: torch.autograd.grad(forward(), (q, k, v), g)
 
 
 def _fused_grad(x, mask, grad_out):
@@ -301,12 +313,14 @@ def _plain_grad(x, mask, grad_out):
     return torch.autograd.grad(mhsa_plain(x, mask, H), x, grad_out)[0]
 
 
-def check_backward(u, l, dtype):
+def check_backward(u, l, dtype, backward=None):
     """Hold ``FusedSmallMHSA`` at (U, L) against the plain version with a
-    random output gradient: its output (the kernel's) against ``mhsa_plain``
-    and its gradient (``mhsa_backward``) against autograd of ``mhsa_plain``,
-    each within ATOL + RTOL * |plain|.  Returns ``(max abs output err,
-    max abs gradient err, (qkv, mask, grad_out))``."""
+    random output gradient: its output (the forward kernel's) against
+    ``mhsa_plain`` and its gradient (the backward kernel's) against autograd
+    of ``mhsa_plain``, each within ATOL + RTOL * |plain|.  ``backward(qkv,
+    mask, num_heads, grad_out)``, when given, stands in for the gradient (a
+    planted fault, to show that the check can fail).  Returns ``(max abs
+    output err, max abs gradient err, (qkv, mask, grad_out))``."""
     from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA, mhsa_plain
 
     name = dtype_name(dtype)
@@ -315,12 +329,12 @@ def check_backward(u, l, dtype):
                     device="cuda").to(dtype)
     x = qkv.detach().requires_grad_(True)
     out = FusedSmallMHSA.apply(x, mask, H)
-    got = torch.autograd.grad(out, x, g)[0].float()
+    got = torch.autograd.grad(out, x, g)[0] if backward is None else backward(qkv, mask, H, g)
     want = _plain_grad(qkv, mask, g).float()
     want_out = mhsa_plain(qkv, mask, H).float()
     torch.cuda.synchronize()
     errs = []
-    for what, a, b in (("output", out.detach().float(), want_out), ("gradient", got, want)):
+    for what, a, b in (("output", out.detach().float(), want_out), ("gradient", got.float(), want)):
         err = (a - b).abs()
         if not bool(torch.isfinite(a).all()) or not bool(
                 (err <= ATOL[name] + RTOL[name] * b.abs()).all()):
@@ -331,10 +345,9 @@ def check_backward(u, l, dtype):
 
 
 def measure_backward(u, l, dtype) -> dict:
-    """Forward + backward at (U, L): ``check_backward``, then the times of
-    ``FusedSmallMHSA``, its backward alone, the plain version and SDPA (see
-    module doc)."""
-    from newsreclib_tpu_torch.ops.mhsa import mhsa_backward
+    """Forward + backward and the backward alone at (U, L):
+    ``check_backward``, then the times of the module doc."""
+    from newsreclib_tpu_torch.ops.mhsa import _backward, mhsa_backward
 
     fwd_err, err, (qkv, mask, g) = check_backward(u, l, dtype)
     rec = dict(U=u, L=l, dtype=dtype_name(dtype), max_abs_err=err, fwd_max_abs_err=fwd_err)
@@ -343,15 +356,25 @@ def measure_backward(u, l, dtype) -> dict:
     runs = [device_ms(lambda i: _fused_grad(*sets[i % n])) for _ in range(2)]
     rec["ms"], rec["ms_runs"] = sum(runs) / 2, runs
     rec["event_ms"] = event_ms(lambda i: _fused_grad(*sets[i % n]))
-    rec["bwd_ms"] = device_ms(lambda i: mhsa_backward(sets[i % n][0], sets[i % n][1], H,
-                                                      sets[i % n][2]))
+    backward = {"kernel": lambda i: _backward(sets[i % n][0], sets[i % n][1], H, sets[i % n][2]),
+                "plain": lambda i: mhsa_backward(sets[i % n][0], sets[i % n][1], H,
+                                                 sets[i % n][2])}
+    times = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        times[name].append(device_ms(backward[name]))
+    rec["bwd_ms"], rec["bwd_ms_runs"] = sum(times["kernel"]) / 2, times["kernel"]
+    rec["plain_bwd_ms"], rec["plain_bwd_ms_runs"] = sum(times["plain"]) / 2, times["plain"]
+    rec["bwd_event_ms"] = event_ms(backward["kernel"])
     rec["plain_ms"] = device_ms(lambda i: _plain_grad(*sets[i % n]))
-    calls = [sdpa_grad_call(x, m, H, go) for x, m, go in sets]
-    calls[0]()
-    torch.cuda.synchronize()
-    rec["library_ms"] = device_ms(lambda i: calls[i % n]())
+    for key, only in (("library_ms", False), ("library_bwd_ms", True)):
+        calls = [sdpa_grad_call(x, m, H, go, backward_only=only) for x, m, go in sets]
+        calls[0]()
+        torch.cuda.synchronize()
+        rec[key] = device_ms(lambda i: calls[i % n]())
+        del calls
     rec["library_backend"] = LIBRARY_BACKEND
-    rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], backward=True)
+    rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], "both")
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(u, l, rec["dtype"], "backward")
     rec["rotated_sets"] = n
     return rec
 
@@ -394,8 +417,10 @@ def main(argv=None) -> int:
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
-    cols = ["U", "L", "dtype", "ms", "bwd_ms" if args.backward else "baseline_ms", "bound_ms",
-            "plain_ms", "library_ms", "event_ms", "max_abs_err"]
+    cols = ["U", "L", "dtype", "ms", "bound_ms", "plain_ms", "library_ms", "event_ms",
+            "max_abs_err"]
+    cols[4:4] = (["bwd_ms", "bwd_bound_ms", "plain_bwd_ms", "library_bwd_ms"] if args.backward
+                 else ["baseline_ms"])
     print(" | ".join(cols))
     for r in records:
         print(" | ".join(str(r.get(c, "")) for c in cols))

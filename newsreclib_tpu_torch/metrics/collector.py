@@ -20,18 +20,20 @@ class RankingMetrics:
         self.num_categ_classes = num_categ_classes
         self.num_sent_classes = num_sent_classes
 
-    def metric_names(self, with_categ: bool = True, with_sent: bool = True) -> List[str]:
+    def metric_names(self, with_categ: bool = True, with_sent: bool = True,
+                     with_hist: bool = True) -> List[str]:
         """Key list of ``per_impression``'s output when the aspects it names
-        are given for candidates and history."""
+        are given for the candidates and, with ``with_hist``, for the
+        history (the personalization metrics need both)."""
         ks = self.top_k_list
         names = ["mrr"] + [f"ndcg@{k}" for k in ks]
         if with_categ:
             names += [f"categ_div@{k}" for k in ks]
         if with_sent:
             names += [f"sent_div@{k}" for k in ks]
-        if with_categ:
+        if with_categ and with_hist:
             names += [f"categ_pers@{k}" for k in ks]
-        if with_sent:
+        if with_sent and with_hist:
             names += [f"sent_pers@{k}" for k in ks]
         return names
 

@@ -14,9 +14,12 @@ finite logit -1e30, so fully masked rows come out finite (uniform softmax);
 rows at masked query positions hold values the caller zeroes.
 
 ``FusedSmallMHSA`` makes the kernel differentiable: its forward is
-``fused_small_mhsa`` and its backward recomputes the probabilities from the
-saved qkv in float32 with tensor ops (the JAX package trains through XLA
-autodiff of the plain attention and has no backward kernel either).
+``fused_small_mhsa`` and its backward ``_backward``, which on a CUDA tensor
+launches the hand-written backward kernel (``nrl_mhsa_bwd`` in
+``csrc/mhsa.cu``: P recomputed from the saved qkv, dqkv in one launch) and
+on a CPU tensor runs ``mhsa_backward``, the same gradient in plain PyTorch.
+The JAX package trains through XLA autodiff of the plain attention
+(``jax.grad`` of ``mhsa_reference``), which both match.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ MAX_HEAD_DIM = 32
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset; the CPU path does not count.
+# Launches of the forward and of the backward kernel since the last reset;
+# the CPU path counts neither.
 launches = 0
+bwd_launches = 0
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -125,12 +130,8 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
 
 
-def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
-    global launches
-    _check(qkv, mask, num_heads)
-    if qkv.device.type == "cpu":
-        return mhsa_plain(qkv, mask, num_heads)
+def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
+    """Raise unless the CUDA kernels take ``qkv`` (checked input, not on the CPU)."""
     u, l, d3 = qkv.shape
     if not kernel_supports(l, d3 // 3, num_heads, qkv.dtype):
         raise ValueError(
@@ -139,24 +140,68 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Ten
             "sequence's slab within a block's shared memory (kernel_supports)")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
+
+
+def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
+    global launches
+    _check(qkv, mask, num_heads)
+    if qkv.device.type == "cpu":
+        return mhsa_plain(qkv, mask, num_heads)
+    _require_kernel(qkv, num_heads)
+    u, l, d3 = qkv.shape
     out = torch.empty((u, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     if u == 0:
         return out
-    fn = _kernel()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), u, l, d3 // 3,
-                num_heads, _DTYPES[qkv.dtype], stream)
+        rc = _kernel("nrl_mhsa_fwd")(qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), u, l,
+                                     d3 // 3, num_heads, _DTYPES[qkv.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_fwd launch failed: cudaError {rc}")
     launches += 1
     return out
 
 
+def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+              grad_out: torch.Tensor) -> torch.Tensor:
+    """The checked backward, d(loss)/d(qkv) given d(loss)/d(context):
+    ``mhsa_backward`` on the CPU, the backward kernel elsewhere.  ``grad_out``
+    may be any layout (autograd hands over expanded or strided ones); it is
+    made contiguous here."""
+    global bwd_launches
+    _check(qkv, mask, num_heads)
+    u, l, d3 = qkv.shape
+    if grad_out.shape != (u, l, d3 // 3):
+        raise ValueError(f"grad_out must be (U, L, D) = {(u, l, d3 // 3)}, "
+                         f"got {tuple(grad_out.shape)}")
+    if grad_out.dtype != qkv.dtype:
+        raise TypeError(f"grad_out is {grad_out.dtype} but qkv is {qkv.dtype}")
+    if grad_out.device != qkv.device:
+        raise ValueError(f"qkv on {qkv.device} but grad_out on {grad_out.device}")
+    grad_out = grad_out.contiguous()
+    if qkv.device.type == "cpu":
+        return mhsa_backward(qkv, mask, num_heads, grad_out)
+    _require_kernel(qkv, num_heads)
+    dqkv = torch.empty_like(qkv)
+    if u == 0:
+        return dqkv
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel("nrl_mhsa_bwd")(qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(),
+                                     dqkv.data_ptr(), u, l, d3 // 3, num_heads,
+                                     _DTYPES[qkv.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"nrl_mhsa_bwd launch failed: cudaError {rc}")
+    bwd_launches += 1
+    return dqkv
+
+
 class FusedSmallMHSA(torch.autograd.Function):
     """``fused_small_mhsa`` with a gradient: the forward launches the kernel
-    (``mhsa_plain`` on the CPU) and saves qkv and the mask; the backward is
-    ``mhsa_backward``.  The mask and the head count get no gradient."""
+    (``mhsa_plain`` on the CPU) and saves qkv and the mask; the backward
+    launches the backward kernel (``mhsa_backward`` on the CPU).  The mask
+    and the head count get no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, mask, num_heads):
@@ -167,7 +212,7 @@ class FusedSmallMHSA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         qkv, mask = ctx.saved_tensors
-        return mhsa_backward(qkv, mask, ctx.num_heads, grad_out), None, None
+        return _backward(qkv, mask, ctx.num_heads, grad_out), None, None
 
 
 def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -176,11 +221,18 @@ def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> t
     return FusedSmallMHSA.apply(qkv, mask, num_heads)
 
 
-def _kernel():
+# ctypes argument types of the C entry points (csrc/mhsa.cu)
+_SIGNATURES = {
+    "nrl_mhsa_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "nrl_mhsa_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
+
+
+def _kernel(name: str):
     from newsreclib_tpu_torch.ops.build import load_library
 
-    fn = load_library("mhsa").nrl_mhsa_fwd
+    fn = getattr(load_library("mhsa"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn

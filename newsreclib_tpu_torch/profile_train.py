@@ -27,10 +27,11 @@ For each, after 5 warm-up steps, one JSON line with:
   copies) per step, device busy time per step and its share of the
   profiled and of the unprofiled step, device time of the forward, the
   backward (the kernels of the ``autograd::engine`` ranges) and the Adam
-  update, of the attention kernel and of its backward (the range of the
-  ``FusedSmallMHSABackward`` node), the kernels that took the most device
-  time and the host operations that took the most host time;
-* ``attention_launches_per_step``: the kernel's launch count per step.
+  update, of the attention's forward kernel, of its backward kernel and of
+  the whole ``FusedSmallMHSABackward`` node, the kernels that took the most
+  device time and the host operations that took the most host time;
+* ``attention_launches_per_step`` / ``attention_bwd_launches_per_step``:
+  the forward and backward kernels' launch counts per step.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -70,8 +71,9 @@ def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
 
 
 def attention_launches(batch) -> int:
-    """Kernel launches of one NRMS train step on ``batch``: one per news
-    segment and one for the user encoder (the backward launches none)."""
+    """Attention kernel launches of one NRMS train step on ``batch``, each
+    of the forward and of the backward kernel: one per news segment and one
+    for the user encoder."""
     return 2 + (batch.news2 is not None)
 
 
@@ -110,7 +112,10 @@ def _device_breakdown(prof, steps: int) -> dict:
                 attention_bwd_us += kernel_us(e)
         elif e.name.startswith("Optimizer.step#"):
             adam_us += kernel_us(e)
-    attention_fwd_us = sum(e.self_device_time_total for e in kernels if "mhsa_" in e.key)
+    attention_bwd_kernel_us = sum(e.self_device_time_total for e in kernels
+                                  if "mhsa_bwd_" in e.key)
+    attention_fwd_us = sum(e.self_device_time_total for e in kernels
+                           if "mhsa_" in e.key) - attention_bwd_kernel_us
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     host = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
@@ -122,6 +127,7 @@ def _device_breakdown(prof, steps: int) -> dict:
         "adam_ms": per(adam_us),
         "attention_fwd_kernel_ms": per(attention_fwd_us),
         "attention_bwd_ms": per(attention_bwd_us),
+        "attention_bwd_kernel_ms": per(attention_bwd_kernel_us),
         "cuda_events_per_step": sum(e.count for e in kernels) / steps,
         "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
                          "device_ms_per_step": per(e.self_device_time_total)} for e in top],
@@ -152,12 +158,13 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
 
     timed = dev[WARMUP:WARMUP + steps]
     torch.cuda.reset_peak_memory_stats()
-    mhsa.launches = 0
+    mhsa.launches = mhsa.bwd_launches = 0
     kernel_s = [_sync_s(lambda: [step(state, b) for b in timed]) / steps]
-    launches = mhsa.launches
+    launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
     expected = sum(attention_launches(b) for b in timed)
-    if launches != expected:
-        raise AssertionError(f"{launches} kernel launches ({expected} expected)")
+    if launches != expected or bwd_launches != expected:
+        raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
+                             f"({expected} each expected)")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     plain_s = [_sync_s(lambda: [plain_step(plain_state, b) for b in timed]) / steps
                for _ in range(2)]
@@ -193,6 +200,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
         "loop_impressions_per_s": batch_size / loop_s,
         "peak_mem_mb": peak_mb,
         "attention_launches_per_step": launches / steps,
+        "attention_bwd_launches_per_step": bwd_launches / steps,
         "profile": {"wall_ms_per_step": wall_s * 1e3 / steps,
                     "device_busy_share_profiled": busy_ms / (wall_s * 1e3 / steps),
                     "device_busy_share_unprofiled": busy_ms / (step_s * 1e3),

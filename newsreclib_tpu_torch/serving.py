@@ -33,20 +33,22 @@ SPLIT_TITLE_LEN = 16  # title width of the short-title bucket of the corpus enco
 
 
 def corpus_segments(store: NewsStore, split_title_len: Optional[int] = SPLIT_TITLE_LEN,
-                    batch_size: int = 4096) -> List[Tuple[np.ndarray, int]]:
+                    batch_size: int = 4096, margin: int = 0) -> List[Tuple[np.ndarray, int]]:
     """``[(rows, title_width), ...]``: the length-bucketed corpus encode.
 
-    Rows whose title has at most ``split_title_len`` tokens are encoded at
-    that width, the others at full width, when the short rows fill at least
-    one chunk and a quarter of the corpus (the rule of
-    ``newsreclib_tpu/serving.py:180-186``); otherwise all rows at full
+    Rows whose title has at most ``split_title_len - margin`` tokens are
+    encoded at width ``split_title_len``, the others at full width, when the
+    short rows fill at least one chunk and a quarter of the corpus (the rule
+    of ``newsreclib_tpu/serving.py:152,181-186``); otherwise all rows at full
     width.  Exact: pad tokens embed to hard zeros and are masked keys.
+    ``margin`` is the model's ``TITLE_SPLIT_MARGIN``, the headroom its text
+    encoder needs past the last token (0 for NRMS).
     """
     n, l_full = store.title.shape
     if split_title_len is not None and l_full > split_title_len:
         lens = (store.title != 0).sum(axis=1)
-        short_rows = np.nonzero(lens <= split_title_len)[0]
-        long_rows = np.nonzero(lens > split_title_len)[0]
+        short_rows = np.nonzero(lens <= split_title_len - margin)[0]
+        long_rows = np.nonzero(lens > split_title_len - margin)[0]
         if len(short_rows) >= batch_size and len(short_rows) >= n // 4:
             parts = [(short_rows, split_title_len)]
             if len(long_rows):
@@ -56,11 +58,11 @@ def corpus_segments(store: NewsStore, split_title_len: Optional[int] = SPLIT_TIT
 
 
 def _corpus_on_device(store: NewsStore, batch_size: int, split_title_len: Optional[int],
-                      device: torch.device) -> list:
+                      margin: int, device: torch.device) -> list:
     """``[(rows, [title chunk, ...]), ...]``: the segments' title tokens on
     ``device`` in chunks of at most ``batch_size`` rows."""
     parts = []
-    for rows, width in corpus_segments(store, split_title_len, batch_size):
+    for rows, width in corpus_segments(store, split_title_len, batch_size, margin):
         title = torch.from_numpy(np.ascontiguousarray(store.title[rows, :width])).to(device)
         parts.append((torch.from_numpy(rows).to(device), title.split(batch_size)))
     return parts
@@ -79,6 +81,10 @@ def _encode_corpus(model, n_rows: int, parts: list, dtype: Optional[torch.dtype]
     return table
 
 
+def _split_margin(model) -> int:
+    return getattr(model, "TITLE_SPLIT_MARGIN", 0)
+
+
 @torch.inference_mode()
 def build_news_vector_table(
     model,
@@ -94,9 +100,11 @@ def build_news_vector_table(
 
     ``model`` must already lie on ``device``.  Short and long titles are
     encoded in separate chunks of at most ``batch_size`` rows (see
-    ``corpus_segments``) and scattered back into row order.
+    ``corpus_segments``, with the model's ``TITLE_SPLIT_MARGIN``) and
+    scattered back into row order.
     """
-    parts = _corpus_on_device(store, batch_size, split_title_len, resolve_device(device))
+    parts = _corpus_on_device(store, batch_size, split_title_len, _split_margin(model),
+                              resolve_device(device))
     return _encode_corpus(model, store.title.shape[0], parts, dtype)
 
 
@@ -107,14 +115,18 @@ class CachedScorer:
 
     ``compute_dtype`` (e.g. ``"bfloat16"``): parameters and the news-vector
     table in that type, metrics in float32, as the JAX scorer's.
+    ``split_title_len``: the width of the short-title bucket of the corpus
+    encode, or None for one bucket at full width (``corpus_segments``).
     """
 
     def __init__(self, model, ranking: Optional[RankingMetrics] = None,
                  compute_dtype: Optional[Union[str, torch.dtype]] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 split_title_len: Optional[int] = SPLIT_TITLE_LEN):
         self.device = resolve_device(device)
         self.model = model
         self.ranking = ranking or RankingMetrics()
+        self.split_title_len = split_title_len
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
         self.compute_dtype = compute_dtype
@@ -150,9 +162,10 @@ class CachedScorer:
         was_training = model.training
         model.eval()
         try:
+            split, margin = self.split_title_len, _split_margin(model)
             parts, categ, sent = self._cached(
-                ("corpus", id(store), encode_batch), store, lambda: (
-                    _corpus_on_device(store, encode_batch, SPLIT_TITLE_LEN, self.device),
+                ("corpus", id(store), encode_batch, split, margin), store, lambda: (
+                    _corpus_on_device(store, encode_batch, split, margin, self.device),
                     self._on_device(store.category), self._on_device(store.sentiment),
                 ),
             )

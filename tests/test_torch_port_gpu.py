@@ -1,7 +1,8 @@
 """Card tests of the port: the CUDA attention kernel against its plain
-version, its gradient (``FusedSmallMHSA``) against autograd of the plain
-version, the NRMS serving path and train step with the kernel against the
-same paths with the plain attention.  They need an NVIDIA card and skip without one;
+version, the backward kernel against ``mhsa_backward`` and autograd of the
+plain version, ``FusedSmallMHSA``'s gradient, the NRMS serving path and
+train step with the kernels against the same paths with the plain
+attention.  They need an NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
@@ -230,3 +231,114 @@ def test_train_step_kernel_route_matches_plain_route(cuda, compute_dtype, tol):
         losses[route] = [step(state, b)[1]["loss"].item() for b in batches]
         assert mhsa.launches == before + (2 * len(batches) if route == "kernel" else 0)
     np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=tol, rtol=0)
+
+
+# The backward kernel.  Every NRMS training shape (kernel_bench.TRAIN_SHAPES),
+# L = 1, 15 and 64, other head dims, and the edges of kernel_supports: f32
+# (64, 50) and an f32 slab of 230,400 bytes at (L, D) = (64, 300), a bf16
+# one at (64, 600) with 20 heads of 30.
+BACKWARD_SHAPES = [(3584, 16, 300, 15), (1792, 16, 300, 15), (512, 30, 300, 15),
+                   (256, 30, 300, 15), (64, 50, 300, 15), (7168, 16, 300, 15),
+                   (1024, 30, 300, 15), (256, 50, 300, 15), (9, 1, 300, 15), (33, 15, 300, 15),
+                   (20, 64, 300, 15), (50, 17, 24, 4), (50, 33, 32, 4), (20, 64, 96, 3),
+                   (3, 64, 300, 15), (3, 64, 600, 20)]
+
+
+def _grad_out(u, l, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(u, l, d)).astype(np.float32)).to(dtype).cuda()
+
+
+def _check_backward(qkv, mask, h, grad_out):
+    """The backward kernel (one launch) against ``mhsa_backward`` and
+    against autograd of ``mhsa_plain``, on the same inputs."""
+    before = mhsa.bwd_launches
+    got = mhsa._backward(qkv, mask, h, grad_out)
+    torch.cuda.synchronize()
+    assert mhsa.bwd_launches == before + 1
+    assert got.shape == qkv.shape and got.dtype == qkv.dtype and torch.isfinite(got).all()
+    want = mhsa.mhsa_backward(qkv, mask, h, grad_out)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[qkv.dtype])
+    x = qkv.detach().clone().requires_grad_(True)
+    want = torch.autograd.grad(mhsa.mhsa_plain(x, mask, h), x, grad_out)[0]
+    torch.testing.assert_close(got.float(), want.float(), **TOL[qkv.dtype])
+    return got
+
+
+@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("u,l,d,h,dtype", [
+    (*shape, dtype) for shape in BACKWARD_SHAPES for dtype in (torch.float32, torch.bfloat16)
+    if mhsa.kernel_supports(*shape[1:], dtype)])  # (64, 600) is a bf16-only edge
+def test_backward_kernel_matches_plain(cuda, u, l, d, h, dtype, masking):
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 7 + l, masking=masking)
+    _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [16, 30, 50])
+def test_backward_kernel_masked_rows(cuda, l, dtype):
+    """Fully masked sequences get dQ = dK = 0 and dV = the mean of dO over
+    their L rows; masked query rows carry a zero dO, as the caller's
+    zeroing gives them."""
+    u, d = 70, 300
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=l, masking="random")
+    empty = ~mask.any(dim=1)
+    grad_out = _grad_out(u, l, d, dtype, seed=l + 1) * (mask | empty[:, None])[..., None]
+    got = _check_backward(qkv, mask, 15, grad_out)
+    assert empty.sum() >= 10
+    assert bool((got[empty][..., :2 * d] == 0).all())
+    mean = grad_out[empty].float().mean(dim=1, keepdim=True).expand(-1, l, -1)
+    torch.testing.assert_close(got[empty][..., 2 * d:].float(), mean, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l", [(6, 16), (5, 49), (4, 1)])
+def test_backward_kernel_on_unaligned_storage(cuda, u, l, dtype):
+    """qkv and dO that start off a 16-byte (and a 4-byte) boundary."""
+    base, mask = _edge_inputs(u, l, 300, dtype, seed=l, masking="random")
+    go_base = _grad_out(u, l, 300, dtype, seed=3)
+    for shift in (1, 3):
+        buf = torch.zeros(base.numel() + shift, dtype=dtype, device=base.device)
+        qkv = buf[shift:].view(base.shape)
+        qkv.copy_(base)
+        gbuf = torch.zeros(go_base.numel() + shift, dtype=dtype, device=base.device)
+        grad_out = gbuf[shift:].view(go_base.shape)
+        grad_out.copy_(go_base)
+        _check_backward(qkv, mask, 15, grad_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_takes_expanded_and_strided_grad_out(cuda, dtype):
+    """``out.sum().backward()`` hands over an expanded (stride 0) dO, and a
+    strided one goes in as it is: both are made contiguous first."""
+    qkv, mask = _edge_inputs(40, 30, 300, dtype, seed=5, masking="prefix")
+    x = qkv.clone().requires_grad_(True)
+    before = mhsa.bwd_launches
+    mhsa.FusedSmallMHSA.apply(x, mask, 15).sum().backward()
+    assert mhsa.bwd_launches == before + 1
+    want = mhsa.mhsa_backward(qkv, mask, 15, torch.ones_like(qkv[..., :300]))
+    torch.testing.assert_close(x.grad.float(), want.float(), **TOL[dtype])
+    strided = _grad_out(30, 40, 300, dtype, seed=6).transpose(0, 1)
+    got = mhsa._backward(qkv, mask, 15, strided)
+    want = mhsa.mhsa_backward(qkv, mask, 15, strided.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_backward_kernel_with_no_sequences(cuda):
+    qkv = torch.zeros((0, 16, 900), device=cuda)
+    mask = torch.zeros((0, 16), dtype=torch.bool, device=cuda)
+    got = mhsa._backward(qkv, mask, 15, torch.zeros((0, 16, 300), device=cuda))
+    assert got.shape == (0, 16, 900)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_is_deterministic(cuda, dtype):
+    """No atomics: two runs give the same bits, one launch each."""
+    qkv, mask = _edge_inputs(1001, 30, 300, dtype, seed=8, masking="random")
+    grad_out = _grad_out(1001, 30, 300, dtype, seed=9)
+    before = mhsa.bwd_launches
+    a = mhsa._backward(qkv, mask, 15, grad_out)
+    b = mhsa._backward(qkv, mask, 15, grad_out)
+    torch.cuda.synchronize()
+    assert mhsa.bwd_launches == before + 2
+    assert torch.equal(a, b)

@@ -101,3 +101,14 @@ def test_ranking_metrics_per_impression(with_aspects):
     assert list(got) == list(want) == tr.metric_names(with_aspects, with_aspects)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("with_hist", [True, False])
+@pytest.mark.parametrize("with_sent", [True, False])
+@pytest.mark.parametrize("with_categ", [True, False])
+def test_metric_names_match_jax(with_categ, with_sent, with_hist):
+    """The same ``metric_names`` call into both packages: the personalization
+    names only where the history's aspects are given too."""
+    args = dict(with_categ=with_categ, with_sent=with_sent, with_hist=with_hist)
+    want = JRankingMetrics(top_k_list=(3, 7)).metric_names(**args)
+    assert RankingMetrics(top_k_list=(3, 7)).metric_names(**args) == want

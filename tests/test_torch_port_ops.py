@@ -269,3 +269,72 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setenv("PATH", "")
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
+
+
+@pytest.mark.parametrize("layout", ["expanded", "transposed", "sliced"])
+def test_fused_backward_takes_any_grad_out_layout(layout):
+    """Autograd can hand the backward an expanded (stride 0, from
+    ``out.sum().backward()``) or strided output gradient: the gradient
+    equals ``jax.vjp`` of ``mhsa_reference`` with the same cotangent, and
+    the CPU route counts no backward launch."""
+    import jax
+
+    u, l, d, h = 5, 17, 60, 3
+    qkv, mask = _inputs(u, l, d, seed=41)
+    mask[2] = False
+    rng = np.random.default_rng(42)
+    if layout == "expanded":
+        ct = np.ones((u, l, d), dtype=np.float32)
+        grad_out = torch.ones(()).expand(u, l, d)
+    elif layout == "transposed":
+        ct = rng.normal(size=(u, l, d)).astype(np.float32)
+        grad_out = torch.from_numpy(np.ascontiguousarray(ct.transpose(1, 0, 2))).transpose(0, 1)
+    else:
+        ct = rng.normal(size=(u, l, d)).astype(np.float32)
+        wide = np.zeros((u, l, 2 * d), dtype=np.float32)
+        wide[..., ::2] = ct
+        grad_out = torch.from_numpy(wide)[..., ::2]
+    assert not grad_out.is_contiguous()
+    _, vjp = jax.vjp(lambda x: mhsa_reference(x, jnp.asarray(mask), h), jnp.asarray(qkv))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = mhsa.FusedSmallMHSA.apply(x, torch.from_numpy(mask), h)
+    before = mhsa.bwd_launches
+    if layout == "expanded":
+        out.sum().backward()
+    else:
+        out.backward(grad_out)
+    assert mhsa.bwd_launches == before
+    np.testing.assert_allclose(x.grad.numpy(), want, **TOL)
+
+
+def _bad_grad_outs():
+    qkv, mask = (torch.from_numpy(a) for a in _inputs(2, 16, 60, seed=0))
+    return qkv, mask, {
+        "shape": torch.zeros(2, 16, 61),
+        "rank": torch.zeros(2, 16 * 60),
+        "dtype": torch.zeros(2, 16, 60, dtype=torch.float64),
+        "bf16_for_f32": torch.zeros(2, 16, 60, dtype=torch.bfloat16),
+        "device": torch.zeros(2, 16, 60, device="meta"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_grad_outs()[2]))
+def test_backward_raises_on_a_wrong_grad_out(case):
+    qkv, mask, bad = _bad_grad_outs()
+    before = mhsa.bwd_launches
+    with pytest.raises((ValueError, TypeError)):
+        mhsa._backward(qkv, mask, 3, bad[case])
+    assert mhsa.bwd_launches == before
+
+
+def test_backward_raises_off_the_cpu_where_the_kernel_does_not_go():
+    """On a device other than the CPU (a meta tensor stands for the card)
+    the backward takes the kernel's shape rule, as the forward does."""
+    qkv = torch.zeros(2, 65, 900, device="meta")
+    mask = torch.ones(2, 65, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="kernel does not take"):
+        mhsa._backward(qkv, mask, 15, torch.zeros(2, 65, 300, device="meta"))
+    qkv, mask = qkv[:, :16].contiguous(), mask[:, :16].contiguous()
+    with pytest.raises(ValueError, match="no kernel for device"):
+        mhsa._backward(qkv, mask, 15, torch.zeros(2, 16, 300, device="meta"))

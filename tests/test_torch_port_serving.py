@@ -8,6 +8,8 @@ another order) and 1e-4 on the epoch metrics, which are means of
 per-impression values over float32 sums.
 """
 
+import copy
+
 import jax
 import numpy as np
 import pytest
@@ -127,3 +129,78 @@ def test_entry_points_refuse_to_fall_back_to_cpu(workload):
         CachedScorer(tm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_news_vector_table(tm, store)
+
+
+class _JNRMSWithMargin(JNRMS):
+    """The JAX NRMS declaring a title-split margin, as DKN does."""
+
+    TITLE_SPLIT_MARGIN = 4
+
+
+def _jax_segments(cache, jstore, batch_size, split):
+    """The JAX corpus encode's ``[(rows, title_width), ...]``, read from its
+    corpus cache after a call."""
+    _, parts = cache[(id(jstore), batch_size, None, split)]
+    return [(np.asarray(rows), int(st.title.shape[-1])) for rows, st in parts]
+
+
+def _record_segments(monkeypatch):
+    """Record every ``corpus_segments`` result the port's serving computes."""
+    from newsreclib_tpu_torch import serving
+
+    seen, real = [], serving.corpus_segments
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append([(np.asarray(rows), width) for rows, width in out])
+        return out
+
+    monkeypatch.setattr(serving, "corpus_segments", record)
+    return seen
+
+
+def _assert_same_segments(got, want):
+    assert [w for _, w in got] == [w for _, w in want]
+    for (a, _), (b, _) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("split", [None, 16, 20])
+def test_cached_scorer_split_title_len_matches_jax(workload, monkeypatch, split):
+    """``CachedScorer(split_title_len=...)``: the same call into both
+    packages buckets the corpus the same way (None: one bucket at full
+    width) and gives the same metrics."""
+    from newsreclib_tpu import serving as jserving
+
+    (jm, params, jstore, jimp), (tm, store, imp) = workload
+    monkeypatch.setattr(jserving, "_CORPUS_FEATS_CACHE", {})
+    want = JCachedScorer(jm, split_title_len=split).evaluate(params, jstore, jimp, **EVAL)
+    seen = _record_segments(monkeypatch)
+    got = CachedScorer(tm, device="cpu", split_title_len=split).evaluate(store, imp, **EVAL)
+    segments = _jax_segments(jserving._CORPUS_FEATS_CACHE, jstore, EVAL["encode_batch"], split)
+    assert len(segments) == (1 if split is None else 2)
+    _assert_same_segments(seen[-1], segments)
+    assert set(got) == set(want)
+    for k in want:
+        assert abs(got[k] - want[k]) < 1e-4, (k, got[k], want[k])
+
+
+def test_title_split_margin_matches_jax(workload, monkeypatch):
+    """A model's ``TITLE_SPLIT_MARGIN`` moves titles within the margin of
+    the split width to the full-width bucket, in both packages alike."""
+    from newsreclib_tpu import serving as jserving
+
+    (_, params, jstore, _), (tm, store, _) = workload
+    monkeypatch.setattr(jserving, "_CORPUS_FEATS_CACHE", {})
+    jm = _JNRMSWithMargin(vocab_size=VOCAB, **DIMS)
+    want = np.asarray(jbuild_table(jm, params, jstore, batch_size=16, split_title_len=20))
+    tm = copy.deepcopy(tm)
+    tm.TITLE_SPLIT_MARGIN = 4
+    seen = _record_segments(monkeypatch)
+    got = build_news_vector_table(tm, store, batch_size=16, split_title_len=20, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    segments = _jax_segments(jserving._CORPUS_FEATS_CACHE, jstore, 16, 20)
+    _assert_same_segments(seen[-1], segments)
+    lens = (store.title != 0).sum(axis=1)
+    assert lens[segments[0][0]].max() == 16 and segments[0][1] == 20
+    assert len(segments[0][0]) < len(corpus_segments(store, 20, 16)[0][0])
