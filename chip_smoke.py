@@ -45,10 +45,23 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    (``mhsa_backward``) and SDPA's backward, and ``FusedSmallMHSA``'s forward
    + backward against autograd of the plain version and SDPA's, at the
    batch-64 training shapes in bfloat16 (``kernel_bench.measure_backward``);
-7. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+7. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
+   at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
+   configured) on a copy of the raw ``data/demo`` files under
+   ``build/smoke_demo``: ETL from the raw files, 2 epochs with cached
+   validation, checkpoints, test from the best checkpoint.  The forward
+   kernel's launches must equal one per non-empty news segment and one for
+   the user encoder in every train step, plus one per corpus chunk and per
+   impression batch of every evaluation; the backward kernel's, the train
+   steps' alone.  Every ``val/*`` and ``test/*`` metric must be finite, the
+   best and last checkpoints must exist, and the best checkpoint restored
+   into a new trainer must give the same ``test/auc`` (1e-6) and, with the
+   plain attention, the same test metrics (``METRIC_ATOL``);
+8. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
-fails.  Writes nothing but the kernel build under ``build/``.
+fails.  Writes nothing but the kernel build and the CLI phase's data copy
+and run under ``build/``.
 """
 
 from __future__ import annotations
@@ -87,6 +100,14 @@ ROUTE_STEPS = 20
 ROUTE_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 ROUTE_FAULTS = {"float32": ("unmasked", "scaled"), "bfloat16": ("unmasked",)}
 PLANTED_STEPS, PLANTED_LR = 50, 1e-3
+# The CLI phase: the demo data copied under build/ (never written in data/demo)
+CLI_DATA, CLI_OUT = os.path.join(ROOT, "build", "smoke_demo"), os.path.join(ROOT, "build",
+                                                                            "smoke_cli")
+CLI_OVERRIDES = ["data=mind_demo", "model=nrms", "trainer.max_epochs=2",
+                 f"data.data_dir={CLI_DATA}",
+                 f"data.word_embeddings_fpath={os.path.join(CLI_DATA, 'glove_demo.txt')}",
+                 f"output_dir={CLI_OUT}"]
+CLI_RETEST_ATOL = 1e-6  # test/auc of the run against the best checkpoint restored
 
 
 def log(*a):
@@ -106,16 +127,17 @@ def main_path_shapes(store):
     return shapes + [(TARGET_CELLS // SERVING["num_candidates"], SERVING["hist_len"])]
 
 
-def serving_launches(store, imp):
-    """Kernel launches of one serving epoch: one per chunk of the corpus
-    encode and one per impression batch (the user encoder)."""
+def serving_launches(store, imp, hist_len=SERVING["hist_len"], target_cells=TARGET_CELLS):
+    """Kernel launches of one serving epoch (``CachedScorer.evaluate``): one
+    per chunk of the corpus encode and one per impression batch (the user
+    encoder)."""
     from newsreclib_tpu_torch.data.batching import BucketedAssembler
     from newsreclib_tpu_torch.serving import corpus_segments
 
     encode = sum(math.ceil(len(rows) / ENCODE_BATCH)
                  for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
-    buckets = BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS).buckets
-    return encode + sum(math.ceil(len(idx) / max(1, TARGET_CELLS // c))
+    buckets = BucketedAssembler(imp, hist_len, target_cells).buckets
+    return encode + sum(math.ceil(len(idx) / max(1, target_cells // c))
                         for c, idx in buckets.items())
 
 
@@ -369,6 +391,93 @@ def training_phase(card: str, store, imp):
     return launches, bwd_launches, step_s, grad_shapes, max(grad_errs)
 
 
+def cli_phase(card: str):
+    """The training CLI on the demo data at full NRMS width (module doc,
+    phase 7).  Returns the forward and backward kernel launches of the run
+    and the phase's wall time in seconds."""
+    import shutil
+
+    import torch
+
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.models.components.attention import use_plain_attention
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import attention_launches
+
+    for d in (CLI_DATA, CLI_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    demo = os.path.join(ROOT, "data", "demo")
+    for split in ("MINDdemo_train", "MINDdemo_dev"):
+        os.makedirs(os.path.join(CLI_DATA, split))
+        for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+            shutil.copy(os.path.join(demo, split, name), os.path.join(CLI_DATA, split, name))
+    shutil.copy(os.path.join(demo, "glove_demo.txt"), CLI_DATA)
+    cfg = compose(overrides=CLI_OVERRIDES)
+    m = cfg["model"]
+    log(f"CLI: NRMS D={m['embed_dim']}, {m['num_heads']} heads, query {m['query_dim']}, "
+        f"GloVe {cfg['data']['word_embed_dim']}-d, precision "
+        f"{cfg['trainer'].get('precision') or 'float32'}, {cfg['trainer']['max_epochs']} epochs")
+
+    torch.cuda.synchronize()
+    mhsa.launches = mhsa.bwd_launches = 0
+    t0 = time.perf_counter()
+    metrics = train.run(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
+
+    caches = [os.path.join(CLI_DATA, "MINDdemo_train", f) for f in
+              ("news_store.npz", "parsed_news.tsv", "train_impressions.npz",
+               "transformed_word_embeddings.npy")]
+    missing = [c for c in caches if not os.path.exists(c)]
+    if missing:
+        raise AssertionError(f"the ETL did not run from the raw files: {missing} missing")
+    ckpts = [os.path.join(CLI_OUT, "checkpoints", f"{w}.pt") for w in ("best", "last")]
+    if not all(os.path.exists(c) for c in ckpts):
+        raise AssertionError(f"checkpoints missing: {ckpts}")
+    with open(os.path.join(CLI_OUT, "checkpoints", "last.json")) as f:
+        epochs = json.load(f)["epoch"] + 1
+
+    # the launches the run's batches give, counted on the host
+    quiet = compose(overrides=CLI_OVERRIDES + ["loggers=[]"])
+    r = train.build_run(quiet)
+    train_expected = sum(attention_launches(b) for e in range(epochs)
+                         for b in r.train_batcher.epoch(e))
+    dc = cfg["data"]
+    eval_launches = [serving_launches(b.store, b.imp, dc["max_history_len"],
+                                      dc["eval_target_cells"])
+                     for b in (r.val_batcher, r.test_batcher)]
+    expected = train_expected + epochs * eval_launches[0] + eval_launches[1]
+    log(f"CLI run: {wall_s:.2f} s wall on {card}; {epochs} epochs of {len(r.train_batcher)} "
+        f"steps; fused_small_mhsa launches {launches} ({expected} expected: {train_expected} in "
+        f"train steps, {eval_launches[0]} a validation, {eval_launches[1]} the test), its "
+        f"backward {bwd_launches} ({train_expected} expected)")
+    log("CLI metrics " + json.dumps(metrics, sort_keys=True))
+    if launches != expected or bwd_launches != train_expected:
+        raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
+                             f"({expected} and {train_expected} expected)")
+    evals = {k: v for k, v in metrics.items() if k.startswith(("val/", "test/"))}
+    bad = [k for k, v in evals.items() if not math.isfinite(v)]
+    if bad or "val/loss" not in evals or "test/auc" not in evals:
+        raise AssertionError(f"val/test metrics not finite or missing: {bad} in {evals}")
+
+    # the best checkpoint restored into a new trainer, with the kernel and
+    # with the plain attention
+    again = r.trainer.test(r.test_batcher)
+    diff = abs(again["test/auc"] - metrics["test/auc"])
+    use_plain_attention(r.trainer.state.model)
+    plain = r.trainer.test(r.test_batcher)
+    plain_diff = max(abs(plain[k] - again[k]) for k in again)
+    log(f"CLI best checkpoint restored: test/auc {again['test/auc']:.6f} against the run's "
+        f"{metrics['test/auc']:.6f} (diff {diff:.3g}, tolerance {CLI_RETEST_ATOL}); plain "
+        f"attention vs kernel, test metrics: max abs diff {plain_diff:.3g} (tolerance "
+        f"{METRIC_ATOL['float32']})")
+    if diff > CLI_RETEST_ATOL or set(plain) != set(again) or plain_diff > METRIC_ATOL["float32"]:
+        raise AssertionError(f"the restored test differs: {again} / {plain} vs {metrics}")
+    return launches, bwd_launches, wall_s
+
+
 def main() -> int:
     import torch
 
@@ -412,6 +521,9 @@ def main() -> int:
     records = kernel_phase(checked)
     bwd_records = backward_phase(train_shapes)
     bwd_main = bwd_records[0]
+    # after the profiled phases: with the CLI phase before them, a profiler
+    # window recorded no device time (one H100 run)
+    cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
 
     main_shape = next(r for r in records if (r["U"], r["L"], r["dtype"]) == (4096, 16, "bfloat16"))
     kernels = [{
@@ -429,6 +541,8 @@ def main() -> int:
         "train_launches": train_launches,
         "train_launches_per_step": train_launches / TRAIN_TIMED,
         "train_step_ms": train_step_s * 1e3,
+        "cli_launches": cli_launches,
+        "cli_wall_s": cli_s,
     }, {
         "name": "fused_small_mhsa_backward",
         "route": "cuda",
@@ -437,6 +551,7 @@ def main() -> int:
                     "the TPU kernel at :160 has no backward)",
         "launches": bwd_launches,
         "launches_per_step": bwd_launches / TRAIN_TIMED,
+        "cli_launches": cli_bwd_launches,
         "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
         "ms": bwd_main["bwd_ms"],
         "plain_ms": bwd_main["plain_bwd_ms"],

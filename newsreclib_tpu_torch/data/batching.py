@@ -421,6 +421,8 @@ class EvalBatcher:
     ):
         self.store = store
         self.imp = impressions
+        self.max_history_len = max_history_len
+        self.target_cells = target_cells
         self.u_bucket_min = u_bucket_min
         self.split_title_len = split_title_len
         self.split_margin = split_margin

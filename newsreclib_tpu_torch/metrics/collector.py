@@ -1,13 +1,14 @@
-"""Per-impression metric suite (counterpart of
-``newsreclib_tpu/metrics/collector.py:24-98``).  Names match the JAX
+"""Per-impression metric suite and its streaming accumulation (counterpart
+of ``newsreclib_tpu/metrics/collector.py``).  Names match the JAX
 package's: ``mrr``, ``ndcg@k``, ``categ_div@k``, ``sent_div@k``,
-``categ_pers@k``, ``sent_pers@k``; the pooled ``auc`` is computed by the
-caller over the epoch."""
+``categ_pers@k``, ``sent_pers@k``; the pooled ``auc`` and the ``loss`` are
+reduced over the epoch by ``StreamingEval`` or the cached scorer."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from newsreclib_tpu_torch.metrics import functional as F
@@ -66,4 +67,61 @@ class RankingMetrics:
                     out[f"{name}_pers@{k}"] = F.personalization_at_k(
                         scores, cand, cand_mask, hist, hist_mask, k, n
                     )
+        return out
+
+
+class StreamingEval:
+    """The uncached eval path's accumulator: per batch it adds the valid
+    impressions' metric sums, keeps the AUC inputs and the valid-impression
+    weighted loss on the device, and ``finalize`` fetches everything once."""
+
+    def __init__(self, collect_auc: bool = True):
+        self.collect_auc = collect_auc
+        self._sums: Optional[Dict[str, torch.Tensor]] = None
+        self._count: Optional[torch.Tensor] = None
+        self._loss_sum: Optional[torch.Tensor] = None
+        self._loss_w: Optional[torch.Tensor] = None
+        self._parts: List = []
+
+    def update(self, scores, per_imp, valid, labels=None, cand_mask=None, loss=None) -> None:
+        v = valid.float()
+        if self._sums is None:
+            self._sums = {k: torch.zeros((), dtype=torch.float32, device=v.device)
+                          for k in per_imp}
+            self._count = torch.zeros((), dtype=torch.float32, device=v.device)
+        for k in self._sums:
+            self._sums[k] = self._sums[k] + (per_imp[k].float() * v).sum()
+        self._count = self._count + v.sum()
+        if self.collect_auc and labels is not None:
+            w = (cand_mask & valid[:, None]).float()
+            self._parts.append((scores.reshape(-1), (labels * w).reshape(-1), w.reshape(-1)))
+        if loss is not None:
+            # weighted by the valid impressions, so the epoch loss does not
+            # depend on how the impressions were cut into batches
+            nv = v.sum()
+            if self._loss_sum is None:
+                self._loss_sum, self._loss_w = loss * nv, nv
+            else:
+                self._loss_sum = self._loss_sum + loss * nv
+                self._loss_w = self._loss_w + nv
+
+    def finalize(self) -> Dict[str, float]:
+        if self._sums is None:
+            return {}
+        keys = sorted(self._sums)
+        fetch = [self._count] + [self._sums[k] for k in keys]
+        if self._parts:
+            fetch.append(F.binary_auc_weighted(
+                *(torch.cat([p[i] for p in self._parts]) for i in range(3))))
+        if self._loss_sum is not None:
+            fetch += [self._loss_sum, self._loss_w]
+        vals = torch.stack([x.float() for x in fetch]).cpu().numpy().astype(np.float64)
+        count = max(float(vals[0]), 1.0)
+        out = {k: float(vals[1 + i]) / count for i, k in enumerate(keys)}
+        cursor = 1 + len(keys)
+        if self._parts:
+            out["auc"] = float(vals[cursor])
+            cursor += 1
+        if self._loss_sum is not None:
+            out["loss"] = float(vals[cursor]) / max(float(vals[cursor + 1]), 1.0)
         return out

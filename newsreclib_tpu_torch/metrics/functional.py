@@ -26,6 +26,22 @@ def _masked_sort_desc(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-s, dim=-1, stable=True)
 
 
+def binary_auc(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Pooled binary AUROC over all entries with tie-averaged ranks
+    (Mann-Whitney U); 0 when either class is absent."""
+    preds = preds.float()
+    targets = targets.float()
+    sorted_preds = torch.sort(preds).values
+    left = torch.searchsorted(sorted_preds, preds, side="left")
+    right = torch.searchsorted(sorted_preds, preds, side="right")
+    avg_rank = (left + right + 1).float() / 2.0  # 1-based
+    n_pos = targets.sum()
+    n_neg = preds.shape[0] - n_pos
+    u = (avg_rank * targets).sum() - n_pos * (n_pos + 1.0) / 2.0
+    ok = (n_pos > 0) & (n_neg > 0)
+    return torch.where(ok, u / torch.clamp(n_pos * n_neg, min=1.0), 0.0)
+
+
 def binary_auc_weighted(preds: torch.Tensor, targets: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
     """Pooled binary AUROC over the entries of weight 1 (0 = masked).
@@ -123,3 +139,9 @@ def personalization_at_k(scores: torch.Tensor, cand_aspects: torch.Tensor,
     pers = generalized_jaccard(pred_counts, hist_counts)
     nonempty = (cand_aspects * cand_mask).sum(dim=-1) > 0
     return torch.where(nonempty, pers, 0.0).float()
+
+
+def harmonic_mean(scores: torch.Tensor) -> torch.Tensor:
+    """Harmonic mean of N scores."""
+    scores = scores.float()
+    return scores.shape[0] / (1.0 / scores).sum()

@@ -34,7 +34,9 @@ def cross_entropy_loss(scores: torch.Tensor, labels: torch.Tensor,
         mask = torch.ones_like(scores, dtype=torch.bool)
     lse = _masked_logsumexp(scores, mask)
     log_prob = torch.where(mask, scores, 0.0) - lse.unsqueeze(-1)
-    per_row = -(labels * log_prob * mask).sum(dim=-1)
+    # a select, as JAX's product with a boolean mask: an all-masked padding
+    # row has an infinite log_prob, and 0 * inf would make its loss NaN
+    per_row = -torch.where(mask, labels * log_prob, 0.0).sum(dim=-1)
     if valid is None:
         return per_row.mean()
     v = valid.float()

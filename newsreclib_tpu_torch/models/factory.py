@@ -1,0 +1,100 @@
+"""Model factory: the ``model`` config node and the dataset's sizes -> model
+and loss (counterpart of ``newsreclib_tpu/models/factory.py``).
+
+Only NRMS has a route so far; every other model raises
+``NotImplementedError`` (ROADMAP queue 1, item 6).  ``pack_titles`` is
+accepted and ignored: the port's attention kernel works per article, and
+packed and unpacked titles give the same vectors
+(``tests/test_nrms.py::test_mhsa_packing_exact``).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from newsreclib_tpu_torch.models.components.losses import get_loss_fn
+from newsreclib_tpu_torch.models.general_rec import NRMS
+
+
+@dataclass
+class DataInfo:
+    vocab_size: int
+    num_users: int = 1
+    num_categories: int = 19
+    num_subcategories: int = 1
+    num_sent_classes: int = 4
+    entity_vocab_size: int = 1
+    pretrained_embeddings: Optional[np.ndarray] = None
+    pretrained_entity_embeddings: Optional[np.ndarray] = None
+    pretrained_categ_embeddings: Optional[np.ndarray] = None
+
+
+def title_split_margin(model_name: str, model_cfg: Optional[Dict] = None) -> int:
+    """Title headroom a model needs past the last token for exact length
+    trimming and splitting: DKN's VALID convolutions need the widest window,
+    every other model 0."""
+    if model_name != "dkn":
+        return 0
+    return int(max((model_cfg or {}).get("window_sizes", (1, 2, 3, 4))))
+
+
+def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "cuda",
+                seed: int = 0):
+    """The model of ``cfg`` (the ``model`` node, with ``name``), its weights
+    drawn from ``torch.Generator().manual_seed(seed)`` and moved to
+    ``device``."""
+    name = cfg["name"]
+    if cfg.get("use_plm"):
+        raise NotImplementedError(
+            "the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, item 8)")
+    if name != "nrms":
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); the port builds nrms")
+    return NRMS(
+        info.vocab_size,
+        embed_dim=cfg.get("embed_dim", 300),
+        num_heads=cfg.get("num_heads", 15),
+        query_dim=cfg.get("query_dim", 200),
+        dropout=cfg.get("dropout_probability", 0.2),
+        late_fusion=cfg.get("late_fusion", False),
+        pretrained_embeddings=info.pretrained_embeddings,
+        device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+
+
+def build_loss(cfg: Dict) -> Callable:
+    return get_loss_fn(
+        cfg.get("loss", "cross_entropy_loss"),
+        temperature=cfg.get("temperature") or 0.1,
+        dual_loss_coef=cfg.get("dual_loss_coef") or 0.5,
+    )
+
+
+def load_data_info(mind_data, cfg_model: Dict) -> DataInfo:
+    """DataInfo of a ``MINDData`` (sizes from its id maps, matrices from the
+    train split's ``transformed_*_embeddings.npy``)."""
+    classes = mind_data.num_classes()
+    use_pretrained_w = cfg_model.get("use_pretrained_embeddings", True)
+    train_dir = mind_data.split_dir("train")
+
+    def npy(name: str, wanted: bool = True) -> Optional[np.ndarray]:
+        path = os.path.join(train_dir, f"transformed_{name}_embeddings.npy")
+        return np.load(path) if wanted and os.path.exists(path) else None
+
+    return DataInfo(
+        vocab_size=mind_data.vocab_size(),
+        num_users=mind_data.num_users(),
+        num_categories=classes["category"],
+        num_subcategories=classes["subcategory"],
+        num_sent_classes=classes["sentiment"],
+        entity_vocab_size=classes["entity"],
+        pretrained_embeddings=npy("word", use_pretrained_w),
+        pretrained_entity_embeddings=npy("entity"),
+        pretrained_categ_embeddings=npy("categ"),
+    )

@@ -14,7 +14,7 @@ Python loop over batches kept on the device, and ``GlobalEvalBatcher`` is
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,15 +117,19 @@ class CachedScorer:
     table in that type, metrics in float32, as the JAX scorer's.
     ``split_title_len``: the width of the short-title bucket of the corpus
     encode, or None for one bucket at full width (``corpus_segments``).
+    ``loss_fn(scores, labels, cand_mask, valid)``: when given, the metrics
+    carry ``loss``, the batches' losses weighted by their valid impressions.
     """
 
     def __init__(self, model, ranking: Optional[RankingMetrics] = None,
                  compute_dtype: Optional[Union[str, torch.dtype]] = None,
                  device: Union[str, torch.device] = "cuda",
-                 split_title_len: Optional[int] = SPLIT_TITLE_LEN):
+                 split_title_len: Optional[int] = SPLIT_TITLE_LEN,
+                 loss_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.model = model
         self.ranking = ranking or RankingMetrics()
+        self.loss_fn = loss_fn
         self.split_title_len = split_title_len
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
@@ -188,6 +192,7 @@ class CachedScorer:
         names = self.ranking.metric_names(categ is not None, sent is not None)
         sums = torch.zeros(len(names), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss_acc = torch.zeros(2, dtype=torch.float32, device=self.device)  # sum, weight
         auc_parts = []
         for b in self._batches(impressions, max_history_len, target_cells):
             scores = model.score_with_vectors(b, table).float()
@@ -205,10 +210,15 @@ class CachedScorer:
             v = b.impression_valid.float()
             sums += torch.stack([per_imp[k] for k in names]) @ v
             count += v.sum()
+            if self.loss_fn is not None:
+                # weighted by the valid impressions: the loss_fn is a mean over them
+                nv = v.sum()
+                loss_acc += torch.stack([self.loss_fn(scores, b.labels, b.cand_mask,
+                                                      b.impression_valid) * nv, nv])
             if collect_auc:
                 w = (b.cand_mask & b.impression_valid[:, None]).float()
                 auc_parts.append((scores.reshape(-1), (b.labels * w).reshape(-1), w.reshape(-1)))
-        fetch = [count.reshape(1), sums]
+        fetch = [count.reshape(1), sums, loss_acc]
         if auc_parts:
             fetch.append(F.binary_auc_weighted(
                 *(torch.cat([p[i] for p in auc_parts]) for i in range(3))
@@ -216,6 +226,9 @@ class CachedScorer:
         vals = torch.cat(fetch).cpu().numpy().astype(np.float64)  # one device sync
         n = max(float(vals[0]), 1.0)
         out = {k: float(vals[1 + i]) / n for i, k in enumerate(names)}
+        loss_sum, loss_w = vals[1 + len(names):3 + len(names)]
+        if self.loss_fn is not None and loss_w > 0:
+            out["loss"] = float(loss_sum) / float(loss_w)
         if auc_parts:
             out["auc"] = float(vals[-1])
         return out

@@ -1,7 +1,9 @@
 """The port runs without JAX: the machine with the card has no jax, flax,
-optax, pandas or yaml.  A subprocess blocks those imports and the JAX
-package, then drives the serving slice and two training steps on the CPU; the port's sources,
-``chip_smoke.py`` and the card tests are also searched for such imports."""
+optax, orbax, pandas or yaml.  A subprocess blocks those imports and the JAX
+package, then drives the serving slice and two training steps on the CPU;
+another runs the training CLI (config composition, ETL, fit, checkpoints,
+test) on a copy of the raw demo files.  The port's sources, ``chip_smoke.py``
+and the card tests are also searched for such imports."""
 
 import json
 import os
@@ -60,6 +62,39 @@ def test_slice_runs_with_jax_blocked():
     assert all(abs(v) < 10 for v in out["metrics"].values())
     assert len(out["train_losses"]) == 2
     assert all(0 < v < 10 for v in out["train_losses"])
+
+
+CLI_SCRIPT = """
+import json, sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+from newsreclib_tpu_torch.train import main
+metrics = main(sys.argv[1:])
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r)
+print(json.dumps({"metrics": metrics, "loaded": loaded}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_cli_runs_with_jax_pandas_and_yaml_blocked(tmp_path):
+    data = tmp_path / "data"
+    for split in ("train", "dev"):
+        d = data / f"MINDdemo_{split}"
+        d.mkdir(parents=True)
+        for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+            (d / name).write_bytes((ROOT / "data" / "demo" / d.name / name).read_bytes())
+    args = ["experiment=nrms_demo", "platform=cpu", f"data.data_dir={data}",
+            f"data.word_embeddings_fpath={ROOT / 'data' / 'demo' / 'glove_demo.txt'}",
+            f"output_dir={tmp_path / 'run'}", "trainer.limit_train_batches=3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT, *args], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert {"val/loss", "val/auc", "test/auc", "test/loss"} <= set(out["metrics"])
+    assert (tmp_path / "run" / "checkpoints" / "best.pt").exists()
+    assert (tmp_path / "run" / "metrics.csv").exists()
 
 
 def test_port_sources_import_no_jax():

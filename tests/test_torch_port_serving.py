@@ -204,3 +204,19 @@ def test_title_split_margin_matches_jax(workload, monkeypatch):
     lens = (store.title != 0).sum(axis=1)
     assert lens[segments[0][0]].max() == 16 and segments[0][1] == 20
     assert len(segments[0][0]) < len(corpus_segments(store, 20, 16)[0][0])
+
+
+@pytest.mark.parametrize("loss", ["cross_entropy_loss", "sup_con_loss"])
+def test_cached_scorer_loss_matches_jax(workload, loss):
+    """``CachedScorer(loss_fn=...)`` reports ``loss``, the batches' losses
+    weighted by their valid impressions (batches end in padding rows), as
+    the JAX scorer does; float32, atol 1e-5."""
+    from newsreclib_tpu.models.components.losses import get_loss_fn as jget_loss_fn
+    from newsreclib_tpu_torch.models.components.losses import get_loss_fn
+
+    (jm, params, jstore, jimp), (tm, store, imp) = workload
+    want = JCachedScorer(jm, loss_fn=jget_loss_fn(loss)).evaluate(params, jstore, jimp, **EVAL)
+    got = CachedScorer(tm, device="cpu", loss_fn=get_loss_fn(loss)).evaluate(store, imp, **EVAL)
+    assert np.isfinite(got["loss"]) and got["loss"] > 0
+    assert abs(got["loss"] - want["loss"]) < 1e-5
+    assert "loss" not in CachedScorer(tm, device="cpu").evaluate(store, imp, **EVAL)
