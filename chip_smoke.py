@@ -44,7 +44,8 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
 6. times the backward kernel alone against its plain version
    (``mhsa_backward``) and SDPA's backward, and ``FusedSmallMHSA``'s forward
    + backward against autograd of the plain version and SDPA's, at the
-   batch-64 training shapes in bfloat16 (``kernel_bench.measure_backward``);
+   batch-64 training shapes in bfloat16 and float32
+   (``kernel_bench.measure_backward``);
 7. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
@@ -161,17 +162,18 @@ def kernel_phase(shapes):
 
 def backward_phase(shapes):
     """Time the backward kernel at the training shapes given, in bfloat16
-    (``kernel_bench.measure_backward``, which checks it first).  Returns the
-    per-shape records."""
+    and float32 (``kernel_bench.measure_backward``, which checks it first).
+    Returns the per-shape records."""
     import torch
 
     from newsreclib_tpu_torch.kernel_bench import measure_backward
 
     records = []
-    for u, l in shapes:
-        rec = measure_backward(u, l, torch.bfloat16)
-        log("backward_shape " + json.dumps(rec))
-        records.append(rec)
+    for dtype in (torch.bfloat16, torch.float32):
+        for u, l in shapes:
+            rec = measure_backward(u, l, dtype)
+            log("backward_shape " + json.dumps(rec))
+            records.append(rec)
     return records
 
 
@@ -520,12 +522,15 @@ def main() -> int:
             checked.append(s)
     records = kernel_phase(checked)
     bwd_records = backward_phase(train_shapes)
-    bwd_main = bwd_records[0]
+    bwd_main, bwd_f32 = (next(r for r in bwd_records if r["dtype"] == name)
+                         for name in ("bfloat16", "float32"))
     # after the profiled phases: with the CLI phase before them, a profiler
     # window recorded no device time (one H100 run)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
 
-    main_shape = next(r for r in records if (r["U"], r["L"], r["dtype"]) == (4096, 16, "bfloat16"))
+    main_shape, main_f32 = (next(r for r in records
+                                 if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
+                            for t in ("bfloat16", "float32"))
     kernels = [{
         "name": "fused_small_mhsa",
         "route": "cuda",
@@ -538,6 +543,10 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "f32_ms": main_f32["ms"],
+        "f32_bound_ms": main_f32["bound_ms"],
+        "f32_plain_ms": main_f32["plain_ms"],
+        "f32_library_ms": main_f32["library_ms"],
         "train_launches": train_launches,
         "train_launches_per_step": train_launches / TRAIN_TIMED,
         "train_step_ms": train_step_s * 1e3,
@@ -558,12 +567,16 @@ def main() -> int:
         "bound_ms": bwd_main["bwd_bound_ms"],
         "bound_by": bwd_main["bwd_bound_by"],
         "library_ms": bwd_main["library_bwd_ms"],
+        "f32_ms": bwd_f32["bwd_ms"],
+        "f32_bound_ms": bwd_f32["bwd_bound_ms"],
+        "f32_plain_ms": bwd_f32["plain_bwd_ms"],
+        "f32_library_ms": bwd_f32["library_bwd_ms"],
         "fwd_bwd_ms": bwd_main["ms"],
         "autograd_plain_fwd_bwd_ms": bwd_main["plain_ms"],
         "library_fwd_bwd_ms": bwd_main["library_ms"],
     }]
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
-        f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16, on {card}")
+        f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

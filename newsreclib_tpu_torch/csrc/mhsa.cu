@@ -24,7 +24,7 @@
 // same time in f32 and bf16: instruction- and latency-bound, not bytes-bound.
 // This design aims at the bytes:
 //
-// * Several sequences per block, staged whole and coalesced.  The S
+// * bf16: several sequences per block, staged whole and coalesced.  The S
 //   sequences of a block are one contiguous run of qkv (S * L * 3D values).
 //   It is copied into shared memory as it lies, in the input type (bf16 is
 //   not upcast), with 16-byte cp.async for the aligned body and byte copies
@@ -34,8 +34,7 @@
 //   chosen on the host so that two blocks fit on an SM (L = 50 bf16: one
 //   90 KB sequence a block; L = 16 bf16: three), and is cut for small U so
 //   that the grid still gives every SM two blocks.  A block has 12 warps
-//   (bf16, L <= 32), 8 warps (bf16, L > 32) or up to 1,024 threads (f32).
-//   Inside a block the staging is not overlapped with compute; the other
+//   (L <= 32) or 8 (L > 32).  Inside a block the staging is not overlapped with compute; the other
 //   block on the SM fills that time.  A persistent variant (one 16-warp
 //   block per SM, a two-stage cp.async ring prefetching the next group while
 //   the current one is computed) ran slower on the H100 (PERF.md, §6).
@@ -64,26 +63,49 @@
 //   (tolerance atol 2e-2 / rtol 1e-2).  Splitting p into bf16 hi + lo with
 //   two p.v MMAs kept it within one step but cost 12% at L = 50 on the
 //   H100, so it was left out.
-// * f32: exact f32 FMAs on CUDA cores (TF32 would miss the 1e-5 tolerance),
-//   one thread per (sequence, query row, head) with an online softmax over
-//   the keys, reading q, k and v from the staged rows.
+// * f32: the same warp task and exact two-pass softmax, with both products
+//   on tensor cores in split TF32 ("3xTF32", mma.sync.m16n8k8 tf32 with f32
+//   sums): each operand x goes in as hi = tf32(x) (cvt.rna) and
+//   lo = tf32(x - hi), each product as a_lo b_hi + a_hi b_lo + a_hi b_hi.
+//   One TF32 rounding (10 mantissa bits) misses the 1e-5 tolerance by two
+//   orders of magnitude; the split keeps about 21 bits and stays well
+//   inside it (tests/test_torch_port_f32split.py emulates both).  p goes
+//   back as the A operand of p.v straight from the accumulators: the
+//   m16n8k8 A fragment wants columns c and c + 4 where the accumulator holds
+//   2c and 2c + 1, so k index c is taken as key 2c and c + 4 as key 2c + 1,
+//   and the B operand reads v at those keys (a sum over k does not depend on
+//   its order).  A block is one warp and one task, (sequence, head), and
+//   stages only that head's q, k and v columns: 80-byte runs at D = 300, hd
+//   = 20, still 16-byte cp.async (the row stride 3,600 bytes and the head
+//   offset 80 h are multiples of 16; 4-byte cp.async otherwise).  Rows of 3
+//   hd floats keep the fragment reads free of bank conflicts.  So the user
+//   encoder's (64, 50) runs as 960 blocks rather than 64 blocks of whole
+//   sequences on 132 SMs, and up to 16 blocks an SM overlap one block's
+//   staging with another's compute: on the H100, blocks of 2 sequences of
+//   one head ran the L = 16 backward 13-14% faster than blocks of 8, and
+//   blocks of 1 within 3% of blocks of 2 (PERF.md, §6).  The neighbouring
+//   heads of a sequence are neighbouring blocks, which run together and
+//   share the 32-byte sectors of each other's runs in L2.
 // * Output staged in shared memory, written with 16-byte stores.  Each task
 //   writes its context over the q values it alone read (same rows, same head
 //   columns), so no extra buffer is needed; after a barrier the block copies
-//   its S * L context rows out.  A block's context is one contiguous run of
-//   the output; where the staged q row and the output row agree mod 16 (any
-//   D with 2 * D * sizeof(T) % 16 == 0 and allocator-aligned tensors, so
-//   always on the serving path) the body moves in 16-byte loads and stores,
-//   else element by element.
-// * cudaFuncSetAttribute (dynamic shared memory above 48 KB) runs once per
-//   kernel instance and device, not on every launch.
+//   its context rows (f32: its head's columns of them) out.  A bf16
+//   block's context is one contiguous run of the output; where the staged q
+//   row and the output row agree mod 16 (any D with 2 * D * sizeof(T) % 16
+//   == 0 and allocator-aligned tensors, so always on the serving path) the
+//   body moves in 16-byte loads and stores, else element by element.
+// * cudaFuncSetAttribute (dynamic shared memory above 48 KB, bf16) runs
+//   once per kernel instance and device, not on every launch.
 //
-// Shared memory: a slab of S sequences takes 16 + S * L * 3D * sizeof(T)
-// bytes, rounded up to 16.  An f32 block holds one slab plus its S * L mask
-// bytes (rounded up to 16); a bf16 block holds one or two slabs and reads
-// the mask bytes from global memory.  A shape whose single sequence, slab
-// plus mask, does not fit one block's 232,448 bytes is refused, in either
-// type (ops/mhsa.py::_check refuses it first).
+// Shared memory: a bf16 slab of S sequences takes 16 + S * L * 3D * 2
+// bytes, rounded up to 16, plus 64 key biases a sequence.  An f32 block
+// takes L * 3 hd * 4 bytes (+ L * hd * 4 for dO in the backward), each
+// rounded up to 16, plus the key biases: at most 33 KB.  The shape rule
+// is still the whole-slab one of the first f32 design: a shape whose single
+// sequence, slab (16 + L * 3D * sizeof(T), rounded up to 16) plus L mask
+// bytes (f32, rounded up to 16) or 64 biases (bf16), does not fit one
+// block's 232,448 bytes is refused, in either type
+// (ops/mhsa.py::kernel_supports refuses it first).
 //
 // C entry point (bound with ctypes):
 //   int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out,
@@ -111,12 +133,12 @@
 // tensor cores).  The plain version (mhsa_backward) runs about 30 kernels
 // over f32 (U, H, L, L) tensors (4.8 ms there).  The design:
 //
-// * The forward's staging and plan: the same S sequences per block and the
-//   same shared memory (slab + mask bytes or key biases), so that every
-//   shape the forward takes, the backward takes.  dO is not staged: each
-//   warp reads its head's columns of dO from global memory (through L1),
-//   which leaves the slab the whole of a block's shared memory (f32 at
-//   (64, 50) would need 240,016 bytes with dO staged).  Blocks of 8 warps.
+// * The forward's staging and plan.  bf16: the same S sequences per block
+//   and the same shared memory (slab + key biases), so that every shape the
+//   forward takes, the backward takes; dO is not staged: each warp reads its
+//   head's columns of dO from global memory (through L1).  Blocks of 8
+//   warps.  f32: one (sequence, head) a block, with that head's dO columns
+//   staged beside its q, k and v columns.
 // * One warp task per (sequence, head).  bf16: the five products on tensor
 //   cores (mma.sync m16n8k16, bf16 in, f32 sums).  Per 16-row query tile:
 //   q.k^T and dO.v^T, the exact softmax of the forward (then normalised),
@@ -134,11 +156,20 @@
 //   attention of many queries.  dO rows past L read as 0, so the clamped
 //   query rows of a padded tile add nothing.  L = 50 (KT = 4) instances
 //   keep 96 accumulator registers and run one 8-warp block per SM.
-// * f32: exact f32 FMAs on CUDA cores (TF32 would miss 1e-5).  One warp a
-//   task, lane j owns keys j and j + 32: per query row the logits, the
-//   softmax by warp shuffles, dP, the row sum and dS; dK and dV accumulate
-//   in the lane's registers; dQ is summed by lane d over the keys with dS
-//   broadcast by shuffles.
+// * f32: the five products in split TF32 (as the forward), with keys as the
+//   rows: S^T = K Q^T and dP^T = V dO^T per 16-query tile, all keys in
+//   registers, so the softmax, its sum and rowsum(dP * P) run down each
+//   column (over the lane's key rows, then the 8 lanes of the column by
+//   shuffles).  Then P^T and dS^T are already the A operands of dV += P^T dO
+//   and dK += dS^T Q (k index c taken as query 2c, c + 4 as 2c + 1), and
+//   only dQ = dS K needs a transpose: each 8 x 8 block of dS^T is turned
+//   into dS's A fragment by two shuffles a lane (the lanes of even key rows
+//   send their even column first, those of odd rows their odd column, which
+//   is what the even and odd columns asking for them want; no shared memory
+//   and no recomputed logits).  dK and dV accumulate for all keys across the
+//   query tiles; the L = 50 instance holds them in 255 registers with no
+//   spill and runs up to 8 warps per SM.  A per-warp shared tile in place
+//   of the shuffles ran from 2% faster to 14% slower (PERF.md, §6).
 // * Each task writes dQ over its own staged q values (after the tile's
 //   last read of them) and dK, dV over its k and v values (after the last
 //   tile); after a barrier the block copies its whole staged slab, now
@@ -483,69 +514,6 @@ __global__ void __launch_bounds__(bf16_warps(KT) * 32, 2)
   write_rows(out + (size_t)blockIdx.x * S * L * D, slab, ns * L, D);
 }
 
-// ----------------------------------------------------------------- f32 ---
-
-// HD is the register capacity for one head's q and accumulator; EXACT says
-// that the head dimension equals it, so that the loops need no guard.
-template <int HD, bool EXACT>
-__global__ void __launch_bounds__(1024)
-    mhsa_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                    float* __restrict__ out, int U, int L, int D, int H, int S, float scale) {
-  extern __shared__ __align__(16) char smem[];
-  const int ns = min(S, U - (int)blockIdx.x * S);
-  float* slab = stage_slab(qkv, ns, S, L, D, smem);
-  uint8_t* smask = reinterpret_cast<uint8_t*>(smem + slab_bytes(S, L, D, 4));
-  for (int i = threadIdx.x; i < ns * L; i += blockDim.x)
-    smask[i] = mask[(size_t)blockIdx.x * S * L + i];
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int hd = EXACT ? HD : D / H;
-  const int D3 = 3 * D;
-  for (int t = threadIdx.x; t < ns * L * H; t += blockDim.x) {
-    const int row = t / H;  // row of the block: sequence row / L, query row % L
-    const int h = t - row * H;
-    const int sq = row / L;
-    const int off = h * hd;
-    float* qrow = slab + (size_t)row * D3 + off;
-    const float* kbase = slab + (size_t)sq * L * D3 + D + off;
-    const float* vbase = kbase + D;
-    const uint8_t* msk = smask + sq * L;
-
-    float q[HD];
-#pragma unroll
-    for (int j = 0; j < HD; ++j) q[j] = j < hd ? qrow[j] : 0.f;
-    float acc[HD];
-#pragma unroll
-    for (int j = 0; j < HD; ++j) acc[j] = 0.f;
-    float m_run = kMaskMin;
-    float l_run = 0.f;
-    for (int m = 0; m < L; ++m) {
-      const float* kr = kbase + (size_t)m * D3;
-      float sdot = 0.f;
-#pragma unroll
-      for (int j = 0; j < HD; ++j)
-        if (j < hd) sdot = fmaf(q[j], kr[j], sdot);
-      sdot = msk[m] ? sdot * scale : kMaskMin;
-      const float m_new = fmaxf(m_run, sdot);
-      const float alpha = expf(m_run - m_new);
-      const float p = expf(sdot - m_new);
-      l_run = l_run * alpha + p;
-      const float* vr = vbase + (size_t)m * D3;
-#pragma unroll
-      for (int j = 0; j < HD; ++j)
-        if (j < hd) acc[j] = fmaf(acc[j], alpha, p * vr[j]);
-      m_run = m_new;
-    }
-    const float inv = 1.f / l_run;  // l_run >= 1: the running max term is exp(0)
-#pragma unroll
-    for (int j = 0; j < HD; ++j)
-      if (j < hd) qrow[j] = acc[j] * inv;  // over this thread's own q values
-  }
-  __syncthreads();
-  write_rows(out + (size_t)blockIdx.x * S * L * D, slab, ns * L, D);
-}
-
 // ------------------------------------------------------------ backward ---
 
 // Warps of a backward block: one (sequence, head) task each.
@@ -852,144 +820,507 @@ __global__ void __launch_bounds__(kBwdWarps * 32, KT <= 2 ? 2 : 1)
   write_rows(dqkv + (size_t)blockIdx.x * S * L * 3 * D, slab, 1, ns * L * 3 * D);
 }
 
-// One backward warp task, f32, on CUDA cores: lane j holds keys j and
-// j + 32 (KPL = 2 where L > 32).  Per query row i: the logits of its keys,
-// the exact softmax by warp shuffles, dP_ij = dO_i . V_j, the row sum of
-// dP * P, ds_ij; dK_j and dV_j accumulate in the lane's registers, and
-// dQ_i = scale sum_j ds_ij K_j is summed by lane d over the keys (ds
-// broadcast by shuffles) and goes over q_i.  dO_i is read once from global
-// memory, one column a lane, and broadcast by shuffles.
-template <int HD, bool EXACT, int KPL>
-__device__ __forceinline__ void f32_bwd_head(float* s, const uint8_t* msk, const float* dout,
-                                             int h, int L, int D, int hd_rt, float scale) {
-  const int hd = EXACT ? HD : hd_rt;
-  const int lane = threadIdx.x & 31;
-  const int D3 = 3 * D;
-  const int qcol = h * hd, kcol = D + qcol, vcol = 2 * D + qcol;
-  const int dl = min(lane, hd - 1);
+// ----------------------------------------------------------------- f32 ---
 
-  int jr[KPL];
-  bool jin[KPL], jvalid[KPL];
-  float dk[KPL][HD], dv[KPL][HD];
-#pragma unroll
-  for (int kk = 0; kk < KPL; ++kk) {
-    const int j = lane + 32 * kk;
-    jin[kk] = j < L;
-    jr[kk] = min(j, L - 1);
-    jvalid[kk] = jin[kk] && msk[jr[kk]];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dk[kk][d] = dv[kk][d] = 0.f;
+// x rounded to tf32 (cvt.rna: to nearest, ties away from zero; the low 13
+// bits of the f32 pattern cleared), as the bits of an mma operand.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An operand fragment split into tf32 parts: hi = tf32(x), lo = tf32(x - hi),
+// so that hi + lo keeps about 22 bits of x.  A zero (an excluded key's p, a
+// padded column) splits into two zeros.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// Fragment layouts of m16n8k8 (g = lane / 4, c = lane % 4): A a0 (g, c),
+// a1 (g+8, c), a2 (g, c+4), a3 (g+8, c+4); B b0 (k = c, n = g), b1 (k = c+4,
+// n = g); C as m16n8k16's, c0..c1 (g, 2c..2c+1), c2..c3 (g+8, 2c..2c+1).
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// d += a b in split TF32 ("3xTF32"): a_lo b_hi + a_hi b_lo + a_hi b_hi with
+// f32 sums; the a_lo b_lo term (about 2^-22 of the product) is dropped.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// row[d], 0 past the head dimension.
+__device__ __forceinline__ float ld(const float* row, int d, int hd) {
+  return d < hd ? row[d] : 0.f;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// Stage `rows` rows of `parts` runs of w floats: run (r, p) of the source,
+// at src + r * src_row + p * src_part, goes to dst + (r * parts + p) * w.
+// 16-byte cp.async where every run starts on 16 bytes and w is a multiple
+// of 4 (D = 300, 15 heads of 20 on an aligned tensor), else 4-byte ones;
+// committed as one group.  dst is 16-byte aligned.
+__device__ void stage_runs(float* dst, const float* src, int rows, int parts, int w,
+                           size_t src_row, size_t src_part) {
+  const bool vec = ((uintptr_t)src & 15) == 0 && (src_row & 3) == 0 && (src_part & 3) == 0 &&
+                   (w & 3) == 0;
+  const int per = vec ? w / 4 : w;  // copies a run
+  const int n = rows * parts * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int run = i / per, j = i - run * per;
+    const int r = run / parts, p = run - r * parts;
+    const float* s = src + r * src_row + p * src_part;
+    float* d = dst + (size_t)run * w;
+    if (vec)
+      cp_async16(d + 4 * j, s + 4 * j);
+    else
+      cp_async4(d + j, s + j);
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int i = 0; i < L; ++i) {
-    float* qi = s + (size_t)i * D3 + qcol;
-    const float dov = lane < hd ? dout[(size_t)i * D + qcol + lane] : 0.f;
-    float x[KPL], dp[KPL];
+// The first `parts` runs of each of `rows` staged rows of `src_parts` runs
+// (as stage_runs lays them out) to dst + r * dst_row + p * dst_part, in
+// 16-byte stores where aligned.
+__device__ void write_runs(float* dst, const float* src, int rows, int parts, int src_parts,
+                           int w, size_t dst_row, size_t dst_part) {
+  const bool vec = ((uintptr_t)dst & 15) == 0 && (dst_row & 3) == 0 && (dst_part & 3) == 0 &&
+                   (w & 3) == 0;
+  const int per = vec ? w / 4 : w;
+  const int n = rows * parts * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int run = i / per, j = i - run * per;
+    const int r = run / parts, p = run - r * parts;
+    const float* s = src + ((size_t)r * src_parts + p) * w;
+    float* d = dst + r * dst_row + p * dst_part;
+    if (vec)
+      reinterpret_cast<float4*>(d)[j] = reinterpret_cast<const float4*>(s)[j];
+    else
+      d[j] = s[j];
+  }
+}
+
+// The sequence's 64 key biases: 0 (valid), -1e30 (masked), -inf (past L).
+__device__ void key_biases(float* sbias, const uint8_t* msk, int L) {
+  for (int key = threadIdx.x; key < kMaxLen; key += blockDim.x)
+    sbias[key] = key < L ? (msk[key] ? 0.f : kMaskMin) : -INFINITY;
+}
+
+// Shared memory of an f32 block (one head of one sequence): the staged q,
+// k, v columns (rows of 3 hd floats), dO's (backward), the key biases; at
+// most 33 KB, so no opt-in above 48 KB is needed.
+__host__ __device__ inline size_t f32_qkv_bytes(int L, int hd) {
+  return align16((size_t)L * 3 * hd * 4);
+}
+__host__ __device__ inline size_t f32_do_bytes(int L, int hd) {
+  return align16((size_t)L * hd * 4);
+}
+
+// One f32 forward warp task: one head of one sequence, whose staged rows
+// (q, k, v of the head, row stride 3 hd) start at `s`.  Per 16-row query
+// tile: the logits q.k^T in split TF32 (hd zero-padded to 8 NT), the exact
+// softmax of the bf16 path (softmax_tile), then p.v in split TF32 with p
+// straight from the accumulators as the A operand (its k index c taken as
+// key 2c and c + 4 as key 2c + 1, so the B operand reads v at those keys).
+// The context goes over the tile's own q values.  Rows past L are read
+// clamped to row L - 1.
+template <int KT, int NT, int HDX>
+__device__ __forceinline__ void f32_head(float* s, const float* bias, int L, int hd_rt,
+                                         float scale_log2) {
+  constexpr int NJ = 2 * KT;
+  const int hd = HDX > 0 ? HDX : hd_rt;
+  const int W = 3 * hd;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const bool last_on = (NJ - 1) * 8 < L;
+  const int mts = (L + 15) / 16;
+  for (int mt = 0; mt < mts; ++mt) {
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    float* q0 = s + min(r0, L - 1) * W;
+    float* q1 = s + min(r1, L - 1) * W;
+    FragA qa[NT];
 #pragma unroll
-    for (int kk = 0; kk < KPL; ++kk) {
-      const float* kr = s + (size_t)jr[kk] * D3 + kcol;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d)
-        if (d < hd) dot = fmaf(qi[d], kr[d], dot);
-      x[kk] = !jin[kk] ? -INFINITY : (msk[jr[kk]] ? dot * scale : kMaskMin);
-      dp[kk] = 0.f;
+    for (int ks = 0; ks < NT; ++ks) {
+      const int d = ks * 8 + c;
+      qa[ks] = frag_a(ld(q0, d, hd), ld(q1, d, hd), ld(q0, d + 4, hd), ld(q1, d + 4, hd));
     }
+    float sc[NJ][4];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      if (d < hd) {
-        const float o = __shfl_sync(0xffffffffu, dov, d);
+    for (int j = 0; j < NJ; ++j) {
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      if (j < NJ - 1 || last_on) {
+        const float* kr = s + min(j * 8 + g, L - 1) * W + hd;
 #pragma unroll
-        for (int kk = 0; kk < KPL; ++kk) dp[kk] = fmaf(o, s[(size_t)jr[kk] * D3 + vcol + d], dp[kk]);
+        for (int ks = 0; ks < NT; ++ks)
+          mma3(sc[j], qa[ks], frag_b(ld(kr, ks * 8 + c, hd), ld(kr, ks * 8 + c + 4, hd)));
       }
     }
-    float mx = x[0];
+    const bool r1_on = mt * 16 + 8 < L;
+    float sum0, sum1;
+    softmax_tile(sc, bias, scale_log2, last_on, r1_on, sum0, sum1);
+
+    float oc[NT][4];
 #pragma unroll
-    for (int kk = 1; kk < KPL; ++kk) mx = fmaxf(mx, x[kk]);
+    for (int nt = 0; nt < NT; ++nt) oc[nt][0] = oc[nt][1] = oc[nt][2] = oc[nt][3] = 0.f;
 #pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float p[KPL], sum = 0.f;
+    for (int j = 0; j < NJ; ++j) {
+      if (j < NJ - 1 || last_on) {
+        const FragA pa = frag_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+        const float* v0 = s + min(j * 8 + 2 * c, L - 1) * W + 2 * hd;
+        const float* v1 = s + min(j * 8 + 2 * c + 1, L - 1) * W + 2 * hd;
 #pragma unroll
-    for (int kk = 0; kk < KPL; ++kk) {
-      p[kk] = expf(x[kk] - mx);  // 0 past L
-      sum += p[kk];
-    }
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;  // sum >= 1: the max term is exp(0)
-    float rs = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KPL; ++kk) {
-      p[kk] *= inv;
-      rs += p[kk] * dp[kk];
-    }
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-    float ds[KPL];
-#pragma unroll
-    for (int kk = 0; kk < KPL; ++kk) ds[kk] = jvalid[kk] ? p[kk] * (dp[kk] - rs) : 0.f;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      if (d < hd) {
-        const float qd = qi[d];
-        const float o = __shfl_sync(0xffffffffu, dov, d);
-#pragma unroll
-        for (int kk = 0; kk < KPL; ++kk) {
-          dk[kk][d] = fmaf(ds[kk], qd, dk[kk][d]);
-          dv[kk][d] = fmaf(p[kk], o, dv[kk][d]);
+        for (int nt = 0; nt < NT; ++nt) {
+          const int d = nt * 8 + g;
+          mma3(oc[nt], pa, frag_b(ld(v0, d, hd), ld(v1, d, hd)));
         }
       }
     }
-    float acc = 0.f;
-    const int l0 = min(L, 32);
-    for (int j = 0; j < l0; ++j)
-      acc = fmaf(__shfl_sync(0xffffffffu, ds[0], j), s[(size_t)j * D3 + kcol + dl], acc);
-    if (KPL > 1) {
-      for (int j = 32; j < L; ++j)
-        acc = fmaf(__shfl_sync(0xffffffffu, ds[KPL - 1], j - 32), s[(size_t)j * D3 + kcol + dl],
-                   acc);
-    }
-    __syncwarp();  // every lane has read q_i
-    if (lane < hd) qi[lane] = acc * scale;
-  }
-  __syncwarp();  // every lane has read its last k and v values
+    // Sums >= 1 (the max term is 2^0); rows g + 8 are all padding where
+    // r1_on is false and are not written.
+    const float inv0 = 1.f / sum0, inv1 = r1_on ? 1.f / sum1 : 0.f;
+    __syncwarp();  // every lane has read the tile's q values
 #pragma unroll
-  for (int kk = 0; kk < KPL; ++kk) {
-    if (!jin[kk]) continue;
-    float* kr = s + (size_t)jr[kk] * D3 + kcol;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      if (d < hd) {
-        kr[d] = dk[kk][d] * scale;
-        kr[D + d] = dv[kk][d];
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      if (r0 < L) {
+        if (d < hd) q0[d] = oc[nt][0] * inv0;
+        if (d + 1 < hd) q0[d + 1] = oc[nt][1] * inv0;
+      }
+      if (r1 < L) {
+        if (d < hd) q1[d] = oc[nt][2] * inv1;
+        if (d + 1 < hd) q1[d + 1] = oc[nt][3] * inv1;
       }
     }
   }
 }
 
-template <int HD, bool EXACT, int KPL>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    mhsa_bwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                        const float* __restrict__ dout, float* __restrict__ dqkv, int U, int L,
-                        int D, int H, int S, float scale) {
+// One block, one warp: head blockIdx.x % H of sequence blockIdx.x / H.
+// At most 128 registers a thread, as for 16 warps an SM.
+template <int KT, int NT, int HDX>
+__global__ void __launch_bounds__(32, 16)
+    mhsa_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                    float* __restrict__ out, int L, int D, int H, float scale_log2) {
   extern __shared__ __align__(16) char smem[];
-  const int ns = min(S, U - (int)blockIdx.x * S);
-  float* slab = stage_slab(qkv, ns, S, L, D, smem);
-  uint8_t* smask = reinterpret_cast<uint8_t*>(smem + slab_bytes(S, L, D, 4));
-  for (int i = threadIdx.x; i < ns * L; i += blockDim.x)
-    smask[i] = mask[(size_t)blockIdx.x * S * L + i];
+  const int hd = HDX > 0 ? HDX : D / H;
+  const int h = blockIdx.x % H;
+  const size_t u = blockIdx.x / H;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
+  stage_runs(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
+  key_biases(sbias, mask + u * L, L);
   cp_async_wait_all();
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int t = warp; t < ns * H; t += nwarps) {
-    const int sq = t / H;
-    f32_bwd_head<HD, EXACT, KPL>(slab + (size_t)sq * L * 3 * D, smask + sq * L,
-                                 dout + ((size_t)blockIdx.x * S + sq) * L * D, t - sq * H, L, D,
-                                 D / H, scale);
-  }
+  f32_head<KT, NT, HDX>(slab, sbias, L, hd, scale_log2);
   __syncthreads();
-  write_rows(dqkv + (size_t)blockIdx.x * S * L * 3 * D, slab, 1, ns * L * 3 * D);
+  write_runs(out + u * L * D + h * hd, slab, L, 1, 3, hd, D, 0);
+}
+
+// One f32 backward warp task: one head of one sequence, staged rows at `s`
+// (q, k, v, row stride 3 hd), dO's at `dos` (row stride hd).  Keys are the
+// rows of the products (16 KT, all in registers), queries the columns, 16
+// a tile: per query tile, S^T = K Q^T and dP^T = V dO^T in split TF32, the
+// exact softmax down each column (the column max, sum and rowsum(dP * P)
+// over the key rows of the lane and then over the 8 lanes of its column by
+// shuffles), dS^T; then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// straight from the accumulators as A operands (k index c taken as query
+// 2c, c + 4 as query 2c + 1), accumulated for all keys across the query
+// tiles.  dQ = dS K needs dS with queries as rows: each 8 x 8 block of dS^T
+// is transposed in registers by two shuffles a lane (a lane of row ρ sends
+// the one of its two values that the lane asking for row ρ wants, since
+// even rows are asked for by even columns first and odd rows by odd
+// columns).  dO rows past L read as 0, so padded query columns add nothing.
+template <int KT, int NT, int HDX>
+__device__ __forceinline__ void f32_bwd_head(float* s, const float* dos, const float* bias,
+                                             int L, int hd_rt, float scale_log2, float scale) {
+  const int hd = HDX > 0 ? HDX : hd_rt;
+  const int W = 3 * hd;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const bool godd = g & 1;
+
+  float dk[KT][NT][4], dv[KT][NT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[kt][nt][e] = dv[kt][nt][e] = 0.f;
+
+  const int mts = (L + 15) / 16;
+  for (int mt = 0; mt < mts; ++mt) {
+    const int qb = mt * 16;
+    const bool n1_on = qb + 8 < L;  // else queries qb + 8.. are all padding
+
+    // st = S^T = K Q^T, dpt = dP^T = V dO^T (rows keys, columns queries).
+    float st[KT][2][4], dpt[KT][2][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[kt][nq][e] = dpt[kt][nq][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const int d = ks * 8 + c;
+      FragB qf[2], of[2];
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        const int qr = qb + nq * 8 + g;
+        const float* qrow = s + min(qr, L - 1) * W;
+        const float* orow = dos + min(qr, L - 1) * hd;
+        const bool in = qr < L;
+        qf[nq] = frag_b(ld(qrow, d, hd), ld(qrow, d + 4, hd));
+        of[nq] = frag_b(in ? ld(orow, d, hd) : 0.f, in ? ld(orow, d + 4, hd) : 0.f);
+      }
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const float* k0 = s + min(kt * 16 + g, L - 1) * W + hd;
+        const float* k1 = s + min(kt * 16 + 8 + g, L - 1) * W + hd;
+        const FragA ka = frag_a(ld(k0, d, hd), ld(k1, d, hd), ld(k0, d + 4, hd), ld(k1, d + 4, hd));
+        mma3(st[kt][0], ka, qf[0]);
+        if (n1_on) mma3(st[kt][1], ka, qf[1]);
+        const float* v0 = k0 + hd;
+        const float* v1 = k1 + hd;
+        const FragA va = frag_a(ld(v0, d, hd), ld(v1, d, hd), ld(v0, d + 4, hd), ld(v1, d + 4, hd));
+        mma3(dpt[kt][0], va, of[0]);
+        if (n1_on) mma3(dpt[kt][1], va, of[1]);
+      }
+    }
+
+    // The exact softmax down each column (log2 units, bias per key row),
+    // then rowsum(dP * P) per query and dS^T, 0 at masked and padded keys.
+    // Columns of this lane: queries qb + 8 nq + 2c + e.
+    float mx[2][2], sm[2][2], dd[2][2];
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) mx[nq][0] = mx[nq][1] = -INFINITY;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const float b0 = bias[kt * 16 + g], b1 = bias[kt * 16 + 8 + g];
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          st[kt][nq][e] = fmaf(st[kt][nq][e], scale_log2, b0);
+          st[kt][nq][2 + e] = fmaf(st[kt][nq][2 + e], scale_log2, b1);
+          mx[nq][e] = fmaxf(mx[nq][e], fmaxf(st[kt][nq][e], st[kt][nq][2 + e]));
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mx[nq][e] = fmaxf(mx[nq][e], __shfl_xor_sync(0xffffffffu, mx[nq][e], o));
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) sm[nq][0] = sm[nq][1] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[kt][nq][e] = ex2(st[kt][nq][e] - mx[nq][e & 1]);  // 0 at keys past L
+          sm[nq][e & 1] += st[kt][nq][e];
+        }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sm[nq][e] += __shfl_xor_sync(0xffffffffu, sm[nq][e], o);
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) {
+      // sums >= 1: the max term is 2^0
+      const float inv[2] = {1.f / sm[nq][0], 1.f / sm[nq][1]};
+      dd[nq][0] = dd[nq][1] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[kt][nq][e] *= inv[e & 1];
+          dd[nq][e & 1] += st[kt][nq][e] * dpt[kt][nq][e];
+        }
+    }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dd[nq][e] += __shfl_xor_sync(0xffffffffu, dd[nq][e], o);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const bool ok0 = bias[kt * 16 + g] == 0.f, ok1 = bias[kt * 16 + 8 + g] == 0.f;
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[kt][nq][e] = (e < 2 ? ok0 : ok1)
+                               ? st[kt][nq][e] * (dpt[kt][nq][e] - dd[nq][e & 1])
+                               : 0.f;
+    }
+
+    // dV += P^T dO, dK += dS^T Q over this tile's queries, one k8 step per
+    // 8 queries (B: k = query 2c / 2c + 1, n = head column).
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) {
+      if (nq == 1 && !n1_on) break;
+      const int qa = qb + nq * 8 + 2 * c;
+      const float* o0 = dos + min(qa, L - 1) * hd;
+      const float* o1 = dos + min(qa + 1, L - 1) * hd;
+      const float* q0 = s + min(qa, L - 1) * W;
+      const float* q1 = s + min(qa + 1, L - 1) * W;
+      const bool in0 = qa < L, in1 = qa + 1 < L;
+      FragB ob[NT], qbf[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + g;
+        ob[nt] = frag_b(in0 ? ld(o0, d, hd) : 0.f, in1 ? ld(o1, d, hd) : 0.f);
+        qbf[nt] = frag_b(ld(q0, d, hd), ld(q1, d, hd));
+      }
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const FragA pa = frag_a(st[kt][nq][0], st[kt][nq][2], st[kt][nq][1], st[kt][nq][3]);
+        const FragA sa = frag_a(dpt[kt][nq][0], dpt[kt][nq][2], dpt[kt][nq][1], dpt[kt][nq][3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma3(dv[kt][nt], pa, ob[nt]);
+          mma3(dk[kt][nt], sa, qbf[nt]);
+        }
+      }
+    }
+
+    // dQ = dS K (A: m = the tile's 16 queries, k = keys 2c / 2c + 1 of each
+    // 8-key block; B: K rows at those keys).  Lane (g, c) gets dS at
+    // (query g, keys 2c and 2c + 1) of each block from the lanes of rows 2c
+    // and 2c + 1, column pair g / 2.
+    const int src1 = (godd ? 2 * c + 1 : 2 * c) * 4 + (g >> 1);
+    const int src2 = (godd ? 2 * c : 2 * c + 1) * 4 + (g >> 1);
+    float dq[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < 2 * KT; ++kb) {
+      const int kt = kb >> 1, hf = kb & 1;
+      float x[2][2];  // [query tile][key 2c, 2c + 1]
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        const float a = dpt[kt][nq][2 * hf], b = dpt[kt][nq][2 * hf + 1];
+        const float r1 = __shfl_sync(0xffffffffu, godd ? b : a, src1);
+        const float r2 = __shfl_sync(0xffffffffu, godd ? a : b, src2);
+        x[nq][0] = godd ? r2 : r1;
+        x[nq][1] = godd ? r1 : r2;
+      }
+      const FragA da = frag_a(x[0][0], x[1][0], x[0][1], x[1][1]);
+      const float* k0 = s + min(kb * 8 + 2 * c, L - 1) * W + hd;
+      const float* k1 = s + min(kb * 8 + 2 * c + 1, L - 1) * W + hd;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + g;
+        mma3(dq[nt], da, frag_b(ld(k0, d, hd), ld(k1, d, hd)));
+      }
+    }
+
+    // Every lane has read this tile's q values: dQ goes over them.
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = nt * 8 + 2 * c;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = qb + hf * 8 + g;
+        if (r < L) {
+          if (d < hd) s[r * W + d] = dq[nt][2 * hf] * scale;
+          if (d + 1 < hd) s[r * W + d + 1] = dq[nt][2 * hf + 1] * scale;
+        }
+      }
+    }
+  }
+
+  // Every lane has read its last k and v values: dK and dV go over them.
+  __syncwarp();
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = kt * 16 + hf * 8 + g;
+      if (key >= L) continue;
+      float* kr = s + key * W + hd;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + 2 * c;
+        if (d < hd) {
+          kr[d] = dk[kt][nt][2 * hf] * scale;
+          kr[hd + d] = dv[kt][nt][2 * hf];
+        }
+        if (d + 1 < hd) {
+          kr[d + 1] = dk[kt][nt][2 * hf + 1] * scale;
+          kr[hd + d + 1] = dv[kt][nt][2 * hf + 1];
+        }
+      }
+    }
+  }
+}
+
+// As mhsa_f32_kernel; at most 128 registers a thread up to L = 32 (16
+// warps an SM), 255 above.
+template <int KT, int NT, int HDX>
+__global__ void __launch_bounds__(32, KT <= 2 ? 16 : 8)
+    mhsa_bwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ dout, float* __restrict__ dqkv, int L, int D,
+                        int H, float scale_log2, float scale) {
+  extern __shared__ __align__(16) char smem[];
+  const int hd = HDX > 0 ? HDX : D / H;
+  const int h = blockIdx.x % H;
+  const size_t u = blockIdx.x / H;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* sdo = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
+  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd));
+  stage_runs(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
+  stage_runs(sdo, dout + u * L * D + h * hd, L, 1, hd, D, 0);
+  key_biases(sbias, mask + u * L, L);
+  cp_async_wait_all();
+  __syncthreads();
+  f32_bwd_head<KT, NT, HDX>(slab, sdo, sbias, L, hd, scale_log2, scale);
+  __syncthreads();
+  write_runs(dqkv + u * L * 3 * D + h * hd, slab, L, 3, 3, hd, 3 * D, D);
 }
 
 // ---------------------------------------------------------------- host ---
@@ -1077,34 +1408,6 @@ cudaError_t launch_bf16(const void* qkv, const uint8_t* mask, void* out, int U, 
   }
 }
 
-template <int HD, bool EXACT>
-cudaError_t launch_f32_hd(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                          int H, int dev, cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {false};
-  auto kernel = mhsa_f32_kernel<HD, EXACT>;
-  cudaError_t err = allow_smem(kernel, dev, smem_set);
-  if (err != cudaSuccess) return err;
-  const Launch p = plan(U, L, D, 4, dev);
-  int threads = ((p.S * L * H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const float scale = 1.f / sqrtf((float)(D / H));
-  kernel<<<p.blocks, threads, p.smem, stream>>>(static_cast<const float*>(qkv), mask,
-                                                static_cast<float*>(out), U, L, D, H, p.S, scale);
-  return cudaGetLastError();
-}
-
-// The head dimension sets the register arrays' size at compile time: the
-// main path's hd = 20 has its own exact instance, any other hd <= 32 runs in
-// the next capacity up with guarded loops.
-cudaError_t launch_f32(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                       int H, int dev, cudaStream_t stream) {
-  const int hd = D / H;
-  if (hd == 20) return launch_f32_hd<20, true>(qkv, mask, out, U, L, D, H, dev, stream);
-  if (hd <= 8) return launch_f32_hd<8, false>(qkv, mask, out, U, L, D, H, dev, stream);
-  if (hd <= 16) return launch_f32_hd<16, false>(qkv, mask, out, U, L, D, H, dev, stream);
-  return launch_f32_hd<32, false>(qkv, mask, out, U, L, D, H, dev, stream);
-}
-
 // The backward's launches take the forward's plan (sequences per block,
 // shared memory) with kBwdWarps warps, so that it takes every shape the
 // forward takes: dO is read from global memory, not staged.
@@ -1155,41 +1458,68 @@ cudaError_t launch_bwd_bf16(const void* qkv, const uint8_t* mask, const void* do
   }
 }
 
-template <int HD, bool EXACT, int KPL>
-cudaError_t launch_bwd_f32_inst(const void* qkv, const uint8_t* mask, const void* dout,
-                                void* dqkv, int U, int L, int D, int H, int dev,
-                                cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {false};
-  auto kernel = mhsa_bwd_f32_kernel<HD, EXACT, KPL>;
-  cudaError_t err = allow_smem(kernel, dev, smem_set);
-  if (err != cudaSuccess) return err;
-  const Launch p = plan(U, L, D, 4, dev);
-  const int warps = p.S * H < kBwdWarps ? p.S * H : kBwdWarps;
-  const float scale = 1.f / sqrtf((float)(D / H));
-  kernel<<<p.blocks, warps * 32, p.smem, stream>>>(
-      static_cast<const float*>(qkv), mask, static_cast<const float*>(dout),
-      static_cast<float*>(dqkv), U, L, D, H, p.S, scale);
+// f32: one warp block per (sequence, head), U H of them: at (64, 50) 960
+// blocks rather than 64 blocks of whole sequences on 132 SMs.
+template <int KT, int NT, int HDX>
+cudaError_t launch_f32_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                            int H, cudaStream_t stream) {
+  const int hd = D / H;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  mhsa_f32_kernel<KT, NT, HDX><<<U * H, 32, f32_qkv_bytes(L, hd) + kMaxLen * 4, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<float*>(out), L, D, H, scale_log2);
   return cudaGetLastError();
 }
 
-template <int HD, bool EXACT>
-cudaError_t launch_bwd_f32_hd(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
-                              int U, int L, int D, int H, int dev, cudaStream_t stream) {
-  if (L <= 32)
-    return launch_bwd_f32_inst<HD, EXACT, 1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  return launch_bwd_f32_inst<HD, EXACT, 2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+template <int KT, int NT, int HDX>
+cudaError_t launch_bwd_f32_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                void* dqkv, int U, int L, int D, int H, cudaStream_t stream) {
+  const int hd = D / H;
+  const float scale = 1.f / sqrtf((float)hd);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  const size_t smem = f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kMaxLen * 4;
+  mhsa_bwd_f32_kernel<KT, NT, HDX><<<U * H, 32, smem, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<const float*>(dout),
+      static_cast<float*>(dqkv), L, D, H, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+// The main path's hd = 20 has its own instances (three k8 / n8 steps over
+// the head dimension, fixed at compile time); any other hd <= 32 runs in a
+// generic instance of four steps with guarded loads.
+template <int KT>
+cudaError_t launch_f32_kt(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                          int H, cudaStream_t stream) {
+  if (D / H == 20) return launch_f32_inst<KT, 3, 20>(qkv, mask, out, U, L, D, H, stream);
+  return launch_f32_inst<KT, 4, 0>(qkv, mask, out, U, L, D, H, stream);
+}
+
+cudaError_t launch_f32(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                       int H, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_f32_kt<1>(qkv, mask, out, U, L, D, H, stream);
+    case 2: return launch_f32_kt<2>(qkv, mask, out, U, L, D, H, stream);
+    case 3: return launch_f32_kt<3>(qkv, mask, out, U, L, D, H, stream);
+    default: return launch_f32_kt<4>(qkv, mask, out, U, L, D, H, stream);
+  }
+}
+
+template <int KT>
+cudaError_t launch_bwd_f32_kt(const void* qkv, const uint8_t* mask, const void* dout,
+                              void* dqkv, int U, int L, int D, int H, cudaStream_t stream) {
+  if (D / H == 20)
+    return launch_bwd_f32_inst<KT, 3, 20>(qkv, mask, dout, dqkv, U, L, D, H, stream);
+  return launch_bwd_f32_inst<KT, 4, 0>(qkv, mask, dout, dqkv, U, L, D, H, stream);
 }
 
 cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
-                           int U, int L, int D, int H, int dev, cudaStream_t stream) {
-  const int hd = D / H;
-  if (hd == 20) return launch_bwd_f32_hd<20, true>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  if (hd <= 8) return launch_bwd_f32_hd<8, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  if (hd <= 16)
-    return launch_bwd_f32_hd<16, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  return launch_bwd_f32_hd<32, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+                           int U, int L, int D, int H, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_bwd_f32_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, stream);
+    case 2: return launch_bwd_f32_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, stream);
+    case 3: return launch_bwd_f32_kt<3>(qkv, mask, dout, dqkv, U, L, D, H, stream);
+    default: return launch_bwd_f32_kt<4>(qkv, mask, dout, dqkv, U, L, D, H, stream);
+  }
 }
-
 // The arguments both entry points take; 0 if the kernels take them.
 int check_args(int U, int L, int D, int H, int dtype) {
   if (U <= 0 || L <= 0 || L > kMaxLen || H <= 0 || D % H != 0 || D / H > kMaxHeadDim ||
@@ -1210,7 +1540,7 @@ extern "C" int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out, int
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, dev, s);
+  if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, s);
   return (int)launch_bf16(qkv, mask, out, U, L, D, H, dev, s);
 }
 
@@ -1222,6 +1552,6 @@ extern "C" int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* do
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
+  if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, s);
   return (int)launch_bwd_bf16(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
 }

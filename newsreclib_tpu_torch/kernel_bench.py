@@ -1,8 +1,9 @@
 """Time the attention kernel on the card against its bound, its plain
 version and a library call, at the shapes the serving path gives it.
 
-    python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--json OUT.jsonl]
-    python3 -m newsreclib_tpu_torch.kernel_bench --backward [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T] [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
+        [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20) and the
 two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
@@ -38,7 +39,9 @@ autograd of ``mhsa_plain`` (``plain_ms``) and SDPA with the efficient
 backend forced (``library_ms``).  The backward alone: the backward kernel
 (``bwd_ms``) and ``mhsa_backward``, its plain version (``plain_bwd_ms``),
 timed in turns (kernel, plain, plain, kernel), and SDPA's backward on a
-saved forward (``library_bwd_ms``).  ``bound_ms`` counts qkv, the mask and
+saved forward (``library_bwd_ms``).  The forward alone: the forward kernel
+(``fwd_ms``), ``mhsa_plain`` (``plain_fwd_ms``) and SDPA's forward
+(``library_fwd_ms``), against ``fwd_bound_ms``.  ``bound_ms`` counts qkv, the mask and
 the context once each way plus the output gradient and dqkv, and the
 products of the forward (q.k, p.v) and of the backward (dP, dQ, dK, dV):
 12 U H L^2 hd operations.  ``bwd_bound_ms`` is the backward alone's: qkv,
@@ -46,9 +49,13 @@ the mask and dO read, dqkv written, and q.k recomputed with the four
 backward products, 10 U H L^2 hd operations.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
-point), checks it the same way and times it in turns with the kernel
+points), checks it the same way and times it in turns with the kernel
 (kernel, baseline, baseline, kernel), so that two versions are compared on
-one card in one run.  ``--unchecked`` records the baseline's error without
+one card in one run: the forward (``baseline_ms``) or, with ``--backward``,
+the forward + backward (``baseline_ms``, the baseline's forward then its
+backward), the backward alone (``baseline_bwd_ms``, in turns with the
+kernel and the plain version) and the forward alone
+(``baseline_fwd_ms``).  ``--unchecked`` records the baseline's error without
 holding it to the tolerance, for diagnostic builds that do not compute the
 function (for instance the kernel with its compute loop removed, which
 times the staging and the write-out alone).  Needs a CUDA card; exits
@@ -152,8 +159,10 @@ def device_events(prof):
 def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 3) -> float:
     """Device milliseconds per call of ``fn(i)``: the self time of every CUDA
     kernel it launched, from ``torch.profiler``, over ``iters`` calls.  A
-    window in which the profiler recorded no kernel at all (seen once on the
-    H100) is profiled again, up to ``attempts`` windows."""
+    window in which the profiler recorded fewer kernels than calls (every
+    call launches at least one) is profiled again, up to ``attempts``
+    windows: on the H100 one window recorded none, and one recorded a
+    twentieth of the launches (0.0033 ms a call, under the bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -164,10 +173,11 @@ def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 3) -
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in device_events(prof))
-        if us > 0:
+        events = device_events(prof)
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0 and sum(e.count for e in events) >= iters:
             return us / iters / 1e3
-    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} windows")
+    raise RuntimeError(f"torch.profiler recorded fewer kernels than calls in {attempts} windows")
 
 
 def raw_launcher(lib: ctypes.CDLL):
@@ -186,6 +196,26 @@ def raw_launcher(lib: ctypes.CDLL):
         if rc != 0:
             raise RuntimeError(f"baseline nrl_mhsa_fwd failed: cudaError {rc}")
         return out
+
+    return launch
+
+
+def raw_backward(lib: ctypes.CDLL):
+    """``(qkv, mask, num_heads, grad_out) -> dqkv`` through another build's
+    ``nrl_mhsa_bwd``, with the wrapper's allocation and no launch count."""
+    fn = lib.nrl_mhsa_bwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def launch(qkv, mask, num_heads, grad_out):
+        u, l, d3 = qkv.shape
+        dqkv = torch.empty_like(qkv)
+        rc = fn(qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(), dqkv.data_ptr(), u, l,
+                d3 // 3, num_heads, dtypes[qkv.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline nrl_mhsa_bwd failed: cudaError {rc}")
+        return dqkv
 
     return launch
 
@@ -313,13 +343,16 @@ def _plain_grad(x, mask, grad_out):
     return torch.autograd.grad(mhsa_plain(x, mask, H), x, grad_out)[0]
 
 
-def check_backward(u, l, dtype, backward=None):
+def check_backward(u, l, dtype, backward=None, forward=None, checked=True,
+                   label="FusedSmallMHSA"):
     """Hold ``FusedSmallMHSA`` at (U, L) against the plain version with a
     random output gradient: its output (the forward kernel's) against
     ``mhsa_plain`` and its gradient (the backward kernel's) against autograd
     of ``mhsa_plain``, each within ATOL + RTOL * |plain|.  ``backward(qkv,
     mask, num_heads, grad_out)``, when given, stands in for the gradient (a
-    planted fault, to show that the check can fail).  Returns ``(max abs
+    planted fault, to show that the check can fail, or another build's
+    kernel), and ``forward(qkv, mask, num_heads)`` for the output; with
+    ``checked`` false the errors are only measured.  Returns ``(max abs
     output err, max abs gradient err, (qkv, mask, grad_out))``."""
     from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA, mhsa_plain
 
@@ -328,7 +361,7 @@ def check_backward(u, l, dtype, backward=None):
     g = torch.randn((u, l, D), generator=torch.Generator(device="cuda").manual_seed(l),
                     device="cuda").to(dtype)
     x = qkv.detach().requires_grad_(True)
-    out = FusedSmallMHSA.apply(x, mask, H)
+    out = FusedSmallMHSA.apply(x, mask, H) if forward is None else forward(qkv, mask, H)
     got = torch.autograd.grad(out, x, g)[0] if backward is None else backward(qkv, mask, H, g)
     want = _plain_grad(qkv, mask, g).float()
     want_out = mhsa_plain(qkv, mask, H).float()
@@ -336,36 +369,73 @@ def check_backward(u, l, dtype, backward=None):
     errs = []
     for what, a, b in (("output", out.detach().float(), want_out), ("gradient", got.float(), want)):
         err = (a - b).abs()
-        if not bool(torch.isfinite(a).all()) or not bool(
-                (err <= ATOL[name] + RTOL[name] * b.abs()).all()):
-            raise AssertionError(f"FusedSmallMHSA {what} != plain at U={u} L={l} {name}: "
+        if checked and (not bool(torch.isfinite(a).all()) or not bool(
+                (err <= ATOL[name] + RTOL[name] * b.abs()).all())):
+            raise AssertionError(f"{label} {what} != plain at U={u} L={l} {name}: "
                                  f"max abs err {err.max().item()}")
         errs.append(err.max().item())
     return errs[0], errs[1], (qkv, mask, g)
 
 
-def measure_backward(u, l, dtype) -> dict:
-    """Forward + backward and the backward alone at (U, L):
-    ``check_backward``, then the times of the module doc."""
-    from newsreclib_tpu_torch.ops.mhsa import _backward, mhsa_backward
+def _in_turns(fns: dict, order) -> dict:
+    """Device ms of each ``fns[name](i)`` in the given order of turns:
+    ``{name: [ms of each turn]}``."""
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(device_ms(fns[name]))
+    return times
+
+
+def _record_turns(rec: dict, key: str, times: list) -> None:
+    rec[key], rec[key + "_runs"] = sum(times) / len(times), times
+
+
+def measure_backward(u, l, dtype, baseline=None, unchecked=False) -> dict:
+    """Forward + backward, the backward alone and the forward alone at
+    (U, L): ``check_backward``, then the times of the module doc.
+    ``baseline``, when given, is another build's ``(forward, backward)``
+    launchers (``raw_launcher``, ``raw_backward``), checked the same way
+    (unless ``unchecked``) and timed in turns with the kernels."""
+    from newsreclib_tpu_torch.ops.mhsa import _backward, _forward, mhsa_backward, mhsa_plain
 
     fwd_err, err, (qkv, mask, g) = check_backward(u, l, dtype)
     rec = dict(U=u, L=l, dtype=dtype_name(dtype), max_abs_err=err, fwd_max_abs_err=fwd_err)
+    if baseline is not None:
+        b_fwd, b_bwd = baseline
+        rec["baseline_fwd_max_abs_err"], rec["baseline_max_abs_err"], _ = check_backward(
+            u, l, dtype, backward=b_bwd, forward=b_fwd, checked=not unchecked, label="baseline")
     sets = _rotated(qkv, mask, (g,))
     n = len(sets)
-    runs = [device_ms(lambda i: _fused_grad(*sets[i % n])) for _ in range(2)]
-    rec["ms"], rec["ms_runs"] = sum(runs) / 2, runs
-    rec["event_ms"] = event_ms(lambda i: _fused_grad(*sets[i % n]))
-    backward = {"kernel": lambda i: _backward(sets[i % n][0], sets[i % n][1], H, sets[i % n][2]),
-                "plain": lambda i: mhsa_backward(sets[i % n][0], sets[i % n][1], H,
-                                                 sets[i % n][2])}
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        times[name].append(device_ms(backward[name]))
-    rec["bwd_ms"], rec["bwd_ms_runs"] = sum(times["kernel"]) / 2, times["kernel"]
-    rec["plain_bwd_ms"], rec["plain_bwd_ms_runs"] = sum(times["plain"]) / 2, times["plain"]
+
+    def args(i):  # (qkv, mask, num_heads, grad_out) of the i-th rotated set
+        x, m, go = sets[i % n]
+        return x, m, H, go
+
+    both = {"kernel": lambda i: _fused_grad(*sets[i % n])}
+    backward = {"kernel": lambda i: _backward(*args(i)),
+                "plain": lambda i: mhsa_backward(*args(i))}
+    forward = {"kernel": lambda i: _forward(*args(i)[:3])}
+    pair, bwd_order = ("kernel", "kernel"), ("kernel", "plain", "plain", "kernel")
+    if baseline is not None:
+        both["baseline"] = lambda i: (b_fwd(*args(i)[:3]), b_bwd(*args(i)))
+        backward["baseline"] = lambda i: b_bwd(*args(i))
+        forward["baseline"] = lambda i: b_fwd(*args(i)[:3])
+        pair = ("kernel", "baseline", "baseline", "kernel")
+        bwd_order = ("kernel", "baseline", "plain", "plain", "baseline", "kernel")
+    for fns, order, suffix in ((both, pair, "ms"), (backward, bwd_order, "bwd_ms"),
+                               (forward, pair, "fwd_ms")):
+        for name, times in _in_turns(fns, order).items():
+            _record_turns(rec, suffix if name == "kernel" else f"{name}_{suffix}", times)
+    rec["event_ms"] = event_ms(both["kernel"])
     rec["bwd_event_ms"] = event_ms(backward["kernel"])
+    rec["plain_fwd_ms"] = device_ms(lambda i: mhsa_plain(*args(i)[:3]))
+
     rec["plain_ms"] = device_ms(lambda i: _plain_grad(*sets[i % n]))
+    calls = [sdpa_call(x, m, H) for x, m, _ in sets]
+    calls[0]()
+    torch.cuda.synchronize()
+    rec["library_fwd_ms"] = device_ms(lambda i: calls[i % n]())
+    del calls
     for key, only in (("library_ms", False), ("library_bwd_ms", True)):
         calls = [sdpa_grad_call(x, m, H, go, backward_only=only) for x, m, go in sets]
         calls[0]()
@@ -375,6 +445,7 @@ def measure_backward(u, l, dtype) -> dict:
     rec["library_backend"] = LIBRARY_BACKEND
     rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], "both")
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(u, l, rec["dtype"], "backward")
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(u, l, rec["dtype"])
     rec["rotated_sets"] = n
     return rec
 
@@ -386,10 +457,10 @@ def main(argv=None) -> int:
                     help="do not hold the baseline to the tolerance (diagnostic builds)")
     ap.add_argument("--backward", action="store_true",
                     help="time forward + backward at the train step's shapes")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="only this type (default: both)")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
-    if args.backward and args.baseline is not None:
-        ap.error("--backward takes no --baseline")
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 1
@@ -401,13 +472,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build_all(["mhsa"])
     variants = [("kernel", mhsa.fused_small_mhsa)]
+    baseline = None
     if args.baseline is not None:
-        variants.append(("baseline", raw_launcher(build.load_source(args.baseline))))
+        lib = build.load_source(args.baseline)
+        baseline = (raw_launcher(lib), raw_backward(lib))
+        variants.append(("baseline", baseline[0]))
     records = []
-    for dtype in (torch.bfloat16, torch.float32):
+    dtypes = (torch.bfloat16, torch.float32)
+    for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
         for u, l in (TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES):
             if args.backward:
-                rec = measure_backward(u, l, dtype)
+                rec = measure_backward(u, l, dtype, baseline, unchecked=args.unchecked)
             else:
                 rec = measure_shape(u, l, dtype, variants,
                                     unchecked=("baseline",) if args.unchecked else ())
@@ -419,8 +494,9 @@ def main(argv=None) -> int:
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
     cols = ["U", "L", "dtype", "ms", "bound_ms", "plain_ms", "library_ms", "event_ms",
             "max_abs_err"]
-    cols[4:4] = (["bwd_ms", "bwd_bound_ms", "plain_bwd_ms", "library_bwd_ms"] if args.backward
-                 else ["baseline_ms"])
+    cols[4:4] = (["bwd_ms", "baseline_bwd_ms", "bwd_bound_ms", "plain_bwd_ms", "library_bwd_ms",
+                  "fwd_ms", "baseline_fwd_ms", "fwd_bound_ms", "library_fwd_ms", "baseline_ms"]
+                 if args.backward else ["baseline_ms"])
     print(" | ".join(cols))
     for r in records:
         print(" | ".join(str(r.get(c, "")) for c in cols))

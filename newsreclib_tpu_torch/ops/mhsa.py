@@ -87,10 +87,12 @@ def mhsa_backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
 
 
 def smem_bytes(l: int, d: int, elem_size: int) -> int:
-    """Shared memory the kernel needs for one sequence (``csrc/mhsa.cu``,
+    """The shape rule's shared memory for one sequence (``csrc/mhsa.cu``,
     ``smem_bytes`` with S = 1): the (L, 3D) slab in the input type plus 16
     bytes of alignment slack, rounded up to 16, then the L mask bytes
-    rounded up to 16 (float32) or 64 float32 key biases (bfloat16)."""
+    rounded up to 16 (float32) or 64 float32 key biases (bfloat16).  The
+    bfloat16 kernels stage that slab; the float32 ones stage one head's
+    columns at a time and need less, but keep the same rule."""
 
     def align16(x):
         return (x + 15) // 16 * 16

@@ -1,11 +1,15 @@
 """Where the time of an NRMS train step goes, on one NVIDIA card.
 
-    python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
+        [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
 ``newsreclib_tpu/configs/model/nrms.yaml`` (D = 300, 15 heads of 20, query
 200, dropout 0.2, vocab 60,000, random weights from seed 0), float32 master
-parameters with bfloat16 compute, Adam at lr 1e-4, cross-entropy, fed by
+parameters with bfloat16 compute (``--compute-dtype float32``: float32
+compute, the training CLI's route when ``trainer.precision`` is unset, so
+the float32 instances of both attention kernels run), Adam at lr 1e-4,
+cross-entropy, fed by
 ``TrainBatcher`` at ``configs/data/mind_small.yaml``'s values (K = 4
 negatives, history 50, ``u_bucket_min`` 512, ``split_title_len`` 16) over
 the ``bench.py`` workload regenerated from seed 0 (32,768 articles, 16,384
@@ -54,7 +58,8 @@ WARMUP = 5
 
 def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
               learning_rate=LEARNING_RATE):
-    """``(state, batcher, train_step)`` of the cell in the module doc."""
+    """``(state, batcher, train_step)`` of the cell in the module doc
+    (``compute_dtype`` None: float32 compute)."""
     import torch
 
     from newsreclib_tpu_torch.data.batching import TrainBatcher
@@ -137,7 +142,8 @@ def _device_breakdown(prof, steps: int) -> dict:
     }
 
 
-def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
+def profile_cell(store, imp, batch_size: int, steps: int, card: str,
+                 compute_dtype="bfloat16") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,8 +151,8 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
     from newsreclib_tpu_torch.models.components.attention import use_plain_attention
     from newsreclib_tpu_torch.ops import mhsa
 
-    state, batcher, step = make_cell(store, imp, batch_size, "cuda")
-    plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda")
+    state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype)
+    plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda", compute_dtype)
     use_plain_attention(plain_state.model)
     t0 = time.perf_counter()
     host = [b for _, b in zip(range(WARMUP + 2 * steps), batcher.epoch(0))]
@@ -186,6 +192,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
     busy_ms = breakdown["device_ms_per_step"]
     return {
         "batch_size": batch_size,
+        "compute_dtype": compute_dtype or "float32",
         "title_shapes": sorted({(tuple(b.news.title.shape),
                                  None if b.news2 is None else tuple(b.news2.title.shape))
                                 for b in timed}),
@@ -212,6 +219,8 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="float32: the training CLI's default route")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     import numpy as np
@@ -232,7 +241,8 @@ def main(argv=None) -> int:
     store, imp = make_serving_workload(np.random.default_rng(0))
     records = []
     for batch_size in BATCH_SIZES:
-        rec = profile_cell(store, imp, batch_size, args.steps, card)
+        rec = profile_cell(store, imp, batch_size, args.steps, card,
+                           None if args.compute_dtype == "float32" else args.compute_dtype)
         print("profile_train " + json.dumps(rec), flush=True)
         records.append(rec)
     if args.json is not None:

@@ -48,8 +48,8 @@ def _inputs(u, l, d, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("u,l,d,h", [(4096, 16, 300, 15), (1024, 30, 300, 15),
-                                     (256, 50, 300, 15), (8, 6, 24, 4), (33, 30, 60, 6),
-                                     (7, 64, 96, 3)])
+                                     (256, 50, 300, 15), (64, 50, 300, 15), (8, 6, 24, 4),
+                                     (33, 30, 60, 6), (7, 64, 96, 3)])
 def test_kernel_matches_plain(cuda, u, l, d, h, dtype):
     qkv, mask = _inputs(u, l, d, dtype, seed=u + l)
     before = mhsa.launches
@@ -233,12 +233,12 @@ def test_train_step_kernel_route_matches_plain_route(cuda, compute_dtype, tol):
     np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=tol, rtol=0)
 
 
-# The backward kernel.  Every NRMS training shape (kernel_bench.TRAIN_SHAPES),
-# L = 1, 15 and 64, other head dims, and the edges of kernel_supports: f32
-# (64, 50) and an f32 slab of 230,400 bytes at (L, D) = (64, 300), a bf16
-# one at (64, 600) with 20 heads of 30.
-BACKWARD_SHAPES = [(3584, 16, 300, 15), (1792, 16, 300, 15), (512, 30, 300, 15),
-                   (256, 30, 300, 15), (64, 50, 300, 15), (7168, 16, 300, 15),
+# The backward kernel.  Every NRMS training shape (kernel_bench.TRAIN_SHAPES)
+# and the serving path's (4096, 16), L = 1, 15 and 64, other head dims, and
+# the edges of kernel_supports: f32 (64, 50) and an f32 slab of 230,400 bytes
+# at (L, D) = (64, 300), a bf16 one at (64, 600) with 20 heads of 30.
+BACKWARD_SHAPES = [(4096, 16, 300, 15), (3584, 16, 300, 15), (1792, 16, 300, 15),
+                   (512, 30, 300, 15), (256, 30, 300, 15), (64, 50, 300, 15), (7168, 16, 300, 15),
                    (1024, 30, 300, 15), (256, 50, 300, 15), (9, 1, 300, 15), (33, 15, 300, 15),
                    (20, 64, 300, 15), (50, 17, 24, 4), (50, 33, 32, 4), (20, 64, 96, 3),
                    (3, 64, 300, 15), (3, 64, 600, 20)]
@@ -342,3 +342,18 @@ def test_backward_kernel_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     assert mhsa.bwd_launches == before + 2
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("u,l", [(3584, 16), (1792, 16), (64, 50)])
+def test_f32_backward_is_bitwise_repeatable_at_cli_shapes(cuda, u, l):
+    """The training CLI's float32 route (the title encoder at L = 16, the
+    user encoder at (64, 50)): each dqkv value is written by one lane with
+    no atomics, so two runs give the same bits."""
+    qkv, mask = _edge_inputs(u, l, 300, torch.float32, seed=u + l, masking="prefix")
+    grad_out = _grad_out(u, l, 300, torch.float32, seed=l)
+    a = mhsa._backward(qkv, mask, 15, grad_out)
+    b = mhsa._backward(qkv, mask, 15, grad_out)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, mhsa.mhsa_backward(qkv, mask, 15, grad_out),
+                               **TOL[torch.float32])
