@@ -46,7 +46,29 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    + backward against autograd of the plain version and SDPA's, at the
    batch-64 training shapes in bfloat16 and float32
    (``kernel_bench.measure_backward``);
-7. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
+7. the zoo phase, on the same store, whose articles also carry abstracts,
+   subcategories and title and abstract entities: MINS, CenNewsRec and
+   CAUM at their config files' widths (MINS's user encoder 6 heads of 50,
+   the kernel's wide instances; CenNewsRec's and CAUM's D = 400 with 20
+   heads), in float32 and bf16 compute, each trained ``ZOO_STEPS`` steps on
+   ``TrainBatcher`` batches (batch 64, K = 4, history 50), where the
+   kernel route must launch the forward and the backward kernel exactly
+   once per attention call (MINS: title, abstract and user encoder); then
+   the route check of step 4 for each model: 20 steps at lr 1e-3 on the
+   planted-signal batch with the kernel, the plain attention and the
+   planted faults (``ROUTE_ATOL``, ``ZOO_FAULTS``); then the kernel
+   route's planted-trained model serves one ``CachedScorer`` epoch over
+   the whole corpus and the first ``ZOO_IMPRESSIONS`` impressions, with an
+   exact launch count and metrics equal to the same weights' plain
+   pipeline's (``METRIC_ATOL``), and served scores that differ from the
+   plain route's by no more than those of an attention that errs by the
+   kernel tolerance at every output, where the unmasked fault must differ
+   by more (``ZOO_FAULTS``).  Before the models, with the other profiled
+   phases, both kernels at the zoo's user-encoder shapes are held against
+   the plain versions and timed (``kernel_bench.ZOO_SHAPES``), where the
+   same checks must reject the planted faults of ``ELEMENT_FAULTS``
+   (logits 10% too large, the gradient's rowsum term dropped);
+8. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
    ``build/smoke_demo``: ETL from the raw files, 2 epochs with cached
@@ -58,7 +80,9 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    best and last checkpoints must exist, and the best checkpoint restored
    into a new trainer must give the same ``test/auc`` (1e-6) and, with the
    plain attention, the same test metrics (``METRIC_ATOL``);
-8. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+9. prints one ``{"kernels": [...]}`` line (the wide instances' own entries,
+   the D = 400 float32 times under ``d400_f32_*``) and, last,
+   ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build and the CLI phase's data copy
@@ -109,6 +133,28 @@ CLI_OVERRIDES = ["data=mind_demo", "model=nrms", "trainer.max_epochs=2",
                  f"data.word_embeddings_fpath={os.path.join(CLI_DATA, 'glove_demo.txt')}",
                  f"output_dir={CLI_OUT}"]
 CLI_RETEST_ATOL = 1e-6  # test/auc of the run against the best checkpoint restored
+# The zoo phase: MINS, CenNewsRec and CAUM at their config files' widths,
+# trained from the same init, batches and dropout seeds on both attention
+# routes, then served over the whole corpus and the first ZOO_IMPRESSIONS.
+ZOO = ("mins", "cen_news_rec", "caum")
+ZOO_STEPS = 4
+ZOO_IMPRESSIONS = 2048
+# The planted faults the zoo's model-level checks must catch: the route check
+# (ROUTE_ATOL) and the served scores.  The kernel route's served scores must
+# differ from the plain route's by no more than those of the tolerance
+# attention (tolerance_attention: every attention output moved by
+# kernel_bench's ATOL + RTOL x |plain|), the error the element checks let
+# through as it reaches the scores.  The element tolerances cannot be put on
+# the scores themselves: the planted-signal models' scores reach hundreds,
+# and an attention error within tolerance moves them by more (CAUM, float32:
+# 2.26x ATOL + RTOL x |score|, one H100 run).  Keys unmasked move both checks
+# by far more than their tolerances.  Logits 10% too large move the zoo
+# models' planted-signal losses by less than the float32 tolerance (the
+# planted loss falls to about 0 and the logits stay small), so that fault is
+# logged there and must be caught by the element checks at the zoo's shapes
+# (ELEMENT_FAULTS).
+ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
+ELEMENT_FAULTS = {"float32": ("scaled", "rowsum"), "bfloat16": ("rowsum",)}
 
 
 def log(*a):
@@ -255,6 +301,25 @@ def scaled_attention(qkv, mask, num_heads):
 FAULTS = {"unmasked": unmasked_attention, "scaled": scaled_attention}
 
 
+def tolerance_attention(dtype: str):
+    """The plain attention with every output element moved by the kernel
+    tolerance (``kernel_bench.ATOL + RTOL x |plain|``) up or down at
+    random: what the element checks let through, as seen by the model."""
+    import torch
+
+    from newsreclib_tpu_torch.kernel_bench import ATOL, RTOL
+    from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def attention(qkv, mask, num_heads):
+        out = mhsa_plain(qkv, mask, num_heads).float()
+        sign = torch.randint(0, 2, out.shape, generator=gen, device=out.device) * 2 - 1
+        return (out + (ATOL[dtype] + RTOL[dtype] * out.abs()) * sign).to(qkv.dtype)
+
+    return attention
+
+
 def backward_without_rowsum(qkv, mask, num_heads, grad_out):
     """A planted fault: the attention gradient with dS = P * dP, the
     rowsum(dP * P) term dropped (``mhsa_backward`` otherwise)."""
@@ -274,26 +339,53 @@ def backward_without_rowsum(qkv, mask, num_heads, grad_out):
     return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
 
 
-def route_losses(store, imp, batches, cdtype, lr, attention):
-    """Per-step losses of a fresh cell over ``batches`` with every MHSA's
-    attention set to ``attention`` (None: the kernel)."""
-    import torch
-
+def set_attention(model, attention):
+    """``model`` with every MHSA's attention set to ``attention`` ("plain":
+    ``mhsa_plain``; a function: that function; None: the kernel), in place."""
     from newsreclib_tpu_torch.models.components.attention import (
         MultiHeadSelfAttention,
         use_plain_attention,
     )
-    from newsreclib_tpu_torch.profile_train import make_cell
 
-    st, _, stp = make_cell(store, imp, TRAIN_BATCH, "cuda", compute_dtype=cdtype,
-                           learning_rate=lr)
     if attention == "plain":
-        use_plain_attention(st.model)
-    elif attention is not None:
-        for m in st.model.modules():
+        return use_plain_attention(model)
+    if attention is not None:
+        for m in model.modules():
             if isinstance(m, MultiHeadSelfAttention):
                 m.attention = attention
-    return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu()
+    return model
+
+
+def planted_batch():
+    """The planted-signal batch of the route checks, on the card: batch 64,
+    history 50, 5 candidates over 1,024 articles with every field."""
+    import numpy as np
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+
+    cfg = SyntheticConfig(vocab_size=SERVING["vocab_size"])
+    return to_device(make_batch(np.random.default_rng(0), batch_size=TRAIN_BATCH,
+                                hist_len=SERVING["hist_len"], num_candidates=5,
+                                unique_news=1024, cfg=cfg, planted_signal=True), "cuda")
+
+
+def route_losses(batches, cdtype, lr, attention, model="nrms"):
+    """Per-step losses of a fresh ``model`` cell (``profile_train``'s init,
+    Adam, cross-entropy, dropout seed 0) over ``batches`` with every MHSA's
+    attention set to ``attention`` (``set_attention``), and the trained
+    model."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.profile_train import build_cell_model
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    st = create_train_state(set_attention(build_cell_model(model, "cuda"), attention),
+                            make_optimizer(lr), dropout_seed=0)
+    stp = make_train_step(cross_entropy_loss, cdtype)
+    return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu(), st.model
 
 
 def training_phase(card: str, store, imp):
@@ -301,11 +393,9 @@ def training_phase(card: str, store, imp):
     forward and the backward kernel launches of the timed steps, the step
     time in seconds, the attention shapes (U, L) of the timed steps and the
     largest gradient error of the checks."""
-    import numpy as np
     import torch
 
     from newsreclib_tpu_torch.data.batch import to_device
-    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
     from newsreclib_tpu_torch.kernel_bench import check_backward
     from newsreclib_tpu_torch.ops import mhsa
     from newsreclib_tpu_torch.profile_train import DATA, attention_launches, make_cell
@@ -343,16 +433,13 @@ def training_phase(card: str, store, imp):
 
     # kernel route vs plain route, same init, batch and dropout seeds; the
     # planted faults show that the comparison can fail
-    cfg = SyntheticConfig(vocab_size=SERVING["vocab_size"])
-    planted = to_device(make_batch(np.random.default_rng(0), batch_size=TRAIN_BATCH,
-                                   hist_len=DATA["max_history_len"], num_candidates=5,
-                                   unique_news=1024, cfg=cfg, planted_signal=True), "cuda")
+    planted = planted_batch()
     for name, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
         route = [planted] * ROUTE_STEPS
-        kernel = route_losses(store, imp, route, cdtype, PLANTED_LR, None)
-        plain = route_losses(store, imp, route, cdtype, PLANTED_LR, "plain")
+        kernel = route_losses(route, cdtype, PLANTED_LR, None)[0]
+        plain = route_losses(route, cdtype, PLANTED_LR, "plain")[0]
         diff = (kernel - plain).abs().max().item()
-        faults = {f: (route_losses(store, imp, route, cdtype, PLANTED_LR, fn)
+        faults = {f: (route_losses(route, cdtype, PLANTED_LR, fn)[0]
                       - plain).abs().max().item() for f, fn in FAULTS.items()}
         log(f"train losses over {ROUTE_STEPS} steps on a planted-signal batch at lr "
             f"{PLANTED_LR}, kernel vs plain attention, {name}: max abs diff {diff:.3g} "
@@ -385,7 +472,7 @@ def training_phase(card: str, store, imp):
                                  "gradient without the rowsum term from the plain one")
 
     # planted signal: the loss falls on one fixed batch
-    curve = route_losses(store, imp, [planted] * PLANTED_STEPS, "bfloat16", PLANTED_LR, None)
+    curve = route_losses([planted] * PLANTED_STEPS, "bfloat16", PLANTED_LR, None)[0]
     log(f"planted signal, {PLANTED_STEPS} steps at lr {PLANTED_LR}: loss "
         f"{curve[0].item():.4f} -> {curve[-1].item():.4f}")
     if not curve[-1].item() <= curve[0].item() / 2:
@@ -395,7 +482,7 @@ def training_phase(card: str, store, imp):
 
 def cli_phase(card: str):
     """The training CLI on the demo data at full NRMS width (module doc,
-    phase 7).  Returns the forward and backward kernel launches of the run
+    phase 8).  Returns the forward and backward kernel launches of the run
     and the phase's wall time in seconds."""
     import shutil
 
@@ -480,6 +567,219 @@ def cli_phase(card: str):
     return launches, bwd_launches, wall_s
 
 
+def zoo_serving_launches(name, store, imp) -> int:
+    """Kernel launches of one zoo serving epoch: the news encoder's
+    attention calls of each corpus chunk and one per impression batch."""
+    from newsreclib_tpu_torch.data.batching import BucketedAssembler
+    from newsreclib_tpu_torch.profile_train import TEXT_ATTENTIONS
+    from newsreclib_tpu_torch.serving import corpus_segments
+
+    chunks = sum(math.ceil(len(rows) / ENCODE_BATCH)
+                 for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
+    buckets = BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS).buckets
+    return TEXT_ATTENTIONS[name] * chunks + sum(
+        math.ceil(len(idx) / max(1, TARGET_CELLS // c)) for c, idx in buckets.items())
+
+
+def served_scores(model, store, imp, cdtype, attention):
+    """Every candidate's score over ``imp`` from cached serving's own steps
+    (the corpus table of ``build_news_vector_table``, then
+    ``score_with_vectors`` on ``BucketedAssembler`` batches), for a copy of
+    ``model`` in ``cdtype`` with its attention set to ``attention``."""
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import BucketedAssembler
+    from newsreclib_tpu_torch.serving import build_news_vector_table
+
+    m = set_attention(copy.deepcopy(model).eval(), attention)
+    if cdtype is not None:
+        m = m.to(getattr(torch, cdtype))
+    with torch.inference_mode():
+        table = build_news_vector_table(m, store, ENCODE_BATCH, device="cuda")
+        batches = [to_device(b, "cuda")
+                   for b in BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS)]
+        return torch.cat([m.score_with_vectors(b, table).float()[
+            b.cand_mask & b.impression_valid[:, None]] for b in batches])
+
+
+def zoo_phase(card: str, store, imp):
+    """MINS, CenNewsRec and CAUM, each at its config file's widths, in
+    float32 and bf16 compute (module doc, step 7):
+
+    * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2) on ``TrainBatcher``
+      batches (batch 64, K = 4, history 50, split at 16): the kernel route
+      must launch the forward and the backward kernel exactly once per
+      attention call;
+    * the route check: ROUTE_STEPS steps at PLANTED_LR on the planted-signal
+      batch from the same init and dropout seeds with the kernels, with the
+      plain attention and with each planted fault; the per-step losses of the
+      kernel and the plain route must agree (``ROUTE_ATOL``) and those of each
+      fault in ``ZOO_FAULTS`` must not;
+    * the kernel route's trained model serves one ``CachedScorer`` epoch (the
+      whole corpus encoded with every field the model reads, the first
+      ZOO_IMPRESSIONS impressions scored) with an exact launch count and
+      metrics equal to the same weights' plain-attention pipeline's
+      (``METRIC_ATOL``); the kernel route's served scores must differ from
+      the plain route's by no more than those of ``tolerance_attention``,
+      and each fault's in ``ZOO_FAULTS`` by more.
+
+    Returns the forward, backward, wide forward and wide backward (head dim
+    above 32) launches of the ``TrainBatcher`` steps and the serving epochs."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, attention_launches, build_cell_model
+    from newsreclib_tpu_torch.serving import CachedScorer
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    sub = imp.subset(ZOO_IMPRESSIONS)
+    planted = [planted_batch()] * ROUTE_STEPS
+    counts = np.zeros(4, dtype=np.int64)  # forward, backward, wide forward, wide backward
+    for name in ZOO:
+        for dname, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+            state = create_train_state(build_cell_model(name, "cuda"), make_optimizer(1e-4),
+                                       dropout_seed=0)
+            step = make_train_step(cross_entropy_loss, cdtype)
+            batches = TrainBatcher(store, imp, batch_size=TRAIN_BATCH, **DATA).epoch(0)
+            calls, out = 0, []
+            torch.cuda.synchronize()
+            mhsa.launches = mhsa.bwd_launches = 0
+            mhsa.wide_launches = mhsa.wide_bwd_launches = 0
+            t0 = time.perf_counter()
+            for _ in range(ZOO_STEPS):
+                b = next(batches)
+                calls += attention_launches(b, name)
+                out.append(step(state, to_device(b, "cuda"))[1]["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
+            got = np.array([mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches,
+                            mhsa.wide_bwd_launches])
+            counts += got
+            out = torch.stack(out).cpu()
+            log(f"zoo {name} {dname}: {ZOO_STEPS} train steps at batch {TRAIN_BATCH}, "
+                f"{step_ms:.2f} ms a step on {card}; kernel launches {got[0]} forward / "
+                f"{got[1]} backward ({calls} attention calls; {got[2]} wide); losses "
+                f"{[round(x, 5) for x in out.tolist()]}")
+            if got[0] != calls or got[1] != calls:
+                raise AssertionError(f"zoo {name} {dname}: {got[0]} forward and {got[1]} "
+                                     f"backward kernel launches ({calls} expected)")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"zoo {name} {dname} train losses not finite: {out}")
+            if (got[2] > 0) != (name == "mins"):
+                raise AssertionError(f"zoo {name}: {got[2]} wide launches")
+            del state
+
+            kernel, model = route_losses(planted, cdtype, PLANTED_LR, None, name)
+            mhsa.launches = 0
+            plain = route_losses(planted, cdtype, PLANTED_LR, "plain", name)[0]
+            if mhsa.launches:
+                raise AssertionError(f"zoo {name}: the plain route launched the kernel")
+            diff = (kernel - plain).abs().max().item()
+            faults = {f: (route_losses(planted, cdtype, PLANTED_LR, fn, name)[0]
+                          - plain).abs().max().item() for f, fn in FAULTS.items()}
+            log(f"zoo {name} {dname}: train losses over {ROUTE_STEPS} steps on a "
+                f"planted-signal batch at lr {PLANTED_LR}, kernel vs plain attention: max abs "
+                f"diff {diff:.3g} (tolerance {ROUTE_ATOL[dname]}); planted faults vs plain: "
+                f"{json.dumps(faults)}; kernel {kernel[0].item():.5f} -> "
+                f"{kernel[-1].item():.5f}")
+            if not bool(torch.isfinite(kernel).all()) or diff > ROUTE_ATOL[dname]:
+                raise AssertionError(f"zoo {name} {dname} train losses differ: {kernel} vs "
+                                     f"{plain}")
+            missed = [f for f in ZOO_FAULTS[dname] if not faults[f] > ROUTE_ATOL[dname]]
+            if missed:
+                raise AssertionError(f"zoo {name} {dname}: the route check does not tell the "
+                                     f"planted faults {missed} from the plain attention")
+
+            metrics = {}
+            for route, m in (("kernel", model), ("plain", plain_copy(model))):
+                mhsa.launches = mhsa.wide_launches = 0
+                metrics[route] = CachedScorer(m, compute_dtype=cdtype, device="cuda"
+                                              ).evaluate(store, sub, **EVAL)
+                launches = mhsa.launches
+                want = zoo_serving_launches(name, store, sub) if route == "kernel" else 0
+                if launches != want:
+                    raise AssertionError(f"zoo {name} {dname} {route} serving epoch: {launches}"
+                                         f" kernel launches ({want} expected)")
+                if route == "kernel":
+                    counts[0] += launches
+                    counts[2] += mhsa.wide_launches
+                    served_launches = launches
+            got, want = metrics["kernel"], metrics["plain"]
+            diff = max(abs(got[k] - want[k]) for k in want)
+            bad = [k for k, v in got.items() if not math.isfinite(v)]
+            routes = (("kernel", None), ("plain", "plain"),
+                      ("tolerance", tolerance_attention(dname)), *FAULTS.items())
+            scores = {r: served_scores(model, store, sub, cdtype, fn) for r, fn in routes}
+            want_s = scores.pop("plain")
+            gaps = {r: (s - want_s).abs().max().item() for r, s in scores.items()}
+            limit = gaps.pop("tolerance")
+            ratio = {r: g / limit for r, g in gaps.items()}
+            log(f"zoo {name} {dname}: served metrics over {ZOO_IMPRESSIONS} impressions "
+                f"(auc {got['auc']:.4f}), {served_launches} kernel launches; kernel vs plain "
+                f"attention max abs diff {diff:.3g} (tolerance {METRIC_ATOL[dname]}); "
+                f"{want_s.numel()} served scores (max |plain| {want_s.abs().max().item():.4g}), "
+                f"max abs diff from the plain route's: {json.dumps(gaps)}, over the tolerance "
+                f"attention's {limit:.4g}: {json.dumps(ratio)} (kernel within 1, faults "
+                f"{list(ZOO_FAULTS[dname])} beyond)")
+            if bad or set(got) != set(want) or diff > METRIC_ATOL[dname]:
+                raise AssertionError(f"zoo {name} {dname} served metrics differ: {got} vs {want}")
+            if not bool(torch.isfinite(scores["kernel"]).all()) or not ratio["kernel"] <= 1:
+                raise AssertionError(f"zoo {name} {dname}: served scores differ from the "
+                                     f"plain route's: {ratio}")
+            missed = [f for f in ZOO_FAULTS[dname] if not ratio[f] > 1]
+            if missed:
+                raise AssertionError(f"zoo {name} {dname}: the served-score check does not "
+                                     f"tell the planted faults {missed} from the plain route")
+            del model, scores
+    return counts
+
+
+def zoo_kernel_phase():
+    """The kernels at the zoo's user-encoder shapes (``kernel_bench.ZOO_SHAPES``)
+    in float32 and bfloat16: forward and backward held against ``mhsa_plain``
+    / autograd of it and timed with the plain versions and SDPA; the same
+    check must reject each planted fault of ``ELEMENT_FAULTS``."""
+    import torch
+
+    from newsreclib_tpu_torch.kernel_bench import (
+        ZOO_SHAPES,
+        check_backward,
+        dtype_name,
+        measure_backward,
+        measure_shape,
+    )
+    from newsreclib_tpu_torch.ops import mhsa
+
+    planted = {"scaled": dict(forward=scaled_attention, backward=mhsa.mhsa_backward),
+               "rowsum": dict(backward=backward_without_rowsum)}
+    fwd, bwd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = dtype_name(dtype)
+        for u, l, d, h in ZOO_SHAPES:
+            rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)], d=d, h=h)
+            log("zoo_kernel_shape " + json.dumps(rec))
+            fwd.append(rec)
+            rec = measure_backward(u, l, dtype, d=d, h=h)
+            log("zoo_backward_shape " + json.dumps(rec))
+            bwd.append(rec)
+            for fault in ELEMENT_FAULTS[dname]:
+                try:
+                    check_backward(u, l, dtype, d=d, h=h, **planted[fault])
+                except AssertionError as e:
+                    log(f"planted fault {fault} at ({u}, {l}, {d}, {h}) {dname}: caught ({e})")
+                else:
+                    raise AssertionError(f"the element check at ({u}, {l}, {d}, {h}) {dname} "
+                                         f"does not tell the planted fault {fault} from the "
+                                         "plain version")
+    return fwd, bwd
+
+
 def main() -> int:
     import torch
 
@@ -506,8 +806,8 @@ def main() -> int:
 
     t0 = time.time()
     store, imp = make_serving_workload(np.random.default_rng(0), **SERVING)
-    log(f"workload: {SERVING['corpus']} articles, {len(imp)} impressions, "
-        f"built in {time.time() - t0:.1f} s")
+    log(f"workload: {SERVING['corpus']} articles (titles, abstracts, categories, entities), "
+        f"{len(imp)} impressions, built in {time.time() - t0:.1f} s")
     shapes = main_path_shapes(store)
     log(f"attention shapes (U, L) of the serving path: {shapes}")
 
@@ -524,8 +824,11 @@ def main() -> int:
     bwd_records = backward_phase(train_shapes)
     bwd_main, bwd_f32 = (next(r for r in bwd_records if r["dtype"] == name)
                          for name in ("bfloat16", "float32"))
+    zoo_fwd, zoo_bwd = zoo_kernel_phase()
     # after the profiled phases: with the CLI phase before them, a profiler
-    # window recorded no device time (one H100 run)
+    # window recorded no device time, and with the zoo phase before them six
+    # windows in a row recorded fewer kernels than calls (one H100 run each)
+    zoo_counts = zoo_phase(card, store, imp)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
@@ -575,6 +878,43 @@ def main() -> int:
         "autograd_plain_fwd_bwd_ms": bwd_main["plain_ms"],
         "library_fwd_bwd_ms": bwd_main["library_ms"],
     }]
+    def zoo_rec(recs, shape, dtype):
+        return next(r for r in recs if (r["U"], r["L"], r["D"], r["H"], r["dtype"])
+                    == (*shape, dtype))
+
+    wide_shape, d400_shape = (64, 50, 300, 6), (320, 50, 400, 20)
+    for entry, recs, prefix in ((kernels[0], zoo_fwd, ""), (kernels[1], zoo_bwd, "bwd_")):
+        r = zoo_rec(recs, d400_shape, "float32")
+        entry.update({
+            "zoo_launches": int(zoo_counts[0] if not prefix else zoo_counts[1]),
+            "d400_f32_ms": r[prefix + "ms"], "d400_f32_bound_ms": r[prefix + "bound_ms"],
+            "d400_f32_plain_ms": r["plain_" + prefix + "ms"],
+            "d400_f32_library_ms": r["library_" + prefix + "ms"],
+        })
+    for name, recs, prefix, count in (
+            ("fused_small_mhsa_wide", zoo_fwd, "", zoo_counts[2]),
+            ("fused_small_mhsa_wide_backward", zoo_bwd, "bwd_", zoo_counts[3])):
+        main_r, f32_r = (zoo_rec(recs, wide_shape, t) for t in ("bfloat16", "float32"))
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
+            "replaces": ("newsreclib_tpu/ops/mhsa.py:160" if not prefix else
+                         "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
+                        + " at head dims 33..64",
+            "launches": int(count),
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["H"] == 6),
+            "ms": main_r[prefix + "ms"],
+            "plain_ms": main_r["plain_" + prefix + "ms"],
+            "bound_ms": main_r[prefix + "bound_ms"],
+            "bound_by": main_r[prefix + "bound_by"],
+            "library_ms": main_r["library_" + prefix + "ms"],
+            "f32_ms": f32_r[prefix + "ms"],
+            "f32_bound_ms": f32_r[prefix + "bound_ms"],
+            "f32_plain_ms": f32_r["plain_" + prefix + "ms"],
+            "f32_library_ms": f32_r["library_" + prefix + "ms"],
+            "shape": list(wide_shape),
+        })
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
         f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")
     print(json.dumps({"kernels": kernels}))

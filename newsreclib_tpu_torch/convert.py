@@ -4,14 +4,20 @@ The tree holds numpy arrays (or anything ``np.asarray`` takes), e.g.
 ``jax.tree.map(np.asarray, params)`` of the JAX ``NRMS``.  Names map one to
 one, joined with dots, except for the leaves:
 
-  * a Dense ``kernel`` of shape (in, out) becomes ``weight`` of shape
-    (out, in) (the port's ``Dense`` computes ``x W^T + b``);
+  * a ``kernel`` becomes ``weight``, transposed with its axes reversed: a
+    Dense kernel (in, out) becomes (out, in) (the port's ``Dense`` computes
+    ``x W^T + b``), a Conv kernel (W, in, out) becomes torch's (out, in, W);
   * an ``embedding`` table becomes ``weight``;
   * ``bias`` and the additive-attention ``query`` keep their names.
 
-For NRMS this maps ``news_encoder/{embedding, mhsa/qkv, mhsa/out,
-add_att/proj, add_att/query}`` and ``user_encoder/{mhsa/qkv, mhsa/out,
-add_att/proj, add_att/query}``.  It is the inverse of the weight copy in
+The port's modules carry the JAX package's names, so no tree needs more:
+for NRMS ``news_encoder/{embedding, mhsa/qkv, mhsa/out, add_att/proj,
+add_att/query}`` and ``user_encoder/{mhsa/..., add_att/...}``; the GRU cell
+``gru/GRUCell_0/{ir, iz, in, hr, hz, hn}`` (``hr``, ``hz`` without bias);
+CenNewsRec's ``cnn``; the news encoders' ``text_encoder``,
+``category_encoder/{embedding, linear}``, ``entity_encoder``,
+``combine_add_att`` and ``combine_linear``; CAUM's ``linear1..3`` and
+``dense_att/fc1..fc3``.  It is the inverse of the weight copy in
 ``tests/test_torch_parity.py::_copy_mha``.
 """
 

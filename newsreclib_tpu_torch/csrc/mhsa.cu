@@ -1,7 +1,9 @@
 // Masked multi-head self-attention over many short independent sequences,
 // forward and backward: the attention of the NRMS title encoder (L = 16 /
-// 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20.  The
-// forward is described first; the backward (nrl_mhsa_bwd) after it.
+// 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20, and of
+// the other GloVe models (MINS, CenNewsRec, CAUM: hd 15, 20 and 50, D up to
+// 400).  The forward is described first; the backward (nrl_mhsa_bwd) after
+// it; the instances for head dims above 32 last ("wide").
 //
 // Replaces the TPU kernel newsreclib_tpu/ops/mhsa.py::fused_small_mhsa (body
 // _attention_kernel, pallas_call at ops/mhsa.py:198) and computes what
@@ -97,22 +99,27 @@
 // * cudaFuncSetAttribute (dynamic shared memory above 48 KB, bf16) runs
 //   once per kernel instance and device, not on every launch.
 //
-// Shared memory: a bf16 slab of S sequences takes 16 + S * L * 3D * 2
-// bytes, rounded up to 16, plus 64 key biases a sequence.  An f32 block
-// takes L * 3 hd * 4 bytes (+ L * hd * 4 for dO in the backward), each
-// rounded up to 16, plus the key biases: at most 33 KB.  The shape rule
-// is still the whole-slab one of the first f32 design: a shape whose single
-// sequence, slab (16 + L * 3D * sizeof(T), rounded up to 16) plus L mask
-// bytes (f32, rounded up to 16) or 64 biases (bf16), does not fit one
-// block's 232,448 bytes is refused, in either type
-// (ops/mhsa.py::kernel_supports refuses it first).
+// * Head dims 33..64 (MINS's user encoder, hd 50; the PLM tower's MHSA,
+//   hd 48) run in their own instances, in both types: one warp per
+//   (sequence, head), the head's columns staged as f32, split TF32, and
+//   nothing of the head held in registers across the head dimension (see
+//   "wide" below).
+//
+// Shared memory, and the shape rule, per instance: what it stages.  A bf16
+// block of S sequences (hd <= 32) takes 16 + S * L * 3D * 2 bytes, rounded
+// up to 16, plus 64 key biases a sequence; a shape whose single sequence
+// does not fit one block's 232,448 bytes is refused (L = 50: D up to about
+// 774).  An f32 block (hd <= 32) takes L * 3 hd * 4 bytes (+ L * hd * 4 for
+// dO in the backward), each rounded up to 16, plus the key biases: at most
+// 33 KB, so every L <= 64 fits.  A wide block takes at most 100,608 bytes
+// (below).  ops/mhsa.py::kernel_supports applies the same rule first.
 //
 // C entry point (bound with ctypes):
 //   int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out,
 //                    int U, int L, int D, int H, int dtype, void* stream)
 // qkv (U, L, 3D) and out (U, L, D) are contiguous, dtype 0 = float32,
 // 1 = bfloat16; mask (U, L) is one byte per position, nonzero = valid key;
-// L <= 64, D / H <= 32.  Launches on `stream`, does not synchronise,
+// L <= 64, D / H <= 64.  Launches on `stream`, does not synchronise,
 // allocates nothing, and returns the cudaError_t of the launch (0 on
 // success).
 //
@@ -192,7 +199,7 @@ namespace {
 
 constexpr float kMaskMin = -1e30f;
 constexpr int kMaxLen = 64;
-constexpr int kMaxHeadDim = 32;
+constexpr int kMaxHeadDim = 64;
 constexpr int kSmemLimit = 232448;       // one block's dynamic shared memory
 constexpr int kSmemTarget = 113 * 1024;  // per block, so that two fit on an SM
 constexpr int kMaxDevices = 64;
@@ -1323,6 +1330,498 @@ __global__ void __launch_bounds__(32, KT <= 2 ? 16 : 8)
   write_runs(dqkv + u * L * 3 * D + h * hd, slab, L, 3, 3, hd, 3 * D, D);
 }
 
+// ---------------------------------------------------------------- wide ---
+//
+// Head dims 33..64 (MINS's user encoder, 6 heads of 50; the PLM tower's
+// MHSA, 16 heads of 48), in both types.  The hd <= 32 warp tasks keep a
+// head's operand fragments or its dK / dV in registers; at hd = 50, L = 50
+// that is 120 fragment registers in the bf16 forward and about 224 a lane
+// of dK and dV in the backwards, past what a thread may hold.  So the wide
+// instances are one design for both types, built around registers:
+//
+// * One block per (sequence, head), as the f32 instances: the head's q, k,
+//   v (and dO) columns are staged in shared memory as f32 (4-byte cp.async
+//   for f32 runs that are not 16-byte multiples, hd = 50; bf16 converted on
+//   the way in by batches of plain loads), so MINS's user encoder at batch
+//   64 runs as 384 blocks.  The forward gives each 16-row query tile its
+//   own warp.  In the backward every query tile adds to the same dK and
+//   dV, so its two warps split the head's columns instead, each computing
+//   the logits whole (one warp a block ran the (64, 50, 300, 6) backward
+//   in 0.18 ms in f32, 3 blocks an SM by shared memory; PERF.md, §6).
+// * Products in split TF32 (mma.sync.m16n8k8), the f32 instances' fragment
+//   layouts.  A bf16 value is exact in TF32 (8 significant bits of 11), so
+//   with bf16 inputs the lo parts of q, k, v and dO are zero and their
+//   products are skipped: one product for q.k^T and dP^T = V dO^T, two where
+//   P or dS (f32 values) is an operand.  The result is rounded to bf16 once,
+//   at the end: closer to the plain version than the hd <= 32 bf16 path,
+//   which rounds p to bf16.
+// * Nothing of a head is held across a loop over the head dimension: the
+//   logits stream q (forward) or k, v (backward) one k8 step at a time, and
+//   p.v, dV, dK and dQ run one n8 column tile at a time, with the head
+//   dimension's tile count nts = ceil(hd / 8) read at run time (one
+//   instance per key-tile count serves hd 33..64).
+// * The backward's dK and dV, which sum over the query tiles, accumulate in
+//   shared memory (float2 read-modify-writes by the lane that owns each
+//   value; rows of 16 nts + 8 floats, so that a half warp's accesses fall in
+//   distinct banks), not in registers.  The exact softmax down each key
+//   column, the dS transpose by shuffles and the write of dqkv over the
+//   staged slab are the f32 backward's.
+//
+// Shared memory: L * 3 hd floats (q, k, v) + 64 key biases; the backward
+// adds L * hd floats of dO and L (16 nts + 8) floats of dK | dV, at most
+// 100,608 bytes (L = 64, hd = 64), so a block may need more than 48 KB.
+constexpr int kNarrowHeadDim = 32;  // the widest head of the hd <= 32 instances
+constexpr int kWideNT = kMaxHeadDim / 8;
+constexpr int kWideBwdWarps = 2;    // warps of a wide backward block, each its share of columns
+
+__host__ __device__ inline int wide_acc_stride(int hd) { return 16 * ((hd + 7) / 8) + 8; }
+__host__ __device__ inline size_t wide_acc_bytes(int L, int hd) {
+  return align16((size_t)L * wide_acc_stride(hd) * 4);
+}
+inline size_t wide_smem(int L, int hd, bool bwd) {
+  return f32_qkv_bytes(L, hd) + (bwd ? f32_do_bytes(L, hd) + wide_acc_bytes(L, hd) : 0) +
+         kMaxLen * 4;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float& y, float x) { y = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& y, float x) { y = __float2bfloat16_rn(x); }
+
+// stage_runs for either input type: f32 by cp.async, bf16 converted to f32
+// by plain loads, kStageBatch of them in flight a thread before the first
+// is converted (one at a time, each load's latency was paid in turn: the
+// bf16 forward ran at twice the f32 one's time on the H100).  The caller's
+// cp_async_wait_all() and barrier cover both.
+constexpr int kStageBatch = 16;
+
+template <typename T>
+__device__ void stage_cols(float* dst, const T* src, int rows, int parts, int w, size_t src_row,
+                           size_t src_part) {
+  if constexpr (sizeof(T) == 4) {
+    stage_runs(dst, reinterpret_cast<const float*>(src), rows, parts, w, src_row, src_part);
+  } else {
+    const int n = rows * parts * w;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kStageBatch * blockDim.x) {
+      T v[kStageBatch];
+#pragma unroll
+      for (int k = 0; k < kStageBatch; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i < n) {
+          const int run = i / w, j = i - run * w;
+          const int r = run / parts, p = run - r * parts;
+          v[k] = src[r * src_row + p * src_part + j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kStageBatch; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i < n) dst[i] = to_f32(v[k]);
+      }
+    }
+  }
+}
+
+// write_runs for either output type (bf16 rounded to nearest).
+template <typename T>
+__device__ void write_cols(T* dst, const float* src, int rows, int parts, int src_parts, int w,
+                           size_t dst_row, size_t dst_part) {
+  if constexpr (sizeof(T) == 4) {
+    write_runs(reinterpret_cast<float*>(dst), src, rows, parts, src_parts, w, dst_row, dst_part);
+  } else {
+    const int n = rows * parts * w;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int run = i / w, j = i - run * w;
+      const int r = run / parts, p = run - r * parts;
+      from_f32(dst[r * dst_row + p * dst_part + j], src[((size_t)r * src_parts + p) * w + j]);
+    }
+  }
+}
+
+// d += a b in split TF32, leaving out the products of a lo part that is
+// zero: LA (LB) is false where a's (b's) values are exact in TF32.
+template <bool LA, bool LB>
+__device__ __forceinline__ void mma3x(float (&d)[4], const FragA& a, const FragB& b) {
+  if (LA) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  if (LB) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// One wide forward warp task: query tile mt of one head of one sequence,
+// staged as f32 at `s` (rows of 3 hd: q, k, v).  EX: the staged values are
+// exact in TF32 (bf16 inputs).  The 16-row query tile: the logits q.k^T over the nts k8
+// steps of the head dimension (each step's q fragment built, used against
+// every key tile and dropped), the exact softmax of the other instances,
+// then p.v one n8 column tile at a time, p straight from the accumulators
+// (k index c as key 2c, c + 4 as key 2c + 1).  The context goes over the
+// tile's own q values.  Rows past L are read clamped to row L - 1.
+template <int KT, bool EX>
+__device__ __forceinline__ void wide_head(float* s, const float* bias, int mt, int L, int hd,
+                                          float scale_log2) {
+  constexpr int NJ = 2 * KT;
+  constexpr int NT = kWideNT;
+  const int W = 3 * hd;
+  const int nts = (hd + 7) / 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const bool last_on = (NJ - 1) * 8 < L;
+  {
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    float* q0 = s + min(r0, L - 1) * W;
+    float* q1 = s + min(r1, L - 1) * W;
+    float sc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      if (ks < nts) {
+        const int d = ks * 8 + c;
+        const FragA qa = frag_a(ld(q0, d, hd), ld(q1, d, hd), ld(q0, d + 4, hd), ld(q1, d + 4, hd));
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j < NJ - 1 || last_on) {
+            const float* kr = s + min(j * 8 + g, L - 1) * W + hd;
+            mma3x<!EX, !EX>(sc[j], qa, frag_b(ld(kr, d, hd), ld(kr, d + 4, hd)));
+          }
+        }
+      }
+    }
+    const bool r1_on = mt * 16 + 8 < L;
+    float sum0, sum1;
+    softmax_tile(sc, bias, scale_log2, last_on, r1_on, sum0, sum1);
+    const float inv0 = 1.f / sum0, inv1 = r1_on ? 1.f / sum1 : 0.f;
+    __syncwarp();  // every lane has read the tile's q values
+
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= nts) break;
+      const int dv = nt * 8 + g;
+      float oc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (j < NJ - 1 || last_on) {
+          const FragA pa = frag_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+          const float* v0 = s + min(j * 8 + 2 * c, L - 1) * W + 2 * hd;
+          const float* v1 = s + min(j * 8 + 2 * c + 1, L - 1) * W + 2 * hd;
+          mma3x<true, !EX>(oc, pa, frag_b(ld(v0, dv, hd), ld(v1, dv, hd)));
+        }
+      }
+      const int d = nt * 8 + 2 * c;
+      if (r0 < L) {
+        if (d < hd) q0[d] = oc[0] * inv0;
+        if (d + 1 < hd) q0[d + 1] = oc[1] * inv0;
+      }
+      if (r1 < L) {
+        if (d < hd) q1[d] = oc[2] * inv1;
+        if (d + 1 < hd) q1[d + 1] = oc[3] * inv1;
+      }
+    }
+  }
+}
+
+// One block: head blockIdx.x % H of sequence blockIdx.x / H, one warp per
+// 16-row query tile (the tiles share the staged k and v and write disjoint
+// rows), so MINS's user encoder at batch 64 runs 384 blocks of 4 warps.
+template <typename T, int KT>
+__global__ void __launch_bounds__(32 * KT, 16 / KT)
+    mhsa_wide_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                     T* __restrict__ out, int L, int D, int H, float scale_log2) {
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H;
+  const int h = blockIdx.x % H;
+  const size_t u = blockIdx.x / H;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
+  stage_cols(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
+  key_biases(sbias, mask + u * L, L);
+  cp_async_wait_all();
+  __syncthreads();
+  const int mt = threadIdx.x >> 5;
+  if (mt * 16 < L) wide_head<KT, sizeof(T) == 2>(slab, sbias, mt, L, hd, scale_log2);
+  __syncthreads();
+  write_cols(out + u * L * D + h * hd, slab, L, 1, 3, hd, D, 0);
+}
+
+// One wide backward warp task: one head of one sequence, staged as f32 at
+// `s` (q, k, v, rows of 3 hd) and `dos` (dO, rows of hd); `acc` holds dK
+// (columns 0 .. 8 nts) and dV (8 nts .. 16 nts) of each key row, zeroed.
+// Per query tile, as the f32 backward: S^T = K Q^T and dP^T = V dO^T
+// (keys as rows, streamed over the nts k8 steps of the head dimension), the
+// exact softmax down each column, dS^T; then for each n8 column tile of the
+// warp's share of the head (the kWideBwdWarps warps of a block split the
+// nts column tiles and each computes the logits whole), dV += P^T dO and
+// dK += dS^T Q over the tile's queries into `acc`, and dQ = dS K (dS
+// transposed by shuffles) over the tile's q values, once every warp has
+// read them.  After the last tile, scale dK and dV go over the staged k
+// and v.
+template <int KT, bool EX>
+__device__ __forceinline__ void wide_bwd_head(float* s, const float* dos, float* acc,
+                                              const float* bias, int L, int hd, float scale_log2,
+                                              float scale) {
+  constexpr int NT = kWideNT;
+  const int W = 3 * hd;
+  const int nts = (hd + 7) / 8;
+  // this warp's n8 column tiles of dV, dK and dQ
+  const int per = (nts + kWideBwdWarps - 1) / kWideBwdWarps;
+  const int nt0 = (threadIdx.x >> 5) * per, nt1 = min(nts, nt0 + per);
+  const int AW = wide_acc_stride(hd), VOFF = 8 * nts;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const bool godd = g & 1;
+
+  const int mts = (L + 15) / 16;
+  for (int mt = 0; mt < mts; ++mt) {
+    const int qb = mt * 16;
+    const bool n1_on = qb + 8 < L;  // else queries qb + 8.. are all padding
+
+    // st = S^T = K Q^T, dpt = dP^T = V dO^T (rows keys, columns queries).
+    float st[KT][2][4], dpt[KT][2][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[kt][nq][e] = dpt[kt][nq][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      if (ks >= nts) break;
+      const int d = ks * 8 + c;
+      FragB qf[2], of[2];
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        const int qr = qb + nq * 8 + g;
+        const float* qrow = s + min(qr, L - 1) * W;
+        const float* orow = dos + min(qr, L - 1) * hd;
+        const bool in = qr < L;
+        qf[nq] = frag_b(ld(qrow, d, hd), ld(qrow, d + 4, hd));
+        of[nq] = frag_b(in ? ld(orow, d, hd) : 0.f, in ? ld(orow, d + 4, hd) : 0.f);
+      }
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const float* k0 = s + min(kt * 16 + g, L - 1) * W + hd;
+        const float* k1 = s + min(kt * 16 + 8 + g, L - 1) * W + hd;
+        const FragA ka = frag_a(ld(k0, d, hd), ld(k1, d, hd), ld(k0, d + 4, hd), ld(k1, d + 4, hd));
+        mma3x<!EX, !EX>(st[kt][0], ka, qf[0]);
+        if (n1_on) mma3x<!EX, !EX>(st[kt][1], ka, qf[1]);
+        const float* v0 = k0 + hd;
+        const float* v1 = k1 + hd;
+        const FragA va = frag_a(ld(v0, d, hd), ld(v1, d, hd), ld(v0, d + 4, hd), ld(v1, d + 4, hd));
+        mma3x<!EX, !EX>(dpt[kt][0], va, of[0]);
+        if (n1_on) mma3x<!EX, !EX>(dpt[kt][1], va, of[1]);
+      }
+    }
+
+    // The exact softmax down each column (log2 units, bias per key row),
+    // then rowsum(dP * P) per query and dS^T, 0 at masked and padded keys.
+    float mx[2][2], sm[2][2], dd[2][2];
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) mx[nq][0] = mx[nq][1] = -INFINITY;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const float b0 = bias[kt * 16 + g], b1 = bias[kt * 16 + 8 + g];
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          st[kt][nq][e] = fmaf(st[kt][nq][e], scale_log2, b0);
+          st[kt][nq][2 + e] = fmaf(st[kt][nq][2 + e], scale_log2, b1);
+          mx[nq][e] = fmaxf(mx[nq][e], fmaxf(st[kt][nq][e], st[kt][nq][2 + e]));
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mx[nq][e] = fmaxf(mx[nq][e], __shfl_xor_sync(0xffffffffu, mx[nq][e], o));
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) sm[nq][0] = sm[nq][1] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[kt][nq][e] = ex2(st[kt][nq][e] - mx[nq][e & 1]);  // 0 at keys past L
+          sm[nq][e & 1] += st[kt][nq][e];
+        }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sm[nq][e] += __shfl_xor_sync(0xffffffffu, sm[nq][e], o);
+#pragma unroll
+    for (int nq = 0; nq < 2; ++nq) {
+      const float inv[2] = {1.f / sm[nq][0], 1.f / sm[nq][1]};  // sums >= 1
+      dd[nq][0] = dd[nq][1] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[kt][nq][e] *= inv[e & 1];
+          dd[nq][e & 1] += st[kt][nq][e] * dpt[kt][nq][e];
+        }
+    }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dd[nq][e] += __shfl_xor_sync(0xffffffffu, dd[nq][e], o);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const bool ok0 = bias[kt * 16 + g] == 0.f, ok1 = bias[kt * 16 + 8 + g] == 0.f;
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[kt][nq][e] = (e < 2 ? ok0 : ok1)
+                               ? st[kt][nq][e] * (dpt[kt][nq][e] - dd[nq][e & 1])
+                               : 0.f;
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this tile's queries, one n8 column
+    // tile of the warp's at a time (B: k = query 2c / 2c + 1, n = column
+    // nt * 8 + g), added into acc by the lane that owns each value (key row
+    // kt * 16 + 8 hf + g, columns nt * 8 + 2c, 2c + 1).
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nt0 || nt >= nt1) continue;
+      const int dcol = nt * 8 + g;
+      float av[KT][4], ak[KT][4];
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) av[kt][e] = ak[kt][e] = 0.f;
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        if (nq == 1 && !n1_on) break;
+        const int qa = qb + nq * 8 + 2 * c;
+        const float* o0 = dos + min(qa, L - 1) * hd;
+        const float* o1 = dos + min(qa + 1, L - 1) * hd;
+        const float* q0 = s + min(qa, L - 1) * W;
+        const float* q1 = s + min(qa + 1, L - 1) * W;
+        const bool in0 = qa < L, in1 = qa + 1 < L;
+        const FragB ob = frag_b(in0 ? ld(o0, dcol, hd) : 0.f, in1 ? ld(o1, dcol, hd) : 0.f);
+        const FragB qbf = frag_b(ld(q0, dcol, hd), ld(q1, dcol, hd));
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+          const FragA pa = frag_a(st[kt][nq][0], st[kt][nq][2], st[kt][nq][1], st[kt][nq][3]);
+          const FragA sa =
+              frag_a(dpt[kt][nq][0], dpt[kt][nq][2], dpt[kt][nq][1], dpt[kt][nq][3]);
+          mma3x<true, !EX>(av[kt], pa, ob);
+          mma3x<true, !EX>(ak[kt], sa, qbf);
+        }
+      }
+      const int col = nt * 8 + 2 * c;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = kt * 16 + hf * 8 + g;
+          if (key >= L) continue;
+          float2* pk = reinterpret_cast<float2*>(acc + key * AW + col);
+          float2* pv = reinterpret_cast<float2*>(acc + key * AW + VOFF + col);
+          float2 xk = *pk, xv = *pv;
+          xk.x += ak[kt][2 * hf];
+          xk.y += ak[kt][2 * hf + 1];
+          xv.x += av[kt][2 * hf];
+          xv.y += av[kt][2 * hf + 1];
+          *pk = xk;
+          *pv = xv;
+        }
+      }
+    }
+
+    // dQ = dS K, one n8 column tile at a time (A: the tile's 16 queries,
+    // k = keys 2c / 2c + 1 of each 8-key block; B: K rows at those keys).
+    // Lane (g, c) gets dS at (query g, keys 2c and 2c + 1) of each block
+    // from the lanes of rows 2c and 2c + 1, column pair g / 2.
+    const int src1 = (godd ? 2 * c + 1 : 2 * c) * 4 + (g >> 1);
+    const int src2 = (godd ? 2 * c : 2 * c + 1) * 4 + (g >> 1);
+    float dq[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < 2 * KT; ++kb) {
+      const int kt = kb >> 1, hf = kb & 1;
+      float x[2][2];  // [query tile][key 2c, 2c + 1]
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        const float a = dpt[kt][nq][2 * hf], b = dpt[kt][nq][2 * hf + 1];
+        const float r1 = __shfl_sync(0xffffffffu, godd ? b : a, src1);
+        const float r2 = __shfl_sync(0xffffffffu, godd ? a : b, src2);
+        x[nq][0] = godd ? r2 : r1;
+        x[nq][1] = godd ? r1 : r2;
+      }
+      const FragA da = frag_a(x[0][0], x[1][0], x[0][1], x[1][1]);
+      const float* k0 = s + min(kb * 8 + 2 * c, L - 1) * W + hd;
+      const float* k1 = s + min(kb * 8 + 2 * c + 1, L - 1) * W + hd;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= nt0 && nt < nt1) {
+          const int d = nt * 8 + g;
+          mma3x<true, !EX>(dq[nt], da, frag_b(ld(k0, d, hd), ld(k1, d, hd)));
+        }
+      }
+    }
+
+    // Every warp has read this tile's q values (its logits read them all):
+    // each warp's dQ columns go over them.
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nt0 || nt >= nt1) continue;
+      const int d = nt * 8 + 2 * c;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = qb + hf * 8 + g;
+        if (r < L) {
+          if (d < hd) s[r * W + d] = dq[nt][2 * hf] * scale;
+          if (d + 1 < hd) s[r * W + d + 1] = dq[nt][2 * hf + 1] * scale;
+        }
+      }
+    }
+  }
+
+  // Every warp has read its last k and v values and added its last dK and
+  // dV: dK and dV go over k and v.
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * hd; i += blockDim.x) {
+    const int key = i / hd, d = i - key * hd;
+    s[key * W + hd + d] = acc[key * AW + d] * scale;
+    s[key * W + 2 * hd + d] = acc[key * AW + VOFF + d];
+  }
+}
+
+template <typename T, int KT>
+__global__ void __launch_bounds__(32 * kWideBwdWarps, 8 / kWideBwdWarps)
+    mhsa_bwd_wide_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                         const T* __restrict__ dout, T* __restrict__ dqkv, int L, int D, int H,
+                         float scale_log2, float scale) {
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H;
+  const int h = blockIdx.x % H;
+  const size_t u = blockIdx.x / H;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* sdo = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
+  float* acc = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd));
+  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) +
+                                          wide_acc_bytes(L, hd));
+  stage_cols(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
+  stage_cols(sdo, dout + u * L * D + h * hd, L, 1, hd, D, 0);
+  key_biases(sbias, mask + u * L, L);
+  for (int i = threadIdx.x; i < L * wide_acc_stride(hd); i += blockDim.x) acc[i] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  wide_bwd_head<KT, sizeof(T) == 2>(slab, sdo, acc, sbias, L, hd, scale_log2, scale);
+  __syncthreads();
+  write_cols(dqkv + u * L * 3 * D + h * hd, slab, L, 3, 3, hd, 3 * D, D);
+}
+
 // ---------------------------------------------------------------- host ---
 
 int num_sms(int dev) {
@@ -1364,6 +1863,63 @@ Launch plan(int U, int L, int D, int es, int dev) {
   return Launch{S, (U + S - 1) / S, smem_bytes(S, L, D, es)};
 }
 
+// Wide head dims (33..64), either type: one block per (sequence, head), U H
+// of them, of one warp per query tile (forward) or one warp (backward),
+// with the shared memory of wide_smem (opted in above 48 KB once per
+// instance and device).
+template <typename T, int KT>
+cudaError_t launch_wide_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                             int H, int dev, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_wide_kernel<T, KT>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const int hd = D / H;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  kernel<<<U * H, 32 * ((L + 15) / 16), wide_smem(L, hd, false), stream>>>(
+      static_cast<const T*>(qkv), mask, static_cast<T*>(out), L, D, H, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                        int H, int dev, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_wide_inst<T, 1>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 2: return launch_wide_inst<T, 2>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 3: return launch_wide_inst<T, 3>(qkv, mask, out, U, L, D, H, dev, stream);
+    default: return launch_wide_inst<T, 4>(qkv, mask, out, U, L, D, H, dev, stream);
+  }
+}
+
+template <typename T, int KT>
+cudaError_t launch_bwd_wide_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                 void* dqkv, int U, int L, int D, int H, int dev,
+                                 cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_bwd_wide_kernel<T, KT>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const int hd = D / H;
+  const float scale = 1.f / sqrtf((float)hd);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  kernel<<<U * H, 32 * kWideBwdWarps, wide_smem(L, hd, true), stream>>>(
+      static_cast<const T*>(qkv), mask, static_cast<const T*>(dout), static_cast<T*>(dqkv), L, D,
+      H, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_wide(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_bwd_wide_inst<T, 1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 2: return launch_bwd_wide_inst<T, 2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 3: return launch_bwd_wide_inst<T, 3>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    default: return launch_bwd_wide_inst<T, 4>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  }
+}
+
 template <int KT, int NT, int HDX, bool PAIR>
 cudaError_t launch_bf16_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                              int H, int dev, cudaStream_t stream) {
@@ -1400,6 +1956,8 @@ cudaError_t launch_bf16_kt(const void* qkv, const uint8_t* mask, void* out, int 
 
 cudaError_t launch_bf16(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                         int H, int dev, cudaStream_t stream) {
+  if (D / H > kNarrowHeadDim)
+    return launch_wide<__nv_bfloat16>(qkv, mask, out, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bf16_kt<1>(qkv, mask, out, U, L, D, H, dev, stream);
     case 2: return launch_bf16_kt<2>(qkv, mask, out, U, L, D, H, dev, stream);
@@ -1450,6 +2008,8 @@ cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void*
 
 cudaError_t launch_bwd_bf16(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                             int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  if (D / H > kNarrowHeadDim)
+    return launch_bwd_wide<__nv_bfloat16>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bwd_bf16_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
     case 2: return launch_bwd_bf16_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
@@ -1494,7 +2054,8 @@ cudaError_t launch_f32_kt(const void* qkv, const uint8_t* mask, void* out, int U
 }
 
 cudaError_t launch_f32(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                       int H, cudaStream_t stream) {
+                       int H, int dev, cudaStream_t stream) {
+  if (D / H > kNarrowHeadDim) return launch_wide<float>(qkv, mask, out, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_f32_kt<1>(qkv, mask, out, U, L, D, H, stream);
     case 2: return launch_f32_kt<2>(qkv, mask, out, U, L, D, H, stream);
@@ -1512,7 +2073,9 @@ cudaError_t launch_bwd_f32_kt(const void* qkv, const uint8_t* mask, const void* 
 }
 
 cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
-                           int U, int L, int D, int H, cudaStream_t stream) {
+                           int U, int L, int D, int H, int dev, cudaStream_t stream) {
+  if (D / H > kNarrowHeadDim)
+    return launch_bwd_wide<float>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bwd_f32_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, stream);
     case 2: return launch_bwd_f32_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, stream);
@@ -1520,12 +2083,25 @@ cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dou
     default: return launch_bwd_f32_kt<4>(qkv, mask, dout, dqkv, U, L, D, H, stream);
   }
 }
-// The arguments both entry points take; 0 if the kernels take them.
+// The shared memory of the instance that runs (L, D, H) in the type of
+// element size es, the larger of its forward and backward: what it stages.
+// hd > 32: one head's columns in f32 (wide_smem); f32 up to hd = 32: one
+// head's q, k, v and dO columns; bf16 up to hd = 32: the whole (L, 3D) slab
+// of one sequence (smem_bytes).
+size_t instance_smem(int L, int D, int H, int es) {
+  const int hd = D / H;
+  if (hd > kNarrowHeadDim) return wide_smem(L, hd, true);
+  if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kMaxLen * 4;
+  return smem_bytes(1, L, D, es);
+}
+
+// The arguments both entry points take; 0 if the kernels take them
+// (ops/mhsa.py::kernel_supports is the same rule).
 int check_args(int U, int L, int D, int H, int dtype) {
   if (U <= 0 || L <= 0 || L > kMaxLen || H <= 0 || D % H != 0 || D / H > kMaxHeadDim ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes(1, L, D, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
+  if (instance_smem(L, D, H, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1540,7 +2116,7 @@ extern "C" int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out, int
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, s);
+  if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, dev, s);
   return (int)launch_bf16(qkv, mask, out, U, L, D, H, dev, s);
 }
 
@@ -1552,6 +2128,6 @@ extern "C" int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* do
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, s);
+  if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
   return (int)launch_bwd_bf16(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
 }

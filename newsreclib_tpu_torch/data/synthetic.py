@@ -122,6 +122,9 @@ def make_batch(
     )
 
 
+SERVING_ENTITIES = 800  # entity vocabulary of make_serving_workload
+
+
 def realistic_title_lens(rng: np.random.Generator, n: int, title_len: int = 30) -> np.ndarray:
     """Title token counts ~ Poisson(11) clipped to [4, title_len], as on the
     MIND corpus (mean about 11 tokens, padded to 30)."""
@@ -139,7 +142,14 @@ def make_serving_workload(
 ) -> Tuple[NewsStore, Impressions]:
     """The cached-serving workload of ``bench.py``: a corpus of ``corpus``
     articles with categories and sentiments, and impressions with 5 to
-    ``hist_len`` clicks and ``num_candidates`` candidates, one positive."""
+    ``hist_len`` clicks and ``num_candidates`` candidates, one positive.
+
+    The articles also carry abstracts (0 to 50 tokens), subcategories (50
+    classes) and 10 title and 10 abstract entity slots (each an entity of
+    ``SERVING_ENTITIES`` with probability 0.3), as the MIND data path gives
+    them, for the models that read more than titles.  They are drawn after
+    everything else, so the titles and impressions of a seed are those of
+    ``bench.py``'s workload."""
     title = np.zeros((corpus + 1, title_len), dtype=np.int32)
     lens = realistic_title_lens(rng, corpus, title_len)
     for i in range(corpus):
@@ -162,4 +172,16 @@ def make_serving_workload(
         lab[rng.integers(0, num_candidates)] = 1
         labels.append(lab)
     imp = Impressions.from_lists(hists, cands, labels, np.ones(n_impressions, dtype=np.int32))
+    n = corpus + 1
+    abstract = np.where(np.arange(50)[None, :] < rng.integers(0, 51, size=(n, 1)),
+                        rng.integers(2, vocab_size, size=(n, 50)), 0)
+    ents = [np.where(rng.random((n, 10)) < 0.3,
+                     rng.integers(1, SERVING_ENTITIES, size=(n, 10)), 0)
+            for _ in range(2)]
+    store.abstract, store.title_entities, store.abstract_entities = (
+        a.astype(np.int32) for a in (abstract, *ents))
+    store.subcategory = rng.integers(1, 50, size=n).astype(np.int32)
+    for a in (store.abstract, store.title_entities, store.abstract_entities,
+              store.subcategory):
+        a[0] = 0
     return store, imp

@@ -5,8 +5,10 @@ version and a library call, at the shapes the serving path gives it.
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
         [--json OUT.jsonl]
 
-For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20) and the
-two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
+For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
+two extra shapes (1024, 30) and (256, 50), and the zoo's user-encoder shapes
+(``ZOO_SHAPES``: MINS's 6 heads of 50, CenNewsRec's and CAUM's D = 400 with
+20 heads), in float32 and bfloat16:
 
 * the kernel is held against ``mhsa_plain`` on the same inputs (float32
   atol/rtol 1e-5, bfloat16 atol 2e-2 / rtol 1e-2);
@@ -30,7 +32,7 @@ two extra shapes (1024, 30) and (256, 50), in float32 and bfloat16:
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
-``profile_train.py``), in bfloat16 and float32.  The output is held against
+``profile_train.py``) and at ``ZOO_SHAPES``, in bfloat16 and float32.  The output is held against
 ``mhsa_plain`` and the gradient against autograd of it (same tolerances;
 ``fwd_max_abs_err``, ``max_abs_err``).  Forward + backward, each as
 ``torch.autograd.grad`` of the output against a fixed output gradient:
@@ -50,8 +52,8 @@ backward products, 10 U H L^2 hd operations.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
 points), checks it the same way and times it in turns with the kernel
-(kernel, baseline, baseline, kernel), so that two versions are compared on
-one card in one run: the forward (``baseline_ms``) or, with ``--backward``,
+(kernel, baseline, baseline, kernel) at the NRMS shapes, so that two
+versions are compared on one card in one run: the forward (``baseline_ms``) or, with ``--backward``,
 the forward + backward (``baseline_ms``, the baseline's forward then its
 backward), the backward alone (``baseline_bwd_ms``, in turns with the
 kernel and the plain version) and the forward alone
@@ -83,6 +85,10 @@ EXTRA_SHAPES = [(1024, 30), (256, 50)]
 # (7168, 16) + (1024, 30) and (256, 50).
 TRAIN_SHAPES = [(3584, 16), (1792, 16), (512, 30), (256, 30), (64, 50),
                 (7168, 16), (1024, 30), (256, 50)]
+# (U, L, D, heads) of the other GloVe models' user encoders at batch 64, K =
+# 4: MINS (6 heads of 50, the wide instances), CenNewsRec (D = 400, 20 heads)
+# and CAUM (the 5 candidates folded into the batch).
+ZOO_SHAPES = [(64, 50, 300, 6), (64, 50, 400, 20), (320, 50, 400, 20)]
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -104,24 +110,24 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def mhsa_inputs(u, l, dtype, seed):
+def mhsa_inputs(u, l, dtype, seed, d=D):
     """qkv ~ N(0, 1) and a prefix key mask of random length, with row 0 (the
     padding article) fully masked, on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((u, l, 3 * D), generator=g, device="cuda").to(dtype)
+    qkv = torch.randn((u, l, 3 * d), generator=g, device="cuda").to(dtype)
     lens = torch.randint(1, l + 1, (u,), generator=g, device="cuda")
     mask = torch.arange(l, device="cuda")[None, :] < lens[:, None]
     mask[0] = False
     return qkv, mask.contiguous()
 
 
-def bound(u, l, name, part="forward") -> tuple:
+def bound(u, l, name, part="forward", d=D, h=H) -> tuple:
     """(least ms on the card, "bytes" or "operations") for the attention of
-    (U, L) in type ``name``: its ``"forward"``, its ``"backward"`` alone or
-    ``"both"`` (see module doc)."""
+    (U, L, D, heads) in type ``name``: its ``"forward"``, its ``"backward"``
+    alone or ``"both"`` (see module doc)."""
     es = 4 if name == "float32" else 2
-    qkv, ctx, mask = u * l * 3 * D * es, u * l * D * es, u * l
-    product = 2 * u * H * l * l * (D // H)  # operations of one (L, L) x (L, hd) product
+    qkv, ctx, mask = u * l * 3 * d * es, u * l * d * es, u * l
+    product = 2 * u * h * l * l * (d // h)  # operations of one (L, L) x (L, hd) product
     nbytes, flops = {
         "forward": (qkv + mask + ctx, 2 * product),
         "backward": (qkv + mask + ctx + qkv, 5 * product),
@@ -156,13 +162,14 @@ def device_events(prof):
             if e.device_type.name == "CUDA" and not e.is_user_annotation]
 
 
-def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 3) -> float:
+def device_ms(fn, iters: int = ITERS, warmup: int = WARMUP, attempts: int = 6) -> float:
     """Device milliseconds per call of ``fn(i)``: the self time of every CUDA
     kernel it launched, from ``torch.profiler``, over ``iters`` calls.  A
     window in which the profiler recorded fewer kernels than calls (every
     call launches at least one) is profiled again, up to ``attempts``
-    windows: on the H100 one window recorded none, and one recorded a
-    twentieth of the launches (0.0033 ms a call, under the bound)."""
+    windows: on the H100 one window recorded none, one recorded a twentieth
+    of the launches (0.0033 ms a call, under the bound), and once three
+    windows in a row fell short."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -248,7 +255,7 @@ def _rotated(qkv, mask, extra=()):
                                     for _ in range(n - 1)]
 
 
-def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
+def measure_shape(u, l, dtype, variants, library=True, unchecked=(), d=D, h=H) -> dict:
     """Check each ``(name, launch)`` of ``variants`` against ``mhsa_plain``
     at (U, L), then time them in turns (forward, then backward order), the
     plain version and the library call.  The first variant's numbers are
@@ -258,14 +265,14 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
     from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
 
     name = dtype_name(dtype)
-    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l)
-    want = mhsa_plain(qkv, mask, H).float()
+    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l, d=d)
+    want = mhsa_plain(qkv, mask, h).float()
     limit = ATOL[name] + RTOL[name] * want.abs()
-    rec = dict(U=u, L=l, dtype=name)
+    rec = dict(U=u, L=l, D=d, H=h, dtype=name)
     for i, (vname, launch) in enumerate(variants):
-        got = launch(qkv, mask, H)
+        got = launch(qkv, mask, h)
         torch.cuda.synchronize()
-        if got.shape != (u, l, D) or got.dtype != dtype:
+        if got.shape != (u, l, d) or got.dtype != dtype:
             raise AssertionError(f"{vname} output {tuple(got.shape)} {got.dtype}")
         err = (got.float() - want).abs()
         if vname in unchecked:
@@ -282,22 +289,22 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=()) -> dict:
     n = len(sets)
     times = {vname: [] for vname, _ in variants}
     for vname, launch in variants + variants[::-1]:
-        times[vname].append((device_ms(lambda i: launch(*sets[i % n], H)),
-                             event_ms(lambda i: launch(*sets[i % n], H))))
+        times[vname].append((device_ms(lambda i: launch(*sets[i % n], h)),
+                             event_ms(lambda i: launch(*sets[i % n], h))))
     for i, (vname, _) in enumerate(variants):
         prefix = "" if i == 0 else vname + "_"
         rec[prefix + "ms"] = sum(t[0] for t in times[vname]) / len(times[vname])
         rec[prefix + "event_ms"] = sum(t[1] for t in times[vname]) / len(times[vname])
         rec[prefix + "ms_runs"] = [t[0] for t in times[vname]]
-    rec["plain_ms"] = device_ms(lambda i: mhsa_plain(*sets[i % n], H))
+    rec["plain_ms"] = device_ms(lambda i: mhsa_plain(*sets[i % n], h))
     if library:
-        calls = [sdpa_call(x, m, H) for x, m in sets]
+        calls = [sdpa_call(x, m, h) for x, m in sets]
         calls[0]()
         torch.cuda.synchronize()
         rec["library_ms"] = device_ms(lambda i: calls[i % n]())
         rec["library_backend"] = LIBRARY_BACKEND
         del calls
-    rec["bound_ms"], rec["bound_by"] = bound(u, l, name)
+    rec["bound_ms"], rec["bound_by"] = bound(u, l, name, d=d, h=h)
     rec["rotated_sets"] = n
     return rec
 
@@ -329,22 +336,22 @@ def sdpa_grad_call(qkv, mask, num_heads, grad_out, backward_only=False):
     return lambda: torch.autograd.grad(forward(), (q, k, v), g)
 
 
-def _fused_grad(x, mask, grad_out):
+def _fused_grad(x, mask, grad_out, h=H):
     from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA
 
     x = x.detach().requires_grad_(True)
-    return torch.autograd.grad(FusedSmallMHSA.apply(x, mask, H), x, grad_out)[0]
+    return torch.autograd.grad(FusedSmallMHSA.apply(x, mask, h), x, grad_out)[0]
 
 
-def _plain_grad(x, mask, grad_out):
+def _plain_grad(x, mask, grad_out, h=H):
     from newsreclib_tpu_torch.ops.mhsa import mhsa_plain
 
     x = x.detach().requires_grad_(True)
-    return torch.autograd.grad(mhsa_plain(x, mask, H), x, grad_out)[0]
+    return torch.autograd.grad(mhsa_plain(x, mask, h), x, grad_out)[0]
 
 
 def check_backward(u, l, dtype, backward=None, forward=None, checked=True,
-                   label="FusedSmallMHSA"):
+                   label="FusedSmallMHSA", d=D, h=H):
     """Hold ``FusedSmallMHSA`` at (U, L) against the plain version with a
     random output gradient: its output (the forward kernel's) against
     ``mhsa_plain`` and its gradient (the backward kernel's) against autograd
@@ -357,14 +364,14 @@ def check_backward(u, l, dtype, backward=None, forward=None, checked=True,
     from newsreclib_tpu_torch.ops.mhsa import FusedSmallMHSA, mhsa_plain
 
     name = dtype_name(dtype)
-    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l)
-    g = torch.randn((u, l, D), generator=torch.Generator(device="cuda").manual_seed(l),
+    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l, d=d)
+    g = torch.randn((u, l, d), generator=torch.Generator(device="cuda").manual_seed(l),
                     device="cuda").to(dtype)
     x = qkv.detach().requires_grad_(True)
-    out = FusedSmallMHSA.apply(x, mask, H) if forward is None else forward(qkv, mask, H)
-    got = torch.autograd.grad(out, x, g)[0] if backward is None else backward(qkv, mask, H, g)
-    want = _plain_grad(qkv, mask, g).float()
-    want_out = mhsa_plain(qkv, mask, H).float()
+    out = FusedSmallMHSA.apply(x, mask, h) if forward is None else forward(qkv, mask, h)
+    got = torch.autograd.grad(out, x, g)[0] if backward is None else backward(qkv, mask, h, g)
+    want = _plain_grad(qkv, mask, g, h).float()
+    want_out = mhsa_plain(qkv, mask, h).float()
     torch.cuda.synchronize()
     errs = []
     for what, a, b in (("output", out.detach().float(), want_out), ("gradient", got.float(), want)):
@@ -390,7 +397,7 @@ def _record_turns(rec: dict, key: str, times: list) -> None:
     rec[key], rec[key + "_runs"] = sum(times) / len(times), times
 
 
-def measure_backward(u, l, dtype, baseline=None, unchecked=False) -> dict:
+def measure_backward(u, l, dtype, baseline=None, unchecked=False, d=D, h=H) -> dict:
     """Forward + backward, the backward alone and the forward alone at
     (U, L): ``check_backward``, then the times of the module doc.
     ``baseline``, when given, is another build's ``(forward, backward)``
@@ -398,20 +405,22 @@ def measure_backward(u, l, dtype, baseline=None, unchecked=False) -> dict:
     (unless ``unchecked``) and timed in turns with the kernels."""
     from newsreclib_tpu_torch.ops.mhsa import _backward, _forward, mhsa_backward, mhsa_plain
 
-    fwd_err, err, (qkv, mask, g) = check_backward(u, l, dtype)
-    rec = dict(U=u, L=l, dtype=dtype_name(dtype), max_abs_err=err, fwd_max_abs_err=fwd_err)
+    fwd_err, err, (qkv, mask, g) = check_backward(u, l, dtype, d=d, h=h)
+    rec = dict(U=u, L=l, D=d, H=h, dtype=dtype_name(dtype), max_abs_err=err,
+               fwd_max_abs_err=fwd_err)
     if baseline is not None:
         b_fwd, b_bwd = baseline
         rec["baseline_fwd_max_abs_err"], rec["baseline_max_abs_err"], _ = check_backward(
-            u, l, dtype, backward=b_bwd, forward=b_fwd, checked=not unchecked, label="baseline")
+            u, l, dtype, backward=b_bwd, forward=b_fwd, checked=not unchecked, label="baseline",
+            d=d, h=h)
     sets = _rotated(qkv, mask, (g,))
     n = len(sets)
 
     def args(i):  # (qkv, mask, num_heads, grad_out) of the i-th rotated set
         x, m, go = sets[i % n]
-        return x, m, H, go
+        return x, m, h, go
 
-    both = {"kernel": lambda i: _fused_grad(*sets[i % n])}
+    both = {"kernel": lambda i: _fused_grad(*sets[i % n], h)}
     backward = {"kernel": lambda i: _backward(*args(i)),
                 "plain": lambda i: mhsa_backward(*args(i))}
     forward = {"kernel": lambda i: _forward(*args(i)[:3])}
@@ -430,22 +439,22 @@ def measure_backward(u, l, dtype, baseline=None, unchecked=False) -> dict:
     rec["bwd_event_ms"] = event_ms(backward["kernel"])
     rec["plain_fwd_ms"] = device_ms(lambda i: mhsa_plain(*args(i)[:3]))
 
-    rec["plain_ms"] = device_ms(lambda i: _plain_grad(*sets[i % n]))
-    calls = [sdpa_call(x, m, H) for x, m, _ in sets]
+    rec["plain_ms"] = device_ms(lambda i: _plain_grad(*sets[i % n], h))
+    calls = [sdpa_call(x, m, h) for x, m, _ in sets]
     calls[0]()
     torch.cuda.synchronize()
     rec["library_fwd_ms"] = device_ms(lambda i: calls[i % n]())
     del calls
     for key, only in (("library_ms", False), ("library_bwd_ms", True)):
-        calls = [sdpa_grad_call(x, m, H, go, backward_only=only) for x, m, go in sets]
+        calls = [sdpa_grad_call(x, m, h, go, backward_only=only) for x, m, go in sets]
         calls[0]()
         torch.cuda.synchronize()
         rec[key] = device_ms(lambda i: calls[i % n]())
         del calls
     rec["library_backend"] = LIBRARY_BACKEND
-    rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], "both")
-    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(u, l, rec["dtype"], "backward")
-    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(u, l, rec["dtype"])
+    rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], "both", d, h)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(u, l, rec["dtype"], "backward", d, h)
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(u, l, rec["dtype"], "forward", d, h)
     rec["rotated_sets"] = n
     return rec
 
@@ -480,11 +489,16 @@ def main(argv=None) -> int:
     records = []
     dtypes = (torch.bfloat16, torch.float32)
     for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
-        for u, l in (TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES):
+        nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
+        for u, l, d, h in [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES:
+            # the baseline is timed at the NRMS shapes alone: an older source
+            # may refuse the zoo's
+            zoo = (d, h) != (D, H)
             if args.backward:
-                rec = measure_backward(u, l, dtype, baseline, unchecked=args.unchecked)
+                rec = measure_backward(u, l, dtype, None if zoo else baseline,
+                                       unchecked=args.unchecked, d=d, h=h)
             else:
-                rec = measure_shape(u, l, dtype, variants,
+                rec = measure_shape(u, l, dtype, variants[:1] if zoo else variants, d=d, h=h,
                                     unchecked=("baseline",) if args.unchecked else ())
             rec["card"] = card
             print("kernel_bench " + json.dumps(rec), flush=True)
@@ -492,7 +506,7 @@ def main(argv=None) -> int:
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
-    cols = ["U", "L", "dtype", "ms", "bound_ms", "plain_ms", "library_ms", "event_ms",
+    cols = ["U", "L", "D", "H", "dtype", "ms", "bound_ms", "plain_ms", "library_ms", "event_ms",
             "max_abs_err"]
     cols[4:4] = (["bwd_ms", "baseline_bwd_ms", "bwd_bound_ms", "plain_bwd_ms", "library_bwd_ms",
                   "fwd_ms", "baseline_fwd_ms", "fwd_bound_ms", "library_fwd_ms", "baseline_ms"]

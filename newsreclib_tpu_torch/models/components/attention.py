@@ -1,5 +1,5 @@
-"""Attention blocks of the NRMS path (counterpart of
-``newsreclib_tpu/models/components/attention.py:28-124``).
+"""Attention blocks (counterpart of
+``newsreclib_tpu/models/components/attention.py:28-124`` and ``:173-184``).
 
 Masked logits are REPLACED by the finite -1e30, never ``-inf``: a fully
 masked row (the padding article, row 0 of every news table) then gets a
@@ -90,3 +90,17 @@ class MultiHeadSelfAttention(nn.Module):
         if mask is not None:
             out = out * mask.unsqueeze(-1).to(out.dtype)
         return out
+
+
+class DenseAttention(nn.Module):
+    """CAUM's 3-layer tanh MLP scorer: ``(..., D)`` -> ``(..., 1)``."""
+
+    def __init__(self, in_dim: int, hidden_dim1: int, hidden_dim2: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = Dense(in_dim, hidden_dim1, generator)
+        self.fc2 = Dense(hidden_dim1, hidden_dim2, generator)
+        self.fc3 = Dense(hidden_dim2, 1, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc3(torch.tanh(self.fc2(torch.tanh(self.fc1(x)))))

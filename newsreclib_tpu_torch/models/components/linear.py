@@ -36,14 +36,21 @@ def uniform(shape, low: float, high: float, generator: Optional[torch.Generator]
     return torch.empty(shape).uniform_(low, high, generator=generator)
 
 
+def orthogonal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A random orthogonal matrix (flax ``initializers.orthogonal``'s
+    distribution, not its numbers)."""
+    return nn.init.orthogonal_(torch.empty(shape), generator=generator)
+
+
 class Dense(nn.Module):
-    """``y = x W^T + b`` with flax ``nn.Dense`` initialisation."""
+    """``y = x W^T + b`` with flax ``nn.Dense`` initialisation (``use_bias``
+    False: no bias, as flax's ``use_bias=False``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(lecun_normal((out_features, in_features), in_features, generator))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

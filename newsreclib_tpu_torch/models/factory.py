@@ -1,11 +1,11 @@
 """Model factory: the ``model`` config node and the dataset's sizes -> model
 and loss (counterpart of ``newsreclib_tpu/models/factory.py``).
 
-Only NRMS has a route so far; every other model raises
-``NotImplementedError`` (ROADMAP queue 1, item 6).  ``pack_titles`` is
-accepted and ignored: the port's attention kernel works per article, and
-packed and unpacked titles give the same vectors
-(``tests/test_nrms.py::test_mhsa_packing_exact``).
+NRMS, MINS, CenNewsRec and CAUM have routes, with the JAX factory's
+defaults; every other model raises ``NotImplementedError`` (ROADMAP queue
+1, item 6).  ``pack_titles`` is accepted and ignored: the port's attention
+kernel works per article, and packed and unpacked titles give the same
+vectors (``tests/test_nrms.py::test_mhsa_packing_exact``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from newsreclib_tpu_torch.models.components.losses import get_loss_fn
-from newsreclib_tpu_torch.models.general_rec import NRMS
+from newsreclib_tpu_torch.models.general_rec import CAUM, MINS, NRMS, CenNewsRec
 
 
 @dataclass
@@ -32,6 +32,9 @@ class DataInfo:
     pretrained_embeddings: Optional[np.ndarray] = None
     pretrained_entity_embeddings: Optional[np.ndarray] = None
     pretrained_categ_embeddings: Optional[np.ndarray] = None
+
+
+PORTED_MODELS = ("nrms", "mins", "cen_news_rec", "caum")
 
 
 def title_split_margin(model_name: str, model_cfg: Optional[Dict] = None) -> int:
@@ -52,20 +55,71 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
     if cfg.get("use_plm"):
         raise NotImplementedError(
             "the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, item 8)")
-    if name != "nrms":
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); the port builds nrms")
-    return NRMS(
-        info.vocab_size,
-        embed_dim=cfg.get("embed_dim", 300),
-        num_heads=cfg.get("num_heads", 15),
-        query_dim=cfg.get("query_dim", 200),
-        dropout=cfg.get("dropout_probability", 0.2),
-        late_fusion=cfg.get("late_fusion", False),
-        pretrained_embeddings=info.pretrained_embeddings,
-        device=device,
-        generator=torch.Generator().manual_seed(seed),
-    )
+    d = cfg.get("dropout_probability", 0.2)
+    common = dict(late_fusion=cfg.get("late_fusion", False),
+                  pretrained_embeddings=info.pretrained_embeddings, device=device,
+                  generator=torch.Generator().manual_seed(seed))
+    if name == "nrms":
+        return NRMS(
+            info.vocab_size,
+            embed_dim=cfg.get("embed_dim", 300),
+            num_heads=cfg.get("num_heads", 15),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            **common,
+        )
+    if name == "mins":
+        return MINS(
+            info.vocab_size,
+            num_categories=info.num_categories,
+            attributes2encode=tuple(cfg.get("attributes2encode",
+                                            ("title", "abstract", "category"))),
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            categ_embed_dim=cfg.get("categ_embed_dim", 100),
+            num_heads=cfg.get("num_heads", 15),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            num_filters=cfg.get("num_filters"),
+            num_gru_channels=cfg.get("num_gru_channels", 6),
+            **common,
+        )
+    if name == "cen_news_rec":
+        return CenNewsRec(
+            info.vocab_size,
+            embed_dim=cfg.get("embed_dim", 300),
+            num_heads=cfg.get("num_heads", 20),
+            num_filters=cfg.get("num_filters", 400),
+            window_size=cfg.get("window_size", 3),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            gru_hidden_dim=cfg.get("gru_hidden_dim", 400),
+            num_recent_news=cfg.get("num_recent_news", 20),
+            **common,
+        )
+    if name == "caum":
+        return CAUM(
+            info.vocab_size,
+            entity_vocab_size=info.entity_vocab_size,
+            num_categories=info.num_categories,
+            attributes2encode=tuple(cfg.get("attributes2encode",
+                                            ("title", "category", "title_entities"))),
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            text_num_heads=cfg.get("text_num_heads", 20),
+            categ_embed_dim=cfg.get("categ_embed_dim", 100),
+            news_embed_dim=cfg.get("news_embed_dim", 400),
+            entity_embed_dim=cfg.get("entity_embed_dim", 100),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            user_vector_dim=cfg.get("user_vector_dim", 400),
+            num_filters=cfg.get("num_filters", 400),
+            dense_att_hidden_dim1=cfg.get("dense_att_hidden_dim1", 400),
+            dense_att_hidden_dim2=cfg.get("dense_att_hidden_dim2", 256),
+            pretrained_entity_embeddings=info.pretrained_entity_embeddings,
+            **common,
+        )
+    raise NotImplementedError(
+        f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); the port builds "
+        f"{', '.join(PORTED_MODELS)}")
 
 
 def build_loss(cfg: Dict) -> Callable:

@@ -31,14 +31,18 @@ import torch
 
 _MASK_MIN = -1e30
 MAX_LEN = 64
-MAX_HEAD_DIM = 32
+MAX_HEAD_DIM = 64
+NARROW_HEAD_DIM = 32  # head dims above it run the kernel's wide instances
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the forward and of the backward kernel since the last reset;
-# the CPU path counts neither.
+# Launches of the forward and of the backward kernel since the last reset,
+# and of those, the launches of the wide instances (head dim above 32); the
+# CPU path counts none.
 launches = 0
 bwd_launches = 0
+wide_launches = 0
+wide_bwd_launches = 0
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -86,32 +90,47 @@ def mhsa_backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
 
 
-def smem_bytes(l: int, d: int, elem_size: int) -> int:
-    """The shape rule's shared memory for one sequence (``csrc/mhsa.cu``,
-    ``smem_bytes`` with S = 1): the (L, 3D) slab in the input type plus 16
-    bytes of alignment slack, rounded up to 16, then the L mask bytes
-    rounded up to 16 (float32) or 64 float32 key biases (bfloat16).  The
-    bfloat16 kernels stage that slab; the float32 ones stage one head's
-    columns at a time and need less, but keep the same rule."""
+def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
+    """Shared memory of the kernel instance that runs (L, D, heads) in
+    ``dtype``, the larger of its forward's and backward's: what that
+    instance stages (``csrc/mhsa.cu``, ``instance_smem``), plus 64 float32
+    key biases.
+
+    * head dim above 32 (the wide instances, either type): one head's q, k,
+      v and dO columns in float32 and the dK | dV accumulator, rows of
+      16 ceil(hd / 8) + 8 floats;
+    * float32, head dim up to 32: one head's q, k, v and dO columns;
+    * bfloat16, head dim up to 32: the whole (L, 3D) slab of one sequence
+      plus 16 bytes of alignment slack.
+
+    Each part is rounded up to 16 bytes."""
 
     def align16(x):
         return (x + 15) // 16 * 16
 
-    extra = align16(l) if elem_size == 4 else MAX_LEN * 4
-    return align16(16 + l * 3 * d * elem_size) + extra
+    hd = d // num_heads
+    bias = MAX_LEN * 4
+    if hd > NARROW_HEAD_DIM:
+        acc = l * (16 * ((hd + 7) // 8) + 8) * 4
+        return align16(l * 3 * hd * 4) + align16(l * hd * 4) + align16(acc) + bias
+    if dtype == torch.float32:
+        return align16(l * 3 * hd * 4) + align16(l * hd * 4) + bias
+    return align16(16 + l * 3 * d * 2) + bias
 
 
 def kernel_supports(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether ``csrc/mhsa.cu`` takes sequences of length ``l``, width ``d``
     and ``num_heads`` heads in ``dtype``: float32 or bfloat16, L <= 64, head
-    dim <= 32, and one sequence's (L, 3D) slab in the input type fits one
-    block's shared memory (float32 up to L * D of about 19,370, bfloat16 up
-    to about 38,700).  NRMS (D = 300, 15 heads of 20, L <= 50) is inside."""
+    dim <= 64, and what the instance stages within one block's shared
+    memory (``smem_bytes``).  Every float32 shape and every head dim above
+    32 fits; a bfloat16 shape with head dim up to 32 fits while one
+    sequence's (L, 3D) slab does (L = 50: D up to about 770).  The GloVe
+    models' attentions are inside: NRMS (D = 300, 15 heads of 20), MINS
+    (6 heads of 50), CenNewsRec and CAUM (D = 400, 20 heads of 20), L <= 50."""
     if dtype not in _DTYPES or num_heads <= 0 or d % num_heads:
         return False
-    elem_size = torch.tensor([], dtype=dtype).element_size()
     return (l <= MAX_LEN and d // num_heads <= MAX_HEAD_DIM
-            and smem_bytes(l, d, elem_size) <= _SMEM_LIMIT)
+            and smem_bytes(l, d, num_heads, dtype) <= _SMEM_LIMIT)
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
@@ -138,15 +157,15 @@ def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
     if not kernel_supports(l, d3 // 3, num_heads, qkv.dtype):
         raise ValueError(
             f"the attention kernel does not take L={l}, D={d3 // 3}, {num_heads} heads, "
-            f"{qkv.dtype}: it needs L <= {MAX_LEN}, head dim <= {MAX_HEAD_DIM} and one "
-            "sequence's slab within a block's shared memory (kernel_supports)")
+            f"{qkv.dtype}: it needs L <= {MAX_LEN}, head dim <= {MAX_HEAD_DIM} and what its "
+            "instance stages within a block's shared memory (kernel_supports)")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
 
 
 def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
-    global launches
+    global launches, wide_launches
     _check(qkv, mask, num_heads)
     if qkv.device.type == "cpu":
         return mhsa_plain(qkv, mask, num_heads)
@@ -162,6 +181,7 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Ten
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_fwd launch failed: cudaError {rc}")
     launches += 1
+    wide_launches += d3 // 3 // num_heads > NARROW_HEAD_DIM
     return out
 
 
@@ -171,7 +191,7 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     ``mhsa_backward`` on the CPU, the backward kernel elsewhere.  ``grad_out``
     may be any layout (autograd hands over expanded or strided ones); it is
     made contiguous here."""
-    global bwd_launches
+    global bwd_launches, wide_bwd_launches
     _check(qkv, mask, num_heads)
     u, l, d3 = qkv.shape
     if grad_out.shape != (u, l, d3 // 3):
@@ -196,6 +216,7 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_bwd launch failed: cudaError {rc}")
     bwd_launches += 1
+    wide_bwd_launches += d3 // 3 // num_heads > NARROW_HEAD_DIM
     return dqkv
 
 

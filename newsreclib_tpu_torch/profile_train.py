@@ -1,7 +1,7 @@
-"""Where the time of an NRMS train step goes, on one NVIDIA card.
+"""Where the time of a train step goes, on one NVIDIA card.
 
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
-        [--json OUT.jsonl]
+        [--model {nrms,mins,cen_news_rec,caum}] [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
 ``newsreclib_tpu/configs/model/nrms.yaml`` (D = 300, 15 heads of 20, query
@@ -15,6 +15,9 @@ negatives, history 50, ``u_bucket_min`` 512, ``split_title_len`` 16) over
 the ``bench.py`` workload regenerated from seed 0 (32,768 articles, 16,384
 impressions, one positive each).  Two batch sizes: 64 (the data config)
 and 256 (``bench.py``'s train step: 256 impressions of 5 candidates).
+``--model`` takes MINS, CenNewsRec or CAUM from ``models/factory.py`` at
+their config files' widths instead (the workload's articles carry
+abstracts, subcategories and entities for them).
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -48,38 +51,50 @@ import sys
 import time
 from pathlib import Path
 
-MODEL = dict(vocab_size=60000, embed_dim=300, num_heads=15, query_dim=200, dropout=0.2)
+VOCAB_SIZE = 60000
 DATA = dict(max_history_len=50, neg_sampling_ratio=4, seed=0, u_bucket_min=512,
             split_title_len=16)
 LEARNING_RATE = 1e-4
 BATCH_SIZES = (64, 256)
 WARMUP = 5
+# attention calls of each model's news encoder on one news segment: MINS
+# encodes title and abstract with its attention, the others titles alone
+TEXT_ATTENTIONS = {"nrms": 1, "mins": 2, "cen_news_rec": 1, "caum": 1}
+
+
+def build_cell_model(model: str, device):
+    """``model`` from the factory at its config file's widths, a
+    ``VOCAB_SIZE`` vocabulary, random weights from seed 0."""
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.data.synthetic import SERVING_ENTITIES
+    from newsreclib_tpu_torch.models import factory
+
+    info = factory.DataInfo(vocab_size=VOCAB_SIZE, num_subcategories=50,
+                            entity_vocab_size=SERVING_ENTITIES)
+    return factory.build_model(compose(overrides=[f"model={model}"])["model"], info,
+                               device=device, seed=0)
 
 
 def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
-              learning_rate=LEARNING_RATE):
+              learning_rate=LEARNING_RATE, model="nrms"):
     """``(state, batcher, train_step)`` of the cell in the module doc
     (``compute_dtype`` None: float32 compute)."""
-    import torch
-
     from newsreclib_tpu_torch.data.batching import TrainBatcher
     from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
-    from newsreclib_tpu_torch.models.general_rec import NRMS
     from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
     from newsreclib_tpu_torch.training.steps import make_train_step
 
-    model = NRMS(**MODEL, device=device,
-                 generator=torch.Generator().manual_seed(0))
-    state = create_train_state(model, make_optimizer(learning_rate), dropout_seed=0)
+    state = create_train_state(build_cell_model(model, device), make_optimizer(learning_rate),
+                               dropout_seed=0)
     batcher = TrainBatcher(store, imp, batch_size=batch_size, **DATA)
     return state, batcher, make_train_step(cross_entropy_loss, compute_dtype)
 
 
-def attention_launches(batch) -> int:
-    """Attention kernel launches of one NRMS train step on ``batch``, each
-    of the forward and of the backward kernel: one per news segment and one
-    for the user encoder."""
-    return 2 + (batch.news2 is not None)
+def attention_launches(batch, model: str = "nrms") -> int:
+    """Attention kernel launches of one train step of ``model`` on
+    ``batch``, each of the forward and of the backward kernel: the news
+    encoder's per news segment and one for the user encoder."""
+    return TEXT_ATTENTIONS[model] * (1 + (batch.news2 is not None)) + 1
 
 
 def _sync_s(fn) -> float:
@@ -143,7 +158,7 @@ def _device_breakdown(prof, steps: int) -> dict:
 
 
 def profile_cell(store, imp, batch_size: int, steps: int, card: str,
-                 compute_dtype="bfloat16") -> dict:
+                 compute_dtype="bfloat16", model="nrms") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,8 +166,9 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     from newsreclib_tpu_torch.models.components.attention import use_plain_attention
     from newsreclib_tpu_torch.ops import mhsa
 
-    state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype)
-    plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda", compute_dtype)
+    state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype, model=model)
+    plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda", compute_dtype,
+                                           model=model)
     use_plain_attention(plain_state.model)
     t0 = time.perf_counter()
     host = [b for _, b in zip(range(WARMUP + 2 * steps), batcher.epoch(0))]
@@ -167,7 +183,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     mhsa.launches = mhsa.bwd_launches = 0
     kernel_s = [_sync_s(lambda: [step(state, b) for b in timed]) / steps]
     launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
-    expected = sum(attention_launches(b) for b in timed)
+    expected = sum(attention_launches(b, model) for b in timed)
     if launches != expected or bwd_launches != expected:
         raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
                              f"({expected} each expected)")
@@ -191,6 +207,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     breakdown = _device_breakdown(prof, steps)
     busy_ms = breakdown["device_ms_per_step"]
     return {
+        "model": model,
         "batch_size": batch_size,
         "compute_dtype": compute_dtype or "float32",
         "title_shapes": sorted({(tuple(b.news.title.shape),
@@ -221,6 +238,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="float32: the training CLI's default route")
+    ap.add_argument("--model", choices=sorted(TEXT_ATTENTIONS), default="nrms")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     import numpy as np
@@ -242,7 +260,8 @@ def main(argv=None) -> int:
     records = []
     for batch_size in BATCH_SIZES:
         rec = profile_cell(store, imp, batch_size, args.steps, card,
-                           None if args.compute_dtype == "float32" else args.compute_dtype)
+                           None if args.compute_dtype == "float32" else args.compute_dtype,
+                           args.model)
         print("profile_train " + json.dumps(rec), flush=True)
         records.append(rec)
     if args.json is not None:

@@ -4,7 +4,8 @@ with gathers, the user encoder and dot products, and reduce the ranking
 metrics on the device (counterpart of ``newsreclib_tpu/serving.py:120-429``).
 
 The model must expose ``encode_news(news)`` and
-``score_with_vectors(batch, news_vecs)`` (NRMS does).  Differences from the
+``score_with_vectors(batch, news_vecs)`` (NRMS, MINS, CenNewsRec and CAUM
+do); the corpus encode hands it every field of the store.  Differences from the
 JAX package: the transfer-narrowing ``lean`` / ``hydrate`` wire format of its
 remote TPU link is dropped, the ``lax.scan`` over stacked batches is a
 Python loop over batches kept on the device, and ``GlobalEvalBatcher`` is
@@ -59,20 +60,25 @@ def corpus_segments(store: NewsStore, split_title_len: Optional[int] = SPLIT_TIT
 
 def _corpus_on_device(store: NewsStore, batch_size: int, split_title_len: Optional[int],
                       margin: int, device: torch.device) -> list:
-    """``[(rows, [title chunk, ...]), ...]``: the segments' title tokens on
-    ``device`` in chunks of at most ``batch_size`` rows."""
+    """``[(rows, [NewsFeatures chunk, ...]), ...]``: each segment's rows of
+    the store (``features_for``: every field the store has, title and its
+    mask cut to the segment's width, as ``newsreclib_tpu/serving.py:160-170``)
+    on ``device``, in chunks of at most ``batch_size`` rows."""
     parts = []
     for rows, width in corpus_segments(store, split_title_len, batch_size, margin):
-        title = torch.from_numpy(np.ascontiguousarray(store.title[rows, :width])).to(device)
-        parts.append((torch.from_numpy(rows).to(device), title.split(batch_size)))
+        feats = store.features_for(rows)
+        feats = to_device(feats._replace(title=feats.title[:, :width],
+                                         title_mask=feats.title_mask[:, :width]), device)
+        chunks = [NewsFeatures(*(None if v is None else v[i:i + batch_size] for v in feats))
+                  for i in range(0, len(rows), batch_size)]
+        parts.append((torch.from_numpy(rows).to(device), chunks))
     return parts
 
 
 def _encode_corpus(model, n_rows: int, parts: list, dtype: Optional[torch.dtype]) -> torch.Tensor:
     table = None
     for rows, chunks in parts:
-        vecs = torch.cat([model.encode_news(NewsFeatures(title=t, title_mask=t != 0))
-                          for t in chunks])
+        vecs = torch.cat([model.encode_news(news) for news in chunks])
         if table is None:
             table = torch.zeros((n_rows, vecs.shape[-1]), dtype=dtype or vecs.dtype,
                                 device=vecs.device)

@@ -166,13 +166,15 @@ def test_kernel_raises_on_unsupported_input(cuda):
         mhsa.fused_small_mhsa(qkv[:, :16].half().contiguous(), mask[:, :16].contiguous(), 4)
 
 
-@pytest.mark.parametrize("l,d,h,dtype", [(50, 300, 6, torch.float32),
+@pytest.mark.parametrize("l,d,h,dtype", [(50, 400, 4, torch.float32),
                                          (100, 300, 15, torch.bfloat16),
-                                         (50, 400, 20, torch.float32)])
+                                         (64, 960, 32, torch.bfloat16)])
 def test_refused_shapes_raise_in_the_wrapper_and_in_the_model(cuda, l, d, h, dtype):
     """A shape ``kernel_supports`` refuses raises on the card, in the wrapper
     and in ``MultiHeadSelfAttention``: nothing gives way to the plain
-    version, and nothing is launched."""
+    version, and nothing is launched.  Head dim 100 (``CAUMUserEncoder``'s
+    unused default of 4 heads over 400), L = 100, and a bf16 slab of (64,
+    960) beyond one block's shared memory."""
     from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
 
     assert not mhsa.kernel_supports(l, d, h, dtype)
@@ -235,8 +237,9 @@ def test_train_step_kernel_route_matches_plain_route(cuda, compute_dtype, tol):
 
 # The backward kernel.  Every NRMS training shape (kernel_bench.TRAIN_SHAPES)
 # and the serving path's (4096, 16), L = 1, 15 and 64, other head dims, and
-# the edges of kernel_supports: f32 (64, 50) and an f32 slab of 230,400 bytes
-# at (L, D) = (64, 300), a bf16 one at (64, 600) with 20 heads of 30.
+# the edges of kernel_supports: f32 (64, 50), (L, D) = (64, 300), and a bf16
+# slab of 230,400 bytes at (64, 600) with 20 heads of 30 (which f32 takes too,
+# staging one head's columns).
 BACKWARD_SHAPES = [(4096, 16, 300, 15), (3584, 16, 300, 15), (1792, 16, 300, 15),
                    (512, 30, 300, 15), (256, 30, 300, 15), (64, 50, 300, 15), (7168, 16, 300, 15),
                    (1024, 30, 300, 15), (256, 50, 300, 15), (9, 1, 300, 15), (33, 15, 300, 15),
@@ -268,7 +271,7 @@ def _check_backward(qkv, mask, h, grad_out):
 @pytest.mark.parametrize("masking", ["prefix", "random"])
 @pytest.mark.parametrize("u,l,d,h,dtype", [
     (*shape, dtype) for shape in BACKWARD_SHAPES for dtype in (torch.float32, torch.bfloat16)
-    if mhsa.kernel_supports(*shape[1:], dtype)])  # (64, 600) is a bf16-only edge
+    if mhsa.kernel_supports(*shape[1:], dtype)])
 def test_backward_kernel_matches_plain(cuda, u, l, d, h, dtype, masking):
     qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 7 + l, masking=masking)
     _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l))
@@ -357,3 +360,92 @@ def test_f32_backward_is_bitwise_repeatable_at_cli_shapes(cuda, u, l):
     assert torch.equal(a, b)
     torch.testing.assert_close(a, mhsa.mhsa_backward(qkv, mask, 15, grad_out),
                                **TOL[torch.float32])
+
+
+# The zoo's new shapes: MINS's user encoder (6 heads of 50, the wide
+# instances) and CenNewsRec's / CAUM's D = 400 with 20 heads of 20 in f32
+# (the hd = 20 instances, beyond the whole-slab rule of earlier versions);
+# then the wide instances' edges: head dims 33, 48 (the PLM tower's 16 heads
+# over 768), 55 (odd, 4-byte staging), 64, L = 1, 17, 64, U not a multiple
+# of anything.
+ZOO_SHAPES = [(64, 50, 300, 6), (320, 50, 400, 20), (64, 50, 400, 20), (512, 30, 400, 20)]
+WIDE_SHAPES = [(9, 50, 300, 6), (7, 64, 192, 3), (33, 17, 96, 2), (20, 32, 768, 16),
+               (13, 49, 330, 6), (5, 1, 300, 6), (3, 64, 4096, 64), (11, 16, 132, 4)]
+
+
+@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("u,l,d,h,dtype", [
+    (*shape, dtype) for shape in ZOO_SHAPES + WIDE_SHAPES
+    for dtype in (torch.float32, torch.bfloat16) if mhsa.kernel_supports(*shape[1:], dtype)])
+def test_zoo_shapes_forward_and_backward_match_plain(cuda, u, l, d, h, dtype, masking):
+    """The forward kernel against ``mhsa_plain`` and the backward kernel
+    against ``mhsa_backward`` and autograd of ``mhsa_plain``; a head dim
+    above 32 counts as a wide launch, each way."""
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 5 + l, masking=masking)
+    wide = d // h > mhsa.NARROW_HEAD_DIM
+    before = mhsa.wide_launches, mhsa.wide_bwd_launches
+    _check_against_plain(qkv, mask, h)
+    _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l + 2))
+    assert (mhsa.wide_launches, mhsa.wide_bwd_launches) == (before[0] + wide, before[1] + wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_masked_rows_and_repeatable(cuda, dtype):
+    """Fully masked sequences at head dim 50 get dQ = dK = 0 and dV = the
+    mean of dO; two runs give the same bits (no atomics)."""
+    u, l, d, h = 70, 50, 300, 6
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=4, masking="random")
+    empty = ~mask.any(dim=1)
+    grad_out = _grad_out(u, l, d, dtype, seed=5) * (mask | empty[:, None])[..., None]
+    got = _check_backward(qkv, mask, h, grad_out)
+    assert empty.sum() >= 10
+    assert bool((got[empty][..., :2 * d] == 0).all())
+    mean = grad_out[empty].float().mean(dim=1, keepdim=True).expand(-1, l, -1)
+    torch.testing.assert_close(got[empty][..., 2 * d:].float(), mean, **TOL[dtype])
+    assert torch.equal(got, mhsa._backward(qkv, mask, h, grad_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernel_on_unaligned_storage(cuda, dtype):
+    """qkv and dO off a 16-byte (and a 4-byte) boundary at head dim 50."""
+    base, mask = _edge_inputs(5, 49, 300, dtype, seed=6, masking="random")
+    go_base = _grad_out(5, 49, 300, dtype, seed=7)
+    for shift in (1, 3):
+        buf = torch.zeros(base.numel() + shift, dtype=dtype, device=base.device)
+        qkv = buf[shift:].view(base.shape)
+        qkv.copy_(base)
+        gbuf = torch.zeros(go_base.numel() + shift, dtype=dtype, device=base.device)
+        grad_out = gbuf[shift:].view(go_base.shape)
+        grad_out.copy_(go_base)
+        _check_against_plain(qkv, mask, 6)
+        _check_backward(qkv, mask, 6, grad_out)
+
+
+@pytest.mark.parametrize("name", ["mins", "cen_news_rec", "caum"])
+def test_zoo_train_step_kernel_route_matches_plain_route(cuda, name):
+    """Two full-width f32 train steps of each zoo model (dropout on, same
+    seeds) with the kernels and with the plain attention: per-step losses
+    agree (1e-4), and the kernel route launches the forward and the
+    backward kernel once per attention call."""
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    cfg = SyntheticConfig(vocab_size=5000, entity_vocab_size=800)
+    batches = [to_device(make_batch(np.random.default_rng(i), batch_size=16, unique_news=256,
+                                    cfg=cfg), cuda) for i in range(2)]
+    info = factory.DataInfo(vocab_size=5000, entity_vocab_size=800)
+    model = factory.build_model({"name": name}, info, device=cuda)
+    calls = {"mins": 3, "cen_news_rec": 2, "caum": 2}[name]  # attentions a step
+    losses = {}
+    for route, m in (("kernel", model), ("plain", _plain_model(model))):
+        state = create_train_state(m, make_optimizer(1e-3), dropout_seed=0)
+        step = make_train_step(cross_entropy_loss)
+        before = mhsa.launches, mhsa.bwd_launches
+        losses[route] = [step(state, b)[1]["loss"].item() for b in batches]
+        n = calls * len(batches) if route == "kernel" else 0
+        assert (mhsa.launches, mhsa.bwd_launches) == (before[0] + n, before[1] + n)
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=1e-4, rtol=0)

@@ -1,7 +1,8 @@
 """The port runs without JAX: the machine with the card has no jax, flax,
 optax, orbax, pandas or yaml.  A subprocess blocks those imports and the JAX
 package, then drives the serving slice and two training steps on the CPU;
-another runs the training CLI (config composition, ETL, fit, checkpoints,
+another builds MINS, CenNewsRec and CAUM and trains each a step; another
+runs the training CLI (config composition, ETL, fit, checkpoints,
 test) on a copy of the raw demo files.  The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -95,6 +96,50 @@ def test_cli_runs_with_jax_pandas_and_yaml_blocked(tmp_path):
     assert {"val/loss", "val/auc", "test/auc", "test/loss"} <= set(out["metrics"])
     assert (tmp_path / "run" / "checkpoints" / "best.pt").exists()
     assert (tmp_path / "run" / "metrics.csv").exists()
+
+
+ZOO_SCRIPT = """
+import json, sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import numpy as np
+from newsreclib_tpu_torch.data.batch import to_device
+from newsreclib_tpu_torch.data.batching import TrainBatcher
+from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+from newsreclib_tpu_torch.models import factory
+from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+from newsreclib_tpu_torch.training.steps import make_train_step
+
+store, imp = make_serving_workload(np.random.default_rng(0), corpus=200, n_impressions=30,
+                                   hist_len=10, num_candidates=6, vocab_size=500)
+info = factory.DataInfo(vocab_size=500, entity_vocab_size=800, num_subcategories=50)
+losses = {}
+for name in ("mins", "cen_news_rec", "caum"):
+    model = factory.build_model({"name": name}, info, device="cpu")
+    state = create_train_state(model, make_optimizer(1e-3))
+    batch = next(TrainBatcher(store, imp, batch_size=4, max_history_len=10, u_bucket_min=64,
+                              split_title_len=16).epoch(0))
+    losses[name] = make_train_step(cross_entropy_loss)(state, to_device(batch, "cpu"))[1][
+        "loss"].item()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r)
+print(json.dumps({"losses": losses, "loaded": loaded}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_zoo_models_train_with_jax_blocked():
+    """MINS, CenNewsRec and CAUM from the factory at their default widths,
+    one train step each, with JAX, flax, pandas, yaml and the JAX package
+    blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", ZOO_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert sorted(out["losses"]) == ["caum", "cen_news_rec", "mins"]
+    assert all(0 < v < 10 for v in out["losses"].values())
 
 
 def test_port_sources_import_no_jax():

@@ -127,15 +127,17 @@ def test_wrapper_on_cpu_stays_differentiable():
 
 @pytest.mark.parametrize("l,d,h,dtype,fits", [
     (64, 300, 15, torch.float32, True), (50, 300, 15, torch.float32, True),
-    (64, 303, 101, torch.float32, False), (64, 600, 20, torch.float32, False),
+    (64, 303, 101, torch.float32, True), (64, 600, 20, torch.float32, True),
     (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, False)])
 def test_wrapper_refuses_what_one_block_cannot_stage(l, d, h, dtype, fits):
-    """The kernel stages one sequence's (L, 3D) slab in the input type:
-    ``kernel_supports`` refuses a shape whose slab does not fit one block's
-    shared memory, and the wrapper raises on it off the CPU (a meta tensor
-    stands for the card here); on the CPU it computes every shape."""
-    assert (mhsa.smem_bytes(l, d, torch.tensor([], dtype=dtype).element_size())
-            <= 232448) == fits
+    """Each kernel instance stages its own share: a bf16 one (head dim up
+    to 32) one sequence's (L, 3D) slab, an f32 one one head's columns.
+    ``kernel_supports`` refuses a shape whose staging does not fit one
+    block's shared memory, and the wrapper raises on it off the CPU (a meta
+    tensor stands for the card here); on the CPU it computes every shape.
+    float32 stages little, so (64, 600) and (64, 303), refused by the
+    whole-slab rule of earlier versions, fit."""
+    assert (mhsa.smem_bytes(l, d, h, dtype) <= 232448) == fits
     assert mhsa.kernel_supports(l, d, h, dtype) == fits
     qkv = torch.zeros(2, l, 3 * d, dtype=dtype)
     mask = torch.ones(2, l, dtype=torch.bool)
@@ -207,30 +209,38 @@ def test_fused_backward_returns_the_input_type():
 
 @pytest.mark.parametrize("l,d,h,dtype,supported", [
     (64, 300, 15, torch.float32, True), (65, 300, 15, torch.float32, False),
-    (16, 96, 3, torch.float32, True), (16, 99, 3, torch.float32, False),  # head dim 32 / 33
-    (50, 300, 6, torch.float32, False), (16, 300, 7, torch.float32, False),
+    (16, 192, 3, torch.float32, True), (16, 195, 3, torch.float32, False),  # head dim 64 / 65
+    (50, 300, 6, torch.float32, True), (16, 300, 7, torch.float32, False),
     (30, 300, 15, torch.float16, False), (30, 300, 15, torch.bfloat16, True),
-    (50, 400, 20, torch.float32, False), (50, 400, 20, torch.bfloat16, True),
-    (1, 3, 1, torch.float32, True), (50, 300, 0, torch.float32, False)])
+    (50, 400, 20, torch.float32, True), (50, 400, 20, torch.bfloat16, True),
+    (1, 3, 1, torch.float32, True), (50, 300, 0, torch.float32, False),
+    (50, 300, 6, torch.bfloat16, True), (30, 400, 20, torch.float32, True),
+    (64, 960, 32, torch.bfloat16, False), (64, 960, 32, torch.float32, True),
+    (64, 4096, 64, torch.bfloat16, True), (50, 400, 4, torch.float32, False)])
 def test_kernel_supports_at_the_edges(l, d, h, dtype, supported):
-    """L <= 64, head dim <= 32, float32 or bfloat16, heads dividing D, and
-    one slab within shared memory (CenNewsRec's L = 50, D = 400 fits in
-    bf16 only)."""
+    """L <= 64, head dim <= 64, float32 or bfloat16, heads dividing D, and
+    what the instance stages within shared memory: MINS's 6 heads of 50 in
+    both types, CenNewsRec's and CAUM's D = 400 with 20 heads in float32; a
+    bf16 slab of (64, 960) does not fit where float32's head columns do;
+    head dims above 32 stage one head in either type, whatever D is."""
     assert mhsa.kernel_supports(l, d, h, dtype) == supported
 
 
-ZOO_SHAPES = {  # (L, D, heads): the zoo's attentions the kernel does not take
-    "mins_user": (50, 300, 6),
-    "caum_user": (50, 400, 4),
-    "plm_text": (32, 768, 16),
-    "long_history": (100, 300, 15),
+ZOO_SHAPES = {  # (L, D, heads, kernel_supports): the zoo's attentions on the edge
+    "mins_user": (50, 300, 6, True),
+    "caum_user": (50, 400, 4, False),  # CAUMUserEncoder's unused default: head dim 100
+    "plm_text": (32, 768, 16, True),
+    "long_history": (100, 300, 15, False),
 }
 
 
 @pytest.mark.parametrize("name", sorted(ZOO_SHAPES))
 def test_mhsa_module_matches_jax_where_the_kernel_does_not_go(name):
     """The port's ``MultiHeadSelfAttention`` on the CPU against the JAX
-    module at shapes ``kernel_supports`` refuses: any shape computes."""
+    module at the zoo's shapes on the edge of ``kernel_supports``: MINS's
+    user encoder and the PLM tower's MHSA, which the kernel's wide instances
+    take on the card since they came, and head dim 100 and L = 100, which it
+    still refuses.  On the CPU any shape computes."""
     import jax
 
     from newsreclib_tpu.models.components.attention import (
@@ -239,8 +249,8 @@ def test_mhsa_module_matches_jax_where_the_kernel_does_not_go(name):
     from newsreclib_tpu_torch.convert import flax_to_state_dict
     from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
 
-    l, d, h = ZOO_SHAPES[name]
-    assert not mhsa.kernel_supports(l, d, h, torch.float32)
+    l, d, h, supported = ZOO_SHAPES[name]
+    assert mhsa.kernel_supports(l, d, h, torch.float32) == supported
     rng = np.random.default_rng(l + d)
     x = rng.normal(size=(3, l, d)).astype(np.float32)
     mask = rng.random((3, l)) < 0.8
