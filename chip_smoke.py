@@ -64,10 +64,14 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    plain route's by no more than those of an attention that errs by the
    kernel tolerance at every output, where the unmasked fault must differ
    by more (``ZOO_FAULTS``).  Before the models, with the other profiled
-   phases, both kernels at the zoo's user-encoder shapes are held against
-   the plain versions and timed (``kernel_bench.ZOO_SHAPES``), where the
-   same checks must reject the planted faults of ``ELEMENT_FAULTS``
-   (logits 10% too large, the gradient's rowsum term dropped);
+   phases, both kernels at the zoo's user-encoder shapes
+   (``kernel_bench.ZOO_SHAPES``) and at ``BOX_SHAPES`` (the PLM tower's
+   MHSA at (512, 96, 768, 16 heads) and CAUM's default head dim 100 at
+   (64, 50, 400, 4 heads), shapes beyond the kernel's earlier box of L <= 64
+   and head dim <= 64)
+   are held against the plain versions and timed, where the same checks
+   must reject the planted faults of ``ELEMENT_FAULTS`` (logits 10% too
+   large, the gradient's rowsum term dropped);
 8. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
@@ -81,7 +85,8 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    into a new trainer must give the same ``test/auc`` (1e-6) and, with the
    plain attention, the same test metrics (``METRIC_ATOL``);
 9. prints one ``{"kernels": [...]}`` line (the wide instances' own entries,
-   the D = 400 float32 times under ``d400_f32_*``) and, last,
+   with their times at ``BOX_SHAPES`` under ``plm_*`` and ``hd100_*``; the
+   D = 400 float32 times under ``d400_f32_*``) and, last,
    ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
@@ -155,6 +160,11 @@ ZOO_IMPRESSIONS = 2048
 # (ELEMENT_FAULTS).
 ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
 ELEMENT_FAULTS = {"float32": ("scaled", "rowsum"), "bfloat16": ("rowsum",)}
+# Kernel shapes beyond the earlier box (L <= 64, head dim <= 64) that the zoo
+# kernel phase checks and times beside ZOO_SHAPES: the PLM tower's MHSA at
+# PLM-mode title length 96 and the JAX package's PLM operating point U = 512,
+# and CAUMUserEncoder's default of 4 heads over 400 (head dim 100).
+BOX_SHAPES = {"plm": (512, 96, 768, 16), "hd100": (64, 50, 400, 4)}
 
 
 def log(*a):
@@ -337,6 +347,16 @@ def backward_without_rowsum(qkv, mask, num_heads, grad_out):
     ds = torch.where(mask[:, None, None, :], p * (do @ vh.transpose(-1, -2)), 0.0)
     grads = (ds @ kh * scale, ds.transpose(-1, -2) @ qh * scale, p.transpose(-1, -2) @ do)
     return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
+
+
+def element_faults():
+    """The planted faults of ``ELEMENT_FAULTS`` as ``kernel_bench.check_backward``
+    arguments: the output and gradient of logits 10% too large, and the
+    gradient without the rowsum term."""
+    from newsreclib_tpu_torch.ops import mhsa
+
+    return {"scaled": dict(forward=scaled_attention, backward=mhsa.mhsa_backward),
+            "rowsum": dict(backward=backward_without_rowsum)}
 
 
 def set_attention(model, attention):
@@ -742,9 +762,10 @@ def zoo_phase(card: str, store, imp):
 
 def zoo_kernel_phase():
     """The kernels at the zoo's user-encoder shapes (``kernel_bench.ZOO_SHAPES``)
-    in float32 and bfloat16: forward and backward held against ``mhsa_plain``
-    / autograd of it and timed with the plain versions and SDPA; the same
-    check must reject each planted fault of ``ELEMENT_FAULTS``."""
+    and at ``BOX_SHAPES`` in float32 and bfloat16: forward and backward held
+    against ``mhsa_plain`` / autograd of it and timed with the plain versions
+    and SDPA; the same check must reject each planted fault of
+    ``ELEMENT_FAULTS``."""
     import torch
 
     from newsreclib_tpu_torch.kernel_bench import (
@@ -756,12 +777,11 @@ def zoo_kernel_phase():
     )
     from newsreclib_tpu_torch.ops import mhsa
 
-    planted = {"scaled": dict(forward=scaled_attention, backward=mhsa.mhsa_backward),
-               "rowsum": dict(backward=backward_without_rowsum)}
+    planted = element_faults()
     fwd, bwd = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = dtype_name(dtype)
-        for u, l, d, h in ZOO_SHAPES:
+        for u, l, d, h in ZOO_SHAPES + list(BOX_SHAPES.values()):
             rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)], d=d, h=h)
             log("zoo_kernel_shape " + json.dumps(rec))
             fwd.append(rec)
@@ -895,15 +915,27 @@ def main() -> int:
             ("fused_small_mhsa_wide", zoo_fwd, "", zoo_counts[2]),
             ("fused_small_mhsa_wide_backward", zoo_bwd, "bwd_", zoo_counts[3])):
         main_r, f32_r = (zoo_rec(recs, wide_shape, t) for t in ("bfloat16", "float32"))
+        box = {}
+        for key, shape in BOX_SHAPES.items():
+            for t, tag in (("bfloat16", ""), ("float32", "f32_")):
+                r = zoo_rec(recs, shape, t)
+                box.update({
+                    f"{key}_{tag}ms": r[prefix + "ms"],
+                    f"{key}_{tag}bound_ms": r[prefix + "bound_ms"],
+                    f"{key}_{tag}bound_by": r[prefix + "bound_by"],
+                    f"{key}_{tag}plain_ms": r["plain_" + prefix + "ms"],
+                    f"{key}_{tag}library_ms": r["library_" + prefix + "ms"],
+                })
+            box[f"{key}_shape"] = list(shape)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
             "replaces": ("newsreclib_tpu/ops/mhsa.py:160" if not prefix else
                          "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
-                        + " at head dims 33..64",
+                        + " at head dims above 32 and L above 64",
             "launches": int(count),
-            "max_abs_err": max(r["max_abs_err"] for r in recs if r["H"] == 6),
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["D"] // r["H"] > 32),
             "ms": main_r[prefix + "ms"],
             "plain_ms": main_r["plain_" + prefix + "ms"],
             "bound_ms": main_r[prefix + "bound_ms"],
@@ -914,6 +946,7 @@ def main() -> int:
             "f32_plain_ms": f32_r["plain_" + prefix + "ms"],
             "f32_library_ms": f32_r["library_" + prefix + "ms"],
             "shape": list(wide_shape),
+            **box,
         })
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
         f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")

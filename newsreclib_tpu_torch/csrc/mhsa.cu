@@ -1,9 +1,11 @@
 // Masked multi-head self-attention over many short independent sequences,
 // forward and backward: the attention of the NRMS title encoder (L = 16 /
-// 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20, and of
+// 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20, of
 // the other GloVe models (MINS, CenNewsRec, CAUM: hd 15, 20 and 50, D up to
-// 400).  The forward is described first; the backward (nrl_mhsa_bwd) after
-// it; the instances for head dims above 32 last ("wide").
+// 400), and of the PLM tower's MHSA (16 heads of 48, L up to 96).  The
+// forward is described first; the backward (nrl_mhsa_bwd) after it; the
+// general per-head instances, for head dims above 32 and L above 64, last
+// ("wide").
 //
 // Replaces the TPU kernel newsreclib_tpu/ops/mhsa.py::fused_small_mhsa (body
 // _attention_kernel, pallas_call at ops/mhsa.py:198) and computes what
@@ -99,29 +101,33 @@
 // * cudaFuncSetAttribute (dynamic shared memory above 48 KB, bf16) runs
 //   once per kernel instance and device, not on every launch.
 //
-// * Head dims 33..64 (MINS's user encoder, hd 50; the PLM tower's MHSA,
-//   hd 48) run in their own instances, in both types: one warp per
-//   (sequence, head), the head's columns staged as f32, split TF32, and
-//   nothing of the head held in registers across the head dimension (see
-//   "wide" below).
+// * Head dims above 32 (MINS's user encoder, hd 50; the PLM tower's MHSA,
+//   hd 48; CAUM's default hd 100), L above 64 (PLM-mode titles), and bf16
+//   shapes whose slab does not fit one block run in the wide instances, in
+//   both types: one block per (sequence, head), a warp per 16-row tile, the
+//   head's columns staged in the input type (see "wide" below).
 //
-// Shared memory, and the shape rule, per instance: what it stages.  A bf16
-// block of S sequences (hd <= 32) takes 16 + S * L * 3D * 2 bytes, rounded
-// up to 16, plus 64 key biases a sequence; a shape whose single sequence
-// does not fit one block's 232,448 bytes is refused (L = 50: D up to about
-// 774).  An f32 block (hd <= 32) takes L * 3 hd * 4 bytes (+ L * hd * 4 for
-// dO in the backward), each rounded up to 16, plus the key biases: at most
-// 33 KB, so every L <= 64 fits.  A wide block takes at most 100,608 bytes
-// (below).  ops/mhsa.py::kernel_supports applies the same rule first.
+// The shape rule: head dim up to 128 at L <= 64, up to 64 at L <= 128
+// (kernel_box), and what the instance stages within one block's 232,448
+// bytes of shared memory.  A bf16 block of S sequences (hd <= 32, L <= 64)
+// takes 16 + S * L * 3D * 2 bytes, rounded up to 16, plus 64 key biases a
+// sequence; a shape whose single sequence does not fit goes to the wide
+// instances (L = 50: D above about 774).  An f32 block (hd <= 32, L <= 64)
+// takes L * 3 hd * 4 bytes (+ L * hd * 4 for dO in the backward), each
+// rounded up to 16, plus the key biases: at most 33 KB.  A wide block takes
+// at most 141,312 bytes (below), so inside the box every shape fits.
+// ops/mhsa.py::kernel_supports applies the same rule first; L > 128 would
+// need the keys streamed through shared memory, as the TPU kernel streams
+// them.
 //
 // C entry point (bound with ctypes):
 //   int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out,
 //                    int U, int L, int D, int H, int dtype, void* stream)
 // qkv (U, L, 3D) and out (U, L, D) are contiguous, dtype 0 = float32,
 // 1 = bfloat16; mask (U, L) is one byte per position, nonzero = valid key;
-// L <= 64, D / H <= 64.  Launches on `stream`, does not synchronise,
+// (L, D / H) in the box above.  Launches on `stream`, does not synchronise,
 // allocates nothing, and returns the cudaError_t of the launch (0 on
-// success).
+// success; cudaErrorInvalidValue for a shape outside the rule).
 //
 // Backward.  The TPU kernel has none: the JAX package trains through XLA
 // autodiff of mhsa_reference, and this computes that gradient (what
@@ -130,7 +136,7 @@
 // (masked keys -1e30, keys past L excluded), dP = dO V^T,
 // dS = P (dP - rowsum(dP P)) and 0 at masked keys, dQ = s dS K,
 // dK = s dS^T Q, dV = P^T dO.  A fully masked sequence gets dQ = dK = 0 and
-// dV = the mean of dO over its L rows.  L <= 64, so a whole logit row sits
+// dV = the mean of dO over its L rows.  L <= 128, so a whole logit row sits
 // in registers and the row sums come from P and dP directly: the forward
 // saves nothing (no output, no logsumexp) for it.
 //
@@ -195,11 +201,22 @@
 #include <math.h>
 #include <stdint.h>
 
+// Built whole by default.  ops/build.py compiles it in three parts at once
+// and links them (the wide instances are most of the build time): NRL_PART
+// 1 holds the hd <= 32 instances, the shape rule and the C entry points,
+// 2 the wide bf16 instances, 3 the wide f32 ones.
+#ifndef NRL_PART
+#define NRL_PART 0
+#endif
+#define NRL_BUILDS(part) (NRL_PART == 0 || NRL_PART == (part))
+
 namespace {
 
 constexpr float kMaskMin = -1e30f;
-constexpr int kMaxLen = 64;
-constexpr int kMaxHeadDim = 64;
+constexpr int kNarrowMaxLen = 64;    // L of the hd <= 32 instances (their key bias buffers)
+constexpr int kMaxLen = 128;         // L of the wide instances
+constexpr int kMaxHeadDim = 128;     // head dim, at L <= 64
+constexpr int kLongMaxHeadDim = 64;  // head dim at L above 64
 constexpr int kSmemLimit = 232448;       // one block's dynamic shared memory
 constexpr int kSmemTarget = 113 * 1024;  // per block, so that two fit on an SM
 constexpr int kMaxDevices = 64;
@@ -212,12 +229,13 @@ __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size
 
 // Shared memory of a block of S sequences: the slab (+ 16 bytes of
 // alignment slack), then per sequence the L mask bytes (f32) or 64 key
-// biases in f32 (bf16).
+// biases in f32 (bf16; these blocks take L <= 64).
 __host__ __device__ inline size_t slab_bytes(int S, int L, int D, int es) {
   return align16(16 + (size_t)S * L * 3 * D * es);
 }
 inline size_t smem_bytes(int S, int L, int D, int es) {
-  return slab_bytes(S, L, D, es) + (es == 4 ? align16((size_t)S * L) : (size_t)S * kMaxLen * 4);
+  return slab_bytes(S, L, D, es) +
+         (es == 4 ? align16((size_t)S * L) : (size_t)S * kNarrowMaxLen * 4);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -503,8 +521,8 @@ __global__ void __launch_bounds__(bf16_warps(KT) * 32, 2)
   __nv_bfloat16* slab = stage_slab(qkv, ns, S, L, D, smem);
   float* sbias = reinterpret_cast<float*>(smem + slab_bytes(S, L, D, 2));
   const uint8_t* msk = mask + (size_t)blockIdx.x * S * L;
-  for (int i = threadIdx.x; i < ns * kMaxLen; i += blockDim.x) {
-    const int sq = i / kMaxLen, key = i - sq * kMaxLen;
+  for (int i = threadIdx.x; i < ns * kNarrowMaxLen; i += blockDim.x) {
+    const int sq = i / kNarrowMaxLen, key = i - sq * kNarrowMaxLen;
     sbias[i] = key < L ? (msk[sq * L + key] ? 0.f : kMaskMin) : -INFINITY;
   }
   cp_async_wait_all();
@@ -514,8 +532,8 @@ __global__ void __launch_bounds__(bf16_warps(KT) * 32, 2)
   unsigned short* bits = reinterpret_cast<unsigned short*>(slab);
   for (int t = warp; t < ns * H; t += nwarps) {
     const int sq = t / H;
-    bf16_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kMaxLen, t - sq * H,
-                                 L, D, D / H, scale_log2);
+    bf16_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kNarrowMaxLen,
+                                 t - sq * H, L, D, D / H, scale_log2);
   }
   __syncthreads();
   write_rows(out + (size_t)blockIdx.x * S * L * D, slab, ns * L, D);
@@ -806,8 +824,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, KT <= 2 ? 2 : 1)
   __nv_bfloat16* slab = stage_slab(qkv, ns, S, L, D, smem);
   float* sbias = reinterpret_cast<float*>(smem + slab_bytes(S, L, D, 2));
   const uint8_t* msk = mask + (size_t)blockIdx.x * S * L;
-  for (int i = threadIdx.x; i < ns * kMaxLen; i += blockDim.x) {
-    const int sq = i / kMaxLen, key = i - sq * kMaxLen;
+  for (int i = threadIdx.x; i < ns * kNarrowMaxLen; i += blockDim.x) {
+    const int sq = i / kNarrowMaxLen, key = i - sq * kNarrowMaxLen;
     sbias[i] = key < L ? (msk[sq * L + key] ? 0.f : kMaskMin) : -INFINITY;
   }
   cp_async_wait_all();
@@ -818,7 +836,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, KT <= 2 ? 2 : 1)
   const unsigned short* go = reinterpret_cast<const unsigned short*>(dout);
   for (int t = warp; t < ns * H; t += nwarps) {
     const int sq = t / H;
-    bf16_bwd_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kMaxLen,
+    bf16_bwd_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kNarrowMaxLen,
                                      go + ((size_t)blockIdx.x * S + sq) * L * D, t - sq * H, L,
                                      D, D / H, scale_log2, scale);
   }
@@ -945,7 +963,7 @@ __device__ void write_runs(float* dst, const float* src, int rows, int parts, in
 
 // The sequence's 64 key biases: 0 (valid), -1e30 (masked), -inf (past L).
 __device__ void key_biases(float* sbias, const uint8_t* msk, int L) {
-  for (int key = threadIdx.x; key < kMaxLen; key += blockDim.x)
+  for (int key = threadIdx.x; key < kNarrowMaxLen; key += blockDim.x)
     sbias[key] = key < L ? (msk[key] ? 0.f : kMaskMin) : -INFINITY;
 }
 
@@ -1332,83 +1350,141 @@ __global__ void __launch_bounds__(32, KT <= 2 ? 16 : 8)
 
 // ---------------------------------------------------------------- wide ---
 //
-// Head dims 33..64 (MINS's user encoder, 6 heads of 50; the PLM tower's
-// MHSA, 16 heads of 48), in both types.  The hd <= 32 warp tasks keep a
-// head's operand fragments or its dK / dV in registers; at hd = 50, L = 50
-// that is 120 fragment registers in the bf16 forward and about 224 a lane
-// of dK and dV in the backwards, past what a thread may hold.  So the wide
-// instances are one design for both types, built around registers:
+// The general per-head instances ("wide"), in both types: every shape the
+// instances above do not take.  That is any head dim above 32 (MINS's user
+// encoder, 6 heads of 50; the PLM tower's MHSA, 16 heads of 48; CAUM's
+// default of 4 heads over 400, head dim 100), any L above 64 (the PLM
+// tower's titles reach 96 tokens), and a bf16 shape at head dim 32 or less
+// whose (L, 3D) slab does not fit one block.  They take head dims 1..128 at
+// L <= 64 and head dims 1..64 at L <= 128 (kernel_box below).
 //
-// * One block per (sequence, head), as the f32 instances: the head's q, k,
-//   v (and dO) columns are staged in shared memory as f32 (4-byte cp.async
-//   for f32 runs that are not 16-byte multiples, hd = 50; bf16 converted on
-//   the way in by batches of plain loads), so MINS's user encoder at batch
-//   64 runs as 384 blocks.  The forward gives each 16-row query tile its
-//   own warp.  In the backward every query tile adds to the same dK and
-//   dV, so its two warps split the head's columns instead, each computing
-//   the logits whole (one warp a block ran the (64, 50, 300, 6) backward
-//   in 0.18 ms in f32, 3 blocks an SM by shared memory; PERF.md, §6).
-// * Products in split TF32 (mma.sync.m16n8k8), the f32 instances' fragment
-//   layouts.  A bf16 value is exact in TF32 (8 significant bits of 11), so
-//   with bf16 inputs the lo parts of q, k, v and dO are zero and their
-//   products are skipped: one product for q.k^T and dP^T = V dO^T, two where
-//   P or dS (f32 values) is an operand.  The result is rounded to bf16 once,
-//   at the end: closer to the plain version than the hd <= 32 bf16 path,
-//   which rounds p to bf16.
-// * Nothing of a head is held across a loop over the head dimension: the
-//   logits stream q (forward) or k, v (backward) one k8 step at a time, and
-//   p.v, dV, dK and dQ run one n8 column tile at a time, with the head
-//   dimension's tile count nts = ceil(hd / 8) read at run time (one
-//   instance per key-tile count serves hd 33..64).
-// * The backward's dK and dV, which sum over the query tiles, accumulate in
-//   shared memory (float2 read-modify-writes by the lane that owns each
-//   value; rows of 16 nts + 8 floats, so that a half warp's accesses fall in
-//   distinct banks), not in registers.  The exact softmax down each key
-//   column, the dS transpose by shuffles and the write of dqkv over the
-//   staged slab are the f32 backward's.
+// What bounds them on the H100.  At the PLM head's (512, 96, 768, 16) the
+// bytes: bf16 qkv and the context are 302 MB each way (0.090 ms at 3.35
+// TB/s) against 14.5 GFLOP (0.015 ms at the bf16 tensor rate).  At MINS's
+// (64, 50, 300, 6) the whole problem is 384 (sequence, head) pairs of a few
+// KB each, one wave on 132 SMs: latency, so the design keeps the serial
+// chain of each warp short and puts more warps on each pair: two warps a
+// (sequence, head) that both formed every logit and ran the query tiles one
+// after another, with dK and dV summed through shared memory and bf16
+// multiplied as TF32, lost to SDPA there by 6.8x (bf16) and 2.2x (f32) in
+// the backward (NVIDIA H100 80GB HBM3, 700.00 W).  The design:
 //
-// Shared memory: L * 3 hd floats (q, k, v) + 64 key biases; the backward
-// adds L * hd floats of dO and L (16 nts + 8) floats of dK | dV, at most
-// 100,608 bytes (L = 64, hd = 64), so a block may need more than 48 KB.
+// * One block per (sequence, head), one warp per 16-row tile of the
+//   sequence (KT = ceil(L / 16) warps, up to 8).  The head's q, k, v (and
+//   dO) columns are staged in shared memory in the input type, bf16 as bf16:
+//   cp.async of 16, 8 or 4 bytes, the widest that the tensor's address, its
+//   row stride, the head offset and the run of hd values allow (hd = 50 in
+//   bf16: 4 bytes; hd = 48: 16), plain loads only for bf16 runs off a 4-byte
+//   boundary.  Rows past L and columns past the head dim (up to the
+//   product's padded depth) are zeroed, so no fragment read is clamped or
+//   guarded: zero rows of k give logits that the -inf bias past L removes,
+//   zero rows of v and dO add nothing.  Rows are padded to an odd number of
+//   16-byte units (bf16: ceil(hd / 16) * 16 + 8 values; f32: an odd
+//   multiple of 4 floats), so that the eight rows of an ldmatrix (bf16) or
+//   the (g, c) fragment reads (f32) fall in distinct banks.
+// * bf16: every product on bf16 tensor cores, mma.sync.m16n8k16 with f32
+//   sums, with every operand read by ldmatrix (.trans where the operand
+//   wants the other layout), half the shared memory and a quarter of the
+//   products of TF32 split in two.  p (and dS) become A operands straight
+//   from the accumulators (two n8 tiles of C are one k16 tile of A), rounded
+//   to bf16 as the hd <= 32 path rounds them; P goes into dV = P^T dO as a
+//   bf16 hi + lo pair, as there.  f32: split TF32 (mma.sync.m16n8k8, three
+//   products each), as the hd <= 32 f32 instances: one TF32 rounding misses
+//   the 1e-5 tolerance by two orders of magnitude.
+// * Forward: warp mt runs query tile mt: S = q k^T over all keys into
+//   registers (2 KT n8 tiles), the exact two-pass softmax of the other
+//   instances, then o = p v one group of up to 8 n8 column tiles at a time
+//   (two groups above head dim 64), written to the output from the
+//   accumulators.
+// * Backward, with no atomics and no work done twice across warps: phase
+//   A gives warp mt query tile mt, phase B gives warp kt key tile kt.
+//   Phase A: S and the softmax as the forward, then D = rowsum(dP * P)
+//   (dP = dO V^T two 16-key chunks at a time, so that two accumulator
+//   chains run at once: a pass that sums, then a pass that recomputes dP
+//   into dS = P (dP - D) and dQ += dS K), and dQ written out; the row max,
+//   1 / row sum and D of every query go to shared memory.  Barrier.  Phase
+//   B: per 16-query chunk, S^T = K Q^T and dP^T = V dO^T for the warp's
+//   keys in one loop, P^T from the stored row statistics, dS^T, then
+//   dV += P^T dO and dK += dS^T Q in registers; dK and dV written out.  The
+//   whole dK and dV of a key tile thus sum in one warp's registers in a
+//   fixed order: each output value is written by one lane, once, and two
+//   runs give the same bits.  Head dims above 64 run phase A's second pass
+//   and phase B once per column group.  In f32 phase B forms S^T and dP^T
+//   bit for bit as phase A formed S and dP (logits_t_f32), and each 8-row
+//   product of dQ, dK and dV sums in a fresh accumulator before an f32 add
+//   (both for precision: see there).
+// * Outputs go from the accumulators to global memory (pairs of values a
+//   store where aligned): each warp's rows are runs of hd values that it
+//   alone writes, whole sectors within a few instructions.
+//
+// Shared memory: 3 (forward) or 4 (backward) arrays of Lp padded rows in the
+// input type (Lp = 16 ceil(L / 16)) plus Lp key biases (and, backward, 3 Lp
+// row statistics) in f32: at most 141,312 bytes (f32 backward at L = 128,
+// head dim 64), so one block always fits.  (64, 50, 300, 6): 38,656 bytes
+// in bf16, 62,464 in f32.
 constexpr int kNarrowHeadDim = 32;  // the widest head of the hd <= 32 instances
-constexpr int kWideNT = kMaxHeadDim / 8;
-constexpr int kWideBwdWarps = 2;    // warps of a wide backward block, each its share of columns
 
-__host__ __device__ inline int wide_acc_stride(int hd) { return 16 * ((hd + 7) / 8) + 8; }
-__host__ __device__ inline size_t wide_acc_bytes(int L, int hd) {
-  return align16((size_t)L * wide_acc_stride(hd) * 4);
-}
-inline size_t wide_smem(int L, int hd, bool bwd) {
-  return f32_qkv_bytes(L, hd) + (bwd ? f32_do_bytes(L, hd) + wide_acc_bytes(L, hd) : 0) +
-         kMaxLen * 4;
+// The shapes the kernels take: head dim up to 128 at L <= 64, up to 64 at
+// L <= 128.
+__host__ __device__ inline bool kernel_box(int L, int hd) {
+  return L >= 1 && hd >= 1 && ((L <= kNarrowMaxLen && hd <= kMaxHeadDim) ||
+                               (L <= kMaxLen && hd <= kLongMaxHeadDim));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float& y, float x) { y = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16& y, float x) { y = __float2bfloat16_rn(x); }
+// Row stride, in values, of a staged head array.
+__host__ __device__ inline int wide_stride(int hd, int es) {
+  return es == 2 ? (hd + 15) / 16 * 16 + 8 : (hd + 7) / 8 * 8 + 4;
+}
+__host__ __device__ inline size_t wide_smem(int L, int hd, int es, bool bwd) {
+  const size_t Lp = (L + 15) / 16 * 16;
+  return (bwd ? 4 : 3) * Lp * wide_stride(hd, es) * es + (bwd ? 4 : 1) * Lp * 4;
+}
 
-// stage_runs for either input type: f32 by cp.async, bf16 converted to f32
-// by plain loads, kStageBatch of them in flight a thread before the first
-// is converted (one at a time, each load's latency was paid in turn: the
-// bf16 forward ran at twice the f32 one's time on the H100).  The caller's
-// cp_async_wait_all() and barrier cover both.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+// Stage `parts` runs of hd values of each of L rows: run (r, p) of the
+// source, at src + r * src_row + p * src_part, goes to row r of array p at
+// dst (arrays of Lp rows of `stride` values).  cp.async of the widest of
+// 16, 8 and 4 bytes that every run's address allows, committed as one
+// group; 2-byte values off a 4-byte boundary by plain loads, kStageBatch in
+// flight a thread.  The caller's cp_async_wait_all() and barrier cover both.
 constexpr int kStageBatch = 16;
 
 template <typename T>
-__device__ void stage_cols(float* dst, const T* src, int rows, int parts, int w, size_t src_row,
-                           size_t src_part) {
-  if constexpr (sizeof(T) == 4) {
-    stage_runs(dst, reinterpret_cast<const float*>(src), rows, parts, w, src_row, src_part);
+__device__ void stage_head(T* dst, const T* src, int L, int parts, int hd, size_t src_row,
+                           size_t src_part, int stride, int Lp) {
+  constexpr int es = sizeof(T);
+  const uintptr_t a = (uintptr_t)src | (src_row * es) | (src_part * es) | ((uintptr_t)hd * es);
+  const int V = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : es;
+  const int per = hd * es / V;  // copies a run
+  const int n = L * parts * per;
+  if (V >= 4) {
+    const char* s = reinterpret_cast<const char*>(src);
+    char* d = reinterpret_cast<char*>(dst);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int run = i / per, j = i - run * per;
+      const int r = run / parts, p = run - r * parts;
+      const char* from = s + (r * src_row + p * src_part) * es + j * V;
+      char* to = d + ((size_t)p * Lp * stride + (size_t)r * stride) * es + j * V;
+      if (V == 16)
+        cp_async16(to, from);
+      else if (V == 8)
+        cp_async8(to, from);
+      else
+        cp_async4(to, from);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   } else {
-    const int n = rows * parts * w;
     for (int i0 = threadIdx.x; i0 < n; i0 += kStageBatch * blockDim.x) {
       T v[kStageBatch];
 #pragma unroll
       for (int k = 0; k < kStageBatch; ++k) {
         const int i = i0 + k * blockDim.x;
         if (i < n) {
-          const int run = i / w, j = i - run * w;
+          const int run = i / hd, j = i - run * hd;
           const int r = run / parts, p = run - r * parts;
           v[k] = src[r * src_row + p * src_part + j];
         }
@@ -1416,410 +1492,948 @@ __device__ void stage_cols(float* dst, const T* src, int rows, int parts, int w,
 #pragma unroll
       for (int k = 0; k < kStageBatch; ++k) {
         const int i = i0 + k * blockDim.x;
-        if (i < n) dst[i] = to_f32(v[k]);
+        if (i < n) {
+          const int run = i / hd, j = i - run * hd;
+          const int r = run / parts, p = run - r * parts;
+          dst[(size_t)p * Lp * stride + (size_t)r * stride + j] = v[k];
+        }
       }
     }
   }
 }
 
-// write_runs for either output type (bf16 rounded to nearest).
+// Zero what the products read beyond the staged values: columns hd ..
+// hdp - 1 of rows 0 .. L - 1 and columns 0 .. hdp - 1 of rows L .. Lp - 1
+// of each of `parts` arrays (disjoint from what stage_head writes).
 template <typename T>
-__device__ void write_cols(T* dst, const float* src, int rows, int parts, int src_parts, int w,
-                           size_t dst_row, size_t dst_part) {
-  if constexpr (sizeof(T) == 4) {
-    write_runs(reinterpret_cast<float*>(dst), src, rows, parts, src_parts, w, dst_row, dst_part);
+__device__ void zero_pad(T* dst, int parts, int L, int Lp, int hd, int hdp, int stride) {
+  const int pc = hdp - hd;
+  const int n1 = parts * L * pc;
+  for (int i = threadIdx.x; i < n1; i += blockDim.x) {
+    const int row = i / pc, j = i - row * pc;  // row = p * L + r
+    const int p = row / L, r = row - p * L;
+    dst[((size_t)p * Lp + r) * stride + hd + j] = T(0);
+  }
+  const int pr = Lp - L;
+  const int n2 = parts * pr * hdp;
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    const int row = i / hdp, j = i - row * hdp;
+    const int p = row / pr, r = row - p * pr;
+    dst[((size_t)p * Lp + L + r) * stride + j] = T(0);
+  }
+}
+
+// The key biases of one sequence for Lp keys: 0 (valid), -1e30 (masked),
+// -inf (past L).
+__device__ void wide_biases(float* sbias, const uint8_t* msk, int L, int Lp) {
+  for (int key = threadIdx.x; key < Lp; key += blockDim.x)
+    sbias[key] = key < L ? (msk[key] ? 0.f : kMaskMin) : -INFINITY;
+}
+
+// x, y at out[0], out[1] in the output type, each only where its column is
+// below hd (col, col + 1 against hd); one 4- or 8-byte store where aligned.
+__device__ __forceinline__ void put_pair(__nv_bfloat16* out, int col, int hd, float x, float y) {
+  if (col + 1 < hd && ((uintptr_t)out & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(out) = pack_f32(x, y);
   } else {
-    const int n = rows * parts * w;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int run = i / w, j = i - run * w;
-      const int r = run / parts, p = run - r * parts;
-      from_f32(dst[r * dst_row + p * dst_part + j], src[((size_t)r * src_parts + p) * w + j]);
+    if (col < hd) out[0] = __float2bfloat16_rn(x);
+    if (col + 1 < hd) out[1] = __float2bfloat16_rn(y);
+  }
+}
+__device__ __forceinline__ void put_pair(float* out, int col, int hd, float x, float y) {
+  if (col + 1 < hd && ((uintptr_t)out & 7) == 0) {
+    *reinterpret_cast<float2*>(out) = make_float2(x, y);
+  } else {
+    if (col < hd) out[0] = x;
+    if (col + 1 < hd) out[1] = y;
+  }
+}
+
+// ldmatrix: four 8 x 8 matrices of 16-bit values, the rows of matrix i at
+// the addresses of lanes 8 i .. 8 i + 7; register i of lane t holds row t / 4,
+// columns 2 (t % 4) and 2 (t % 4) + 1 of matrix i (.trans: of its transpose).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Operand tiles of m16n8k16 from a staged bf16 array `a` (row stride st):
+// tile_a: the A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 15
+// (a0..a3 as in bf16_head).  tile_b: b0, b1 of two n8 tiles whose n index is
+// the row (rows n0 .. n0 + 15, k = columns k0 .. k0 + 15): {b0, b1} of rows
+// n0.., then of rows n0 + 8...  tile_bt: the same where the k index is the
+// row (rows k0 .. k0 + 15, n = columns n0 .. n0 + 15).
+__device__ __forceinline__ void tile_a(uint32_t (&r)[4], const unsigned short* a, int st, int r0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm4(r, a + (r0 + (lane & 15)) * st + k0 + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void tile_b(uint32_t (&r)[4], const unsigned short* a, int st, int n0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm4(r, a + (n0 + (lane & 7) + (lane >> 4) * 8) * st + k0 + ((lane >> 3) & 1) * 8);
+}
+__device__ __forceinline__ void tile_bt(uint32_t (&r)[4], const unsigned short* a, int st, int k0,
+                                        int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm4t(r, a + (k0 + (lane & 15)) * st + n0 + (lane >> 4) * 8);
+}
+
+// The exact softmax of one 16-row tile as softmax_tile, also returning each
+// row's max (log2 units) and 1 / sum, with rows g + 8 (r1_on false: all
+// past L) given max 0 and 1 / sum 0, so that P recomputed from them is 0.
+template <int NJ>
+__device__ __forceinline__ void wide_softmax(float (&sc)[NJ][4], const float* bias,
+                                             float scale_log2, bool last_on, bool r1_on,
+                                             float& mx0, float& mx1, float& inv0, float& inv1) {
+  const int c = threadIdx.x & 3;
+  mx0 = -INFINITY;
+  mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j < NJ - 1 || last_on) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
+      sc[j][0] = fmaf(sc[j][0], scale_log2, b.x);
+      sc[j][1] = fmaf(sc[j][1], scale_log2, b.y);
+      sc[j][2] = fmaf(sc[j][2], scale_log2, b.x);
+      sc[j][3] = fmaf(sc[j][3], scale_log2, b.y);
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  if (!r1_on) mx1 = 0.f;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const bool on = j < NJ - 1 || last_on;
+    sc[j][0] = on ? ex2(sc[j][0] - mx0) : 0.f;
+    sc[j][1] = on ? ex2(sc[j][1] - mx0) : 0.f;
+    sc[j][2] = on && r1_on ? ex2(sc[j][2] - mx1) : 0.f;
+    sc[j][3] = on && r1_on ? ex2(sc[j][3] - mx1) : 0.f;
+    sum0 += sc[j][0] + sc[j][1];
+    sum1 += sc[j][2] + sc[j][3];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+  inv0 = 1.f / sum0;  // >= 1: the max term is 2^0
+  inv1 = r1_on ? 1.f / sum1 : 0.f;
+}
+
+// Everything a wide warp task needs of its block.
+template <typename T>
+struct WideHead {
+  const T* q;  // staged arrays, Lp rows of `st` values each
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* bias;  // Lp key biases
+  float* mx;          // backward: per query row, max (log2 units), 1 / sum, D
+  float* inv;
+  float* dd;
+  int L, hd, st;
+  float scale_log2, scale;
+};
+
+// ----------------------------------------------------------- wide, bf16 ---
+
+// S = q k^T of query tile mt against every key (2 KT n8 tiles; the last
+// skipped where it is all past L), k16 steps over the head dim.
+template <int KT>
+__device__ __forceinline__ void wide_logits_bf16(float (&sc)[2 * KT][4], const unsigned short* q,
+                                                 const unsigned short* k, int st, int mt, int hk,
+                                                 bool last_on) {
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  for (int ks = 0; ks < hk; ++ks) {
+    uint32_t a[4];
+    tile_a(a, q, st, mt * 16, ks * 16);
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t b[4];
+      tile_b(b, k, st, kk * 16, ks * 16);
+      mma_bf16(sc[2 * kk], a, b[0], b[1]);
+      if (kk < KT - 1 || last_on) mma_bf16(sc[2 * kk + 1], a, b[2], b[3]);
     }
   }
 }
 
-// d += a b in split TF32, leaving out the products of a lo part that is
-// zero: LA (LB) is false where a's (b's) values are exact in TF32.
-template <bool LA, bool LB>
-__device__ __forceinline__ void mma3x(float (&d)[4], const FragA& a, const FragB& b) {
-  if (LA) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-  if (LB) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+// dP = a b^T for one 16-row tile (rows r0 of `a`) and one 16-key chunk
+// (rows n0 of `b`): two n8 tiles.
+__device__ __forceinline__ void chunk_bf16(float (&dp)[2][4], const unsigned short* a,
+                                           const unsigned short* b, int st, int r0, int n0,
+                                           int hk) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  for (int ks = 0; ks < hk; ++ks) {
+    uint32_t fa[4], fb[4];
+    tile_a(fa, a, st, r0, ks * 16);
+    tile_b(fb, b, st, n0, ks * 16);
+    mma_bf16(dp[0], fa, fb[0], fb[1]);
+    mma_bf16(dp[1], fa, fb[2], fb[3]);
+  }
 }
 
-// One wide forward warp task: query tile mt of one head of one sequence,
-// staged as f32 at `s` (rows of 3 hd: q, k, v).  EX: the staged values are
-// exact in TF32 (bf16 inputs).  The 16-row query tile: the logits q.k^T over the nts k8
-// steps of the head dimension (each step's q fragment built, used against
-// every key tile and dropped), the exact softmax of the other instances,
-// then p.v one n8 column tile at a time, p straight from the accumulators
-// (k index c as key 2c, c + 4 as key 2c + 1).  The context goes over the
-// tile's own q values.  Rows past L are read clamped to row L - 1.
-template <int KT, bool EX>
-__device__ __forceinline__ void wide_head(float* s, const float* bias, int mt, int L, int hd,
-                                          float scale_log2) {
-  constexpr int NJ = 2 * KT;
-  constexpr int NT = kWideNT;
-  const int W = 3 * hd;
-  const int nts = (hd + 7) / 8;
+// chunk_bf16 of (a, b) into x and of (c, d) into y in one loop over the
+// head dim: four independent accumulator chains.
+__device__ __forceinline__ void chunk2_bf16(float (&x)[2][4], const unsigned short* a,
+                                            const unsigned short* b, float (&y)[2][4],
+                                            const unsigned short* c, const unsigned short* d,
+                                            int st, int r0, int n0, int hk) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = y[n][e] = 0.f;
+  for (int ks = 0; ks < hk; ++ks) {
+    uint32_t fa[4], fb[4], fc[4], fd[4];
+    tile_a(fa, a, st, r0, ks * 16);
+    tile_b(fb, b, st, n0, ks * 16);
+    tile_a(fc, c, st, r0, ks * 16);
+    tile_b(fd, d, st, n0, ks * 16);
+    mma_bf16(x[0], fa, fb[0], fb[1]);
+    mma_bf16(x[1], fa, fb[2], fb[3]);
+    mma_bf16(y[0], fc, fd[0], fd[1]);
+    mma_bf16(y[1], fc, fd[2], fd[3]);
+  }
+}
+
+// C fragments of two n8 tiles (a 16 x 16 block) as the A fragment of a k16
+// step, rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x0)[4],
+                                       const float (&x1)[4]) {
+  a[0] = pack_f32(x0[0], x0[1]);
+  a[1] = pack_f32(x0[2], x0[3]);
+  a[2] = pack_f32(x1[0], x1[1]);
+  a[3] = pack_f32(x1[2], x1[3]);
+}
+
+// dP = dO V^T of query tile mt for the 16-key chunks kk and kk + 1 (the
+// second only where kk + 1 < KT), in one loop over the head dim.
+template <int KT>
+__device__ __forceinline__ void dp_chunks_bf16(float (&dp)[2][2][4],
+                                               const WideHead<unsigned short>& w, int mt, int kk,
+                                               int hk) {
+  if (kk + 1 < KT)
+    chunk2_bf16(dp[0], w.dout, w.v + kk * 16 * w.st, dp[1], w.dout, w.v + (kk + 1) * 16 * w.st,
+                w.st, mt * 16, 0, hk);
+  else
+    chunk_bf16(dp[0], w.dout, w.v, w.st, mt * 16, kk * 16, hk);
+}
+
+// One wide bf16 forward warp task: query tile mt.  The context, normalised,
+// goes to `out` (row stride D, this head's columns).
+template <int KT>
+__device__ __forceinline__ void wide_fwd_bf16(const WideHead<unsigned short>& w, int mt,
+                                              __nv_bfloat16* out, int D) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
-  const bool last_on = (NJ - 1) * 8 < L;
-  {
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    float* q0 = s + min(r0, L - 1) * W;
-    float* q1 = s + min(r1, L - 1) * W;
-    float sc[NJ][4];
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int hk = (hd + 15) / 16, nts = (hd + 7) / 8;
+  const bool last_on = (2 * KT - 1) * 8 < L;
+  const bool r1_on = mt * 16 + 8 < L;
+  float sc[2 * KT][4];
+  wide_logits_bf16<KT>(sc, w.q, w.k, st, mt, hk, last_on);
+  float mx0, mx1, inv0, inv1;
+  wide_softmax<2 * KT>(sc, w.bias, w.scale_log2, last_on, r1_on, mx0, mx1, inv0, inv1);
+  uint32_t pa[KT][4];  // p rounded to bf16, as A fragments of p.v
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  for (int kk = 0; kk < KT; ++kk) pack_a(pa[kk], sc[2 * kk], sc[2 * kk + 1]);
+
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  for (int cg = 0; cg < nts; cg += 8) {  // groups of up to 8 n8 column tiles
+    float oc[8][4];
 #pragma unroll
-    for (int ks = 0; ks < NT; ++ks) {
-      if (ks < nts) {
-        const int d = ks * 8 + c;
-        const FragA qa = frag_a(ld(q0, d, hd), ld(q1, d, hd), ld(q0, d + 4, hd), ld(q1, d + 4, hd));
+    for (int nt = 0; nt < 8; ++nt) oc[nt][0] = oc[nt][1] = oc[nt][2] = oc[nt][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j < NJ - 1 || last_on) {
-            const float* kr = s + min(j * 8 + g, L - 1) * W + hd;
-            mma3x<!EX, !EX>(sc[j], qa, frag_b(ld(kr, d, hd), ld(kr, d + 4, hd)));
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (cg + 2 * np < nts) {
+          uint32_t b[4];
+          tile_bt(b, w.v, st, kk * 16, (cg + 2 * np) * 8);
+          mma_bf16(oc[2 * np], pa[kk], b[0], b[1]);
+          if (cg + 2 * np + 1 < nts) mma_bf16(oc[2 * np + 1], pa[kk], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (r0 < L)
+          put_pair(out + (size_t)r0 * D + col, col, hd, oc[nt][0] * inv0, oc[nt][1] * inv0);
+        if (r1 < L)
+          put_pair(out + (size_t)r1 * D + col, col, hd, oc[nt][2] * inv1, oc[nt][3] * inv1);
+      }
+    }
+  }
+}
+
+// Phase A of the wide bf16 backward: query tile mt.  dQ (scaled) goes to
+// `dq` (row stride 3D); the row statistics to w.mx, w.inv, w.dd.
+template <int KT>
+__device__ __forceinline__ void wide_bwd_a_bf16(const WideHead<unsigned short>& w, int mt,
+                                                __nv_bfloat16* dq, int D3) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int hk = (hd + 15) / 16, nts = (hd + 7) / 8;
+  const bool last_on = (2 * KT - 1) * 8 < L;
+  const bool r1_on = mt * 16 + 8 < L;
+  float p[2 * KT][4];
+  wide_logits_bf16<KT>(p, w.q, w.k, st, mt, hk, last_on);
+  float mx0, mx1, inv0, inv1;
+  wide_softmax<2 * KT>(p, w.bias, w.scale_log2, last_on, r1_on, mx0, mx1, inv0, inv1);
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    p[j][0] *= inv0;
+    p[j][1] *= inv0;
+    p[j][2] *= inv1;
+    p[j][3] *= inv1;
+  }
+
+  // D = rowsum(dP * P), dP = dO V^T two 16-key chunks at a time.
+  float dd0 = 0.f, dd1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; kk += 2) {
+    float dp[2][2][4];
+    dp_chunks_bf16<KT>(dp, w, mt, kk, hk);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kk + i < KT) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float(&pj)[4] = p[2 * (kk + i) + n];
+          dd0 += pj[0] * dp[i][n][0] + pj[1] * dp[i][n][1];
+          dd1 += pj[2] * dp[i][n][2] + pj[3] * dp[i][n][3];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    dd0 += __shfl_xor_sync(0xffffffffu, dd0, o);
+    dd1 += __shfl_xor_sync(0xffffffffu, dd1, o);
+  }
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  if (c == 0) {
+    w.mx[r0] = mx0;
+    w.inv[r0] = inv0;
+    w.dd[r0] = dd0;
+    w.mx[r1] = mx1;
+    w.inv[r1] = inv1;
+    w.dd[r1] = dd1;
+  }
+
+  // dS = P (dP - D) at valid keys, 0 elsewhere (dP again), dQ += dS K.
+  for (int cg = 0; cg < nts; cg += 8) {
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 2) {
+      float dp[2][2][4];
+      dp_chunks_bf16<KT>(dp, w, mt, kk, hk);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (kk + i < KT) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int j = 2 * (kk + i) + n;
+            const float2 b = *reinterpret_cast<const float2*>(w.bias + j * 8 + 2 * c);
+            const float(&pj)[4] = p[j];
+            float(&x)[4] = dp[i][n];
+            x[0] = b.x == 0.f ? pj[0] * (x[0] - dd0) : 0.f;
+            x[1] = b.y == 0.f ? pj[1] * (x[1] - dd0) : 0.f;
+            x[2] = b.x == 0.f ? pj[2] * (x[2] - dd1) : 0.f;
+            x[3] = b.y == 0.f ? pj[3] * (x[3] - dd1) : 0.f;
+          }
+          uint32_t sa[4];
+          pack_a(sa, dp[i][0], dp[i][1]);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            if (cg + 2 * np < nts) {
+              uint32_t b[4];
+              tile_bt(b, w.k, st, (kk + i) * 16, (cg + 2 * np) * 8);
+              mma_bf16(acc[2 * np], sa, b[0], b[1]);
+              if (cg + 2 * np + 1 < nts) mma_bf16(acc[2 * np + 1], sa, b[2], b[3]);
+            }
           }
         }
       }
     }
-    const bool r1_on = mt * 16 + 8 < L;
-    float sum0, sum1;
-    softmax_tile(sc, bias, scale_log2, last_on, r1_on, sum0, sum1);
-    const float inv0 = 1.f / sum0, inv1 = r1_on ? 1.f / sum1 : 0.f;
-    __syncwarp();  // every lane has read the tile's q values
-
+    const float s = w.scale;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt >= nts) break;
-      const int dv = nt * 8 + g;
-      float oc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < NJ - 1 || last_on) {
-          const FragA pa = frag_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
-          const float* v0 = s + min(j * 8 + 2 * c, L - 1) * W + 2 * hd;
-          const float* v1 = s + min(j * 8 + 2 * c + 1, L - 1) * W + 2 * hd;
-          mma3x<true, !EX>(oc, pa, frag_b(ld(v0, dv, hd), ld(v1, dv, hd)));
-        }
-      }
-      const int d = nt * 8 + 2 * c;
-      if (r0 < L) {
-        if (d < hd) q0[d] = oc[0] * inv0;
-        if (d + 1 < hd) q0[d + 1] = oc[1] * inv0;
-      }
-      if (r1 < L) {
-        if (d < hd) q1[d] = oc[2] * inv1;
-        if (d + 1 < hd) q1[d + 1] = oc[3] * inv1;
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (r0 < L) put_pair(dq + (size_t)r0 * D3 + col, col, hd, acc[nt][0] * s, acc[nt][1] * s);
+        if (r1 < L) put_pair(dq + (size_t)r1 * D3 + col, col, hd, acc[nt][2] * s, acc[nt][3] * s);
       }
     }
   }
 }
 
-// One block: head blockIdx.x % H of sequence blockIdx.x / H, one warp per
-// 16-row query tile (the tiles share the staged k and v and write disjoint
-// rows), so MINS's user encoder at batch 64 runs 384 blocks of 4 warps.
+// Phase B of the wide bf16 backward: key tile kt.  dK (scaled) goes to `dk`,
+// dV to `dv` (row stride 3D).
+template <int KT>
+__device__ __forceinline__ void wide_bwd_b_bf16(const WideHead<unsigned short>& w, int kt,
+                                                __nv_bfloat16* dk, __nv_bfloat16* dv, int D3) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int hk = (hd + 15) / 16, nts = (hd + 7) / 8;
+  const int k0 = kt * 16 + g, k1 = k0 + 8;  // this lane's key rows
+  const float b0 = w.bias[k0], b1 = w.bias[k1];
+  for (int cg = 0; cg < nts; cg += 8) {
+    float av[8][4], ak[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+    for (int qc = 0; qc < KT; ++qc) {
+      float pt[2][4], dst[2][4];  // P^T and dP^T, then dS^T: keys as rows
+      chunk2_bf16(pt, w.k, w.q, dst, w.v, w.dout, st, kt * 16, qc * 16, hk);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = qc * 16 + n * 8 + 2 * c + e;
+          const float m = w.mx[qi], iv = w.inv[qi], d = w.dd[qi];
+          pt[n][e] = ex2(fmaf(pt[n][e], w.scale_log2, b0) - m) * iv;
+          pt[n][2 + e] = ex2(fmaf(pt[n][2 + e], w.scale_log2, b1) - m) * iv;
+          dst[n][e] = b0 == 0.f ? pt[n][e] * (dst[n][e] - d) : 0.f;
+          dst[n][2 + e] = b1 == 0.f ? pt[n][2 + e] * (dst[n][2 + e] - d) : 0.f;
+        }
+      }
+      uint32_t hi[4], lo[4], sa[4];
+      split_bf16(pt[0][0], pt[0][1], hi[0], lo[0]);
+      split_bf16(pt[0][2], pt[0][3], hi[1], lo[1]);
+      split_bf16(pt[1][0], pt[1][1], hi[2], lo[2]);
+      split_bf16(pt[1][2], pt[1][3], hi[3], lo[3]);
+      pack_a(sa, dst[0], dst[1]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (cg + 2 * np < nts) {
+          const bool two = cg + 2 * np + 1 < nts;
+          uint32_t b[4];
+          tile_bt(b, w.dout, st, qc * 16, (cg + 2 * np) * 8);
+          mma_bf16(av[2 * np], hi, b[0], b[1]);
+          mma_bf16(av[2 * np], lo, b[0], b[1]);
+          if (two) {
+            mma_bf16(av[2 * np + 1], hi, b[2], b[3]);
+            mma_bf16(av[2 * np + 1], lo, b[2], b[3]);
+          }
+          tile_bt(b, w.q, st, qc * 16, (cg + 2 * np) * 8);
+          mma_bf16(ak[2 * np], sa, b[0], b[1]);
+          if (two) mma_bf16(ak[2 * np + 1], sa, b[2], b[3]);
+        }
+      }
+    }
+    const float s = w.scale;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (k0 < L) {
+          put_pair(dk + (size_t)k0 * D3 + col, col, hd, ak[nt][0] * s, ak[nt][1] * s);
+          put_pair(dv + (size_t)k0 * D3 + col, col, hd, av[nt][0], av[nt][1]);
+        }
+        if (k1 < L) {
+          put_pair(dk + (size_t)k1 * D3 + col, col, hd, ak[nt][2] * s, ak[nt][3] * s);
+          put_pair(dv + (size_t)k1 * D3 + col, col, hd, av[nt][2], av[nt][3]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ wide, f32 ---
+
+// S = q k^T of query tile mt, split TF32 over k8 steps of the head dim.
+template <int KT>
+__device__ __forceinline__ void wide_logits_f32(float (&sc)[2 * KT][4], const float* q,
+                                                const float* k, int st, int mt, int nks,
+                                                bool last_on) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const float* q0 = q + (mt * 16 + g) * st + c;
+  const float* q1 = q0 + 8 * st;
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8;
+    const FragA a = frag_a(q0[d], q1[d], q0[d + 4], q1[d + 4]);
+#pragma unroll
+    for (int j = 0; j < 2 * KT; ++j) {
+      if (j < 2 * KT - 1 || last_on) {
+        const float* kr = k + (j * 8 + g) * st + c + d;
+        mma3(sc[j], a, frag_b(kr[0], kr[4]));
+      }
+    }
+  }
+}
+
+// a b^T for one 16-row tile (rows r0 of `a`) and one 16-key chunk (rows n0
+// of `b`), split TF32, for NC such (a, b) pairs at once (phase B: S^T and
+// dP^T).  The main product a_hi b_hi and the two corrections sum in
+// separate accumulators, added at the end: 6 NC independent chains of
+// mma.sync over the head dim, not 2 NC chains of three dependent products
+// (the f32 backward at (512, 96, 768, 16) is latency-bound on them).
+template <int NC>
+__device__ __forceinline__ void chunks_f32(float (&x)[NC][2][4], const float* const (&a)[NC],
+                                           const float* const (&b)[NC], int st, int r0, int n0,
+                                           int nks) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  float lo[NC][2][2][4];  // the two corrections of each tile
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][n][e] = lo[i][n][0][e] = lo[i][n][1][e] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8 + c;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float* a0 = a[i] + (r0 + g) * st + d;
+      const float* a1 = a0 + 8 * st;
+      const FragA fa = frag_a(a0[0], a1[0], a0[4], a1[4]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float* bn = b[i] + (n0 + 8 * n + g) * st + d;
+        const FragB fb = frag_b(bn[0], bn[4]);
+        mma_tf32(lo[i][n][0], fa.lo, fb.hi[0], fb.hi[1]);
+        mma_tf32(lo[i][n][1], fa.hi, fb.lo[0], fb.lo[1]);
+        mma_tf32(x[i][n], fa.hi, fb.hi[0], fb.hi[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][n][e] += lo[i][n][0][e] + lo[i][n][1][e];
+}
+
+__device__ __forceinline__ void chunk_f32(float (&x)[2][4], const float* a, const float* b, int st,
+                                          int r0, int n0, int nks) {
+  float y[1][2][4];
+  const float* const pa[1] = {a};
+  const float* const pb[1] = {b};
+  chunks_f32<1>(y, pa, pb, st, r0, n0, nks);
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = y[0][n][e];
+}
+
+// dP = dO V^T of query tile mt for the 16-key chunks kk and kk + 1 (the
+// second only where kk + 1 < KT), in one loop over the head dim.
+template <int KT>
+__device__ __forceinline__ void dp_chunks_f32(float (&dp)[2][2][4], const WideHead<float>& w,
+                                              int mt, int kk, int nks) {
+  if (kk + 1 < KT) {
+    const float* const a[2] = {w.dout, w.dout};
+    const float* const b[2] = {w.v + kk * 16 * w.st, w.v + (kk + 1) * 16 * w.st};
+    chunks_f32<2>(dp, a, b, w.st, mt * 16, 0, nks);
+  } else {
+    chunk_f32(dp[0], w.dout, w.v, w.st, mt * 16, kk * 16, nks);
+  }
+}
+
+template <int KT>
+__device__ __forceinline__ void wide_fwd_f32(const WideHead<float>& w, int mt, float* out, int D) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int nts = (hd + 7) / 8;
+  const bool last_on = (2 * KT - 1) * 8 < L;
+  const bool r1_on = mt * 16 + 8 < L;
+  float sc[2 * KT][4];
+  wide_logits_f32<KT>(sc, w.q, w.k, st, mt, nts, last_on);
+  float mx0, mx1, inv0, inv1;
+  wide_softmax<2 * KT>(sc, w.bias, w.scale_log2, last_on, r1_on, mx0, mx1, inv0, inv1);
+
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  for (int cg = 0; cg < nts; cg += 8) {
+    float oc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) oc[nt][0] = oc[nt][1] = oc[nt][2] = oc[nt][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * KT; ++j) {
+      if (j < 2 * KT - 1 || last_on) {
+        // p as the A operand straight from the accumulators: k index c is
+        // key 2c, c + 4 is key 2c + 1
+        const FragA pa = frag_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+        const float* v0 = w.v + (j * 8 + 2 * c) * st + cg * 8 + g;
+        const float* v1 = v0 + st;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          if (cg + nt < nts) mma3(oc[nt], pa, frag_b(v0[nt * 8], v1[nt * 8]));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (r0 < L)
+          put_pair(out + (size_t)r0 * D + col, col, hd, oc[nt][0] * inv0, oc[nt][1] * inv0);
+        if (r1 < L)
+          put_pair(out + (size_t)r1 * D + col, col, hd, oc[nt][2] * inv1, oc[nt][3] * inv1);
+      }
+    }
+  }
+}
+
+// Phase A of the wide f32 backward (as wide_bwd_a_bf16, split TF32; dS
+// goes into dQ = dS K as A operands straight from the accumulators, k index
+// c as key 2c and c + 4 as key 2c + 1).
+template <int KT>
+__device__ __forceinline__ void wide_bwd_a_f32(const WideHead<float>& w, int mt, float* dq,
+                                               int D3) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int nts = (hd + 7) / 8;
+  const bool last_on = (2 * KT - 1) * 8 < L;
+  const bool r1_on = mt * 16 + 8 < L;
+  float p[2 * KT][4];
+  wide_logits_f32<KT>(p, w.q, w.k, st, mt, nts, last_on);
+  float mx0, mx1, inv0, inv1;
+  wide_softmax<2 * KT>(p, w.bias, w.scale_log2, last_on, r1_on, mx0, mx1, inv0, inv1);
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    p[j][0] *= inv0;
+    p[j][1] *= inv0;
+    p[j][2] *= inv1;
+    p[j][3] *= inv1;
+  }
+  float dd0 = 0.f, dd1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; kk += 2) {
+    float dp[2][2][4];
+    dp_chunks_f32<KT>(dp, w, mt, kk, nts);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kk + i < KT) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float(&pj)[4] = p[2 * (kk + i) + n];
+          dd0 += pj[0] * dp[i][n][0] + pj[1] * dp[i][n][1];
+          dd1 += pj[2] * dp[i][n][2] + pj[3] * dp[i][n][3];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    dd0 += __shfl_xor_sync(0xffffffffu, dd0, o);
+    dd1 += __shfl_xor_sync(0xffffffffu, dd1, o);
+  }
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  if (c == 0) {
+    w.mx[r0] = mx0;
+    w.inv[r0] = inv0;
+    w.dd[r0] = dd0;
+    w.mx[r1] = mx1;
+    w.inv[r1] = inv1;
+    w.dd[r1] = dd1;
+  }
+  for (int cg = 0; cg < nts; cg += 8) {
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 2) {
+      float dp[2][2][4];
+      dp_chunks_f32<KT>(dp, w, mt, kk, nts);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (kk + i < KT) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int j = 2 * (kk + i) + n;
+            const float2 b = *reinterpret_cast<const float2*>(w.bias + j * 8 + 2 * c);
+            const float x0 = b.x == 0.f ? p[j][0] * (dp[i][n][0] - dd0) : 0.f;
+            const float x1 = b.y == 0.f ? p[j][1] * (dp[i][n][1] - dd0) : 0.f;
+            const float x2 = b.x == 0.f ? p[j][2] * (dp[i][n][2] - dd1) : 0.f;
+            const float x3 = b.y == 0.f ? p[j][3] * (dp[i][n][3] - dd1) : 0.f;
+            const FragA da = frag_a(x0, x2, x1, x3);
+            const float* kr0 = w.k + (j * 8 + 2 * c) * st + cg * 8 + g;
+            const float* kr1 = kr0 + st;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              if (cg + nt < nts) {  // a fresh accumulator per 8 keys, as phase B's
+                float t[4] = {0.f, 0.f, 0.f, 0.f};
+                mma3(t, da, frag_b(kr0[nt * 8], kr1[nt * 8]));
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
+              }
+            }
+          }
+        }
+      }
+    }
+    const float s = w.scale;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (r0 < L) put_pair(dq + (size_t)r0 * D3 + col, col, hd, acc[nt][0] * s, acc[nt][1] * s);
+        if (r1 < L) put_pair(dq + (size_t)r1 * D3 + col, col, hd, acc[nt][2] * s, acc[nt][3] * s);
+      }
+    }
+  }
+}
+
+// S^T = K Q^T and dP^T = V dO^T of key tile kt and query chunk qc (16
+// queries), each value bit for bit what phase A formed for S and dP: the
+// same split-TF32 products (the same TF32 parts, multiplied exactly) summed
+// in the same order, phase A's A operand now the B operand.  Phase A sums
+// S as q_lo k_hi + q_hi k_lo + q_hi k_hi in one accumulator (mma3) and dP
+// with its two corrections apart (chunks_f32).  So P^T and dS^T equal
+// phase A's P and dS: a recomputed logit one ulp off phase A's row max moved
+// a P near 1 by 1e-6, and dV (a sum of dO over every query where one key
+// takes all the attention) by 1.2e-5 from a float64 reference at
+// (512, 96, 768, 16) on the H100.
+__device__ __forceinline__ void logits_t_f32(float (&pt)[2][4], float (&dpt)[2][4],
+                                             const WideHead<float>& w, int kt, int qc, int nks) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int st = w.st;
+  const float* k0 = w.k + (kt * 16 + g) * st + c;
+  const float* v0 = w.v + (kt * 16 + g) * st + c;
+  float lo[2][2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = lo[n][0][e] = lo[n][1][e] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8;
+    const FragA ka = frag_a(k0[d], k0[8 * st + d], k0[d + 4], k0[8 * st + d + 4]);
+    const FragA va = frag_a(v0[d], v0[8 * st + d], v0[d + 4], v0[8 * st + d + 4]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* qr = w.q + (qc * 16 + 8 * n + g) * st + c + d;
+      const float* orow = w.dout + (qc * 16 + 8 * n + g) * st + c + d;
+      const FragB qb = frag_b(qr[0], qr[4]);
+      const FragB ob = frag_b(orow[0], orow[4]);
+      mma_tf32(pt[n], ka.hi, qb.lo[0], qb.lo[1]);  // q_lo k_hi
+      mma_tf32(pt[n], ka.lo, qb.hi[0], qb.hi[1]);  // q_hi k_lo
+      mma_tf32(pt[n], ka.hi, qb.hi[0], qb.hi[1]);
+      mma_tf32(lo[n][0], va.hi, ob.lo[0], ob.lo[1]);  // dO_lo v_hi
+      mma_tf32(lo[n][1], va.lo, ob.hi[0], ob.hi[1]);  // dO_hi v_lo
+      mma_tf32(dpt[n], va.hi, ob.hi[0], ob.hi[1]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dpt[n][e] += lo[n][0][e] + lo[n][1][e];
+}
+
+// Phase B of the wide f32 backward: key tile kt, keys as rows; P^T and dS^T
+// go into dV and dK as A operands straight from the accumulators (k index c
+// as query 2c, c + 4 as query 2c + 1).
+template <int KT>
+__device__ __forceinline__ void wide_bwd_b_f32(const WideHead<float>& w, int kt, float* dk,
+                                               float* dv, int D3) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int L = w.L, hd = w.hd, st = w.st;
+  const int nts = (hd + 7) / 8;
+  const int k0 = kt * 16 + g, k1 = k0 + 8;
+  const float b0 = w.bias[k0], b1 = w.bias[k1];
+  for (int cg = 0; cg < nts; cg += 8) {
+    float av[8][4], ak[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+    for (int qc = 0; qc < KT; ++qc) {
+      float pt[2][4], dst[2][4];  // P^T and dP^T, then dS^T: keys as rows
+      logits_t_f32(pt, dst, w, kt, qc, nts);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = qc * 16 + n * 8 + 2 * c + e;
+          const float m = w.mx[qi], iv = w.inv[qi], d = w.dd[qi];
+          pt[n][e] = ex2(fmaf(pt[n][e], w.scale_log2, b0) - m) * iv;
+          pt[n][2 + e] = ex2(fmaf(pt[n][2 + e], w.scale_log2, b1) - m) * iv;
+          dst[n][e] = b0 == 0.f ? pt[n][e] * (dst[n][e] - d) : 0.f;
+          dst[n][2 + e] = b1 == 0.f ? pt[n][2 + e] * (dst[n][2 + e] - d) : 0.f;
+        }
+      }
+      // Each 8-query product sums in a fresh accumulator and joins dV / dK
+      // by an f32 add: chained through one accumulator over all L queries,
+      // the tensor cores' sums drifted by 2e-5 from a float64 reference at
+      // (512, 96, 768, 16) where one key takes all the attention of every
+      // query (H100), past the 1e-5 tolerance.
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const FragA pa = frag_a(pt[n][0], pt[n][2], pt[n][1], pt[n][3]);
+        const FragA sa = frag_a(dst[n][0], dst[n][2], dst[n][1], dst[n][3]);
+        const int qa = qc * 16 + n * 8 + 2 * c;  // queries 2c, 2c + 1 of this n8 tile
+        const float* o0 = w.dout + qa * st + cg * 8 + g;
+        const float* q0 = w.q + qa * st + cg * 8 + g;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (cg + nt < nts) {
+            float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(tv, pa, frag_b(o0[nt * 8], o0[st + nt * 8]));
+            mma3(tk, sa, frag_b(q0[nt * 8], q0[st + nt * 8]));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              av[nt][e] += tv[e];
+              ak[nt][e] += tk[e];
+            }
+          }
+        }
+      }
+    }
+    const float s = w.scale;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (cg + nt) * 8 + 2 * c;
+      if (cg + nt < nts) {
+        if (k0 < L) {
+          put_pair(dk + (size_t)k0 * D3 + col, col, hd, ak[nt][0] * s, ak[nt][1] * s);
+          put_pair(dv + (size_t)k0 * D3 + col, col, hd, av[nt][0], av[nt][1]);
+        }
+        if (k1 < L) {
+          put_pair(dk + (size_t)k1 * D3 + col, col, hd, ak[nt][2] * s, ak[nt][3] * s);
+          put_pair(dv + (size_t)k1 * D3 + col, col, hd, av[nt][2], av[nt][3]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- wide, kernels ---
+
+// The staged arrays of one block (q, k, v, then dO) as the warp tasks see
+// them: bits of bf16, or f32.
+template <typename T>
+struct Staged {
+  using type = float;
+};
+template <>
+struct Staged<__nv_bfloat16> {
+  using type = unsigned short;
+};
+
+// Stage head blockIdx.x % H of sequence blockIdx.x / H: `parts` arrays of
+// its columns of `src` (q, k, v of qkv; then dO), zero-padded, the key
+// biases and, for the backward, room for the row statistics.
+template <typename T>
+__device__ WideHead<typename Staged<T>::type> wide_stage(const T* qkv, const uint8_t* mask,
+                                                         const T* dout, int L, int D, int H,
+                                                         float scale_log2, char* smem) {
+  using S = typename Staged<T>::type;
+  const int hd = D / H;
+  const int h = blockIdx.x % H;
+  const size_t u = blockIdx.x / H;
+  const int Lp = (L + 15) / 16 * 16;
+  const int st = wide_stride(hd, sizeof(T));
+  const int hdp = sizeof(T) == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+  const int parts = dout ? 4 : 3;
+  S* arr = reinterpret_cast<S*>(smem);
+  float* stats = reinterpret_cast<float*>(smem + (size_t)parts * Lp * st * sizeof(T));
+  stage_head(arr, reinterpret_cast<const S*>(qkv) + u * L * 3 * D + h * hd, L, 3, hd,
+             3 * (size_t)D, (size_t)D, st, Lp);
+  if (dout)
+    stage_head(arr + 3 * (size_t)Lp * st, reinterpret_cast<const S*>(dout) + u * L * D + h * hd, L,
+               1, hd, (size_t)D, 0, st, Lp);
+  zero_pad(arr, parts, L, Lp, hd, hdp, st);
+  wide_biases(stats, mask + u * L, L, Lp);
+  WideHead<S> w;
+  const S* a = arr;
+  w.q = a;
+  w.k = a + (size_t)Lp * st;
+  w.v = a + 2 * (size_t)Lp * st;
+  w.dout = a + 3 * (size_t)Lp * st;
+  w.bias = stats;
+  w.mx = stats + Lp;
+  w.inv = stats + 2 * Lp;
+  w.dd = stats + 3 * Lp;
+  w.L = L;
+  w.hd = hd;
+  w.st = st;
+  w.scale_log2 = scale_log2;
+  w.scale = 1.f / sqrtf((float)hd);
+  return w;
+}
+
+// Blocks an SM that the register budget is set for: about 112 registers a
+// thread for the bf16 forward, 128 for the bf16 backward, 168 for the f32
+// instances (split TF32 holds each operand fragment twice).  On the H100
+// (`nvcc -Xptxas -v`, kernel_bench): 112 left the bf16 backward at L = 96
+// 192 bytes of spill and 128 the f32 instances up to 492, while 128 made
+// the bf16 forward at L = 96 25% slower than 112 (two blocks an SM, not
+// three).
+template <typename T, bool BWD>
+__host__ __device__ constexpr int wide_min_blocks(int KT) {
+  return 65536 / (32 * KT * (sizeof(T) == 4 ? 168 : BWD ? 128 : 112));  // >= 1 for KT <= 8
+}
+
+// One block per (sequence, head), warp mt runs query tile mt.
 template <typename T, int KT>
-__global__ void __launch_bounds__(32 * KT, 16 / KT)
+__global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, false>(KT))
     mhsa_wide_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
                      T* __restrict__ out, int L, int D, int H, float scale_log2) {
   extern __shared__ __align__(16) char smem[];
-  const int hd = D / H;
-  const int h = blockIdx.x % H;
-  const size_t u = blockIdx.x / H;
-  float* slab = reinterpret_cast<float*>(smem);
-  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
-  stage_cols(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
-  key_biases(sbias, mask + u * L, L);
+  const auto w = wide_stage<T>(qkv, mask, nullptr, L, D, H, scale_log2, smem);
   cp_async_wait_all();
   __syncthreads();
   const int mt = threadIdx.x >> 5;
-  if (mt * 16 < L) wide_head<KT, sizeof(T) == 2>(slab, sbias, mt, L, hd, scale_log2);
-  __syncthreads();
-  write_cols(out + u * L * D + h * hd, slab, L, 1, 3, hd, D, 0);
+  T* o = out + (size_t)(blockIdx.x / H) * L * D + (blockIdx.x % H) * w.hd;
+  if constexpr (sizeof(T) == 2)
+    wide_fwd_bf16<KT>(w, mt, o, D);
+  else
+    wide_fwd_f32<KT>(w, mt, o, D);
 }
 
-// One wide backward warp task: one head of one sequence, staged as f32 at
-// `s` (q, k, v, rows of 3 hd) and `dos` (dO, rows of hd); `acc` holds dK
-// (columns 0 .. 8 nts) and dV (8 nts .. 16 nts) of each key row, zeroed.
-// Per query tile, as the f32 backward: S^T = K Q^T and dP^T = V dO^T
-// (keys as rows, streamed over the nts k8 steps of the head dimension), the
-// exact softmax down each column, dS^T; then for each n8 column tile of the
-// warp's share of the head (the kWideBwdWarps warps of a block split the
-// nts column tiles and each computes the logits whole), dV += P^T dO and
-// dK += dS^T Q over the tile's queries into `acc`, and dQ = dS K (dS
-// transposed by shuffles) over the tile's q values, once every warp has
-// read them.  After the last tile, scale dK and dV go over the staged k
-// and v.
-template <int KT, bool EX>
-__device__ __forceinline__ void wide_bwd_head(float* s, const float* dos, float* acc,
-                                              const float* bias, int L, int hd, float scale_log2,
-                                              float scale) {
-  constexpr int NT = kWideNT;
-  const int W = 3 * hd;
-  const int nts = (hd + 7) / 8;
-  // this warp's n8 column tiles of dV, dK and dQ
-  const int per = (nts + kWideBwdWarps - 1) / kWideBwdWarps;
-  const int nt0 = (threadIdx.x >> 5) * per, nt1 = min(nts, nt0 + per);
-  const int AW = wide_acc_stride(hd), VOFF = 8 * nts;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const bool godd = g & 1;
-
-  const int mts = (L + 15) / 16;
-  for (int mt = 0; mt < mts; ++mt) {
-    const int qb = mt * 16;
-    const bool n1_on = qb + 8 < L;  // else queries qb + 8.. are all padding
-
-    // st = S^T = K Q^T, dpt = dP^T = V dO^T (rows keys, columns queries).
-    float st[KT][2][4], dpt[KT][2][4];
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt)
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[kt][nq][e] = dpt[kt][nq][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < NT; ++ks) {
-      if (ks >= nts) break;
-      const int d = ks * 8 + c;
-      FragB qf[2], of[2];
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-        const int qr = qb + nq * 8 + g;
-        const float* qrow = s + min(qr, L - 1) * W;
-        const float* orow = dos + min(qr, L - 1) * hd;
-        const bool in = qr < L;
-        qf[nq] = frag_b(ld(qrow, d, hd), ld(qrow, d + 4, hd));
-        of[nq] = frag_b(in ? ld(orow, d, hd) : 0.f, in ? ld(orow, d + 4, hd) : 0.f);
-      }
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        const float* k0 = s + min(kt * 16 + g, L - 1) * W + hd;
-        const float* k1 = s + min(kt * 16 + 8 + g, L - 1) * W + hd;
-        const FragA ka = frag_a(ld(k0, d, hd), ld(k1, d, hd), ld(k0, d + 4, hd), ld(k1, d + 4, hd));
-        mma3x<!EX, !EX>(st[kt][0], ka, qf[0]);
-        if (n1_on) mma3x<!EX, !EX>(st[kt][1], ka, qf[1]);
-        const float* v0 = k0 + hd;
-        const float* v1 = k1 + hd;
-        const FragA va = frag_a(ld(v0, d, hd), ld(v1, d, hd), ld(v0, d + 4, hd), ld(v1, d + 4, hd));
-        mma3x<!EX, !EX>(dpt[kt][0], va, of[0]);
-        if (n1_on) mma3x<!EX, !EX>(dpt[kt][1], va, of[1]);
-      }
-    }
-
-    // The exact softmax down each column (log2 units, bias per key row),
-    // then rowsum(dP * P) per query and dS^T, 0 at masked and padded keys.
-    float mx[2][2], sm[2][2], dd[2][2];
-#pragma unroll
-    for (int nq = 0; nq < 2; ++nq) mx[nq][0] = mx[nq][1] = -INFINITY;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const float b0 = bias[kt * 16 + g], b1 = bias[kt * 16 + 8 + g];
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          st[kt][nq][e] = fmaf(st[kt][nq][e], scale_log2, b0);
-          st[kt][nq][2 + e] = fmaf(st[kt][nq][2 + e], scale_log2, b1);
-          mx[nq][e] = fmaxf(mx[nq][e], fmaxf(st[kt][nq][e], st[kt][nq][2 + e]));
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 4; o <= 16; o <<= 1)
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          mx[nq][e] = fmaxf(mx[nq][e], __shfl_xor_sync(0xffffffffu, mx[nq][e], o));
-#pragma unroll
-    for (int nq = 0; nq < 2; ++nq) sm[nq][0] = sm[nq][1] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt)
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[kt][nq][e] = ex2(st[kt][nq][e] - mx[nq][e & 1]);  // 0 at keys past L
-          sm[nq][e & 1] += st[kt][nq][e];
-        }
-#pragma unroll
-    for (int o = 4; o <= 16; o <<= 1)
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) sm[nq][e] += __shfl_xor_sync(0xffffffffu, sm[nq][e], o);
-#pragma unroll
-    for (int nq = 0; nq < 2; ++nq) {
-      const float inv[2] = {1.f / sm[nq][0], 1.f / sm[nq][1]};  // sums >= 1
-      dd[nq][0] = dd[nq][1] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[kt][nq][e] *= inv[e & 1];
-          dd[nq][e & 1] += st[kt][nq][e] * dpt[kt][nq][e];
-        }
-    }
-#pragma unroll
-    for (int o = 4; o <= 16; o <<= 1)
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) dd[nq][e] += __shfl_xor_sync(0xffffffffu, dd[nq][e], o);
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const bool ok0 = bias[kt * 16 + g] == 0.f, ok1 = bias[kt * 16 + 8 + g] == 0.f;
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dpt[kt][nq][e] = (e < 2 ? ok0 : ok1)
-                               ? st[kt][nq][e] * (dpt[kt][nq][e] - dd[nq][e & 1])
-                               : 0.f;
-    }
-
-    // dV += P^T dO and dK += dS^T Q over this tile's queries, one n8 column
-    // tile of the warp's at a time (B: k = query 2c / 2c + 1, n = column
-    // nt * 8 + g), added into acc by the lane that owns each value (key row
-    // kt * 16 + 8 hf + g, columns nt * 8 + 2c, 2c + 1).
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt < nt0 || nt >= nt1) continue;
-      const int dcol = nt * 8 + g;
-      float av[KT][4], ak[KT][4];
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) av[kt][e] = ak[kt][e] = 0.f;
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-        if (nq == 1 && !n1_on) break;
-        const int qa = qb + nq * 8 + 2 * c;
-        const float* o0 = dos + min(qa, L - 1) * hd;
-        const float* o1 = dos + min(qa + 1, L - 1) * hd;
-        const float* q0 = s + min(qa, L - 1) * W;
-        const float* q1 = s + min(qa + 1, L - 1) * W;
-        const bool in0 = qa < L, in1 = qa + 1 < L;
-        const FragB ob = frag_b(in0 ? ld(o0, dcol, hd) : 0.f, in1 ? ld(o1, dcol, hd) : 0.f);
-        const FragB qbf = frag_b(ld(q0, dcol, hd), ld(q1, dcol, hd));
-#pragma unroll
-        for (int kt = 0; kt < KT; ++kt) {
-          const FragA pa = frag_a(st[kt][nq][0], st[kt][nq][2], st[kt][nq][1], st[kt][nq][3]);
-          const FragA sa =
-              frag_a(dpt[kt][nq][0], dpt[kt][nq][2], dpt[kt][nq][1], dpt[kt][nq][3]);
-          mma3x<true, !EX>(av[kt], pa, ob);
-          mma3x<true, !EX>(ak[kt], sa, qbf);
-        }
-      }
-      const int col = nt * 8 + 2 * c;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int key = kt * 16 + hf * 8 + g;
-          if (key >= L) continue;
-          float2* pk = reinterpret_cast<float2*>(acc + key * AW + col);
-          float2* pv = reinterpret_cast<float2*>(acc + key * AW + VOFF + col);
-          float2 xk = *pk, xv = *pv;
-          xk.x += ak[kt][2 * hf];
-          xk.y += ak[kt][2 * hf + 1];
-          xv.x += av[kt][2 * hf];
-          xv.y += av[kt][2 * hf + 1];
-          *pk = xk;
-          *pv = xv;
-        }
-      }
-    }
-
-    // dQ = dS K, one n8 column tile at a time (A: the tile's 16 queries,
-    // k = keys 2c / 2c + 1 of each 8-key block; B: K rows at those keys).
-    // Lane (g, c) gets dS at (query g, keys 2c and 2c + 1) of each block
-    // from the lanes of rows 2c and 2c + 1, column pair g / 2.
-    const int src1 = (godd ? 2 * c + 1 : 2 * c) * 4 + (g >> 1);
-    const int src2 = (godd ? 2 * c : 2 * c + 1) * 4 + (g >> 1);
-    float dq[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
-#pragma unroll
-    for (int kb = 0; kb < 2 * KT; ++kb) {
-      const int kt = kb >> 1, hf = kb & 1;
-      float x[2][2];  // [query tile][key 2c, 2c + 1]
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-        const float a = dpt[kt][nq][2 * hf], b = dpt[kt][nq][2 * hf + 1];
-        const float r1 = __shfl_sync(0xffffffffu, godd ? b : a, src1);
-        const float r2 = __shfl_sync(0xffffffffu, godd ? a : b, src2);
-        x[nq][0] = godd ? r2 : r1;
-        x[nq][1] = godd ? r1 : r2;
-      }
-      const FragA da = frag_a(x[0][0], x[1][0], x[0][1], x[1][1]);
-      const float* k0 = s + min(kb * 8 + 2 * c, L - 1) * W + hd;
-      const float* k1 = s + min(kb * 8 + 2 * c + 1, L - 1) * W + hd;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (nt >= nt0 && nt < nt1) {
-          const int d = nt * 8 + g;
-          mma3x<true, !EX>(dq[nt], da, frag_b(ld(k0, d, hd), ld(k1, d, hd)));
-        }
-      }
-    }
-
-    // Every warp has read this tile's q values (its logits read them all):
-    // each warp's dQ columns go over them.
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt < nt0 || nt >= nt1) continue;
-      const int d = nt * 8 + 2 * c;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = qb + hf * 8 + g;
-        if (r < L) {
-          if (d < hd) s[r * W + d] = dq[nt][2 * hf] * scale;
-          if (d + 1 < hd) s[r * W + d + 1] = dq[nt][2 * hf + 1] * scale;
-        }
-      }
-    }
-  }
-
-  // Every warp has read its last k and v values and added its last dK and
-  // dV: dK and dV go over k and v.
-  __syncthreads();
-  for (int i = threadIdx.x; i < L * hd; i += blockDim.x) {
-    const int key = i / hd, d = i - key * hd;
-    s[key * W + hd + d] = acc[key * AW + d] * scale;
-    s[key * W + 2 * hd + d] = acc[key * AW + VOFF + d];
-  }
-}
-
+// One block per (sequence, head): phase A (warp mt: query tile mt), a
+// barrier, phase B (warp kt: key tile kt).
 template <typename T, int KT>
-__global__ void __launch_bounds__(32 * kWideBwdWarps, 8 / kWideBwdWarps)
+__global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
     mhsa_bwd_wide_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
                          const T* __restrict__ dout, T* __restrict__ dqkv, int L, int D, int H,
-                         float scale_log2, float scale) {
+                         float scale_log2) {
   extern __shared__ __align__(16) char smem[];
-  const int hd = D / H;
-  const int h = blockIdx.x % H;
-  const size_t u = blockIdx.x / H;
-  float* slab = reinterpret_cast<float*>(smem);
-  float* sdo = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd));
-  float* acc = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd));
-  float* sbias = reinterpret_cast<float*>(smem + f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) +
-                                          wide_acc_bytes(L, hd));
-  stage_cols(slab, qkv + u * L * 3 * D + h * hd, L, 3, hd, 3 * D, D);
-  stage_cols(sdo, dout + u * L * D + h * hd, L, 1, hd, D, 0);
-  key_biases(sbias, mask + u * L, L);
-  for (int i = threadIdx.x; i < L * wide_acc_stride(hd); i += blockDim.x) acc[i] = 0.f;
+  const auto w = wide_stage<T>(qkv, mask, dout, L, D, H, scale_log2, smem);
   cp_async_wait_all();
   __syncthreads();
-  wide_bwd_head<KT, sizeof(T) == 2>(slab, sdo, acc, sbias, L, hd, scale_log2, scale);
+  const int warp = threadIdx.x >> 5;
+  T* g = dqkv + (size_t)(blockIdx.x / H) * L * 3 * D + (blockIdx.x % H) * w.hd;
+  if constexpr (sizeof(T) == 2)
+    wide_bwd_a_bf16<KT>(w, warp, g, 3 * D);
+  else
+    wide_bwd_a_f32<KT>(w, warp, g, 3 * D);
   __syncthreads();
-  write_cols(dqkv + u * L * 3 * D + h * hd, slab, L, 3, 3, hd, 3 * D, D);
+  if constexpr (sizeof(T) == 2)
+    wide_bwd_b_bf16<KT>(w, warp, g + D, g + 2 * D, 3 * D);
+  else
+    wide_bwd_b_f32<KT>(w, warp, g + D, g + 2 * D, 3 * D);
 }
 
 // ---------------------------------------------------------------- host ---
@@ -1863,10 +2477,18 @@ Launch plan(int U, int L, int D, int es, int dev) {
   return Launch{S, (U + S - 1) / S, smem_bytes(S, L, D, es)};
 }
 
-// Wide head dims (33..64), either type: one block per (sequence, head), U H
-// of them, of one warp per query tile (forward) or one warp (backward),
-// with the shared memory of wide_smem (opted in above 48 KB once per
-// instance and device).
+// Whether (L, D, H) in the type of element size es runs in the wide
+// instances: head dim above 32, L above 64, or a bf16 shape whose single
+// sequence's slab does not fit one block (kernel_supports in ops/mhsa.py
+// routes by the same rule).
+bool wide_instance(int L, int D, int H, int es) {
+  return D / H > kNarrowHeadDim || L > kNarrowMaxLen ||
+         (es == 2 && smem_bytes(1, L, D, es) > (size_t)kSmemLimit);
+}
+
+// The wide instances, either type: one block per (sequence, head), U H of
+// them, of ceil(L / 16) warps, with the shared memory of wide_smem (opted
+// in above 48 KB once per instance and device).
 template <typename T, int KT>
 cudaError_t launch_wide_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                              int H, int dev, cudaStream_t stream) {
@@ -1876,20 +2498,9 @@ cudaError_t launch_wide_inst(const void* qkv, const uint8_t* mask, void* out, in
   if (err != cudaSuccess) return err;
   const int hd = D / H;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  kernel<<<U * H, 32 * ((L + 15) / 16), wide_smem(L, hd, false), stream>>>(
+  kernel<<<U * H, 32 * KT, wide_smem(L, hd, sizeof(T), false), stream>>>(
       static_cast<const T*>(qkv), mask, static_cast<T*>(out), L, D, H, scale_log2);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_wide(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                        int H, int dev, cudaStream_t stream) {
-  switch ((L + 15) / 16) {
-    case 1: return launch_wide_inst<T, 1>(qkv, mask, out, U, L, D, H, dev, stream);
-    case 2: return launch_wide_inst<T, 2>(qkv, mask, out, U, L, D, H, dev, stream);
-    case 3: return launch_wide_inst<T, 3>(qkv, mask, out, U, L, D, H, dev, stream);
-    default: return launch_wide_inst<T, 4>(qkv, mask, out, U, L, D, H, dev, stream);
-  }
 }
 
 template <typename T, int KT>
@@ -1901,25 +2512,80 @@ cudaError_t launch_bwd_wide_inst(const void* qkv, const uint8_t* mask, const voi
   cudaError_t err = allow_smem(kernel, dev, smem_set);
   if (err != cudaSuccess) return err;
   const int hd = D / H;
-  const float scale = 1.f / sqrtf((float)hd);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  kernel<<<U * H, 32 * kWideBwdWarps, wide_smem(L, hd, true), stream>>>(
+  kernel<<<U * H, 32 * KT, wide_smem(L, hd, sizeof(T), true), stream>>>(
       static_cast<const T*>(qkv), mask, static_cast<const T*>(dout), static_cast<T*>(dqkv), L, D,
-      H, scale_log2, scale);
+      H, scale_log2);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// The wide instances' dispatch by KT, one instantiation per type: each in
+// its own part of a split build (NRL_PART 2: bf16, 3: f32), called from
+// part 1's entry points.
+namespace nrl_mhsa {
+
+template <typename T>
+cudaError_t launch_wide(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                        int H, int dev, cudaStream_t stream);
+template <typename T>
+cudaError_t launch_bwd_wide(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            int U, int L, int D, int H, int dev, cudaStream_t stream);
+
+#if NRL_PART != 1
+template <typename T>
+cudaError_t launch_wide(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                        int H, int dev, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+    case 1: return launch_wide_inst<T, 1>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 2: return launch_wide_inst<T, 2>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 3: return launch_wide_inst<T, 3>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 4: return launch_wide_inst<T, 4>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 5: return launch_wide_inst<T, 5>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 6: return launch_wide_inst<T, 6>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 7: return launch_wide_inst<T, 7>(qkv, mask, out, U, L, D, H, dev, stream);
+    default: return launch_wide_inst<T, 8>(qkv, mask, out, U, L, D, H, dev, stream);
+  }
 }
 
 template <typename T>
 cudaError_t launch_bwd_wide(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                             int U, int L, int D, int H, int dev, cudaStream_t stream) {
+#define NRL_BWD_WIDE(KT) \
+  launch_bwd_wide_inst<T, KT>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream)
   switch ((L + 15) / 16) {
-    case 1: return launch_bwd_wide_inst<T, 1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 2: return launch_bwd_wide_inst<T, 2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 3: return launch_bwd_wide_inst<T, 3>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    default: return launch_bwd_wide_inst<T, 4>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 1: return NRL_BWD_WIDE(1);
+    case 2: return NRL_BWD_WIDE(2);
+    case 3: return NRL_BWD_WIDE(3);
+    case 4: return NRL_BWD_WIDE(4);
+    case 5: return NRL_BWD_WIDE(5);
+    case 6: return NRL_BWD_WIDE(6);
+    case 7: return NRL_BWD_WIDE(7);
+    default: return NRL_BWD_WIDE(8);
   }
+#undef NRL_BWD_WIDE
 }
+#endif
 
+#if NRL_BUILDS(2)
+template cudaError_t launch_wide<__nv_bfloat16>(const void*, const uint8_t*, void*, int, int, int,
+                                                int, int, cudaStream_t);
+template cudaError_t launch_bwd_wide<__nv_bfloat16>(const void*, const uint8_t*, const void*,
+                                                    void*, int, int, int, int, int, cudaStream_t);
+#endif
+#if NRL_BUILDS(3)
+template cudaError_t launch_wide<float>(const void*, const uint8_t*, void*, int, int, int, int, int,
+                                        cudaStream_t);
+template cudaError_t launch_bwd_wide<float>(const void*, const uint8_t*, const void*, void*, int,
+                                            int, int, int, int, cudaStream_t);
+#endif
+
+}  // namespace nrl_mhsa
+
+namespace {
+
+#if NRL_BUILDS(1)
 template <int KT, int NT, int HDX, bool PAIR>
 cudaError_t launch_bf16_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                              int H, int dev, cudaStream_t stream) {
@@ -1956,8 +2622,8 @@ cudaError_t launch_bf16_kt(const void* qkv, const uint8_t* mask, void* out, int 
 
 cudaError_t launch_bf16(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                         int H, int dev, cudaStream_t stream) {
-  if (D / H > kNarrowHeadDim)
-    return launch_wide<__nv_bfloat16>(qkv, mask, out, U, L, D, H, dev, stream);
+  if (wide_instance(L, D, H, 2))
+    return nrl_mhsa::launch_wide<__nv_bfloat16>(qkv, mask, out, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bf16_kt<1>(qkv, mask, out, U, L, D, H, dev, stream);
     case 2: return launch_bf16_kt<2>(qkv, mask, out, U, L, D, H, dev, stream);
@@ -2008,8 +2674,9 @@ cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void*
 
 cudaError_t launch_bwd_bf16(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                             int U, int L, int D, int H, int dev, cudaStream_t stream) {
-  if (D / H > kNarrowHeadDim)
-    return launch_bwd_wide<__nv_bfloat16>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  if (wide_instance(L, D, H, 2))
+    return nrl_mhsa::launch_bwd_wide<__nv_bfloat16>(qkv, mask, dout, dqkv, U, L, D, H, dev,
+                                                     stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bwd_bf16_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
     case 2: return launch_bwd_bf16_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
@@ -2025,7 +2692,7 @@ cudaError_t launch_f32_inst(const void* qkv, const uint8_t* mask, void* out, int
                             int H, cudaStream_t stream) {
   const int hd = D / H;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  mhsa_f32_kernel<KT, NT, HDX><<<U * H, 32, f32_qkv_bytes(L, hd) + kMaxLen * 4, stream>>>(
+  mhsa_f32_kernel<KT, NT, HDX><<<U * H, 32, f32_qkv_bytes(L, hd) + kNarrowMaxLen * 4, stream>>>(
       static_cast<const float*>(qkv), mask, static_cast<float*>(out), L, D, H, scale_log2);
   return cudaGetLastError();
 }
@@ -2036,7 +2703,7 @@ cudaError_t launch_bwd_f32_inst(const void* qkv, const uint8_t* mask, const void
   const int hd = D / H;
   const float scale = 1.f / sqrtf((float)hd);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  const size_t smem = f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kMaxLen * 4;
+  const size_t smem = f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kNarrowMaxLen * 4;
   mhsa_bwd_f32_kernel<KT, NT, HDX><<<U * H, 32, smem, stream>>>(
       static_cast<const float*>(qkv), mask, static_cast<const float*>(dout),
       static_cast<float*>(dqkv), L, D, H, scale_log2, scale);
@@ -2055,7 +2722,8 @@ cudaError_t launch_f32_kt(const void* qkv, const uint8_t* mask, void* out, int U
 
 cudaError_t launch_f32(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                        int H, int dev, cudaStream_t stream) {
-  if (D / H > kNarrowHeadDim) return launch_wide<float>(qkv, mask, out, U, L, D, H, dev, stream);
+  if (wide_instance(L, D, H, 4))
+    return nrl_mhsa::launch_wide<float>(qkv, mask, out, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_f32_kt<1>(qkv, mask, out, U, L, D, H, stream);
     case 2: return launch_f32_kt<2>(qkv, mask, out, U, L, D, H, stream);
@@ -2074,8 +2742,8 @@ cudaError_t launch_bwd_f32_kt(const void* qkv, const uint8_t* mask, const void* 
 
 cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                            int U, int L, int D, int H, int dev, cudaStream_t stream) {
-  if (D / H > kNarrowHeadDim)
-    return launch_bwd_wide<float>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  if (wide_instance(L, D, H, 4))
+    return nrl_mhsa::launch_bwd_wide<float>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
   switch ((L + 15) / 16) {
     case 1: return launch_bwd_f32_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, stream);
     case 2: return launch_bwd_f32_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, stream);
@@ -2085,20 +2753,23 @@ cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dou
 }
 // The shared memory of the instance that runs (L, D, H) in the type of
 // element size es, the larger of its forward and backward: what it stages.
-// hd > 32: one head's columns in f32 (wide_smem); f32 up to hd = 32: one
-// head's q, k, v and dO columns; bf16 up to hd = 32: the whole (L, 3D) slab
-// of one sequence (smem_bytes).
+// Wide (wide_instance): one head's q, k, v and dO columns in the input type
+// and the row statistics (wide_smem); f32 up to hd = 32: one head's q, k, v
+// and dO columns; bf16 up to hd = 32: the whole (L, 3D) slab of one
+// sequence (smem_bytes).
 size_t instance_smem(int L, int D, int H, int es) {
   const int hd = D / H;
-  if (hd > kNarrowHeadDim) return wide_smem(L, hd, true);
-  if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kMaxLen * 4;
+  if (wide_instance(L, D, H, es)) return wide_smem(L, hd, es, true);
+  if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kNarrowMaxLen * 4;
   return smem_bytes(1, L, D, es);
 }
 
 // The arguments both entry points take; 0 if the kernels take them
-// (ops/mhsa.py::kernel_supports is the same rule).
+// (ops/mhsa.py::kernel_supports is the same rule): the box of kernel_box,
+// and what the instance stages within one block's shared memory (always, in
+// the box).
 int check_args(int U, int L, int D, int H, int dtype) {
-  if (U <= 0 || L <= 0 || L > kMaxLen || H <= 0 || D % H != 0 || D / H > kMaxHeadDim ||
+  if (U <= 0 || H <= 0 || D <= 0 || D % H != 0 || !kernel_box(L, D / H) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (instance_smem(L, D, H, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
@@ -2106,8 +2777,11 @@ int check_args(int U, int L, int D, int H, int dtype) {
   return 0;
 }
 
+#endif  // NRL_BUILDS(1)
+
 }  // namespace
 
+#if NRL_BUILDS(1)
 extern "C" int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out, int U, int L,
                             int D, int H, int dtype, void* stream) {
   const int bad = check_args(U, L, D, H, dtype);
@@ -2131,3 +2805,4 @@ extern "C" int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* do
   if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
   return (int)launch_bwd_bf16(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
 }
+#endif  // NRL_BUILDS(1)

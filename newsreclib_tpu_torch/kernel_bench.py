@@ -6,9 +6,11 @@ version and a library call, at the shapes the serving path gives it.
         [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
-two extra shapes (1024, 30) and (256, 50), and the zoo's user-encoder shapes
+two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
 (``ZOO_SHAPES``: MINS's 6 heads of 50, CenNewsRec's and CAUM's D = 400 with
-20 heads), in float32 and bfloat16:
+20 heads) and ``PLM_SHAPES`` (the PLM tower's MHSA, 16 heads of 48 over 768
+at L = 96 and 32 with U = 512, and CAUM's default head dim 100), in float32
+and bfloat16:
 
 * the kernel is held against ``mhsa_plain`` on the same inputs (float32
   atol/rtol 1e-5, bfloat16 atol 2e-2 / rtol 1e-2);
@@ -32,7 +34,8 @@ two extra shapes (1024, 30) and (256, 50), and the zoo's user-encoder shapes
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
-``profile_train.py``) and at ``ZOO_SHAPES``, in bfloat16 and float32.  The output is held against
+``profile_train.py``), at ``ZOO_SHAPES`` and at ``PLM_SHAPES``, in bfloat16
+and float32.  The output is held against
 ``mhsa_plain`` and the gradient against autograd of it (same tolerances;
 ``fwd_max_abs_err``, ``max_abs_err``).  Forward + backward, each as
 ``torch.autograd.grad`` of the output against a fixed output gradient:
@@ -52,7 +55,8 @@ backward products, 10 U H L^2 hd operations.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
 points), checks it the same way and times it in turns with the kernel
-(kernel, baseline, baseline, kernel) at the NRMS shapes, so that two
+(kernel, baseline, baseline, kernel) at every shape it takes (a shape its
+shape rule refuses gets "refused" in its ``baseline_*`` keys), so that two
 versions are compared on one card in one run: the forward (``baseline_ms``) or, with ``--backward``,
 the forward + backward (``baseline_ms``, the baseline's forward then its
 backward), the backward alone (``baseline_bwd_ms``, in turns with the
@@ -89,6 +93,12 @@ TRAIN_SHAPES = [(3584, 16), (1792, 16), (512, 30), (256, 30), (64, 50),
 # 4: MINS (6 heads of 50, the wide instances), CenNewsRec (D = 400, 20 heads)
 # and CAUM (the 5 candidates folded into the batch).
 ZOO_SHAPES = [(64, 50, 300, 6), (64, 50, 400, 20), (320, 50, 400, 20)]
+# (U, L, D, heads) of the PLM tower's MHSA (16 heads of 48 over 768) at the
+# JAX package's PLM operating point (U = 512 news rows), at PLM-mode title
+# length 96 (``tokenizer_max_len``) and at 32, and CAUM's user encoder at its
+# default of 4 heads over 400 (head dim 100): the wide instances beyond the
+# earlier box (L <= 64, head dim <= 64).
+PLM_SHAPES = [(512, 96, 768, 16), (512, 32, 768, 16), (64, 50, 400, 4)]
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -225,6 +235,22 @@ def raw_backward(lib: ctypes.CDLL):
         return dqkv
 
     return launch
+
+
+def baseline_takes(launch, l, d, h, dtype) -> bool:
+    """Whether another build's forward (``raw_launcher``) takes (L, D,
+    heads) in ``dtype``: one launch on a single zero sequence, which an
+    older source refuses with cudaErrorInvalidValue (1) where its shape rule
+    does not take the shape."""
+    qkv = torch.zeros((1, l, 3 * d), dtype=dtype, device="cuda")
+    try:
+        launch(qkv, torch.ones((1, l), dtype=torch.bool, device="cuda"), h)
+    except RuntimeError as e:
+        if str(e).endswith("cudaError 1"):
+            return False
+        raise
+    torch.cuda.synchronize()
+    return True
 
 
 def sdpa_call(qkv, mask, num_heads):
@@ -490,16 +516,19 @@ def main(argv=None) -> int:
     dtypes = (torch.bfloat16, torch.float32)
     for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
         nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
-        for u, l, d, h in [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES:
-            # the baseline is timed at the NRMS shapes alone: an older source
-            # may refuse the zoo's
-            zoo = (d, h) != (D, H)
+        for u, l, d, h in [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES:
+            # an older source may refuse a shape: its row says so
+            takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)
             if args.backward:
-                rec = measure_backward(u, l, dtype, None if zoo else baseline,
+                rec = measure_backward(u, l, dtype, baseline if takes else None,
                                        unchecked=args.unchecked, d=d, h=h)
             else:
-                rec = measure_shape(u, l, dtype, variants[:1] if zoo else variants, d=d, h=h,
+                rec = measure_shape(u, l, dtype, variants if takes else variants[:1], d=d, h=h,
                                     unchecked=("baseline",) if args.unchecked else ())
+            if baseline is not None and not takes:
+                for key in (("baseline_ms", "baseline_bwd_ms", "baseline_fwd_ms")
+                            if args.backward else ("baseline_ms",)):
+                    rec[key] = "refused"
             rec["card"] = card
             print("kernel_bench " + json.dumps(rec), flush=True)
             records.append(rec)

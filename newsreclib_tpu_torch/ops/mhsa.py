@@ -30,14 +30,19 @@ import math
 import torch
 
 _MASK_MIN = -1e30
-MAX_LEN = 64
-MAX_HEAD_DIM = 64
+# The box of shapes the kernels take (csrc/mhsa.cu, kernel_box): head dim up
+# to MAX_HEAD_DIM at L <= NARROW_MAX_LEN, up to LONG_MAX_HEAD_DIM at
+# L <= MAX_LEN.
+MAX_LEN = 128
+MAX_HEAD_DIM = 128
+NARROW_MAX_LEN = 64
+LONG_MAX_HEAD_DIM = 64
 NARROW_HEAD_DIM = 32  # head dims above it run the kernel's wide instances
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the forward and of the backward kernel since the last reset,
-# and of those, the launches of the wide instances (head dim above 32); the
+# and of those, the launches of the wide instances (``wide_instance``); the
 # CPU path counts none.
 launches = 0
 bwd_launches = 0
@@ -90,47 +95,71 @@ def mhsa_backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     return torch.cat([g.transpose(1, 2).reshape(u, l, d) for g in grads], dim=-1).to(qkv.dtype)
 
 
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _narrow_bf16_bytes(l: int, d: int) -> int:
+    """Shared memory of a bf16 block of one sequence at head dim up to 32:
+    its whole (L, 3D) slab, 16 bytes of alignment slack, 64 key biases."""
+    return _align16(16 + l * 3 * d * 2) + NARROW_MAX_LEN * 4
+
+
+def wide_instance(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether (L, D, heads) in ``dtype`` runs in the kernel's wide
+    instances (``csrc/mhsa.cu``, ``wide_instance``): head dim above 32, L
+    above 64, or a bfloat16 shape whose single sequence's slab does not fit
+    one block."""
+    return (d // num_heads > NARROW_HEAD_DIM or l > NARROW_MAX_LEN
+            or (dtype == torch.bfloat16 and _narrow_bf16_bytes(l, d) > _SMEM_LIMIT))
+
+
 def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     """Shared memory of the kernel instance that runs (L, D, heads) in
     ``dtype``, the larger of its forward's and backward's: what that
-    instance stages (``csrc/mhsa.cu``, ``instance_smem``), plus 64 float32
-    key biases.
+    instance stages (``csrc/mhsa.cu``, ``instance_smem``).
 
-    * head dim above 32 (the wide instances, either type): one head's q, k,
-      v and dO columns in float32 and the dK | dV accumulator, rows of
-      16 ceil(hd / 8) + 8 floats;
-    * float32, head dim up to 32: one head's q, k, v and dO columns;
+    * wide (``wide_instance``): one head's q, k, v and dO columns in the
+      input type, Lp = 16 ceil(L / 16) rows each, padded to
+      16 ceil(hd / 16) + 8 values (bfloat16) or 8 ceil(hd / 8) + 4
+      (float32), and 4 Lp float32 key biases and row statistics;
+    * float32, head dim up to 32: one head's q, k, v and dO columns, each
+      rounded up to 16 bytes, plus 64 key biases;
     * bfloat16, head dim up to 32: the whole (L, 3D) slab of one sequence
-      plus 16 bytes of alignment slack.
-
-    Each part is rounded up to 16 bytes."""
-
-    def align16(x):
-        return (x + 15) // 16 * 16
-
+      plus 16 bytes of alignment slack, plus 64 key biases."""
     hd = d // num_heads
-    bias = MAX_LEN * 4
-    if hd > NARROW_HEAD_DIM:
-        acc = l * (16 * ((hd + 7) // 8) + 8) * 4
-        return align16(l * 3 * hd * 4) + align16(l * hd * 4) + align16(acc) + bias
+    if wide_instance(l, d, num_heads, dtype):
+        lp = (l + 15) // 16 * 16
+        if dtype == torch.bfloat16:
+            row = ((hd + 15) // 16 * 16 + 8) * 2
+        else:
+            row = ((hd + 7) // 8 * 8 + 4) * 4
+        return 4 * lp * row + 4 * lp * 4
     if dtype == torch.float32:
-        return align16(l * 3 * hd * 4) + align16(l * hd * 4) + bias
-    return align16(16 + l * 3 * d * 2) + bias
+        return _align16(l * 3 * hd * 4) + _align16(l * hd * 4) + NARROW_MAX_LEN * 4
+    return _narrow_bf16_bytes(l, d)
+
+
+def in_box(l: int, hd: int) -> bool:
+    """The shapes the kernels take: head dim up to 128 at L <= 64, up to 64
+    at L <= 128."""
+    return l >= 1 and hd >= 1 and ((l <= NARROW_MAX_LEN and hd <= MAX_HEAD_DIM)
+                                   or (l <= MAX_LEN and hd <= LONG_MAX_HEAD_DIM))
 
 
 def kernel_supports(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether ``csrc/mhsa.cu`` takes sequences of length ``l``, width ``d``
-    and ``num_heads`` heads in ``dtype``: float32 or bfloat16, L <= 64, head
-    dim <= 64, and what the instance stages within one block's shared
-    memory (``smem_bytes``).  Every float32 shape and every head dim above
-    32 fits; a bfloat16 shape with head dim up to 32 fits while one
-    sequence's (L, 3D) slab does (L = 50: D up to about 770).  The GloVe
-    models' attentions are inside: NRMS (D = 300, 15 heads of 20), MINS
-    (6 heads of 50), CenNewsRec and CAUM (D = 400, 20 heads of 20), L <= 50."""
-    if dtype not in _DTYPES or num_heads <= 0 or d % num_heads:
+    and ``num_heads`` heads in ``dtype``: float32 or bfloat16, heads
+    dividing D, (L, head dim) in the box of ``in_box``, and what the
+    instance stages within one block's shared memory (``smem_bytes``;
+    inside the box it always fits).  The GloVe models' attentions are
+    inside: NRMS (D = 300, 15 heads of 20), MINS (6 heads of 50),
+    CenNewsRec and CAUM (D = 400, 20 heads of 20), L <= 50; so are the PLM
+    tower's MHSA (16 heads of 48, L up to 96) and CAUM's default of 4
+    heads over 400 (head dim 100)."""
+    if dtype not in _DTYPES or num_heads <= 0 or d <= 0 or d % num_heads:
         return False
-    return (l <= MAX_LEN and d // num_heads <= MAX_HEAD_DIM
-            and smem_bytes(l, d, num_heads, dtype) <= _SMEM_LIMIT)
+    return in_box(l, d // num_heads) and smem_bytes(l, d, num_heads, dtype) <= _SMEM_LIMIT
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
@@ -157,8 +186,9 @@ def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
     if not kernel_supports(l, d3 // 3, num_heads, qkv.dtype):
         raise ValueError(
             f"the attention kernel does not take L={l}, D={d3 // 3}, {num_heads} heads, "
-            f"{qkv.dtype}: it needs L <= {MAX_LEN}, head dim <= {MAX_HEAD_DIM} and what its "
-            "instance stages within a block's shared memory (kernel_supports)")
+            f"{qkv.dtype}: it needs head dim <= {MAX_HEAD_DIM} at L <= {NARROW_MAX_LEN} or "
+            f"head dim <= {LONG_MAX_HEAD_DIM} at L <= {MAX_LEN}, and what its instance "
+            "stages within a block's shared memory (kernel_supports)")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
 
@@ -181,7 +211,7 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Ten
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_fwd launch failed: cudaError {rc}")
     launches += 1
-    wide_launches += d3 // 3 // num_heads > NARROW_HEAD_DIM
+    wide_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
     return out
 
 
@@ -216,7 +246,7 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_bwd launch failed: cudaError {rc}")
     bwd_launches += 1
-    wide_bwd_launches += d3 // 3 // num_heads > NARROW_HEAD_DIM
+    wide_bwd_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
     return dqkv
 
 

@@ -159,22 +159,25 @@ def test_fused_gradient_matches_plain_autograd(cuda, u, l, dtype):
 
 
 def test_kernel_raises_on_unsupported_input(cuda):
-    qkv, mask = _inputs(2, 65, 24, torch.float32, seed=0)
+    qkv, mask = _inputs(2, 129, 24, torch.float32, seed=0)
     with pytest.raises(ValueError):
         mhsa.fused_small_mhsa(qkv, mask, 4)
     with pytest.raises(TypeError):
         mhsa.fused_small_mhsa(qkv[:, :16].half().contiguous(), mask[:, :16].contiguous(), 4)
 
 
-@pytest.mark.parametrize("l,d,h,dtype", [(50, 400, 4, torch.float32),
-                                         (100, 300, 15, torch.bfloat16),
-                                         (64, 960, 32, torch.bfloat16)])
+@pytest.mark.parametrize("l,d,h,dtype", [(129, 64, 1, torch.float32),
+                                         (129, 300, 15, torch.bfloat16),
+                                         (64, 129, 1, torch.bfloat16),
+                                         (65, 130, 2, torch.float32),
+                                         (128, 256, 2, torch.bfloat16)])
 def test_refused_shapes_raise_in_the_wrapper_and_in_the_model(cuda, l, d, h, dtype):
     """A shape ``kernel_supports`` refuses raises on the card, in the wrapper
     and in ``MultiHeadSelfAttention``: nothing gives way to the plain
-    version, and nothing is launched.  Head dim 100 (``CAUMUserEncoder``'s
-    unused default of 4 heads over 400), L = 100, and a bf16 slab of (64,
-    960) beyond one block's shared memory."""
+    version, and nothing is launched.  The shapes outside the box: L = 129,
+    head dim 129, and head dims above 64 at L above 64.  (Head dim 100, L =
+    100 and a bf16 slab of (64, 960), refused before the box grew, run in
+    the wide instances: ``WIDE_SHAPES``.)"""
     from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
 
     assert not mhsa.kernel_supports(l, d, h, dtype)
@@ -367,10 +370,16 @@ def test_f32_backward_is_bitwise_repeatable_at_cli_shapes(cuda, u, l):
 # (the hd = 20 instances, beyond the whole-slab rule of earlier versions);
 # then the wide instances' edges: head dims 33, 48 (the PLM tower's 16 heads
 # over 768), 55 (odd, 4-byte staging), 64, L = 1, 17, 64, U not a multiple
-# of anything.
+# of anything; since the box grew, L = 65, 96, 127 and 128, head dims 65,
+# 100 (CAUM's default 4 heads over 400) and 128, head dims up to 32 at L
+# above 64, and a bf16 slab of (64, 960) beyond one block (32 heads of 30).
 ZOO_SHAPES = [(64, 50, 300, 6), (320, 50, 400, 20), (64, 50, 400, 20), (512, 30, 400, 20)]
 WIDE_SHAPES = [(9, 50, 300, 6), (7, 64, 192, 3), (33, 17, 96, 2), (20, 32, 768, 16),
-               (13, 49, 330, 6), (5, 1, 300, 6), (3, 64, 4096, 64), (11, 16, 132, 4)]
+               (13, 49, 330, 6), (5, 1, 300, 6), (3, 64, 4096, 64), (11, 16, 132, 4),
+               (64, 96, 768, 16), (21, 65, 300, 15), (9, 96, 96, 2), (7, 127, 64, 1),
+               (5, 128, 128, 2), (6, 128, 20, 1), (11, 80, 330, 10), (9, 50, 400, 4),
+               (7, 33, 130, 2), (5, 64, 256, 2), (9, 50, 128, 1), (3, 100, 300, 15),
+               (64, 64, 960, 32), (4, 17, 500, 5)]
 
 
 @pytest.mark.parametrize("masking", ["prefix", "random"])
@@ -379,10 +388,10 @@ WIDE_SHAPES = [(9, 50, 300, 6), (7, 64, 192, 3), (33, 17, 96, 2), (20, 32, 768, 
     for dtype in (torch.float32, torch.bfloat16) if mhsa.kernel_supports(*shape[1:], dtype)])
 def test_zoo_shapes_forward_and_backward_match_plain(cuda, u, l, d, h, dtype, masking):
     """The forward kernel against ``mhsa_plain`` and the backward kernel
-    against ``mhsa_backward`` and autograd of ``mhsa_plain``; a head dim
-    above 32 counts as a wide launch, each way."""
+    against ``mhsa_backward`` and autograd of ``mhsa_plain``; a shape of the
+    wide instances (``wide_instance``) counts as a wide launch, each way."""
     qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 5 + l, masking=masking)
-    wide = d // h > mhsa.NARROW_HEAD_DIM
+    wide = mhsa.wide_instance(l, d, h, dtype)
     before = mhsa.wide_launches, mhsa.wide_bwd_launches
     _check_against_plain(qkv, mask, h)
     _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l + 2))
@@ -449,3 +458,38 @@ def test_zoo_train_step_kernel_route_matches_plain_route(cuda, name):
         n = calls * len(batches) if route == "kernel" else 0
         assert (mhsa.launches, mhsa.bwd_launches) == (before[0] + n, before[1] + n)
     np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l,d,h", [(512, 96, 768, 16), (64, 50, 300, 6), (64, 50, 400, 4),
+                                     (20, 128, 64, 1), (20, 64, 256, 2)])
+def test_wide_backward_gives_the_same_bits_twice(cuda, u, l, d, h, dtype):
+    """The wide backward sums dQ in the warp of its query tile and dK, dV in
+    the warp of their key tile, in a fixed order, with no atomics: two runs
+    give the same bits, with fully masked sequences among the inputs."""
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u + l + d, masking="random")
+    grad_out = _grad_out(u, l, d, dtype, seed=d)
+    before = mhsa.wide_bwd_launches
+    a = mhsa._backward(qkv, mask, h, grad_out)
+    b = mhsa._backward(qkv, mask, h, grad_out)
+    torch.cuda.synchronize()
+    assert mhsa.wide_bwd_launches == before + 2
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    torch.testing.assert_close(a.float(), mhsa.mhsa_backward(qkv, mask, h, grad_out).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_element_checks_reject_the_planted_faults_at_the_plm_shape(cuda, dtype):
+    """At the PLM head's (512, 96, 768, 16), ``kernel_bench.check_backward``
+    passes the kernels and rejects each planted fault that ``chip_smoke.py``
+    plants there (``ELEMENT_FAULTS``: logits 10% too large in float32, the
+    gradient's rowsum term dropped in both types)."""
+    import chip_smoke
+    from newsreclib_tpu_torch.kernel_bench import check_backward, dtype_name
+
+    check_backward(512, 96, dtype, d=768, h=16)
+    faults = chip_smoke.element_faults()
+    for fault in chip_smoke.ELEMENT_FAULTS[dtype_name(dtype)]:
+        with pytest.raises(AssertionError):
+            check_backward(512, 96, dtype, d=768, h=16, **faults[fault])

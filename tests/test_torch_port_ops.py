@@ -128,15 +128,20 @@ def test_wrapper_on_cpu_stays_differentiable():
 @pytest.mark.parametrize("l,d,h,dtype,fits", [
     (64, 300, 15, torch.float32, True), (50, 300, 15, torch.float32, True),
     (64, 303, 101, torch.float32, True), (64, 600, 20, torch.float32, True),
-    (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, False)])
+    (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, True),
+    (128, 64, 1, torch.float32, True), (64, 128, 1, torch.float32, True),
+    (128, 128, 1, torch.float32, False)])
 def test_wrapper_refuses_what_one_block_cannot_stage(l, d, h, dtype, fits):
-    """Each kernel instance stages its own share: a bf16 one (head dim up
-    to 32) one sequence's (L, 3D) slab, an f32 one one head's columns.
+    """Each kernel instance stages its own share: a bf16 one at head dim up
+    to 32 one sequence's (L, 3D) slab, the others one head's columns.
     ``kernel_supports`` refuses a shape whose staging does not fit one
     block's shared memory, and the wrapper raises on it off the CPU (a meta
     tensor stands for the card here); on the CPU it computes every shape.
     float32 stages little, so (64, 600) and (64, 303), refused by the
-    whole-slab rule of earlier versions, fit."""
+    whole-slab rule of earlier versions, fit; a bf16 slab too large for one
+    block, (64, 606) with 101 heads, runs in the wide instances, which stage
+    one head.  Inside the box every shape fits, up to the f32 backward's
+    (128, 64) and (64, 128); its corner (128, 128), outside, would not."""
     assert (mhsa.smem_bytes(l, d, h, dtype) <= 232448) == fits
     assert mhsa.kernel_supports(l, d, h, dtype) == fits
     qkv = torch.zeros(2, l, 3 * d, dtype=dtype)
@@ -152,9 +157,9 @@ def _bad_inputs():
     qkv, mask, h = ok
     return {
         # shapes the kernel does not take, off the CPU (meta stands for the card)
-        "long_sequence": (torch.zeros(2, 65, 900, device="meta"),
-                          torch.ones(2, 65, dtype=torch.bool, device="meta"), 15),
-        "wide_head": (torch.zeros(2, 16, 3 * 66, device="meta"), mask.to("meta"), 2),
+        "long_sequence": (torch.zeros(2, 129, 900, device="meta"),
+                          torch.ones(2, 129, dtype=torch.bool, device="meta"), 15),
+        "wide_head": (torch.zeros(2, 16, 3 * 258, device="meta"), mask.to("meta"), 2),
         "heads_do_not_divide": (qkv, mask, 7),
         "float64": (qkv.double(), mask, h),
         "int_mask": (qkv, mask.int(), h),
@@ -208,29 +213,42 @@ def test_fused_backward_returns_the_input_type():
 
 
 @pytest.mark.parametrize("l,d,h,dtype,supported", [
-    (64, 300, 15, torch.float32, True), (65, 300, 15, torch.float32, False),
-    (16, 192, 3, torch.float32, True), (16, 195, 3, torch.float32, False),  # head dim 64 / 65
+    (64, 300, 15, torch.float32, True), (65, 300, 15, torch.float32, True),
+    (16, 192, 3, torch.float32, True), (16, 195, 3, torch.float32, True),  # head dim 64 / 65
     (50, 300, 6, torch.float32, True), (16, 300, 7, torch.float32, False),
     (30, 300, 15, torch.float16, False), (30, 300, 15, torch.bfloat16, True),
     (50, 400, 20, torch.float32, True), (50, 400, 20, torch.bfloat16, True),
     (1, 3, 1, torch.float32, True), (50, 300, 0, torch.float32, False),
     (50, 300, 6, torch.bfloat16, True), (30, 400, 20, torch.float32, True),
-    (64, 960, 32, torch.bfloat16, False), (64, 960, 32, torch.float32, True),
-    (64, 4096, 64, torch.bfloat16, True), (50, 400, 4, torch.float32, False)])
+    (64, 960, 32, torch.bfloat16, True), (64, 960, 32, torch.float32, True),
+    (64, 4096, 64, torch.bfloat16, True), (50, 400, 4, torch.float32, True),
+    # the box: L up to 128 at head dim up to 64, head dim up to 128 at L <= 64
+    (128, 64, 1, torch.float32, True), (128, 64, 1, torch.bfloat16, True),
+    (129, 64, 1, torch.float32, False), (129, 64, 1, torch.bfloat16, False),
+    (129, 300, 15, torch.float32, False),
+    (64, 128, 1, torch.float32, True), (64, 128, 1, torch.bfloat16, True),
+    (64, 129, 1, torch.float32, False), (64, 129, 1, torch.bfloat16, False),
+    (65, 65, 1, torch.float32, False), (65, 65, 1, torch.bfloat16, False),
+    (128, 128, 1, torch.bfloat16, False), (96, 768, 16, torch.float32, True),
+    (96, 768, 16, torch.bfloat16, True), (100, 300, 15, torch.bfloat16, True)])
 def test_kernel_supports_at_the_edges(l, d, h, dtype, supported):
-    """L <= 64, head dim <= 64, float32 or bfloat16, heads dividing D, and
-    what the instance stages within shared memory: MINS's 6 heads of 50 in
-    both types, CenNewsRec's and CAUM's D = 400 with 20 heads in float32; a
-    bf16 slab of (64, 960) does not fit where float32's head columns do;
-    head dims above 32 stage one head in either type, whatever D is."""
+    """float32 or bfloat16, heads dividing D, head dim up to 128 at L <= 64
+    and up to 64 at L <= 128, and what the instance stages within shared
+    memory (always, inside that box): MINS's 6 heads of 50, CenNewsRec's and
+    CAUM's D = 400 with 20 heads, the PLM head's 16 heads of 48 at L = 96,
+    CAUM's default head dim 100, and a bf16 slab of (64, 960), which the
+    wide instances stage one head at a time, in both types; L = 129 and
+    head dim 129, and head dims above 64 at L above 64, refused."""
     assert mhsa.kernel_supports(l, d, h, dtype) == supported
 
 
 ZOO_SHAPES = {  # (L, D, heads, kernel_supports): the zoo's attentions on the edge
     "mins_user": (50, 300, 6, True),
-    "caum_user": (50, 400, 4, False),  # CAUMUserEncoder's unused default: head dim 100
+    "caum_user": (50, 400, 4, True),  # CAUMUserEncoder's unused default: head dim 100
     "plm_text": (32, 768, 16, True),
-    "long_history": (100, 300, 15, False),
+    "plm_text_96": (96, 768, 16, True),  # PLM-mode titles, tokenizer_max_len 96
+    "long_history": (100, 300, 15, True),
+    "beyond_the_box": (130, 300, 15, False),
 }
 
 
@@ -238,9 +256,10 @@ ZOO_SHAPES = {  # (L, D, heads, kernel_supports): the zoo's attentions on the ed
 def test_mhsa_module_matches_jax_where_the_kernel_does_not_go(name):
     """The port's ``MultiHeadSelfAttention`` on the CPU against the JAX
     module at the zoo's shapes on the edge of ``kernel_supports``: MINS's
-    user encoder and the PLM tower's MHSA, which the kernel's wide instances
-    take on the card since they came, and head dim 100 and L = 100, which it
-    still refuses.  On the CPU any shape computes."""
+    user encoder, the PLM tower's MHSA at L = 32 and 96, head dim 100 and
+    L = 100, which the kernel's wide instances take on the card, and
+    L = 130, beyond the box, which it refuses.  On the CPU any shape
+    computes."""
     import jax
 
     from newsreclib_tpu.models.components.attention import (
@@ -272,6 +291,39 @@ def test_kernel_library_is_keyed_by_source_and_built_under_build():
     assert path.parent.parent.name == "build"
     assert path == build.library_path("mhsa")
     assert (build.CSRC / "mhsa.cu").exists()
+
+
+def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch):
+    """``csrc/mhsa.cu`` builds as ``PARTS["mhsa"]`` nvcc compilations with
+    ``NRL_PART`` 1, 2, 3 for sm_90a, then one link of their objects into
+    the library; the objects are removed.  A stand-in nvcc records each
+    command and writes its output."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    fake.write_text("#!/bin/sh\n"
+                    f'echo "$@" >> {log}\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    build.build_all(["mhsa"])
+    calls = log.read_text().splitlines()
+    assert len(calls) == build.PARTS["mhsa"] + 1
+    objects = []
+    for k, call in enumerate(calls[:-1], start=1):
+        assert f"-c -DNRL_PART={k}" in call and call.endswith("mhsa.cu")
+        assert "arch=compute_90a,code=sm_90a" in call
+        args = call.split()
+        objects.append(args[args.index("-o") + 1])
+    # nvcc takes a file for an object to link only by its ".o" suffix
+    assert all(o.endswith(".o") for o in objects)
+    link = calls[-1].split()
+    assert link[0] == "-shared" and link[-len(objects):] == objects
+    target = build.library_path("mhsa")
+    assert target.parent == tmp_path / "kernels" and target.read_text() == "built\n"
+    assert sorted(p.name for p in target.parent.iterdir()) == [target.name]
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -341,10 +393,10 @@ def test_backward_raises_on_a_wrong_grad_out(case):
 def test_backward_raises_off_the_cpu_where_the_kernel_does_not_go():
     """On a device other than the CPU (a meta tensor stands for the card)
     the backward takes the kernel's shape rule, as the forward does."""
-    qkv = torch.zeros(2, 65, 900, device="meta")
-    mask = torch.ones(2, 65, dtype=torch.bool, device="meta")
+    qkv = torch.zeros(2, 129, 900, device="meta")
+    mask = torch.ones(2, 129, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="kernel does not take"):
-        mhsa._backward(qkv, mask, 15, torch.zeros(2, 65, 300, device="meta"))
+        mhsa._backward(qkv, mask, 15, torch.zeros(2, 129, 300, device="meta"))
     qkv, mask = qkv[:, :16].contiguous(), mask[:, :16].contiguous()
     with pytest.raises(ValueError, match="no kernel for device"):
         mhsa._backward(qkv, mask, 15, torch.zeros(2, 16, 300, device="meta"))
