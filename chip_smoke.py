@@ -47,16 +47,19 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    batch-64 training shapes in bfloat16 and float32
    (``kernel_bench.measure_backward``);
 7. the zoo phase, on the same store, whose articles also carry abstracts,
-   subcategories and title and abstract entities: MINS, CenNewsRec and
-   CAUM at their config files' widths (MINS's user encoder 6 heads of 50,
-   the kernel's wide instances; CenNewsRec's and CAUM's D = 400 with 20
-   heads), in float32 and bf16 compute, each trained ``ZOO_STEPS`` steps on
-   ``TrainBatcher`` batches (batch 64, K = 4, history 50), where the
-   kernel route must launch the forward and the backward kernel exactly
-   once per attention call (MINS: title, abstract and user encoder); then
+   subcategories and title and abstract entities: MINS, CenNewsRec, CAUM
+   and MINER at their config files' widths (MINS's user encoder 6 heads of
+   50, the kernel's wide instances; CenNewsRec's and CAUM's D = 400 with 20
+   heads; MINER's title encoder the NRMS shapes), in float32 and bf16
+   compute, each trained ``ZOO_STEPS`` steps on ``TrainBatcher`` batches
+   (batch 64, K = 4, history 50), where the kernel route must launch the
+   forward and the backward kernel exactly once per attention call (MINS:
+   title, abstract and user encoder; MINER: titles only); then
    the route check of step 4 for each model: 20 steps at lr 1e-3 on the
    planted-signal batch with the kernel, the plain attention and the
-   planted faults (``ROUTE_ATOL``, ``ZOO_FAULTS``); then the kernel
+   planted faults (``ROUTE_ATOL``, ``ZOO_FAULTS``; MINER's in bf16, whose
+   trajectory does not reproduce itself, is logged and not held,
+   ``CHAOTIC_ROUTES``); then the kernel
    route's planted-trained model serves one ``CachedScorer`` epoch over
    the whole corpus and the first ``ZOO_IMPRESSIONS`` impressions, with an
    exact launch count and metrics equal to the same weights' plain
@@ -72,7 +75,17 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    are held against the plain versions and timed, where the same checks
    must reject the planted faults of ``ELEMENT_FAULTS`` (logits 10% too
    large, the gradient's rowsum term dropped);
-8. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
+8. the models without an MHSA, NAML, TANR, LSTUR, NPA and DKN, at their
+   config files' widths on the same store and impressions (which carry
+   user ids): ``ZOO_STEPS`` train steps each in float32 and bf16 compute
+   with finite losses and no kernel launch; in float32 with TF32 off, the
+   fused forward's scores, the loss and one Adam step's update on the card
+   against the port on the CPU from the same weights and batch
+   (``CARD_CPU_TOL``), where a dropped history mask must fail each check;
+   the served scores of one ``CachedScorer`` epoch equal to the fused
+   forward's on the same impressions (NAML, TANR, LSTUR, DKN), and NPA's
+   eval-step metrics through the trainer, card against CPU;
+9. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
    ``build/smoke_demo``: ETL from the raw files, 2 epochs with cached
@@ -84,10 +97,10 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    best and last checkpoints must exist, and the best checkpoint restored
    into a new trainer must give the same ``test/auc`` (1e-6) and, with the
    plain attention, the same test metrics (``METRIC_ATOL``);
-9. prints one ``{"kernels": [...]}`` line (the wide instances' own entries,
-   with their times at ``BOX_SHAPES`` under ``plm_*`` and ``hd100_*``; the
-   D = 400 float32 times under ``d400_f32_*``) and, last,
-   ``{"ok": true, ...}``.
+10. prints one ``{"kernels": [...]}`` line (the wide instances' own
+   entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
+   ``hd100_*``; the D = 400 float32 times under ``d400_f32_*``; MINER's
+   launches under ``miner_launches``) and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build and the CLI phase's data copy
@@ -138,10 +151,11 @@ CLI_OVERRIDES = ["data=mind_demo", "model=nrms", "trainer.max_epochs=2",
                  f"data.word_embeddings_fpath={os.path.join(CLI_DATA, 'glove_demo.txt')}",
                  f"output_dir={CLI_OUT}"]
 CLI_RETEST_ATOL = 1e-6  # test/auc of the run against the best checkpoint restored
-# The zoo phase: MINS, CenNewsRec and CAUM at their config files' widths,
-# trained from the same init, batches and dropout seeds on both attention
-# routes, then served over the whole corpus and the first ZOO_IMPRESSIONS.
-ZOO = ("mins", "cen_news_rec", "caum")
+# The zoo phase: MINS, CenNewsRec, CAUM and MINER at their config files'
+# widths, trained from the same init, batches and dropout seeds on both
+# attention routes, then served over the whole corpus and the first
+# ZOO_IMPRESSIONS.
+ZOO = ("mins", "cen_news_rec", "caum", "miner")
 ZOO_STEPS = 4
 ZOO_IMPRESSIONS = 2048
 # The planted faults the zoo's model-level checks must catch: the route check
@@ -159,6 +173,36 @@ ZOO_IMPRESSIONS = 2048
 # logged there and must be caught by the element checks at the zoo's shapes
 # (ELEMENT_FAULTS).
 ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
+# Route checks that cannot be held: MINER in bf16 compute.  Its loss (CE
+# plus the disagreement term) falls from 2.58 to about 0.9 through a steep,
+# unstable stretch where bf16 rounding moves the trajectory as far as the
+# planted faults do: on an H100 (this script's route line, three runs) the
+# plain route against itself differed by 0.040 to 0.079 over the 20 steps,
+# keys unmasked by 0.24 to 0.27 and the tolerance attention by 0.25 to 0.30.
+# There the route is logged with that spread and not held; MINER's kernel
+# route in bf16 is held by the served-score check (the unmasked fault
+# beyond), by its float32 route check and by the element checks of the same
+# kernel instances (NRMS's).
+CHAOTIC_ROUTES = {("miner", "bfloat16")}
+# The models without an MHSA (module doc, phase 8): held, in float32 with
+# TF32 off, against the port on the CPU from the same weights and batch (of
+# CARD_CPU_BATCH impressions; dropout and LSTUR's user masking off, since a
+# CUDA and a CPU generator draw different streams).  Each error is relative:
+# max |scores difference| / max |CPU scores|, |loss difference| / |CPU
+# loss| and ||card update - CPU update|| / ||CPU update|| over every
+# parameter after one Adam step.  The planted fault (the history mask
+# dropped on the card) must move the scores and the update by more than
+# their tolerances; the loss of a fresh model stays near ln 5 whatever its
+# small scores are, so the fault's loss error is logged only.
+ZOO2 = ("naml", "tanr", "lstur", "npa", "dkn")
+CARD_CPU_BATCH = 16
+CARD_CPU_TOL = {"scores": 1e-4, "loss": 1e-5, "update": 1e-2}
+CARD_CPU_FAULT_CHECKED = ("scores", "update")
+# Served scores of a cacheable ZOO2 model against its fused forward on the
+# same impressions (EvalBatcher batches), float32: the same arithmetic over
+# other GEMM shapes.
+SERVED_FUSED_TOL = dict(atol=1e-5, rtol=1e-5)
+NPA_CPU_IMPRESSIONS = 64  # NPA's eval-step metrics, card against CPU
 ELEMENT_FAULTS = {"float32": ("scaled", "rowsum"), "bfloat16": ("rowsum",)}
 # Kernel shapes beyond the earlier box (L <= 64, head dim <= 64) that the zoo
 # kernel phase checks and times beside ZOO_SHAPES: the PLM tower's MHSA at
@@ -502,7 +546,7 @@ def training_phase(card: str, store, imp):
 
 def cli_phase(card: str):
     """The training CLI on the demo data at full NRMS width (module doc,
-    phase 8).  Returns the forward and backward kernel launches of the run
+    phase 9).  Returns the forward and backward kernel launches of the run
     and the phase's wall time in seconds."""
     import shutil
 
@@ -589,15 +633,16 @@ def cli_phase(card: str):
 
 def zoo_serving_launches(name, store, imp) -> int:
     """Kernel launches of one zoo serving epoch: the news encoder's
-    attention calls of each corpus chunk and one per impression batch."""
+    attention calls of each corpus chunk and the user encoder's of each
+    impression batch (MINER's user encoder has none)."""
     from newsreclib_tpu_torch.data.batching import BucketedAssembler
-    from newsreclib_tpu_torch.profile_train import TEXT_ATTENTIONS
+    from newsreclib_tpu_torch.profile_train import TEXT_ATTENTIONS, USER_ATTENTIONS
     from newsreclib_tpu_torch.serving import corpus_segments
 
     chunks = sum(math.ceil(len(rows) / ENCODE_BATCH)
                  for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
     buckets = BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS).buckets
-    return TEXT_ATTENTIONS[name] * chunks + sum(
+    return TEXT_ATTENTIONS[name] * chunks + USER_ATTENTIONS.get(name, 0) * sum(
         math.ceil(len(idx) / max(1, TARGET_CELLS // c)) for c, idx in buckets.items())
 
 
@@ -624,8 +669,8 @@ def served_scores(model, store, imp, cdtype, attention):
 
 
 def zoo_phase(card: str, store, imp):
-    """MINS, CenNewsRec and CAUM, each at its config file's widths, in
-    float32 and bf16 compute (module doc, step 7):
+    """MINS, CenNewsRec, CAUM and MINER, each at its config file's widths,
+    in float32 and bf16 compute (module doc, step 7):
 
     * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2) on ``TrainBatcher``
       batches (batch 64, K = 4, history 50, split at 16): the kernel route
@@ -634,8 +679,9 @@ def zoo_phase(card: str, store, imp):
     * the route check: ROUTE_STEPS steps at PLANTED_LR on the planted-signal
       batch from the same init and dropout seeds with the kernels, with the
       plain attention and with each planted fault; the per-step losses of the
-      kernel and the plain route must agree (``ROUTE_ATOL``) and those of each
-      fault in ``ZOO_FAULTS`` must not;
+      kernel and the plain route must agree (``ROUTE_ATOL``) and those of
+      each fault in ``ZOO_FAULTS`` must not (logged only in
+      ``CHAOTIC_ROUTES``);
     * the kernel route's trained model serves one ``CachedScorer`` epoch (the
       whole corpus encoded with every field the model reads, the first
       ZOO_IMPRESSIONS impressions scored) with an exact launch count and
@@ -645,7 +691,8 @@ def zoo_phase(card: str, store, imp):
       and each fault's in ``ZOO_FAULTS`` by more.
 
     Returns the forward, backward, wide forward and wide backward (head dim
-    above 32) launches of the ``TrainBatcher`` steps and the serving epochs."""
+    above 32) launches of the ``TrainBatcher`` steps and the serving epochs,
+    in all and by model."""
     import numpy as np
     import torch
 
@@ -661,6 +708,7 @@ def zoo_phase(card: str, store, imp):
     sub = imp.subset(ZOO_IMPRESSIONS)
     planted = [planted_batch()] * ROUTE_STEPS
     counts = np.zeros(4, dtype=np.int64)  # forward, backward, wide forward, wide backward
+    by_model = {name: np.zeros(4, dtype=np.int64) for name in ZOO}
     for name in ZOO:
         for dname, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
             state = create_train_state(build_cell_model(name, "cuda"), make_optimizer(1e-4),
@@ -681,6 +729,7 @@ def zoo_phase(card: str, store, imp):
             got = np.array([mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches,
                             mhsa.wide_bwd_launches])
             counts += got
+            by_model[name] += got
             out = torch.stack(out).cpu()
             log(f"zoo {name} {dname}: {ZOO_STEPS} train steps at batch {TRAIN_BATCH}, "
                 f"{step_ms:.2f} ms a step on {card}; kernel launches {got[0]} forward / "
@@ -700,18 +749,27 @@ def zoo_phase(card: str, store, imp):
             plain = route_losses(planted, cdtype, PLANTED_LR, "plain", name)[0]
             if mhsa.launches:
                 raise AssertionError(f"zoo {name}: the plain route launched the kernel")
+            def gap(attention):
+                return (route_losses(planted, cdtype, PLANTED_LR, attention, name)[0]
+                        - plain).abs().max().item()
+
             diff = (kernel - plain).abs().max().item()
-            faults = {f: (route_losses(planted, cdtype, PLANTED_LR, fn, name)[0]
-                          - plain).abs().max().item() for f, fn in FAULTS.items()}
+            faults = {f: gap(fn) for f, fn in FAULTS.items()}
+            chaotic = (name, dname) in CHAOTIC_ROUTES
+            spread = (f"; not held (CHAOTIC_ROUTES): the plain route against itself "
+                      f"{gap('plain'):.3g}, the tolerance attention "
+                      f"{gap(tolerance_attention(dname)):.3g}") if chaotic else ""
             log(f"zoo {name} {dname}: train losses over {ROUTE_STEPS} steps on a "
                 f"planted-signal batch at lr {PLANTED_LR}, kernel vs plain attention: max abs "
-                f"diff {diff:.3g} (tolerance {ROUTE_ATOL[dname]}); planted faults vs plain: "
-                f"{json.dumps(faults)}; kernel {kernel[0].item():.5f} -> "
+                f"diff {diff:.3g} (tolerance {ROUTE_ATOL[dname]}{spread}); planted faults vs "
+                f"plain: {json.dumps(faults)}; kernel {kernel[0].item():.5f} -> "
                 f"{kernel[-1].item():.5f}")
-            if not bool(torch.isfinite(kernel).all()) or diff > ROUTE_ATOL[dname]:
+            if not bool(torch.isfinite(kernel).all()) or (not chaotic
+                                                          and diff > ROUTE_ATOL[dname]):
                 raise AssertionError(f"zoo {name} {dname} train losses differ: {kernel} vs "
                                      f"{plain}")
-            missed = [f for f in ZOO_FAULTS[dname] if not faults[f] > ROUTE_ATOL[dname]]
+            missed = [f for f in ZOO_FAULTS[dname]
+                      if not chaotic and not faults[f] > ROUTE_ATOL[dname]]
             if missed:
                 raise AssertionError(f"zoo {name} {dname}: the route check does not tell the "
                                      f"planted faults {missed} from the plain attention")
@@ -729,6 +787,8 @@ def zoo_phase(card: str, store, imp):
                 if route == "kernel":
                     counts[0] += launches
                     counts[2] += mhsa.wide_launches
+                    by_model[name][0] += launches
+                    by_model[name][2] += mhsa.wide_launches
                     served_launches = launches
             got, want = metrics["kernel"], metrics["plain"]
             diff = max(abs(got[k] - want[k]) for k in want)
@@ -757,7 +817,191 @@ def zoo_phase(card: str, store, imp):
                 raise AssertionError(f"zoo {name} {dname}: the served-score check does not "
                                      f"tell the planted faults {missed} from the plain route")
             del model, scores
-    return counts
+    return counts, by_model
+
+
+def without_dropout(model):
+    """``model`` with every dropout rate and LSTUR's user masking at 0, in
+    place."""
+    from newsreclib_tpu_torch.models.components.dropout import Dropout
+    from newsreclib_tpu_torch.models.components.user import LSTURUserEncoder
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+        elif isinstance(m, LSTURUserEncoder):
+            m.user_masking_probability = 0.0
+    return model
+
+
+def forward_and_step(model, batch, device):
+    """``model`` on ``device``: the fused forward's scores (eval mode), then
+    one train step (Adam lr 1e-4, cross-entropy) on ``batch``.  Returns the
+    scores, the loss and every parameter's update, on the CPU."""
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    b = to_device(batch, device)
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        scores = model.eval()(b)[0].float().cpu()
+    state = create_train_state(model.train(), make_optimizer(1e-4), dropout_seed=0)
+    loss = make_train_step(cross_entropy_loss)(state, b)[1]["loss"].item()
+    update = torch.cat([(p.detach().cpu() - before[n]).reshape(-1)
+                        for n, p in model.named_parameters()])
+    return scores, loss, update
+
+
+def card_cpu_errors(got, want) -> dict:
+    """The relative errors of ``CARD_CPU_TOL`` between two
+    ``forward_and_step`` results."""
+    (s, l, u), (ws, wl, wu) = got, want
+    return {"scores": ((s - ws).abs().max() / ws.abs().max()).item(),
+            "loss": abs(l - wl) / abs(wl),
+            "update": ((u - wu).norm() / wu.norm()).item()}
+
+
+def fused_scores(model, store, imp, margin):
+    """Every candidate's score over ``imp`` from the fused forward on
+    ``EvalBatcher`` batches (each with its own news table), in the order of
+    ``served_scores``."""
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import EvalBatcher
+
+    with torch.inference_mode():
+        out = []
+        for b in EvalBatcher(store, imp, SERVING["hist_len"], TARGET_CELLS, split_title_len=16,
+                             split_margin=margin):
+            b = to_device(b, "cuda")
+            out.append(model(b)[0].float()[b.cand_mask & b.impression_valid[:, None]])
+        return torch.cat(out)
+
+
+def zoo2_phase(card: str, store, imp):
+    """NAML, TANR, LSTUR, NPA and DKN, which run no attention kernel, each
+    at its config file's widths (module doc, step 8):
+
+    * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2, LSTUR's user masking
+      0.5) on ``TrainBatcher`` batches of TRAIN_BATCH impressions, in
+      float32 and bf16 compute: finite losses and no kernel launch;
+    * float32 on the card against the port on the CPU from the same weights
+      and batch (CARD_CPU_BATCH impressions, dropout off): the fused
+      forward's scores, the loss and the update of one train step, each
+      within ``CARD_CPU_TOL``; the planted fault (the history mask dropped
+      on the card) beyond the scores' and the update's;
+    * NAML, TANR, LSTUR and DKN: one ``CachedScorer`` epoch over the first
+      ZOO_IMPRESSIONS impressions (finite metrics), whose served scores equal
+      the fused forward's on ``EvalBatcher`` batches of the same impressions
+      (``SERVED_FUSED_TOL``), in float32;
+    * NPA (no cacheable split): the trainer's eval-step path over the same
+      impressions, finite metrics, and over the first NPA_CPU_IMPRESSIONS
+      equal to the CPU's (``METRIC_ATOL``).
+
+    Returns the largest error of each comparison."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import EvalBatcher, TrainBatcher
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, build_cell_model
+    from newsreclib_tpu_torch.serving import CachedScorer
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+    from newsreclib_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    sub = imp.subset(ZOO_IMPRESSIONS)
+    worst = {k: 0.0 for k in (*CARD_CPU_TOL, "served_vs_fused", "npa_metrics")}
+    for name in ZOO2:
+        for dname, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+            state = create_train_state(build_cell_model(name, "cuda"), make_optimizer(1e-4),
+                                       dropout_seed=0)
+            step = make_train_step(cross_entropy_loss, cdtype)
+            batches = TrainBatcher(store, imp, batch_size=TRAIN_BATCH, **DATA).epoch(0)
+            torch.cuda.synchronize()
+            mhsa.launches = mhsa.bwd_launches = 0
+            t0 = time.perf_counter()
+            out = torch.stack([step(state, to_device(next(batches), "cuda"))[1]["loss"]
+                               for _ in range(ZOO_STEPS)]).cpu()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
+            log(f"zoo {name} {dname}: {ZOO_STEPS} train steps at batch {TRAIN_BATCH}, "
+                f"{step_ms:.2f} ms a step on {card}; kernel launches {mhsa.launches} / "
+                f"{mhsa.bwd_launches}; losses {[round(x, 5) for x in out.tolist()]}")
+            if not bool(torch.isfinite(out).all()) or mhsa.launches or mhsa.bwd_launches:
+                raise AssertionError(f"zoo {name} {dname}: losses {out}, kernel launches "
+                                     f"{mhsa.launches} / {mhsa.bwd_launches}")
+            del state
+
+        cpu_model = without_dropout(build_cell_model(name, "cpu"))
+        batch = next(TrainBatcher(store, imp, batch_size=CARD_CPU_BATCH, **DATA).epoch(0))
+        want = forward_and_step(copy.deepcopy(cpu_model), batch, "cpu")
+        errs = card_cpu_errors(forward_and_step(copy.deepcopy(cpu_model).cuda(), batch, "cuda"),
+                               want)
+        unmasked = batch._replace(hist_mask=np.ones_like(batch.hist_mask))
+        fault = card_cpu_errors(forward_and_step(copy.deepcopy(cpu_model).cuda(), unmasked,
+                                                 "cuda"), want)
+        log(f"zoo {name} float32, card vs CPU from the same weights and batch ({CARD_CPU_BATCH} "
+            f"impressions, dropout off): relative errors {json.dumps(errs)} (tolerances "
+            f"{json.dumps(CARD_CPU_TOL)}); history mask dropped on the card: "
+            f"{json.dumps(fault)}")
+        for k, tol in CARD_CPU_TOL.items():
+            worst[k] = max(worst[k], errs[k])
+            if not errs[k] <= tol:
+                raise AssertionError(f"zoo {name}: card vs CPU {k} error {errs[k]} > {tol}")
+            if k in CARD_CPU_FAULT_CHECKED and not fault[k] > tol:
+                raise AssertionError(f"zoo {name}: the card-vs-CPU {k} check does not tell a "
+                                     f"dropped history mask ({fault[k]} <= {tol})")
+
+        model = cpu_model.cuda().eval()
+        if name != "npa":
+            mhsa.launches = 0
+            metrics = CachedScorer(model, device="cuda").evaluate(store, sub, **EVAL)
+            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+            served = served_scores(model, store, sub, None, None)
+            fused = fused_scores(model, store, sub, getattr(model, "TITLE_SPLIT_MARGIN", 0))
+            diff = (served - fused).abs().max().item()
+            limit = SERVED_FUSED_TOL["atol"] + SERVED_FUSED_TOL["rtol"] * fused.abs().max().item()
+            worst["served_vs_fused"] = max(worst["served_vs_fused"], diff)
+            log(f"zoo {name} float32: served metrics over {ZOO_IMPRESSIONS} impressions (auc "
+                f"{metrics.get('auc', float('nan')):.4f}), {mhsa.launches} kernel launches; "
+                f"{served.numel()} served scores against the fused forward's: max abs diff "
+                f"{diff:.3g} (max |score| {fused.abs().max().item():.4g}, limit {limit:.3g})")
+            if bad or "auc" not in metrics or mhsa.launches or served.shape != fused.shape:
+                raise AssertionError(f"zoo {name} serving: {metrics}, {mhsa.launches} launches")
+            if not diff <= limit:
+                raise AssertionError(f"zoo {name}: served scores differ from the fused "
+                                     f"forward's by {diff}")
+            continue
+
+        def evaluate(m, n):
+            trainer = Trainer(create_train_state(m, make_optimizer(1e-4)), cross_entropy_loss,
+                              TrainerConfig())
+            return trainer.evaluate(EvalBatcher(store, imp.subset(n), SERVING["hist_len"],
+                                                TARGET_CELLS, split_title_len=16), "val")
+
+        metrics = evaluate(model, ZOO_IMPRESSIONS)
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        got = evaluate(model, NPA_CPU_IMPRESSIONS)
+        want = evaluate(copy.deepcopy(model).cpu(), NPA_CPU_IMPRESSIONS)
+        diff = max(abs(got[k] - want[k]) for k in want)
+        worst["npa_metrics"] = diff
+        log(f"zoo npa float32: the trainer's eval-step path over {ZOO_IMPRESSIONS} impressions "
+            f"(val/auc {metrics.get('val/auc', float('nan')):.4f}); over the first "
+            f"{NPA_CPU_IMPRESSIONS}, card vs CPU metrics max abs diff {diff:.3g} (tolerance "
+            f"{METRIC_ATOL['float32']})")
+        if bad or "val/auc" not in metrics or set(got) != set(want):
+            raise AssertionError(f"zoo npa eval: {metrics}")
+        if not diff <= METRIC_ATOL["float32"]:
+            raise AssertionError(f"zoo npa: eval metrics differ, card {got} vs CPU {want}")
+    return worst
 
 
 def zoo_kernel_phase():
@@ -848,7 +1092,8 @@ def main() -> int:
     # after the profiled phases: with the CLI phase before them, a profiler
     # window recorded no device time, and with the zoo phase before them six
     # windows in a row recorded fewer kernels than calls (one H100 run each)
-    zoo_counts = zoo_phase(card, store, imp)
+    zoo_counts, zoo_by_model = zoo_phase(card, store, imp)
+    zoo2_worst = zoo2_phase(card, store, imp)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
@@ -907,6 +1152,7 @@ def main() -> int:
         r = zoo_rec(recs, d400_shape, "float32")
         entry.update({
             "zoo_launches": int(zoo_counts[0] if not prefix else zoo_counts[1]),
+            "miner_launches": int(zoo_by_model["miner"][0 if not prefix else 1]),
             "d400_f32_ms": r[prefix + "ms"], "d400_f32_bound_ms": r[prefix + "bound_ms"],
             "d400_f32_plain_ms": r["plain_" + prefix + "ms"],
             "d400_f32_library_ms": r["library_" + prefix + "ms"],
@@ -948,6 +1194,7 @@ def main() -> int:
             "shape": list(wide_shape),
             **box,
         })
+    log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
         f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,13 @@ one, joined with dots, except for the leaves:
 
   * a ``kernel`` becomes ``weight``, transposed with its axes reversed: a
     Dense kernel (in, out) becomes (out, in) (the port's ``Dense`` computes
-    ``x W^T + b``), a Conv kernel (W, in, out) becomes torch's (out, in, W);
+    ``x W^T + b``), a Conv kernel (W, in, out) becomes torch's (out, in, W),
+    KCNN's 4-D ``conv_w{w}`` kernel (w, D, channels, F) becomes
+    (F, channels, D, w);
   * an ``embedding`` table becomes ``weight``;
-  * ``bias`` and the additive-attention ``query`` keep their names.
+  * every other leaf keeps its name: ``bias``, the additive-attention
+    ``query``, MINER's ``context_codes``, LSTUR's
+    ``long_term_user_embedding`` and NPA's ``user_embed``.
 
 The port's modules carry the JAX package's names, so no tree needs more:
 for NRMS ``news_encoder/{embedding, mhsa/qkv, mhsa/out, add_att/proj,
@@ -17,8 +21,16 @@ add_att/query}`` and ``user_encoder/{mhsa/..., add_att/...}``; the GRU cell
 CenNewsRec's ``cnn``; the news encoders' ``text_encoder``,
 ``category_encoder/{embedding, linear}``, ``entity_encoder``,
 ``combine_add_att`` and ``combine_linear``; CAUM's ``linear1..3`` and
-``dense_att/fc1..fc3``.  It is the inverse of the weight copy in
-``tests/test_torch_parity.py::_copy_mha``.
+``dense_att/fc1..fc3``; TANR's ``news_encoder/{embedding, cnn, add_att}``
+and ``topic_predictor``; LSTUR's ``user_encoder/{long_term_user_embedding,
+gru}``; NPA's ``user_projection/user_embed``, ``text_encoder/{embedding,
+cnn, pers_att/query_proj}`` and ``user_encoder/{news_query_proj/proj,
+pers_att}``; MINER's ``text_encoder``, ``reduce_dim``,
+``categ_encoder/embedding``, ``user_encoder/{proj, context_codes}`` and
+``target_aware_attn/proj``; DKN's ``news_encoder/{word_emb, entity_emb,
+entity_transform, context_emb, context_transform, conv_w1..conv_w4}``,
+``user_encoder/{fc1, fc2}`` and ``click_predictor/{fc1, fc2}``.  It is the
+inverse of the weight copy in ``tests/test_torch_parity.py::_copy_mha``.
 """
 
 from __future__ import annotations

@@ -174,7 +174,8 @@ class MINDData:
     def __init__(self, cfg: MINDConfig, annotator: Optional[SentimentAnnotator] = None):
         if cfg.use_plm:
             raise NotImplementedError(
-                "PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, item 8)")
+                'PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, "PLM '
+                'tower")')
         self.cfg = cfg
         self.annotator = annotator or get_annotator(
             cfg.sentiment_annotator, **cfg.sentiment_annotator_kwargs

@@ -123,6 +123,7 @@ def make_batch(
 
 
 SERVING_ENTITIES = 800  # entity vocabulary of make_serving_workload
+SERVING_USERS = 1000  # user ids of make_serving_workload lie in [1, SERVING_USERS)
 
 
 def realistic_title_lens(rng: np.random.Generator, n: int, title_len: int = 30) -> np.ndarray:
@@ -147,9 +148,10 @@ def make_serving_workload(
     The articles also carry abstracts (0 to 50 tokens), subcategories (50
     classes) and 10 title and 10 abstract entity slots (each an entity of
     ``SERVING_ENTITIES`` with probability 0.3), as the MIND data path gives
-    them, for the models that read more than titles.  They are drawn after
-    everything else, so the titles and impressions of a seed are those of
-    ``bench.py``'s workload."""
+    them, for the models that read more than titles, and each impression a
+    user id below ``SERVING_USERS`` (LSTUR and NPA read it).  They are drawn
+    after everything else, so the titles, histories and candidates of a
+    seed are those of ``bench.py``'s workload."""
     title = np.zeros((corpus + 1, title_len), dtype=np.int32)
     lens = realistic_title_lens(rng, corpus, title_len)
     for i in range(corpus):
@@ -184,4 +186,5 @@ def make_serving_workload(
     for a in (store.abstract, store.title_entities, store.abstract_entities,
               store.subcategory):
         a[0] = 0
+    imp.user_idx[:] = rng.integers(1, SERVING_USERS, size=len(imp))
     return store, imp

@@ -1,8 +1,8 @@
 """Shared glue of the recommenders (counterpart of
 ``newsreclib_tpu/models/base.py:28-95``): gathering per-article vectors into
 history/candidate slots, encoding a (possibly length-split) unique news
-table, per-row news fields over both segments, late-fusion users and score
-masking."""
+table, per-row news fields over both segments, one full-width title view
+of both segments (NPA), late-fusion users and score masking."""
 
 from __future__ import annotations
 
@@ -41,6 +41,18 @@ def news_valid(batch: RecBatch) -> torch.Tensor:
     if batch.news2 is not None:
         v = torch.cat([v, batch.news2.title_mask.any(dim=-1)], dim=0)
     return v
+
+
+def full_title_tokens(batch: RecBatch):
+    """``(U_total, L_full)`` title tokens and mask over both segments, the
+    short segment padded with zero columns (what the store held before the
+    split): the view of the per-occurrence encoders (NPA)."""
+    t, m = batch.news.title, batch.news.title_mask
+    if batch.news2 is None:
+        return t, m
+    pad = (0, batch.news2.title.shape[1] - t.shape[1])
+    return (torch.cat([torch.nn.functional.pad(t, pad), batch.news2.title], dim=0),
+            torch.cat([torch.nn.functional.pad(m, pad), batch.news2.title_mask], dim=0))
 
 
 def late_fusion_user(hist_vecs: torch.Tensor, hist_mask: torch.Tensor) -> torch.Tensor:

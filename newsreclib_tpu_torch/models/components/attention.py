@@ -1,5 +1,8 @@
 """Attention blocks (counterpart of
-``newsreclib_tpu/models/components/attention.py:28-124`` and ``:173-184``).
+``newsreclib_tpu/models/components/attention.py``: ``AdditiveAttention``,
+``MultiHeadSelfAttention``, MINER's ``PolyAttention`` and
+``TargetAwareAttention``, CAUM's ``DenseAttention`` and NPA's
+``PersonalizedAttention``).
 
 Masked logits are REPLACED by the finite -1e30, never ``-inf``: a fully
 masked row (the padding article, row 0 of every news table) then gets a
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from newsreclib_tpu_torch.models.components.linear import Dense, uniform
@@ -104,3 +108,58 @@ class DenseAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc3(torch.tanh(self.fc2(torch.tanh(self.fc1(x)))))
+
+
+class PolyAttention(nn.Module):
+    """MINER's user encoder: K context codes attend over the history, K
+    interest vectors out.  ``(B, L, D)`` + mask ``(B, L)`` -> ``(B, K, D)``;
+    ``bias`` ``(B, L, C)`` (the category bias) is averaged over the
+    candidates and added to every code's logit at each position."""
+
+    def __init__(self, in_dim: int, num_context_codes: int, context_code_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.proj = Dense(in_dim, context_code_dim, generator, use_bias=False)
+        codes = nn.init.xavier_uniform_(torch.empty(num_context_codes, context_code_dim),
+                                        generator=generator)
+        self.context_codes = nn.Parameter(codes)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits = self.context_codes @ torch.tanh(self.proj(x)).transpose(1, 2)  # (B, K, L)
+        if bias is not None:
+            logits = logits + bias.mean(dim=-1)[:, None, :]
+        weights = masked_softmax(logits, None if mask is None else mask[:, None, :])
+        return weights @ x
+
+
+class TargetAwareAttention(nn.Module):
+    """MINER's weighted score: query ``(B, K, D)`` (the interests), key
+    ``(B, C, D)`` (the candidates), value ``(B, C, K)`` (their raw scores)
+    -> ``(B, C)``.  flax's ``nn.gelu`` is the tanh approximation."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.proj = Dense(dim, dim, generator, use_bias=False)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+        proj = F.gelu(self.proj(query), approximate="tanh")
+        weights = torch.softmax(key @ proj.transpose(1, 2), dim=-1)  # (B, C, K)
+        return (weights * value).sum(dim=-1)
+
+
+class PersonalizedAttention(nn.Module):
+    """NPA's attention with a per-row query: query ``(B, Dq)``, keys
+    ``(B, L, F)`` + mask ``(B, L)`` -> ``(B, F)``."""
+
+    def __init__(self, query_dim: int, num_filters: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.query_proj = Dense(query_dim, num_filters, generator)
+
+    def forward(self, query: torch.Tensor, keys: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q = torch.tanh(self.query_proj(query))  # (B, F)
+        weights = masked_softmax((keys @ q.unsqueeze(-1)).squeeze(-1), mask)  # (B, L)
+        return (weights.unsqueeze(-2) @ keys).squeeze(-2)

@@ -1,5 +1,5 @@
-"""News encoder composition shell and the entity encoder (counterpart of
-``newsreclib_tpu/models/components/news.py:28-125``).
+"""News encoder composition shell, the entity encoder and DKN's KCNN
+(counterpart of ``newsreclib_tpu/models/components/news.py``).
 
 ``NewsEncoder`` applies per-attribute encoders to a unique news table and
 combines the per-attribute vectors.  As in the JAX package, one text
@@ -13,13 +13,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from newsreclib_tpu_torch.data.batch import NewsFeatures
 from newsreclib_tpu_torch.models.components.attention import AdditiveAttention
 from newsreclib_tpu_torch.models.components.dropout import Dropout
 from newsreclib_tpu_torch.models.components.embedding import TokenEmbedding
-from newsreclib_tpu_torch.models.components.linear import Dense
+from newsreclib_tpu_torch.models.components.linear import Dense, lecun_normal
 
 # the attributes, in the order their vectors are combined
 ATTRIBUTES = ("title", "abstract", "category", "subcategory", "title_entities",
@@ -109,3 +110,89 @@ class EntityAddAtt(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.dropout(self.embedding(entities), deterministic, generator)
         return self.add_att(x, mask)
+
+
+class KCNN(nn.Module):
+    """DKN's knowledge-aware CNN: ``(U, L)`` title tokens and entity ids, one
+    entity slot per title word (padded with 0 or cut to the title width) ->
+    ``(U, num_filters * len(window_sizes))``.
+
+    The channels are the word embeddings, ``tanh(Dense)`` of the entity
+    embeddings into the word space and, with ``use_context``, of a second
+    (context) table over the same ids, drawn at random (no caller of the
+    JAX package passes a pretrained one).  For each window w, a VALID
+    convolution with a (w, word_embed_dim) kernel across the channels, relu
+    and the max over the L - w + 1 positions; padded positions take part,
+    as in the JAX package; then dropout 0.2 (fixed, as there).  ``mask`` is
+    accepted and unused, as there.
+
+    The JAX kernel ``conv_w{w}`` of shape (w, D, channels, F) is the weight
+    (F, channels, D, w), its reversed transpose (``convert.py``).  Each
+    convolution runs as one matrix product of the w shifted windows stacked
+    along the features, as ``text.Conv1d`` does: the same sums, and no cuDNN
+    algorithm choice (``Conv1d``'s doc)."""
+
+    def __init__(self, word_vocab_size: int, entity_vocab_size: int, word_embed_dim: int = 300,
+                 entity_embed_dim: int = 100, num_filters: int = 100,
+                 window_sizes: Sequence[int] = (2, 3, 4), use_context: bool = False,
+                 use_entities: bool = True, pretrained_words: Optional[np.ndarray] = None,
+                 pretrained_entities: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.window_sizes = tuple(int(w) for w in window_sizes)
+        self.use_entities = use_entities
+        self.use_context = use_context and use_entities
+        self.word_emb = TokenEmbedding(word_vocab_size, word_embed_dim, pretrained_words,
+                                       generator=generator)
+        if use_entities:
+            self.entity_emb = TokenEmbedding(entity_vocab_size, entity_embed_dim,
+                                             pretrained_entities, generator=generator)
+            self.entity_transform = Dense(entity_embed_dim, word_embed_dim, generator)
+        if self.use_context:
+            self.context_emb = TokenEmbedding(entity_vocab_size, entity_embed_dim,
+                                              generator=generator)
+            self.context_transform = Dense(entity_embed_dim, word_embed_dim, generator)
+        ch = 1 + use_entities + self.use_context
+        for w in self.window_sizes:
+            self.add_module(f"conv_w{w}", WindowConv(ch, word_embed_dim, num_filters, w,
+                                                     generator))
+        self.dropout = Dropout(0.2)
+
+    def forward(self, tokens: torch.Tensor, entities: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        l_tok, l_ent = tokens.shape[1], entities.shape[1]
+        if l_ent < l_tok:
+            entities = F.pad(entities, (0, l_tok - l_ent))
+        elif l_ent > l_tok:
+            entities = entities[:, :l_tok]
+        channels = [self.word_emb(tokens)]
+        if self.use_entities:
+            channels.append(torch.tanh(self.entity_transform(self.entity_emb(entities))))
+        if self.use_context:
+            channels.append(torch.tanh(self.context_transform(self.context_emb(entities))))
+        x = torch.stack(channels, dim=-1).flatten(2)  # (U, L, D ch), features (d, c)
+        outs = [torch.relu(getattr(self, f"conv_w{w}")(x)).amax(dim=1)
+                for w in self.window_sizes]
+        return self.dropout(torch.cat(outs, dim=-1), deterministic, generator)
+
+
+class WindowConv(nn.Module):
+    """A VALID convolution with a (window, D) kernel over (U, L, D, channels)
+    inputs given as (U, L, D channels), features ordered (d, c):
+    -> (U, L - window + 1, out).  ``weight`` (out, channels, D, window) with
+    flax's init (lecun-normal over fan-in window x D x channels, zero
+    bias)."""
+
+    def __init__(self, channels: int, dim: int, out_features: int, window: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(lecun_normal((out_features, channels, dim, window),
+                                                window * dim * channels, generator))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out, _, _, w = self.weight.shape
+        n = x.shape[1] - w + 1
+        cols = torch.cat([x[:, k:k + n] for k in range(w)], dim=-1)  # (U, n, w D ch)
+        return F.linear(cols, self.weight.permute(0, 3, 2, 1).reshape(out, -1), self.bias)

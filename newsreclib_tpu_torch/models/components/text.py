@@ -1,7 +1,8 @@
 """Text encoders: ``(U, L)`` token ids -> ``(U, D)`` article vectors
 (counterpart of ``newsreclib_tpu/models/components/text.py``): the NRMS
-title encoder ``MHSAAddAtt`` (``:33-92``, unpacked path) and CenNewsRec's
-``CNNMHSAAddAtt`` (``:119-144``).
+title encoder ``MHSAAddAtt`` (``:33-92``, unpacked path), the NAML / TANR /
+LSTUR encoder ``CNNAddAtt`` (``:94-116``), CenNewsRec's ``CNNMHSAAddAtt``
+(``:119-144``) and NPA's ``CNNPersAtt`` (``:147-180``).
 
 The JAX package packs several titles into one attention sequence on the TPU
 (``pack_to``); that is exact (``test_mhsa_packing_exact``) and the per-article
@@ -20,6 +21,7 @@ from torch import nn
 from newsreclib_tpu_torch.models.components.attention import (
     AdditiveAttention,
     MultiHeadSelfAttention,
+    PersonalizedAttention,
 )
 from newsreclib_tpu_torch.models.components.dropout import Dropout
 from newsreclib_tpu_torch.models.components.embedding import TokenEmbedding
@@ -77,6 +79,28 @@ class Conv1d(nn.Module):
         return F.linear(cols, self.weight.permute(0, 2, 1).reshape(out, w * c), self.bias)
 
 
+class CNNAddAtt(nn.Module):
+    """NAML text encoder: embed -> dropout -> conv (SAME) -> relu -> dropout
+    -> additive attention: ``(U, L)`` token ids -> ``(U, num_filters)``."""
+
+    def __init__(self, vocab_size: int, embed_dim: int = 300, num_filters: int = 400,
+                 window_size: int = 3, query_dim: int = 200, dropout: float = 0.2,
+                 pretrained: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = TokenEmbedding(vocab_size, embed_dim, pretrained, generator=generator)
+        self.dropout = Dropout(dropout)
+        self.cnn = Conv1d(embed_dim, num_filters, window_size, generator)
+        self.add_att = AdditiveAttention(num_filters, query_dim, generator)
+
+    def forward(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.dropout(self.embedding(tokens), deterministic, generator)
+        x = self.dropout(torch.relu(self.cnn(x)), deterministic, generator)
+        return self.add_att(x, mask)
+
+
 class CNNMHSAAddAtt(nn.Module):
     """CenNewsRec text encoder: embed -> dropout -> conv (SAME) -> relu ->
     dropout -> MHSA -> dropout -> additive attention.  Its attention runs
@@ -101,3 +125,26 @@ class CNNMHSAAddAtt(nn.Module):
         x = self.dropout(torch.relu(self.cnn(x)), deterministic, generator)
         x = self.dropout(self.mhsa(x, mask), deterministic, generator)
         return self.add_att(x, mask)
+
+
+class CNNPersAtt(nn.Module):
+    """NPA text encoder: embed -> dropout -> conv (SAME) -> relu -> dropout
+    -> personalized attention with one query per row: ``(U, L)`` token ids
+    and ``(U, Dq)`` queries -> ``(U, num_filters)``."""
+
+    def __init__(self, vocab_size: int, query_dim: int, embed_dim: int = 300,
+                 num_filters: int = 400, window_size: int = 3, dropout: float = 0.2,
+                 pretrained: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = TokenEmbedding(vocab_size, embed_dim, pretrained, generator=generator)
+        self.dropout = Dropout(dropout)
+        self.cnn = Conv1d(embed_dim, num_filters, window_size, generator)
+        self.pers_att = PersonalizedAttention(query_dim, num_filters, generator)
+
+    def forward(self, tokens: torch.Tensor, user_query: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.dropout(self.embedding(tokens), deterministic, generator)
+        x = self.dropout(torch.relu(self.cnn(x)), deterministic, generator)
+        return self.pers_att(user_query, x, mask)

@@ -1,10 +1,10 @@
 """User encoders (counterpart of
-``newsreclib_tpu/models/components/user.py:36-244``): clicked-news vectors
+``newsreclib_tpu/models/components/user.py``): clicked-news vectors
 ``(B, H, D)`` with a left-aligned mask ``(B, H)`` -> a user representation.
 Every MHSA goes through the attention kernel on the card: NRMS's at
 (B, 50, 300) with 15 heads, MINS's with 6 heads of 50 (the kernel's wide
 instances), CenNewsRec's at (B, 50, 400) and CAUM's at (B C, 50, 400) with
-20 heads."""
+20 heads.  The NAML, LSTUR, NPA and DKN encoders have no MHSA."""
 
 from __future__ import annotations
 
@@ -17,10 +17,12 @@ from newsreclib_tpu_torch.models.components.attention import (
     AdditiveAttention,
     DenseAttention,
     MultiHeadSelfAttention,
+    PersonalizedAttention,
     masked_softmax,
 )
 from newsreclib_tpu_torch.models.components.dropout import Dropout
-from newsreclib_tpu_torch.models.components.linear import Dense
+from newsreclib_tpu_torch.models.components.linear import Dense, normal
+from newsreclib_tpu_torch.models.components.projection import UserPreferenceQueryProjection
 from newsreclib_tpu_torch.models.components.rnn import MaskedGRU
 
 
@@ -36,6 +38,96 @@ class NRMSUserEncoder(nn.Module):
     def forward(self, hist: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, H, D) clicked-news vectors + (B, H) mask -> (B, D)."""
         return self.add_att(self.mhsa(hist, mask), mask)
+
+
+class NAMLUserEncoder(nn.Module):
+    """Additive attention over the history (NAML, TANR)."""
+
+    def __init__(self, dim: int, query_dim: int = 200,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.add_att = AdditiveAttention(dim, query_dim, generator)
+
+    def forward(self, hist: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.add_att(hist, mask)
+
+
+class LSTURUserEncoder(nn.Module):
+    """Long-term user-id embedding and a GRU over the history: ``ini`` starts
+    the GRU from the long-term vector, ``con`` concatenates the GRU's last
+    state with it (each half the width).  User 0 gets a zero long-term
+    vector.  In training (``deterministic`` False) each row's long-term
+    vector is dropped whole with probability ``user_masking_probability``
+    and kept ones are scaled by 1 / (1 - p), one Bernoulli per row drawn
+    from ``generator`` (the reference's ``Dropout2d``)."""
+
+    def __init__(self, num_users: int, input_dim: int = 400,
+                 user_masking_probability: float = 0.5, long_short_term_method: str = "ini",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if long_short_term_method not in ("ini", "con"):
+            raise ValueError(f"long_short_term_method {long_short_term_method!r} is not "
+                             "'ini' or 'con'")
+        self.method = long_short_term_method
+        self.user_masking_probability = user_masking_probability
+        lt_dim = input_dim if long_short_term_method == "ini" else input_dim // 2
+        self.long_term_user_embedding = nn.Parameter(normal((num_users, lt_dim), 0.02, generator))
+        self.gru = MaskedGRU(input_dim, lt_dim, generator)
+
+    def forward(self, user_idx: torch.Tensor, hist: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        lt = torch.where((user_idx != 0)[:, None], self.long_term_user_embedding[user_idx], 0.0)
+        p = self.user_masking_probability
+        if not deterministic and p > 0.0:
+            if generator is None:
+                raise ValueError("user masking with deterministic=False needs a generator")
+            keep = torch.rand((lt.shape[0], 1), generator=generator, device=lt.device) < 1.0 - p
+            lt = torch.where(keep, lt / (1.0 - p), 0.0)
+        if self.method == "ini":
+            return self.gru(hist, mask, init_h=lt)
+        return torch.cat([self.gru(hist, mask), lt], dim=-1)
+
+
+class NPAUserEncoder(nn.Module):
+    """Personalized attention over the history, its query projected from
+    the projected user ``(B, Du)``."""
+
+    def __init__(self, user_embed_dim: int = 50, preference_query_dim: int = 200,
+                 num_filters: int = 400, dropout: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.news_query_proj = UserPreferenceQueryProjection(user_embed_dim, preference_query_dim,
+                                                             dropout, generator)
+        self.pers_att = PersonalizedAttention(preference_query_dim, num_filters, generator)
+
+    def forward(self, hist: torch.Tensor, projected_users: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        query = self.news_query_proj(projected_users, deterministic, generator)
+        return self.pers_att(query, hist, mask)
+
+
+class DKNUserEncoder(nn.Module):
+    """Candidate-attentive history pooling: hist (B, H, D), cand (B, C, D)
+    -> one user vector per candidate (B, C, D).  The attention scorer is two
+    Dense layers with no activation between them, as the reference's."""
+
+    def __init__(self, dim: int, hidden_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = Dense(2 * dim, hidden_dim, generator)
+        self.fc2 = Dense(hidden_dim, 1, generator)
+
+    def forward(self, hist: torch.Tensor, cand: torch.Tensor,
+                hist_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, h, d = hist.shape
+        c = cand.shape[1]
+        x = torch.cat([cand[:, :, None, :].expand(b, c, h, d),
+                       hist[:, None].expand(b, c, h, d)], dim=-1)
+        logits = self.fc2(self.fc1(x))[..., 0]  # (B, C, H)
+        key_mask = None if hist_mask is None else hist_mask[:, None].expand(b, c, h)
+        return masked_softmax(logits, key_mask) @ hist
 
 
 class MINSUserEncoder(nn.Module):

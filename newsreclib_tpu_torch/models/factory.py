@@ -1,11 +1,12 @@
 """Model factory: the ``model`` config node and the dataset's sizes -> model
 and loss (counterpart of ``newsreclib_tpu/models/factory.py``).
 
-NRMS, MINS, CenNewsRec and CAUM have routes, with the JAX factory's
-defaults; every other model raises ``NotImplementedError`` (ROADMAP queue
-1, item 6).  ``pack_titles`` is accepted and ignored: the port's attention
-kernel works per article, and packed and unpacked titles give the same
-vectors (``tests/test_nrms.py::test_mhsa_packing_exact``).
+The ten models of ``PORTED_MODELS`` have routes, with the JAX factory's
+defaults (``newsreclib_tpu/models/factory.py:155-303``); the FairRec models
+raise ``NotImplementedError`` (ROADMAP queue 1, "FairRec models").
+``pack_titles`` is accepted and ignored: the port's attention kernel works
+per article, and packed and unpacked titles give the same vectors
+(``tests/test_nrms.py::test_mhsa_packing_exact``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,18 @@ import numpy as np
 import torch
 
 from newsreclib_tpu_torch.models.components.losses import get_loss_fn
-from newsreclib_tpu_torch.models.general_rec import CAUM, MINS, NRMS, CenNewsRec
+from newsreclib_tpu_torch.models.general_rec import (
+    CAUM,
+    DKN,
+    LSTUR,
+    MINER,
+    MINS,
+    NAML,
+    NPA,
+    NRMS,
+    TANR,
+    CenNewsRec,
+)
 
 
 @dataclass
@@ -34,7 +46,8 @@ class DataInfo:
     pretrained_categ_embeddings: Optional[np.ndarray] = None
 
 
-PORTED_MODELS = ("nrms", "mins", "cen_news_rec", "caum")
+PORTED_MODELS = ("nrms", "mins", "cen_news_rec", "caum", "naml", "tanr", "lstur", "npa",
+                 "miner", "dkn")
 
 
 def title_split_margin(model_name: str, model_cfg: Optional[Dict] = None) -> int:
@@ -54,7 +67,7 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
     name = cfg["name"]
     if cfg.get("use_plm"):
         raise NotImplementedError(
-            "the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, item 8)")
+            'the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower")')
     d = cfg.get("dropout_probability", 0.2)
     common = dict(late_fusion=cfg.get("late_fusion", False),
                   pretrained_embeddings=info.pretrained_embeddings, device=device,
@@ -117,9 +130,97 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
             pretrained_entity_embeddings=info.pretrained_entity_embeddings,
             **common,
         )
+    if name == "naml":
+        return NAML(
+            info.vocab_size,
+            num_categories=info.num_categories,
+            attributes2encode=tuple(cfg.get("attributes2encode",
+                                            ("title", "abstract", "category"))),
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            categ_embed_dim=cfg.get("categ_embed_dim", 100),
+            num_filters=cfg.get("num_filters", 400),
+            window_size=cfg.get("window_size", 3),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            **common,
+        )
+    if name == "tanr":
+        return TANR(
+            info.vocab_size,
+            num_categories=info.num_categories,
+            embed_dim=cfg.get("embed_dim", 300),
+            num_heads=cfg.get("num_heads", 15),
+            num_filters=cfg.get("num_filters", 400),
+            window_size=cfg.get("window_size", 3),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            topic_pred_loss_coef=cfg.get("topic_pred_loss_coef", 0.2),
+            **common,
+        )
+    if name == "lstur":
+        return LSTUR(
+            info.vocab_size,
+            num_users=info.num_users,
+            num_categories=info.num_categories,
+            attributes2encode=tuple(cfg.get("attributes2encode",
+                                            ("title", "abstract", "category"))),
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            categ_embed_dim=cfg.get("categ_embed_dim", 100),
+            num_filters=cfg.get("num_filters", 300),
+            window_size=cfg.get("window_size", 3),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            user_masking_probability=cfg.get("user_masking_probability", 0.5),
+            long_short_term_method=cfg.get("long_short_term_method", "ini"),
+            **common,
+        )
+    if name == "npa":
+        return NPA(
+            info.vocab_size,
+            num_users=info.num_users,
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            user_embed_dim=cfg.get("user_embed_dim", 50),
+            num_filters=cfg.get("num_filters", 400),
+            window_size=cfg.get("window_size", 3),
+            word_pref_query_dim=cfg.get("word_pref_query_dim", 200),
+            news_pref_query_dim=cfg.get("news_pref_query_dim", 200),
+            dropout=d,
+            **common,
+        )
+    if name == "miner":
+        return MINER(
+            info.vocab_size,
+            num_categories=info.num_categories,
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            news_embed_dim=cfg.get("news_embed_dim", 256),
+            num_heads=cfg.get("num_heads", 15),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            use_categ_bias=cfg.get("use_categ_bias", True),
+            categ_embed_dim=cfg.get("categ_embed_dim", 100),
+            num_context_codes=cfg.get("num_context_codes", 32),
+            context_code_dim=cfg.get("context_code_dim", 200),
+            score_type=cfg.get("score_type", "weighted"),
+            pretrained_categ_embeddings=info.pretrained_categ_embeddings,
+            **common,
+        )
+    if name == "dkn":
+        return DKN(
+            info.vocab_size,
+            entity_vocab_size=info.entity_vocab_size,
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            entity_embed_dim=cfg.get("entity_embed_dim", 100),
+            num_filters=cfg.get("num_filters", 100),
+            window_sizes=tuple(cfg.get("window_sizes", (1, 2, 3, 4))),
+            use_context=cfg.get("use_context", True),
+            use_entities=cfg.get("use_entities", True),
+            hidden_dim_dnn=cfg.get("hidden_dim_dnn", 16),
+            pretrained_entity_embeddings=info.pretrained_entity_embeddings,
+            **common,
+        )
     raise NotImplementedError(
-        f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); the port builds "
-        f"{', '.join(PORTED_MODELS)}")
+        f'model {name!r} is not ported yet (ROADMAP queue 1, "FairRec models"); the port '
+        f"builds {', '.join(PORTED_MODELS)}")
 
 
 def build_loss(cfg: Dict) -> Callable:

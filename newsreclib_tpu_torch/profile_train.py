@@ -1,7 +1,8 @@
 """Where the time of a train step goes, on one NVIDIA card.
 
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
-        [--model {nrms,mins,cen_news_rec,caum}] [--json OUT.jsonl]
+        [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn}]
+        [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
 ``newsreclib_tpu/configs/model/nrms.yaml`` (D = 300, 15 heads of 20, query
@@ -15,9 +16,9 @@ negatives, history 50, ``u_bucket_min`` 512, ``split_title_len`` 16) over
 the ``bench.py`` workload regenerated from seed 0 (32,768 articles, 16,384
 impressions, one positive each).  Two batch sizes: 64 (the data config)
 and 256 (``bench.py``'s train step: 256 impressions of 5 candidates).
-``--model`` takes MINS, CenNewsRec or CAUM from ``models/factory.py`` at
-their config files' widths instead (the workload's articles carry
-abstracts, subcategories and entities for them).
+``--model`` takes another model of ``models/factory.py`` at its config
+file's widths instead (the workload's articles carry abstracts,
+subcategories and entities, its impressions user ids, for them).
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -57,20 +58,25 @@ DATA = dict(max_history_len=50, neg_sampling_ratio=4, seed=0, u_bucket_min=512,
 LEARNING_RATE = 1e-4
 BATCH_SIZES = (64, 256)
 WARMUP = 5
-# attention calls of each model's news encoder on one news segment: MINS
-# encodes title and abstract with its attention, the others titles alone
-TEXT_ATTENTIONS = {"nrms": 1, "mins": 2, "cen_news_rec": 1, "caum": 1}
+# attention calls of each model's news encoder on one news segment (MINS
+# encodes title and abstract with its attention, NRMS, CenNewsRec, CAUM and
+# MINER titles alone; NAML, TANR, LSTUR, NPA and DKN have no MHSA) and of its
+# user encoder on one batch
+TEXT_ATTENTIONS = {"nrms": 1, "mins": 2, "cen_news_rec": 1, "caum": 1, "miner": 1, "naml": 0,
+                   "tanr": 0, "lstur": 0, "npa": 0, "dkn": 0}
+USER_ATTENTIONS = {"nrms": 1, "mins": 1, "cen_news_rec": 1, "caum": 1}
 
 
 def build_cell_model(model: str, device):
     """``model`` from the factory at its config file's widths, a
-    ``VOCAB_SIZE`` vocabulary, random weights from seed 0."""
+    ``VOCAB_SIZE`` vocabulary, the serving workload's entity and user
+    counts, random weights from seed 0."""
     from newsreclib_tpu_torch.config.compose import compose
-    from newsreclib_tpu_torch.data.synthetic import SERVING_ENTITIES
+    from newsreclib_tpu_torch.data.synthetic import SERVING_ENTITIES, SERVING_USERS
     from newsreclib_tpu_torch.models import factory
 
     info = factory.DataInfo(vocab_size=VOCAB_SIZE, num_subcategories=50,
-                            entity_vocab_size=SERVING_ENTITIES)
+                            entity_vocab_size=SERVING_ENTITIES, num_users=SERVING_USERS)
     return factory.build_model(compose(overrides=[f"model={model}"])["model"], info,
                                device=device, seed=0)
 
@@ -93,8 +99,9 @@ def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
 def attention_launches(batch, model: str = "nrms") -> int:
     """Attention kernel launches of one train step of ``model`` on
     ``batch``, each of the forward and of the backward kernel: the news
-    encoder's per news segment and one for the user encoder."""
-    return TEXT_ATTENTIONS[model] * (1 + (batch.news2 is not None)) + 1
+    encoder's per news segment and the user encoder's."""
+    return (TEXT_ATTENTIONS[model] * (1 + (batch.news2 is not None))
+            + USER_ATTENTIONS.get(model, 0))
 
 
 def _sync_s(fn) -> float:

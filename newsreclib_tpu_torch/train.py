@@ -12,9 +12,10 @@ best checkpoint, and write ``metrics.csv``, ``hparams.json`` and
 It runs on the card (``cuda``) and raises without one; ``platform=cpu`` (or
 ``NEWSRECLIB_PLATFORM=cpu``) runs it on the CPU.  Precision follows
 ``trainer.precision``: float32 unless it names bf16.  Runs write under
-``outputs/torch/`` unless ``output_dir`` is given.  Only NRMS on MIND-format
-data is ported; the other models, datasets and special trainers raise
-``NotImplementedError`` naming their ROADMAP item.
+``outputs/torch/`` unless ``output_dir`` is given.  The models of
+``models/factory.py::PORTED_MODELS`` on MIND-format data are ported; the
+other models, datasets and special trainers raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,8 +49,9 @@ log = logging.getLogger("newsreclib_tpu_torch")
 DEFAULT_OVERRIDES = ("output_dir=outputs/torch/${model.name}_${data.name}",)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    """``item``: the name of the ROADMAP queue 1 item that ports ``what``."""
+    return NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1, "{item}")')
 
 
 def select_device(cfg: Dict) -> torch.device:
@@ -67,16 +69,31 @@ def select_device(cfg: Dict) -> torch.device:
 
 
 def check_single_device(cfg: Dict) -> None:
-    """Refuse the JAX package's multi-device settings (ROADMAP queue 1, item 10)."""
+    """Refuse the JAX package's multi-device settings (ROADMAP queue 1, "Multi-GPU")."""
     tc = cfg.get("trainer", {})
     if tc.get("distributed"):
-        raise _not_ported("multi-host training", 10)
+        raise _not_ported("multi-host training", "Multi-GPU")
     if int(tc.get("model_axis", 1)) > 1 or tc.get("tp_transformer"):
-        raise _not_ported("model-axis sharding and tensor parallelism", 10)
+        raise _not_ported("model-axis sharding and tensor parallelism", "Multi-GPU")
     if tc.get("devices", "all") not in ("all", None, -1, 1):
-        raise _not_ported("data parallelism over several devices", 10)
+        raise _not_ported("data parallelism over several devices", "Multi-GPU")
     if cfg.get("data", {}).get("global_rows"):
-        raise _not_ported("global-row training", 10)
+        raise _not_ported("global-row training", "Multi-GPU")
+
+
+def check_dkn_title_split(model_name: str, dc: Dict) -> None:
+    """DKN's KCNN aligns one entity id per title position and cuts the
+    entities to the title width, so a short title segment narrower than the
+    entity width would drop entity ids: refuse it, as the repository's
+    ``train.py`` does."""
+    split_len = dc.get("split_title_len", 16)
+    if split_len is None or model_name != "dkn":
+        return
+    ents_w = dc.get("max_entities", 10)
+    if split_len < ents_w:
+        raise AssertionError(
+            f"DKN needs data.split_title_len ({split_len}) >= data.max_entities ({ents_w}); "
+            f"KCNN entity ids would be truncated in the short title segment")
 
 
 def setup_data(cfg: Dict) -> MINDData:
@@ -85,12 +102,13 @@ def setup_data(cfg: Dict) -> MINDData:
     dc = cfg["data"]
     dataset = dc.get("dataset", "mind")
     if dataset != "mind":
-        raise _not_ported(f"the {dataset} dataset", 7)
+        raise _not_ported(f"the {dataset} dataset", "Other datasets")
     news_tsv = os.path.join(dc["data_dir"], f"MIND{dc['dataset_size']}_train", "news.tsv")
     fixture = dc.get("generate_fixture")
     if fixture and not os.path.exists(news_tsv):
         if fixture != "statfix":
-            raise _not_ported(f"the {fixture!r} fixture generator", 7)
+            raise _not_ported(f"the {fixture!r} fixture generator",
+                              "FairRec models" if fixture == "statfix2" else "Other datasets")
         from newsreclib_tpu_torch.data.statfix import write_mind_small_statfix
 
         t0 = time.time()
@@ -123,7 +141,7 @@ def build_optimizer(cfg: Dict, steps_per_epoch: int = 0):
     mc = cfg["model"]
     opt_cfg = mc.get("optimizer", {})
     if mc.get("frozen_layers") is not None and mc.get("use_plm"):
-        raise _not_ported("PLM layer freezing", 8)
+        raise _not_ported("PLM layer freezing", "PLM tower")
     total_steps = opt_cfg.get("total_steps") or (
         steps_per_epoch * cfg["trainer"].get("max_epochs", 20))
     return make_optimizer(
@@ -173,10 +191,11 @@ def build_run(cfg: Dict) -> Run:
     check_single_device(cfg)
     mc, dc, tc = cfg["model"], cfg["data"], cfg["trainer"]
     if mc["name"] == "manner_a" or mc.get("adversarial"):
-        raise _not_ported(f"the {mc['name']} trainer", 9)
+        raise _not_ported(f"the {mc['name']} trainer", "FairRec models")
     if cfg.get("save_recs"):
-        raise NotImplementedError("CachedScorer.export_recommendations (save_recs) is not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
+        raise _not_ported("CachedScorer.export_recommendations (save_recs)",
+                          "Entry points around serving")
+    check_dkn_title_split(mc["name"], dc)
     out_dir = cfg["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
     write_config_tree(cfg, out_dir)

@@ -6,7 +6,7 @@ encode the corpus once per parameter version, then gather and score)
 whenever the model has ``encode_news`` / ``score_with_vectors`` and
 ``limit_eval_batches`` is unset; otherwise it streams ``EvalBatcher``
 batches through the eval step (``StreamingEval``).  The JAX package's mesh,
-multi-host and global-row branches are not ported (ROADMAP queue 1, item 10)
+multi-host and global-row branches are not ported (ROADMAP queue 1, "Multi-GPU")
 and raise if asked for.
 """
 
@@ -29,7 +29,8 @@ from newsreclib_tpu_torch.training.steps import make_eval_step, make_train_step
 
 log = logging.getLogger("newsreclib_tpu_torch")
 
-_MULTI_DEVICE = "is not ported yet (ROADMAP queue 1, item 10); the port trains on one device"
+_MULTI_DEVICE = ('is not ported yet (ROADMAP queue 1, "Multi-GPU"); the port trains on one '
+                 "device")
 
 
 @dataclass

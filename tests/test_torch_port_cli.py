@@ -160,13 +160,13 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["model=naml"], "item 6"),
-    (["data=adressa_demo"], "item 7"),
-    (["data.generate_fixture=true", "data.data_dir={empty}"], "item 7"),
-    (["model.use_plm=true"], "item 8"),
-    (["model.adversarial=true"], "item 9"),
-    (["trainer.model_axis=2"], "item 10"),
-    (["trainer.devices=4"], "item 10"),
+    (["model=sentirec"], '"FairRec models"'),
+    (["data=adressa_demo"], '"Other datasets"'),
+    (["data.generate_fixture=true", "data.data_dir={empty}"], '"Other datasets"'),
+    (["model.use_plm=true"], '"PLM tower"'),
+    (["model.adversarial=true"], '"FairRec models"'),
+    (["trainer.model_axis=2"], '"Multi-GPU"'),
+    (["trainer.devices=4"], '"Multi-GPU"'),
 ])
 def test_unported_routes_raise(tmp_path, overrides, item):
     from newsreclib_tpu_torch.train import main

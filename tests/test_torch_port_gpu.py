@@ -2,7 +2,7 @@
 version, the backward kernel against ``mhsa_backward`` and autograd of the
 plain version, ``FusedSmallMHSA``'s gradient, the NRMS serving path and
 train step with the kernels against the same paths with the plain
-attention.  They need an NVIDIA card and skip without one;
+attention, and a train step of each zoo model.  They need an NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
@@ -493,3 +493,34 @@ def test_element_checks_reject_the_planted_faults_at_the_plm_shape(cuda, dtype):
     for fault in chip_smoke.ELEMENT_FAULTS[dtype_name(dtype)]:
         with pytest.raises(AssertionError):
             check_backward(512, 96, dtype, d=768, h=16, **faults[fault])
+
+
+@pytest.mark.parametrize("name", ["naml", "tanr", "lstur", "npa", "miner", "dkn"])
+def test_glove_zoo_model_trains_a_step_on_the_card(cuda, name):
+    """NAML, TANR, LSTUR, NPA, MINER and DKN from the factory at their
+    config files' widths build on the card and take one float32 train step
+    (dropout and LSTUR's user masking on) with a finite loss and finite
+    scores; MINER's title encoder launches the forward and the backward
+    kernel once per news segment, the others launch neither."""
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    cfg = SyntheticConfig(vocab_size=5000, entity_vocab_size=800)
+    batch = to_device(make_batch(np.random.default_rng(0), batch_size=16, unique_news=256,
+                                 cfg=cfg), cuda)
+    info = factory.DataInfo(vocab_size=5000, entity_vocab_size=800, num_users=cfg.num_users)
+    model = factory.build_model(compose(overrides=[f"model={name}"])["model"], info, device=cuda)
+    state = create_train_state(model, make_optimizer(1e-4), dropout_seed=0)
+    before = mhsa.launches, mhsa.bwd_launches
+    loss = make_train_step(cross_entropy_loss)(state, batch)[1]["loss"]
+    n = 1 + (batch.news2 is not None) if name == "miner" else 0
+    assert (mhsa.launches, mhsa.bwd_launches) == (before[0] + n, before[1] + n)
+    assert bool(torch.isfinite(loss))
+    with torch.no_grad():
+        scores, _ = state.model(batch)
+    assert scores.shape == batch.cand_idx.shape and bool(torch.isfinite(scores).all())

@@ -1,9 +1,10 @@
 """The port runs without JAX: the machine with the card has no jax, flax,
 optax, orbax, pandas or yaml.  A subprocess blocks those imports and the JAX
 package, then drives the serving slice and two training steps on the CPU;
-another builds MINS, CenNewsRec and CAUM and trains each a step; another
-runs the training CLI (config composition, ETL, fit, checkpoints,
-test) on a copy of the raw demo files.  The port's sources, ``chip_smoke.py``
+two more build MINS, CenNewsRec and CAUM, and NAML, TANR, LSTUR, NPA, MINER
+and DKN, and train each a step; another runs the training CLI (config
+composition, ETL, fit, checkpoints, test) on a copy of the raw demo files.
+The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
 import json
@@ -113,9 +114,10 @@ from newsreclib_tpu_torch.training.steps import make_train_step
 
 store, imp = make_serving_workload(np.random.default_rng(0), corpus=200, n_impressions=30,
                                    hist_len=10, num_candidates=6, vocab_size=500)
-info = factory.DataInfo(vocab_size=500, entity_vocab_size=800, num_subcategories=50)
+info = factory.DataInfo(vocab_size=500, entity_vocab_size=800, num_subcategories=50,
+                        num_users=1000)
 losses = {}
-for name in ("mins", "cen_news_rec", "caum"):
+for name in sys.argv[1:]:
     model = factory.build_model({"name": name}, info, device="cpu")
     state = create_train_state(model, make_optimizer(1e-3))
     batch = next(TrainBatcher(store, imp, batch_size=4, max_history_len=10, u_bucket_min=64,
@@ -128,18 +130,27 @@ print(json.dumps({"losses": losses, "loaded": loaded}))
 """ % (BLOCKED, BLOCKED)
 
 
-def test_zoo_models_train_with_jax_blocked():
-    """MINS, CenNewsRec and CAUM from the factory at their default widths,
-    one train step each, with JAX, flax, pandas, yaml and the JAX package
-    blocked."""
+def _train_zoo_blocked(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
-    proc = subprocess.run([sys.executable, "-c", ZOO_SCRIPT], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", ZOO_SCRIPT, *names], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    assert sorted(out["losses"]) == ["caum", "cen_news_rec", "mins"]
+    assert sorted(out["losses"]) == sorted(names)
     assert all(0 < v < 10 for v in out["losses"].values())
+
+
+def test_zoo_models_train_with_jax_blocked():
+    """MINS, CenNewsRec and CAUM from the factory at their default widths,
+    one train step each, with JAX, flax, pandas, yaml and the JAX package
+    blocked."""
+    _train_zoo_blocked(["mins", "cen_news_rec", "caum"])
+
+
+def test_glove_zoo_models_train_with_jax_blocked():
+    """NAML, TANR, LSTUR, NPA, MINER and DKN, the same way."""
+    _train_zoo_blocked(["naml", "tanr", "lstur", "npa", "miner", "dkn"])
 
 
 def test_port_sources_import_no_jax():

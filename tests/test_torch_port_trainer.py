@@ -241,9 +241,9 @@ def test_non_finite_loss_stops_the_epoch(tmp_path):
 
 def test_trainer_refuses_mesh_and_global_rows(tmp_path):
     make_state, loss_fn, _, _ = small_setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
         Trainer(make_state(), loss_fn, TrainerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
         Trainer(make_state(), loss_fn, TrainerConfig(), u_bucket=512)
 
 
