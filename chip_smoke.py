@@ -75,7 +75,26 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    are held against the plain versions and timed, where the same checks
    must reject the planted faults of ``ELEMENT_FAULTS`` (logits 10% too
    large, the gradient's rowsum term dropped);
-8. the models without an MHSA, NAML, TANR, LSTUR, NPA and DKN, at their
+8. the FairRec phase: SentiRec, SentiDebias and MANNeR's CR module
+   (``FAIR``) at their config files' widths through the zoo phase's checks
+   (exact launches a step, the route check with the planted faults, the
+   served epoch against the plain route); SentiDebias trains with its
+   alternating generator / discriminator step (forward launches 2 x
+   segments + 2, backward segments + 2) and serves its bias-free scores;
+   MANNeR's attention over title and abstract side by side runs the wide
+   instances at every launch.  Then MANNeR's A-modules for the category and
+   the sentiment aspect, ``ASPECT_STEPS`` SupCon steps each on m-per-class
+   batches (one wide launch each way a step, the plain route's losses; the
+   trained embeddings no further from the plain route's than those of
+   ``tolerance_attention``, keys unmasked further), and the ensemble of a
+   CR module and both towers served over ``ZOO_IMPRESSIONS`` impressions
+   (one wide launch a corpus chunk per module, metrics and served scores
+   against the plain route's).  SentiDebias's bf16 route is logged, not
+   held (``CHAOTIC_ROUTES``), and so is its bf16 served-score fault check
+   (``LOOSE_SERVED_ROUTES``).  The zoo
+   kernel phase of step 7 also holds and times both kernels at
+   ``kernel_bench.MANNER_SHAPES`` with the planted element faults;
+9. the models without an MHSA, NAML, TANR, LSTUR, NPA and DKN, at their
    config files' widths on the same store and impressions (which carry
    user ids): ``ZOO_STEPS`` train steps each in float32 and bf16 compute
    with finite losses and no kernel launch; in float32 with TF32 off, the
@@ -85,7 +104,7 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    the served scores of one ``CachedScorer`` epoch equal to the fused
    forward's on the same impressions (NAML, TANR, LSTUR, DKN), and NPA's
    eval-step metrics through the trainer, card against CPU;
-9. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
+10. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
    ``build/smoke_demo``: ETL from the raw files, 2 epochs with cached
@@ -97,10 +116,13 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    best and last checkpoints must exist, and the best checkpoint restored
    into a new trainer must give the same ``test/auc`` (1e-6) and, with the
    plain attention, the same test metrics (``METRIC_ATOL``);
-10. prints one ``{"kernels": [...]}`` line (the wide instances' own
+11. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
-   ``hd100_*``; the D = 400 float32 times under ``d400_f32_*``; MINER's
-   launches under ``miner_launches``) and, last, ``{"ok": true, ...}``.
+   ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
+   ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
+   ``d400_f32_*``; MINER's launches under ``miner_launches``, the FairRec
+   models' under ``fair_launches``, the A-modules' and the ensemble's under
+   ``aspect_ensemble_launches``) and, last, ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build and the CLI phase's data copy
@@ -182,8 +204,23 @@ ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
 # There the route is logged with that spread and not held; MINER's kernel
 # route in bf16 is held by the served-score check (the unmasked fault
 # beyond), by its float32 route check and by the element checks of the same
-# kernel instances (NRMS's).
-CHAOTIC_ROUTES = {("miner", "bfloat16")}
+# kernel instances (NRMS's).  SentiDebias in bf16 compute: its adversarial
+# game (G maximises D's loss) at lr 1e-3, 100 times its configured rate,
+# swings between 2 and 10; on an H100 (this script) the kernel route differed
+# from the plain one by 1.08 over the 20 steps, and on the CPU, where both
+# routes are plain PyTorch and differ only in the order of the attention
+# gradient's sums, by 0.94 (keys unmasked: 5.4 and 4.2).  Its float32 route
+# is held (8.6e-6 on the H100), its bf16 kernel route by the served scores.
+CHAOTIC_ROUTES = {("miner", "bfloat16"), ("senti_debias", "bfloat16")}
+# Served-score fault checks that cannot be held: SentiDebias in bf16.  After
+# its bf16 route its served scores are at most 0.014 in magnitude, and the
+# bf16 tolerance attention (2e-2 + 1e-2 |x| at every attention output) moves
+# them by 0.0151, more than keys unmasked do (0.0115; one H100 run), so that
+# yardstick cannot tell the fault.  The kernel's own gap (6.3e-5) is still
+# held within it; keys unmasked are caught by SentiDebias's float32 route
+# and served checks and by SentiRec's bf16 checks, which run the same kernel
+# instances at the same shapes.
+LOOSE_SERVED_ROUTES = {("senti_debias", "bfloat16")}
 # The models without an MHSA (module doc, phase 8): held, in float32 with
 # TF32 off, against the port on the CPU from the same weights and batch (of
 # CARD_CPU_BATCH impressions; dropout and LSTUR's user masking off, since a
@@ -209,6 +246,21 @@ ELEMENT_FAULTS = {"float32": ("scaled", "rowsum"), "bfloat16": ("rowsum",)}
 # PLM-mode title length 96 and the JAX package's PLM operating point U = 512,
 # and CAUMUserEncoder's default of 4 heads over 400 (head dim 100).
 BOX_SHAPES = {"plm": (512, 96, 768, 16), "hd100": (64, 50, 400, 4)}
+# The FairRec phase: SentiRec, SentiDebias and MANNeR's CR module through the
+# zoo phase's checks (SentiDebias with its alternating G / D step: forward
+# launches 2 x segments + 2, backward segments + 2 a step, and served
+# through its bias-free scores, one user attention a batch), then MANNeR's
+# A-modules (category and sentiment) for ASPECT_STEPS SupCon steps on
+# m-per-class batches and the ensemble of the CR module and both towers
+# served over ZOO_IMPRESSIONS impressions.  MANNeR's attention runs at L =
+# title + abstract width (66 and 80 on the workload's batches), 15 heads of
+# 20: the wide instances, every launch.
+FAIR = ("sentirec", "senti_debias", "manner_cr")
+WIDE_MODELS = ("mins", "manner_cr")  # models whose train steps launch the wide instances
+ALL_WIDE_MODELS = ("manner_cr",)  # ... at every launch
+SERVED_USER_ATTENTIONS = {"senti_debias": 1}  # served: the bias-free user alone
+ASPECTS, ASPECT_STEPS = ("category", "sentiment"), 4
+ENSEMBLE_WEIGHTS = {"category": 0.1, "sentiment": 0.1}  # manner_ensemble_statfix's
 
 
 def log(*a):
@@ -436,19 +488,16 @@ def planted_batch():
 
 def route_losses(batches, cdtype, lr, attention, model="nrms"):
     """Per-step losses of a fresh ``model`` cell (``profile_train``'s init,
-    Adam, cross-entropy, dropout seed 0) over ``batches`` with every MHSA's
-    attention set to ``attention`` (``set_attention``), and the trained
-    model."""
+    Adam, the config file's loss, dropout seed 0; SentiDebias's alternating
+    step and its G loss) over ``batches`` with every MHSA's attention set to
+    ``attention`` (``set_attention``), and the trained model (SentiDebias:
+    its generator)."""
     import torch
 
-    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
-    from newsreclib_tpu_torch.profile_train import build_cell_model
-    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
-    from newsreclib_tpu_torch.training.steps import make_train_step
+    from newsreclib_tpu_torch.profile_train import cell_state_and_step
 
-    st = create_train_state(set_attention(build_cell_model(model, "cuda"), attention),
-                            make_optimizer(lr), dropout_seed=0)
-    stp = make_train_step(cross_entropy_loss, cdtype)
+    st, stp = cell_state_and_step(model, "cuda", cdtype, lr)
+    set_attention(st.model, attention)
     return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu(), st.model
 
 
@@ -546,7 +595,7 @@ def training_phase(card: str, store, imp):
 
 def cli_phase(card: str):
     """The training CLI on the demo data at full NRMS width (module doc,
-    phase 9).  Returns the forward and backward kernel launches of the run
+    phase 10).  Returns the forward and backward kernel launches of the run
     and the phase's wall time in seconds."""
     import shutil
 
@@ -642,7 +691,8 @@ def zoo_serving_launches(name, store, imp) -> int:
     chunks = sum(math.ceil(len(rows) / ENCODE_BATCH)
                  for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
     buckets = BucketedAssembler(imp, SERVING["hist_len"], TARGET_CELLS).buckets
-    return TEXT_ATTENTIONS[name] * chunks + USER_ATTENTIONS.get(name, 0) * sum(
+    users = SERVED_USER_ATTENTIONS.get(name, USER_ATTENTIONS.get(name, 0))
+    return TEXT_ATTENTIONS[name] * chunks + users * sum(
         math.ceil(len(idx) / max(1, TARGET_CELLS // c)) for c, idx in buckets.items())
 
 
@@ -668,14 +718,19 @@ def served_scores(model, store, imp, cdtype, attention):
             b.cand_mask & b.impression_valid[:, None]] for b in batches])
 
 
-def zoo_phase(card: str, store, imp):
-    """MINS, CenNewsRec, CAUM and MINER, each at its config file's widths,
-    in float32 and bf16 compute (module doc, step 7):
+def zoo_phase(card: str, store, imp, models=ZOO):
+    """MINS, CenNewsRec, CAUM and MINER (``models``: the FairRec phase runs
+    SentiRec, SentiDebias and MANNeR's CR module through it), each at its
+    config file's widths, in float32 and bf16 compute (module doc, step 7;
+    the FairRec models, step 8):
 
-    * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2) on ``TrainBatcher``
-      batches (batch 64, K = 4, history 50, split at 16): the kernel route
-      must launch the forward and the backward kernel exactly once per
-      attention call;
+    * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2, the config's loss;
+      SentiDebias's alternating step) on ``TrainBatcher`` batches (batch 64,
+      K = 4, history 50, split at 16): the kernel route must launch the
+      forward and the backward kernel exactly as often as the step's
+      attention calls (``profile_train.attention_launches``), and the wide
+      instances for exactly the models of ``WIDE_MODELS``, every launch of
+      MANNeR's;
     * the route check: ROUTE_STEPS steps at PLANTED_LR on the planted-signal
       batch from the same init and dropout seeds with the kernels, with the
       plain attention and with each planted fault; the per-step losses of the
@@ -698,24 +753,19 @@ def zoo_phase(card: str, store, imp):
 
     from newsreclib_tpu_torch.data.batch import to_device
     from newsreclib_tpu_torch.data.batching import TrainBatcher
-    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
     from newsreclib_tpu_torch.ops import mhsa
-    from newsreclib_tpu_torch.profile_train import DATA, attention_launches, build_cell_model
+    from newsreclib_tpu_torch.profile_train import DATA, attention_launches, cell_state_and_step
     from newsreclib_tpu_torch.serving import CachedScorer
-    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
-    from newsreclib_tpu_torch.training.steps import make_train_step
 
     sub = imp.subset(ZOO_IMPRESSIONS)
     planted = [planted_batch()] * ROUTE_STEPS
     counts = np.zeros(4, dtype=np.int64)  # forward, backward, wide forward, wide backward
-    by_model = {name: np.zeros(4, dtype=np.int64) for name in ZOO}
-    for name in ZOO:
+    by_model = {name: np.zeros(4, dtype=np.int64) for name in models}
+    for name in models:
         for dname, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
-            state = create_train_state(build_cell_model(name, "cuda"), make_optimizer(1e-4),
-                                       dropout_seed=0)
-            step = make_train_step(cross_entropy_loss, cdtype)
+            state, step = cell_state_and_step(name, "cuda", cdtype, 1e-4)
             batches = TrainBatcher(store, imp, batch_size=TRAIN_BATCH, **DATA).epoch(0)
-            calls, out = 0, []
+            calls, bwd_calls, out = 0, 0, []
             torch.cuda.synchronize()
             mhsa.launches = mhsa.bwd_launches = 0
             mhsa.wide_launches = mhsa.wide_bwd_launches = 0
@@ -723,6 +773,7 @@ def zoo_phase(card: str, store, imp):
             for _ in range(ZOO_STEPS):
                 b = next(batches)
                 calls += attention_launches(b, name)
+                bwd_calls += attention_launches(b, name, backward=True)
                 out.append(step(state, to_device(b, "cuda"))[1]["loss"])
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
@@ -733,15 +784,17 @@ def zoo_phase(card: str, store, imp):
             out = torch.stack(out).cpu()
             log(f"zoo {name} {dname}: {ZOO_STEPS} train steps at batch {TRAIN_BATCH}, "
                 f"{step_ms:.2f} ms a step on {card}; kernel launches {got[0]} forward / "
-                f"{got[1]} backward ({calls} attention calls; {got[2]} wide); losses "
-                f"{[round(x, 5) for x in out.tolist()]}")
-            if got[0] != calls or got[1] != calls:
+                f"{got[1]} backward ({calls} / {bwd_calls} attention calls; {got[2]} / "
+                f"{got[3]} wide); losses {[round(x, 5) for x in out.tolist()]}")
+            if got[0] != calls or got[1] != bwd_calls:
                 raise AssertionError(f"zoo {name} {dname}: {got[0]} forward and {got[1]} "
-                                     f"backward kernel launches ({calls} expected)")
+                                     f"backward kernel launches ({calls} and {bwd_calls} "
+                                     "expected)")
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"zoo {name} {dname} train losses not finite: {out}")
-            if (got[2] > 0) != (name == "mins"):
-                raise AssertionError(f"zoo {name}: {got[2]} wide launches")
+            if (got[2] > 0) != (name in WIDE_MODELS) or (
+                    name in ALL_WIDE_MODELS and tuple(got[2:]) != tuple(got[:2])):
+                raise AssertionError(f"zoo {name}: {got[2]} / {got[3]} wide launches")
             del state
 
             kernel, model = route_losses(planted, cdtype, PLANTED_LR, None, name)
@@ -781,9 +834,11 @@ def zoo_phase(card: str, store, imp):
                                               ).evaluate(store, sub, **EVAL)
                 launches = mhsa.launches
                 want = zoo_serving_launches(name, store, sub) if route == "kernel" else 0
-                if launches != want:
+                if launches != want or (route == "kernel" and name in ALL_WIDE_MODELS
+                                        and mhsa.wide_launches != launches):
                     raise AssertionError(f"zoo {name} {dname} {route} serving epoch: {launches}"
-                                         f" kernel launches ({want} expected)")
+                                         f" kernel launches, {mhsa.wide_launches} wide ({want}"
+                                         " expected)")
                 if route == "kernel":
                     counts[0] += launches
                     counts[2] += mhsa.wide_launches
@@ -800,19 +855,20 @@ def zoo_phase(card: str, store, imp):
             gaps = {r: (s - want_s).abs().max().item() for r, s in scores.items()}
             limit = gaps.pop("tolerance")
             ratio = {r: g / limit for r, g in gaps.items()}
+            loose = (name, dname) in LOOSE_SERVED_ROUTES
             log(f"zoo {name} {dname}: served metrics over {ZOO_IMPRESSIONS} impressions "
                 f"(auc {got['auc']:.4f}), {served_launches} kernel launches; kernel vs plain "
                 f"attention max abs diff {diff:.3g} (tolerance {METRIC_ATOL[dname]}); "
                 f"{want_s.numel()} served scores (max |plain| {want_s.abs().max().item():.4g}), "
                 f"max abs diff from the plain route's: {json.dumps(gaps)}, over the tolerance "
                 f"attention's {limit:.4g}: {json.dumps(ratio)} (kernel within 1, faults "
-                f"{list(ZOO_FAULTS[dname])} beyond)")
+                f"{list(ZOO_FAULTS[dname])} beyond{'; not held (LOOSE_SERVED_ROUTES)' * loose})")
             if bad or set(got) != set(want) or diff > METRIC_ATOL[dname]:
                 raise AssertionError(f"zoo {name} {dname} served metrics differ: {got} vs {want}")
             if not bool(torch.isfinite(scores["kernel"]).all()) or not ratio["kernel"] <= 1:
                 raise AssertionError(f"zoo {name} {dname}: served scores differ from the "
                                      f"plain route's: {ratio}")
-            missed = [f for f in ZOO_FAULTS[dname] if not ratio[f] > 1]
+            missed = [f for f in ZOO_FAULTS[dname] if not ratio[f] > 1 and not loose]
             if missed:
                 raise AssertionError(f"zoo {name} {dname}: the served-score check does not "
                                      f"tell the planted faults {missed} from the plain route")
@@ -885,7 +941,7 @@ def fused_scores(model, store, imp, margin):
 
 def zoo2_phase(card: str, store, imp):
     """NAML, TANR, LSTUR, NPA and DKN, which run no attention kernel, each
-    at its config file's widths (module doc, step 8):
+    at its config file's widths (module doc, step 9):
 
     * ZOO_STEPS train steps (Adam lr 1e-4, dropout 0.2, LSTUR's user masking
       0.5) on ``TrainBatcher`` batches of TRAIN_BATCH impressions, in
@@ -1004,6 +1060,132 @@ def zoo2_phase(card: str, store, imp):
     return worst
 
 
+def aspect_phase(card: str, store, imp):
+    """MANNeR's A-modules and ensemble (module doc, step 8):
+
+    * for each aspect of ``ASPECTS``, an A-module at ``manner_a.yaml``'s
+      widths trained ``ASPECT_STEPS`` SupCon steps (Adam lr 1e-4, dropout
+      0.2, float32) on ``MPerClassNewsBatcher`` batches of the store (64
+      articles, 8 a class; title and abstract side by side, L = 80): one
+      forward and one backward launch a step, both wide; the same steps on
+      the plain attention give the same losses (``ROUTE_ATOL``); the trained
+      embeddings of the first batch differ from the plain route's by no
+      more than those trained with ``tolerance_attention``, and with keys
+      unmasked by more (the SupCon loss of a fresh tower barely moves in a
+      few steps, so the losses cannot tell that fault);
+    * the ensemble of a CR module at ``manner_cr.yaml``'s widths and both
+      towers (``ENSEMBLE_WEIGHTS``) serves one ``CachedScorer`` epoch over
+      the first ZOO_IMPRESSIONS impressions: one wide launch a corpus chunk
+      for each of the three modules, metrics within ``METRIC_ATOL`` of the
+      plain route's, served scores no further from the plain route's than
+      those of ``tolerance_attention``, the unmasked fault's further.
+
+    Returns the forward, backward, wide forward and wide backward launches
+    of the A-module steps and of the served epoch, and the ensemble's
+    metrics."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.news_batching import MPerClassNewsBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.models.fair_rec import evaluate_ensemble
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import build_cell_model, cell_config, cell_info
+    from newsreclib_tpu_torch.training.aspect import make_aspect_train_step
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+
+    cfg = cell_config("manner_a")
+    counts = np.zeros(4, dtype=np.int64)
+    towers = {}
+    for aspect in ASPECTS:
+        batcher = MPerClassNewsBatcher(store, aspect, batch_size=cfg["news_batch_size"],
+                                       m_per_class=cfg["m_per_class"], seed=0)
+        batches = [to_device(b, "cuda") for _, b in zip(range(ASPECT_STEPS), batcher.epoch(0))]
+        losses, embs = {}, {}
+        for route, attention in (("kernel", None), ("plain", "plain"),
+                                 ("tolerance", tolerance_attention("float32")),
+                                 ("unmasked", unmasked_attention)):
+            model = set_attention(factory.build_manner_a(cfg, cell_info(), device="cuda",
+                                                         seed=0), attention)
+            state = create_train_state(model, make_optimizer(1e-4), dropout_seed=0)
+            step = make_aspect_train_step(cfg.get("temperature") or 0.1)
+            mhsa.launches = mhsa.bwd_launches = mhsa.wide_launches = mhsa.wide_bwd_launches = 0
+            losses[route] = torch.stack([step(state, b)[1]["loss"] for b in batches]).cpu()
+            got = np.array([mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches,
+                            mhsa.wide_bwd_launches])
+            want = [ASPECT_STEPS] * 4 if route == "kernel" else [0] * 4
+            if list(got) != want:
+                raise AssertionError(f"A-module {aspect} {route}: launches {got.tolist()} "
+                                     f"({want} expected)")
+            with torch.no_grad():
+                embs[route] = model.eval()(batches[0].news).float()
+            if route == "kernel":
+                counts += got
+                towers[aspect] = model
+        diff = (losses["kernel"] - losses["plain"]).abs().max().item()
+        gaps = {r: (embs[r] - embs["plain"]).abs().max().item()
+                for r in ("kernel", "tolerance", "unmasked")}
+        limit = gaps.pop("tolerance")
+        ratio = {r: g / limit for r, g in gaps.items()}
+        log(f"A-module {aspect}: {ASPECT_STEPS} SupCon steps on m-per-class batches "
+            f"({batches[0].news.title.shape[0]} articles, L = "
+            f"{batches[0].news.title.shape[1] + batches[0].news.abstract.shape[1]}) on {card}, "
+            f"losses {[round(x, 5) for x in losses['kernel'].tolist()]}; kernel vs plain max "
+            f"abs diff {diff:.3g} (tolerance {ROUTE_ATOL['float32']}); trained embeddings' "
+            f"max abs diff from the plain route's over the tolerance attention's "
+            f"{limit:.4g}: {json.dumps(ratio)} (kernel within 1, unmasked beyond)")
+        if not bool(torch.isfinite(losses["kernel"]).all()) or diff > ROUTE_ATOL["float32"]:
+            raise AssertionError(f"A-module {aspect}: {losses}")
+        if not ratio["kernel"] <= 1 or not ratio["unmasked"] > 1:
+            raise AssertionError(f"A-module {aspect}: trained embeddings against the plain "
+                                 f"route's: {ratio}")
+
+    sub = imp.subset(ZOO_IMPRESSIONS)
+    cr = build_cell_model("manner_cr", "cuda").eval()
+    modules = {a: (towers[a].eval(), ENSEMBLE_WEIGHTS[a]) for a in ASPECTS}
+    mhsa.launches = mhsa.wide_launches = 0
+    metrics = evaluate_ensemble(cr, modules, store, sub, max_history_len=SERVING["hist_len"],
+                                target_cells=TARGET_CELLS, device="cuda")
+    launches, wide = mhsa.launches, mhsa.wide_launches
+    probe = 1 + len(ASPECTS)  # evaluate_ensemble's one-row width probes
+    want = zoo_serving_launches("manner_cr", store, sub) * (1 + len(ASPECTS)) + probe
+    plain = evaluate_ensemble(plain_copy(cr), {a: (plain_copy(m), w) for a, (m, w)
+                                               in modules.items()},
+                              store, sub, max_history_len=SERVING["hist_len"],
+                              target_cells=TARGET_CELLS, device="cuda")
+    diff = max(abs(metrics[k] - plain[k]) for k in plain)
+    log(f"MANNeR ensemble (CR + {len(ASPECTS)} A-modules, weights {ENSEMBLE_WEIGHTS}): served "
+        f"metrics over {ZOO_IMPRESSIONS} impressions (auc {metrics['auc']:.4f}), {launches} "
+        f"kernel launches ({want} expected, {wide} wide); kernel vs plain attention max abs "
+        f"diff {diff:.3g} (tolerance {METRIC_ATOL['float32']})")
+    if launches != want or wide != launches:
+        raise AssertionError(f"MANNeR ensemble: {launches} launches, {wide} wide ({want})")
+    if set(metrics) != set(plain) or diff > METRIC_ATOL["float32"] or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"MANNeR ensemble metrics differ: {metrics} vs {plain}")
+    counts[0] += launches
+    counts[2] += wide
+
+    from newsreclib_tpu_torch.models.fair_rec import MANNeREnsemble
+
+    ens = MANNeREnsemble(cr, ASPECTS, [towers[a] for a in ASPECTS],
+                         [ENSEMBLE_WEIGHTS[a] for a in ASPECTS], cr_dim=D, aspect_dims=(D, D))
+    routes = (("kernel", None), ("plain", "plain"), ("tolerance", tolerance_attention("float32")),
+              ("unmasked", unmasked_attention))
+    scores = {r: served_scores(ens, store, sub, None, fn) for r, fn in routes}
+    want_s = scores.pop("plain")
+    gaps = {r: (x - want_s).abs().max().item() for r, x in scores.items()}
+    limit = gaps.pop("tolerance")
+    ratio = {r: g / limit for r, g in gaps.items()}
+    log(f"MANNeR ensemble: {want_s.numel()} served scores, max abs diff from the plain "
+        f"route's over the tolerance attention's {limit:.4g}: {json.dumps(ratio)} (kernel "
+        "within 1, unmasked beyond)")
+    if not ratio["kernel"] <= 1 or not ratio["unmasked"] > 1:
+        raise AssertionError(f"MANNeR ensemble served scores: {ratio}")
+    return counts, metrics
+
+
 def zoo_kernel_phase():
     """The kernels at the zoo's user-encoder shapes (``kernel_bench.ZOO_SHAPES``)
     and at ``BOX_SHAPES`` in float32 and bfloat16: forward and backward held
@@ -1013,6 +1195,7 @@ def zoo_kernel_phase():
     import torch
 
     from newsreclib_tpu_torch.kernel_bench import (
+        MANNER_SHAPES,
         ZOO_SHAPES,
         check_backward,
         dtype_name,
@@ -1025,7 +1208,7 @@ def zoo_kernel_phase():
     fwd, bwd = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = dtype_name(dtype)
-        for u, l, d, h in ZOO_SHAPES + list(BOX_SHAPES.values()):
+        for u, l, d, h in ZOO_SHAPES + list(BOX_SHAPES.values()) + MANNER_SHAPES:
             rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)], d=d, h=h)
             log("zoo_kernel_shape " + json.dumps(rec))
             fwd.append(rec)
@@ -1054,7 +1237,7 @@ def main() -> int:
     import numpy as np
 
     from newsreclib_tpu_torch.data.synthetic import make_serving_workload
-    from newsreclib_tpu_torch.kernel_bench import EXTRA_SHAPES, card_line
+    from newsreclib_tpu_torch.kernel_bench import EXTRA_SHAPES, MANNER_SHAPES, card_line
     from newsreclib_tpu_torch.ops import build
 
     t_start = time.time()
@@ -1093,6 +1276,8 @@ def main() -> int:
     # window recorded no device time, and with the zoo phase before them six
     # windows in a row recorded fewer kernels than calls (one H100 run each)
     zoo_counts, zoo_by_model = zoo_phase(card, store, imp)
+    fair_counts, fair_by_model = zoo_phase(card, store, imp, FAIR)
+    aspect_counts, ensemble_metrics = aspect_phase(card, store, imp)
     zoo2_worst = zoo2_phase(card, store, imp)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
 
@@ -1150,19 +1335,27 @@ def main() -> int:
     wide_shape, d400_shape = (64, 50, 300, 6), (320, 50, 400, 20)
     for entry, recs, prefix in ((kernels[0], zoo_fwd, ""), (kernels[1], zoo_bwd, "bwd_")):
         r = zoo_rec(recs, d400_shape, "float32")
+        i = 0 if not prefix else 1
         entry.update({
-            "zoo_launches": int(zoo_counts[0] if not prefix else zoo_counts[1]),
-            "miner_launches": int(zoo_by_model["miner"][0 if not prefix else 1]),
+            "zoo_launches": int(zoo_counts[i]),
+            "miner_launches": int(zoo_by_model["miner"][i]),
+            "fair_launches": {name: int(c[i]) for name, c in fair_by_model.items()},
+            "aspect_ensemble_launches": int(aspect_counts[i]),
             "d400_f32_ms": r[prefix + "ms"], "d400_f32_bound_ms": r[prefix + "bound_ms"],
             "d400_f32_plain_ms": r["plain_" + prefix + "ms"],
             "d400_f32_library_ms": r["library_" + prefix + "ms"],
         })
+    manner_shapes = {"manner": MANNER_SHAPES[0], "manner_tail": MANNER_SHAPES[1],
+                     "manner_a": MANNER_SHAPES[2]}
     for name, recs, prefix, count in (
-            ("fused_small_mhsa_wide", zoo_fwd, "", zoo_counts[2]),
-            ("fused_small_mhsa_wide_backward", zoo_bwd, "bwd_", zoo_counts[3])):
+            ("fused_small_mhsa_wide", zoo_fwd, "",
+             zoo_counts[2] + fair_counts[2] + aspect_counts[2]),
+            ("fused_small_mhsa_wide_backward", zoo_bwd, "bwd_",
+             zoo_counts[3] + fair_counts[3] + aspect_counts[3])):
         main_r, f32_r = (zoo_rec(recs, wide_shape, t) for t in ("bfloat16", "float32"))
-        box = {}
-        for key, shape in BOX_SHAPES.items():
+        box = {"manner_cr_launches": int(fair_by_model["manner_cr"][2 if not prefix else 3]),
+               "aspect_ensemble_launches": int(aspect_counts[2 if not prefix else 3])}
+        for key, shape in {**BOX_SHAPES, **manner_shapes}.items():
             for t, tag in (("bfloat16", ""), ("float32", "f32_")):
                 r = zoo_rec(recs, shape, t)
                 box.update({
@@ -1195,6 +1388,7 @@ def main() -> int:
             **box,
         })
     log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
+    log("MANNeR ensemble served metrics: " + json.dumps(ensemble_metrics))
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
         f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")
     print(json.dumps({"kernels": kernels}))

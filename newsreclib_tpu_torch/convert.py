@@ -29,8 +29,14 @@ pers_att}``; MINER's ``text_encoder``, ``reduce_dim``,
 ``categ_encoder/embedding``, ``user_encoder/{proj, context_codes}`` and
 ``target_aware_attn/proj``; DKN's ``news_encoder/{word_emb, entity_emb,
 entity_transform, context_emb, context_transform, conv_w1..conv_w4}``,
-``user_encoder/{fc1, fc2}`` and ``click_predictor/{fc1, fc2}``.  It is the
-inverse of the weight copy in ``tests/test_torch_parity.py::_copy_mha``.
+``user_encoder/{fc1, fc2}`` and ``click_predictor/{fc1, fc2}``; SentiRec's
+``sent_predictor``; SentiDebias's generator ``news_encoder``,
+``sentiment_encoder/{embedding, linear}`` and ``user_encoder`` and its
+discriminator ``linear1`` / ``linear2`` (two trees, one per network);
+MANNeR's ``news_encoder/{text_encoder, entity_encoder, combine_linear}``
+(CR module and A-module) and the ensemble's ``cr`` and
+``aspect_towers_<i>``.  It is the inverse of the weight copy in
+``tests/test_torch_parity.py::_copy_mha``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batch schemas of the port: NamedTuples of numpy arrays or tensors.
 
-Counterpart of ``newsreclib_tpu/data/batch.py:28-78``, without JAX: the host
+Counterpart of ``newsreclib_tpu/data/batch.py:28-90``, without JAX: the host
 batchers fill these with numpy arrays, ``to_device`` turns every array into a
 tensor on the model's device.
 
@@ -12,6 +12,8 @@ tensor on the model's device.
     width, the long tail at full width); the indices address
     ``concat(rows(news), rows(news2))``.  A global-row batch (serving) has
     ``news=None`` and store rows in the index matrices.
+  * ``NewsBatch`` holds articles and their aspect labels (MANNeR's
+    A-module trains on it).
 """
 
 from __future__ import annotations
@@ -55,6 +57,14 @@ class RecBatch(NamedTuple):
     news2: Optional[NewsFeatures] = None  # long-title tail segment
 
 
+class NewsBatch(NamedTuple):
+    """A batch of articles with aspect labels, for A-module training."""
+
+    news: NewsFeatures
+    labels: Array  # (U,) int32 aspect class labels
+    valid: Array  # (U,) bool
+
+
 def _to_tensor(x, device: torch.device):
     if x is None:
         return None
@@ -63,7 +73,7 @@ def _to_tensor(x, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def to_device(batch: Union[RecBatch, NewsFeatures], device) -> Union[RecBatch, NewsFeatures]:
+def to_device(batch: Union[RecBatch, NewsFeatures, "NewsBatch"], device):
     """Every array of ``batch`` (and of its news segments) as a tensor on
     ``device``; dtypes are kept."""
     device = torch.device(device)

@@ -148,10 +148,12 @@ def make_serving_workload(
     The articles also carry abstracts (0 to 50 tokens), subcategories (50
     classes) and 10 title and 10 abstract entity slots (each an entity of
     ``SERVING_ENTITIES`` with probability 0.3), as the MIND data path gives
-    them, for the models that read more than titles, and each impression a
-    user id below ``SERVING_USERS`` (LSTUR and NPA read it).  They are drawn
-    after everything else, so the titles, histories and candidates of a
-    seed are those of ``bench.py``'s workload."""
+    them, for the models that read more than titles, each impression a
+    user id below ``SERVING_USERS`` (LSTUR and NPA read it), and each
+    article a sentiment score in [-1, 1] (SentiRec reads it).  They are
+    drawn after everything else, in that order, so the titles, histories
+    and candidates of a seed are those of ``bench.py``'s workload, and the
+    other fields those of the earlier workloads."""
     title = np.zeros((corpus + 1, title_len), dtype=np.int32)
     lens = realistic_title_lens(rng, corpus, title_len)
     for i in range(corpus):
@@ -187,4 +189,6 @@ def make_serving_workload(
               store.subcategory):
         a[0] = 0
     imp.user_idx[:] = rng.integers(1, SERVING_USERS, size=len(imp))
+    store.sentiment_score = rng.uniform(-1, 1, size=n).astype(np.float32)
+    store.sentiment_score[0] = 0.0
     return store, imp

@@ -1,16 +1,19 @@
 """Time the attention kernel on the card against its bound, its plain
 version and a library call, at the shapes the serving path gives it.
 
-    python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T] [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T]
+        [--shapes {all,manner}] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
-        [--json OUT.jsonl]
+        [--shapes {all,manner}] [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
 two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
 (``ZOO_SHAPES``: MINS's 6 heads of 50, CenNewsRec's and CAUM's D = 400 with
-20 heads) and ``PLM_SHAPES`` (the PLM tower's MHSA, 16 heads of 48 over 768
-at L = 96 and 32 with U = 512, and CAUM's default head dim 100), in float32
-and bfloat16:
+20 heads), ``PLM_SHAPES`` (the PLM tower's MHSA, 16 heads of 48 over 768
+at L = 96 and 32 with U = 512, and CAUM's default head dim 100) and
+``MANNER_SHAPES`` (MANNeR's title + abstract attention, 15 heads of 20 at L
+= 66 to 82), in float32 and bfloat16 (``--shapes manner``: the MANNeR
+shapes alone):
 
 * the kernel is held against ``mhsa_plain`` on the same inputs (float32
   atol/rtol 1e-5, bfloat16 atol 2e-2 / rtol 1e-2);
@@ -34,7 +37,8 @@ and bfloat16:
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
-``profile_train.py``), at ``ZOO_SHAPES`` and at ``PLM_SHAPES``, in bfloat16
+``profile_train.py``), at ``ZOO_SHAPES``, ``PLM_SHAPES`` and
+``MANNER_SHAPES``, in bfloat16
 and float32.  The output is held against
 ``mhsa_plain`` and the gradient against autograd of it (same tolerances;
 ``fwd_max_abs_err``, ``max_abs_err``).  Forward + backward, each as
@@ -99,6 +103,12 @@ ZOO_SHAPES = [(64, 50, 300, 6), (64, 50, 400, 20), (320, 50, 400, 20)]
 # default of 4 heads over 400 (head dim 100): the wide instances beyond the
 # earlier box (L <= 64, head dim <= 64).
 PLM_SHAPES = [(512, 96, 768, 16), (512, 32, 768, 16), (64, 50, 400, 4)]
+# (U, L, D, heads) of MANNeR's text attention (title and abstract side by
+# side, 15 heads of 20: the wide instances, L above 64): the CR module's
+# train step at batch 64 (the short segment 16 + 50, the tail 32 + 50 on
+# the statfix data) and the A-module's batch of 64 untrimmed articles
+# (30 + 50).
+MANNER_SHAPES = [(1792, 66, 300, 15), (256, 82, 300, 15), (64, 80, 300, 15)]
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -494,6 +504,8 @@ def main(argv=None) -> int:
                     help="time forward + backward at the train step's shapes")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="only this type (default: both)")
+    ap.add_argument("--shapes", choices=("all", "manner"), default="all",
+                    help="manner: MANNER_SHAPES alone")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -516,7 +528,9 @@ def main(argv=None) -> int:
     dtypes = (torch.bfloat16, torch.float32)
     for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
         nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
-        for u, l, d, h in [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES:
+        shapes = ([(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES + MANNER_SHAPES
+                  if args.shapes == "all" else MANNER_SHAPES)
+        for u, l, d, h in shapes:
             # an older source may refuse a shape: its row says so
             takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)
             if args.backward:

@@ -1,5 +1,5 @@
-"""Category encoder (counterpart of
-``newsreclib_tpu/models/components/category.py:19-41``)."""
+"""Category and sentiment encoders (counterpart of
+``newsreclib_tpu/models/components/category.py:19-56``)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,20 @@ class LinearEncoder(nn.Module):
         if self.linear is not None:
             x = torch.relu(self.linear(x))
         return x
+
+
+class SentimentEncoder(nn.Module):
+    """Sentiment-class embedding (``num_sent_classes + 1`` rows, 0 the pad
+    class) then ``tanh(Dense)`` to ``sent_output_dim`` (SentiDebias's
+    sentiment tower; counterpart of
+    ``newsreclib_tpu/models/components/category.py:44-56``)."""
+
+    def __init__(self, num_sent_classes: int, sent_embed_dim: int, sent_output_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = TokenEmbedding(num_sent_classes + 1, sent_embed_dim,
+                                        generator=generator)
+        self.linear = Dense(sent_embed_dim, sent_output_dim, generator)
+
+    def forward(self, sentiment: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.linear(self.embedding(sentiment)))

@@ -1,9 +1,13 @@
 """Model factory: the ``model`` config node and the dataset's sizes -> model
 and loss (counterpart of ``newsreclib_tpu/models/factory.py``).
 
-The ten models of ``PORTED_MODELS`` have routes, with the JAX factory's
-defaults (``newsreclib_tpu/models/factory.py:155-303``); the FairRec models
-raise ``NotImplementedError`` (ROADMAP queue 1, "FairRec models").
+The twelve models of ``PORTED_MODELS`` have ``build_model`` routes, with the
+JAX factory's defaults (``newsreclib_tpu/models/factory.py:155-338``);
+SentiDebias's generator / discriminator pair comes from
+``build_senti_debias`` and MANNeR's A-module from ``build_manner_a``, as in
+the JAX package (MANNeR's ensemble is composed by ``eval.py``).  The PLM
+text tower (``use_plm``) raises ``NotImplementedError`` (ROADMAP queue 1,
+"PLM tower").
 ``pack_titles`` is accepted and ignored: the port's attention kernel works
 per article, and packed and unpacked titles give the same vectors
 (``tests/test_nrms.py::test_mhsa_packing_exact``).
@@ -18,6 +22,7 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from newsreclib_tpu_torch.models import fair_rec
 from newsreclib_tpu_torch.models.components.losses import get_loss_fn
 from newsreclib_tpu_torch.models.general_rec import (
     CAUM,
@@ -47,7 +52,11 @@ class DataInfo:
 
 
 PORTED_MODELS = ("nrms", "mins", "cen_news_rec", "caum", "naml", "tanr", "lstur", "npa",
-                 "miner", "dkn")
+                 "miner", "dkn", "sentirec", "manner_cr")
+# models with a builder of their own, not ``build_model``
+OWN_BUILDERS = {"senti_debias": "build_senti_debias (model.adversarial: true)",
+                "manner_a": "build_manner_a (training/aspect.py)",
+                "manner": "newsreclib_tpu_torch.eval (the ensemble of trained modules)"}
 
 
 def title_split_margin(model_name: str, model_cfg: Optional[Dict] = None) -> int:
@@ -65,9 +74,7 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
     drawn from ``torch.Generator().manual_seed(seed)`` and moved to
     ``device``."""
     name = cfg["name"]
-    if cfg.get("use_plm"):
-        raise NotImplementedError(
-            'the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower")')
+    _refuse_plm(cfg)
     d = cfg.get("dropout_probability", 0.2)
     common = dict(late_fusion=cfg.get("late_fusion", False),
                   pretrained_embeddings=info.pretrained_embeddings, device=device,
@@ -218,9 +225,96 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
             pretrained_entity_embeddings=info.pretrained_entity_embeddings,
             **common,
         )
-    raise NotImplementedError(
-        f'model {name!r} is not ported yet (ROADMAP queue 1, "FairRec models"); the port '
-        f"builds {', '.join(PORTED_MODELS)}")
+    if name == "sentirec":
+        return fair_rec.SentiRec(
+            info.vocab_size,
+            embed_dim=cfg.get("embed_dim", 300),
+            num_heads=cfg.get("num_heads", 15),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            sent_pred_loss_coef=cfg.get("sent_pred_loss_coef", 0.4),
+            sent_div_loss_coef=cfg.get("sent_div_loss_coef", 10.0),
+            **common,
+        )
+    if name == "manner_cr":
+        return fair_rec.MANNeRCR(
+            info.vocab_size,
+            entity_vocab_size=info.entity_vocab_size,
+            use_entities=cfg.get("use_entities", True),
+            text_embed_dim=cfg.get("text_embed_dim", 300),
+            entity_embed_dim=cfg.get("entity_embed_dim", 100),
+            num_heads=cfg.get("num_heads", 15),
+            query_dim=cfg.get("query_dim", 200),
+            dropout=d,
+            late_fusion=cfg.get("late_fusion", True),
+            remat=cfg.get("remat", False),
+            pretrained_embeddings=info.pretrained_embeddings,
+            pretrained_entity_embeddings=info.pretrained_entity_embeddings,
+            device=device,
+            generator=common["generator"],
+        )
+    if name in OWN_BUILDERS:
+        raise ValueError(f"model {name!r} is built by {OWN_BUILDERS[name]}, not build_model")
+    raise ValueError(f"unknown model: {name!r}; build_model builds {', '.join(PORTED_MODELS)}")
+
+
+def _refuse_plm(cfg: Dict) -> None:
+    if cfg.get("use_plm"):
+        raise NotImplementedError(
+            'the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower")')
+
+
+def build_manner_a(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "cuda",
+                   seed: int = 0) -> fair_rec.MANNeRA:
+    """MANNeR's A-module (``newsreclib_tpu/models/factory.py:340``), trained
+    by ``training/aspect.py::run_aspect_training``, not on slates."""
+    _refuse_plm(cfg)
+    return fair_rec.MANNeRA(
+        info.vocab_size,
+        entity_vocab_size=info.entity_vocab_size,
+        use_entities=cfg.get("use_entities", True),
+        text_embed_dim=cfg.get("text_embed_dim", 300),
+        entity_embed_dim=cfg.get("entity_embed_dim", 100),
+        num_heads=cfg.get("num_heads", 15),
+        query_dim=cfg.get("query_dim", 200),
+        dropout=cfg.get("dropout_probability", 0.2),
+        pretrained_embeddings=info.pretrained_embeddings,
+        pretrained_entity_embeddings=info.pretrained_entity_embeddings,
+        device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+
+
+def build_senti_debias(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "cuda",
+                       seed: int = 0):
+    """SentiDebias's ``(generator, discriminator)``
+    (``newsreclib_tpu/models/factory.py:366``), trained by
+    ``training/adversarial.py``; the discriminator's weights come from the
+    same generator of random numbers, after the generator's."""
+    _refuse_plm(cfg)
+    rng = torch.Generator().manual_seed(seed)
+    embed_dim = cfg.get("embed_dim", 300)
+    gen = fair_rec.SentiDebiasGenerator(
+        info.vocab_size,
+        num_sent_classes=info.num_sent_classes - 1,
+        embed_dim=embed_dim,
+        num_heads=cfg.get("num_heads", 15),
+        query_dim=cfg.get("query_dim", 200),
+        sent_embed_dim=cfg.get("sent_embed_dim", 64),
+        dropout=cfg.get("dropout_probability", 0.2),
+        late_fusion=cfg.get("late_fusion", False),
+        pretrained_embeddings=info.pretrained_embeddings,
+        device=device,
+        generator=rng,
+    )
+    disc = fair_rec.SentiDebiasDiscriminator(
+        embed_dim,
+        hidden_dim=cfg.get("discriminator_hidden_dim", 128),
+        num_sent_classes=info.num_sent_classes - 1,
+        device=device,
+        generator=rng,
+    )
+    return gen, disc
 
 
 def build_loss(cfg: Dict) -> Callable:

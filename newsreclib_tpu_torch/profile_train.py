@@ -1,7 +1,8 @@
 """Where the time of a train step goes, on one NVIDIA card.
 
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
-        [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn}]
+        [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn,sentirec,
+                  senti_debias,manner_cr}]
         [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
@@ -17,8 +18,10 @@ the ``bench.py`` workload regenerated from seed 0 (32,768 articles, 16,384
 impressions, one positive each).  Two batch sizes: 64 (the data config)
 and 256 (``bench.py``'s train step: 256 impressions of 5 candidates).
 ``--model`` takes another model of ``models/factory.py`` at its config
-file's widths instead (the workload's articles carry abstracts,
-subcategories and entities, its impressions user ids, for them).
+file's widths instead, trained on its config file's loss (the workload's
+articles carry abstracts, subcategories, entities and sentiment scores, its
+impressions user ids, for them); ``senti_debias`` runs its alternating
+generator / discriminator step (``models/fair_rec/senti_debias.py``).
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -59,26 +62,70 @@ LEARNING_RATE = 1e-4
 BATCH_SIZES = (64, 256)
 WARMUP = 5
 # attention calls of each model's news encoder on one news segment (MINS
-# encodes title and abstract with its attention, NRMS, CenNewsRec, CAUM and
-# MINER titles alone; NAML, TANR, LSTUR, NPA and DKN have no MHSA) and of its
-# user encoder on one batch
+# encodes title and abstract with its attention, MANNeR's CR module title and
+# abstract side by side in one, NRMS, CenNewsRec, CAUM, MINER, SentiRec and
+# SentiDebias titles alone; NAML, TANR, LSTUR, NPA and DKN have no MHSA) and
+# of its user encoder on one batch of a train step's forward (SentiDebias
+# encodes its bias-free and its bias-aware users; MANNeR fuses late)
 TEXT_ATTENTIONS = {"nrms": 1, "mins": 2, "cen_news_rec": 1, "caum": 1, "miner": 1, "naml": 0,
-                   "tanr": 0, "lstur": 0, "npa": 0, "dkn": 0}
-USER_ATTENTIONS = {"nrms": 1, "mins": 1, "cen_news_rec": 1, "caum": 1}
+                   "tanr": 0, "lstur": 0, "npa": 0, "dkn": 0, "sentirec": 1,
+                   "senti_debias": 1, "manner_cr": 1}
+USER_ATTENTIONS = {"nrms": 1, "mins": 1, "cen_news_rec": 1, "caum": 1, "sentirec": 1,
+                   "senti_debias": 2}
+# models whose train step is not ``make_train_step`` on the model's loss
+ADVERSARIAL = ("senti_debias",)
 
 
-def build_cell_model(model: str, device):
-    """``model`` from the factory at its config file's widths, a
-    ``VOCAB_SIZE`` vocabulary, the serving workload's entity and user
-    counts, random weights from seed 0."""
+def cell_config(model: str) -> dict:
+    """The ``model`` node of ``model``'s config file."""
     from newsreclib_tpu_torch.config.compose import compose
+
+    return compose(overrides=[f"model={model}"])["model"]
+
+
+def cell_info():
+    """The factory's ``DataInfo`` of the cells: a ``VOCAB_SIZE`` vocabulary,
+    the serving workload's entity and user counts."""
     from newsreclib_tpu_torch.data.synthetic import SERVING_ENTITIES, SERVING_USERS
     from newsreclib_tpu_torch.models import factory
 
-    info = factory.DataInfo(vocab_size=VOCAB_SIZE, num_subcategories=50,
+    return factory.DataInfo(vocab_size=VOCAB_SIZE, num_subcategories=50,
                             entity_vocab_size=SERVING_ENTITIES, num_users=SERVING_USERS)
-    return factory.build_model(compose(overrides=[f"model={model}"])["model"], info,
-                               device=device, seed=0)
+
+
+def build_cell_model(model: str, device):
+    """``model`` from ``build_model`` at its config file's widths, random
+    weights from seed 0."""
+    from newsreclib_tpu_torch.models import factory
+
+    return factory.build_model(cell_config(model), cell_info(), device=device, seed=0)
+
+
+def cell_state_and_step(model: str, device, compute_dtype="bfloat16",
+                        learning_rate=LEARNING_RATE):
+    """``(state, train_step)`` of ``model``'s cell: Adam at
+    ``learning_rate`` and the config file's loss through ``make_train_step``;
+    SentiDebias's alternating G / D step (D at twice G's rate, as its config
+    file) over its ``SentiDebiasState``, whose ``model`` is the generator."""
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    cfg = cell_config(model)
+    if model in ADVERSARIAL:
+        from newsreclib_tpu_torch.models.fair_rec import (
+            create_sentidebias_state,
+            make_sentidebias_train_step,
+        )
+
+        gen, disc = factory.build_senti_debias(cfg, cell_info(), device=device)
+        state = create_sentidebias_state(gen, disc, g_lr=learning_rate, d_lr=2 * learning_rate)
+        return state, make_sentidebias_train_step(cfg.get("alpha_coefficient", 0.15),
+                                                  cfg.get("beta_coefficient", 10.0),
+                                                  compute_dtype)
+    state = create_train_state(build_cell_model(model, device), make_optimizer(learning_rate),
+                               dropout_seed=0)
+    return state, make_train_step(factory.build_loss(cfg), compute_dtype)
 
 
 def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
@@ -86,22 +133,22 @@ def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
     """``(state, batcher, train_step)`` of the cell in the module doc
     (``compute_dtype`` None: float32 compute)."""
     from newsreclib_tpu_torch.data.batching import TrainBatcher
-    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
-    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
-    from newsreclib_tpu_torch.training.steps import make_train_step
 
-    state = create_train_state(build_cell_model(model, device), make_optimizer(learning_rate),
-                               dropout_seed=0)
-    batcher = TrainBatcher(store, imp, batch_size=batch_size, **DATA)
-    return state, batcher, make_train_step(cross_entropy_loss, compute_dtype)
+    state, step = cell_state_and_step(model, device, compute_dtype, learning_rate)
+    return state, TrainBatcher(store, imp, batch_size=batch_size, **DATA), step
 
 
-def attention_launches(batch, model: str = "nrms") -> int:
+def attention_launches(batch, model: str = "nrms", backward: bool = False) -> int:
     """Attention kernel launches of one train step of ``model`` on
-    ``batch``, each of the forward and of the backward kernel: the news
-    encoder's per news segment and the user encoder's."""
-    return (TEXT_ATTENTIONS[model] * (1 + (batch.news2 is not None))
-            + USER_ATTENTIONS.get(model, 0))
+    ``batch``, of the forward kernel (of the backward kernel with
+    ``backward``): the news encoder's per news segment and the user
+    encoder's; SentiDebias's discriminator step runs the news tower's
+    forward once more."""
+    segments = 1 + (batch.news2 is not None)
+    n = TEXT_ATTENTIONS[model] * segments + USER_ATTENTIONS.get(model, 0)
+    if model in ADVERSARIAL and not backward:
+        n += TEXT_ATTENTIONS[model] * segments
+    return n
 
 
 def _sync_s(fn) -> float:
@@ -191,9 +238,10 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     kernel_s = [_sync_s(lambda: [step(state, b) for b in timed]) / steps]
     launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
     expected = sum(attention_launches(b, model) for b in timed)
-    if launches != expected or bwd_launches != expected:
+    bwd_expected = sum(attention_launches(b, model, backward=True) for b in timed)
+    if launches != expected or bwd_launches != bwd_expected:
         raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
-                             f"({expected} each expected)")
+                             f"({expected} and {bwd_expected} expected)")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     plain_s = [_sync_s(lambda: [plain_step(plain_state, b) for b in timed]) / steps
                for _ in range(2)]

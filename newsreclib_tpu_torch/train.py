@@ -13,9 +13,11 @@ It runs on the card (``cuda``) and raises without one; ``platform=cpu`` (or
 ``NEWSRECLIB_PLATFORM=cpu``) runs it on the CPU.  Precision follows
 ``trainer.precision``: float32 unless it names bf16.  Runs write under
 ``outputs/torch/`` unless ``output_dir`` is given.  The models of
-``models/factory.py::PORTED_MODELS`` on MIND-format data are ported; the
-other models, datasets and special trainers raise ``NotImplementedError``
-naming their ROADMAP item.
+``models/factory.py::PORTED_MODELS`` train here, SentiDebias
+(``model.adversarial: true``) through ``training/adversarial.py`` and
+MANNeR's A-module (``model=manner_a``) through ``training/aspect.py``, on
+MIND-format data; the PLM tower, the other datasets and the multi-device
+settings raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -98,7 +100,8 @@ def check_dkn_title_split(model_name: str, dc: Dict) -> None:
 
 def setup_data(cfg: Dict) -> MINDData:
     """The dataset of ``cfg["data"]``; generates the statfix fixture first
-    when ``generate_fixture: statfix`` and its news file is absent."""
+    when ``generate_fixture`` is ``statfix`` or ``statfix_v2`` and its news
+    file is absent."""
     dc = cfg["data"]
     dataset = dc.get("dataset", "mind")
     if dataset != "mind":
@@ -106,14 +109,15 @@ def setup_data(cfg: Dict) -> MINDData:
     news_tsv = os.path.join(dc["data_dir"], f"MIND{dc['dataset_size']}_train", "news.tsv")
     fixture = dc.get("generate_fixture")
     if fixture and not os.path.exists(news_tsv):
-        if fixture != "statfix":
-            raise _not_ported(f"the {fixture!r} fixture generator",
-                              "FairRec models" if fixture == "statfix2" else "Other datasets")
-        from newsreclib_tpu_torch.data.statfix import write_mind_small_statfix
+        from newsreclib_tpu_torch.data import statfix
 
+        writers = {"statfix": statfix.write_mind_small_statfix,
+                   "statfix_v2": statfix.write_mind_small_statfix_v2}
+        if fixture not in writers:
+            raise _not_ported(f"the {fixture!r} fixture generator", "Other datasets")
         t0 = time.time()
-        write_mind_small_statfix(dc["data_dir"], seed=dc.get("seed", 42))
-        log.info("statfix fixture generated in %.1f s under %s", time.time() - t0,
+        writers[fixture](dc["data_dir"], seed=dc.get("seed", 42))
+        log.info("%s fixture generated in %.1f s under %s", fixture, time.time() - t0,
                  dc["data_dir"])
     return MINDData(MINDConfig(
         data_dir=dc["data_dir"],
@@ -177,7 +181,7 @@ def _setup_logging() -> None:
 
 
 class Run(NamedTuple):
-    trainer: Trainer
+    trainer: Trainer  # an AdversarialTrainer for SentiDebias
     train_batcher: TrainBatcher
     val_batcher: EvalBatcher
     test_batcher: EvalBatcher
@@ -190,8 +194,6 @@ def build_run(cfg: Dict) -> Run:
     device = select_device(cfg)
     check_single_device(cfg)
     mc, dc, tc = cfg["model"], cfg["data"], cfg["trainer"]
-    if mc["name"] == "manner_a" or mc.get("adversarial"):
-        raise _not_ported(f"the {mc['name']} trainer", "FairRec models")
     if cfg.get("save_recs"):
         raise _not_ported("CachedScorer.export_recommendations (save_recs)",
                           "Entry points around serving")
@@ -225,7 +227,8 @@ def build_run(cfg: Dict) -> Run:
              info.vocab_size, info.num_users, info.num_categories, store_train.num_news,
              len(train_imp), len(val_imp), len(test_imp))
 
-    model = build_model(mc, info, device=device, seed=cfg.get("seed", 0))
+    adversarial = bool(mc.get("adversarial"))
+    model = None if adversarial else build_model(mc, info, device=device, seed=cfg.get("seed", 0))
     loss_fn = build_loss(mc)
     split_len = dc.get("split_title_len", 16)
     eval_kwargs = dict(
@@ -265,6 +268,25 @@ def build_run(cfg: Dict) -> Run:
         compute_dtype=normalize_precision(tc.get("precision")),
         overfit_batches=tc.get("overfit_batches"),
     )
+    if adversarial:
+        # SentiDebias: alternating generator / discriminator steps
+        from newsreclib_tpu_torch.models.fair_rec import create_sentidebias_state
+        from newsreclib_tpu_torch.models.factory import build_senti_debias
+        from newsreclib_tpu_torch.training.adversarial import AdversarialTrainer
+
+        gen, disc = build_senti_debias(mc, info, device=device, seed=cfg.get("seed", 0))
+        opt_cfg = mc.get("optimizer", {})
+        sd_state = create_sentidebias_state(gen, disc, seed=cfg.get("seed", 0),
+                                            g_lr=opt_cfg.get("lr", 1e-5),
+                                            d_lr=opt_cfg.get("d_lr", 2e-5))
+        log.info("params: %d generator, %d discriminator; %d train steps an epoch; compute %s",
+                 param_count(gen), param_count(disc), len(train_batcher),
+                 trainer_cfg.compute_dtype or "float32")
+        trainer = AdversarialTrainer(sd_state, loss_fn, trainer_cfg,
+                                     alpha=mc.get("alpha_coefficient", 0.15),
+                                     beta=mc.get("beta_coefficient", 10.0),
+                                     ranking=ranking, loggers=loggers)
+        return Run(trainer, train_batcher, val_batcher, test_batcher)
     state = create_train_state(model, build_optimizer(cfg, len(train_batcher)),
                                dropout_seed=cfg.get("seed", 0))
     n_params = param_count(model)
@@ -278,8 +300,29 @@ def build_run(cfg: Dict) -> Run:
     return Run(trainer, train_batcher, val_batcher, test_batcher)
 
 
+def run_aspect(cfg: Dict) -> Dict[str, float]:
+    """MANNeR's A-module (``model.name == manner_a``): SupCon on
+    aspect-labelled news batches, not slates
+    (``training/aspect.py::run_aspect_training``)."""
+    from newsreclib_tpu_torch.training.aspect import run_aspect_training
+
+    device = select_device(cfg)
+    check_single_device(cfg)
+    out_dir = cfg["output_dir"]
+    os.makedirs(out_dir, exist_ok=True)
+    write_config_tree(cfg, out_dir)
+    mind = setup_data(cfg)
+    info = load_data_info(mind, cfg["model"])
+    loggers = make_loggers(out_dir, cfg.get("loggers", ["stdout", "csv"]))
+    metrics = run_aspect_training(cfg, mind, info, loggers, out_dir, device=device)
+    log.info("final metrics: %s", {k: round(v, 4) for k, v in metrics.items()})
+    return metrics
+
+
 def run(cfg: Dict) -> Dict[str, float]:
     _setup_logging()
+    if cfg["model"]["name"] == "manner_a":
+        return run_aspect(cfg)
     r = build_run(cfg)
     metrics = r.trainer.fit(r.train_batcher, r.val_batcher, resume=bool(cfg.get("ckpt_path")))
     if cfg.get("test_after_train", True):

@@ -70,6 +70,16 @@ class Checkpointer:
         state.step = int(tree["step"])
         return state
 
+    def restore_params(self, which: str = "best") -> Dict[str, torch.Tensor]:
+        """The parameters of ``which`` alone, as a state dict on the CPU,
+        without a train state to restore into (the optimizer a model was
+        trained with need not be known): what evaluation loads with
+        ``model.load_state_dict``."""
+        path = self._path(which)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no {which!r} checkpoint in {self.directory}")
+        return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
     def has(self, which: str = "best") -> bool:
         return os.path.exists(self._path(which))
 

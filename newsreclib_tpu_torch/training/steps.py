@@ -22,19 +22,20 @@ from newsreclib_tpu_torch.training.state import TrainState
 DType = Union[str, torch.dtype, None]
 
 
-def _dtype(compute_dtype: DType) -> Optional[torch.dtype]:
+def as_dtype(compute_dtype: DType) -> Optional[torch.dtype]:
+    """A compute type given by name ("bfloat16") or as a dtype; None stays."""
     return getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
 
 
-def _apply(model, cdtype: Optional[torch.dtype], batch: RecBatch, **kwargs):
-    """``model(batch, **kwargs)``, with the floating parameters cast to
+def apply_in_dtype(model, cdtype: Optional[torch.dtype], *args, **kwargs):
+    """``model(*args, **kwargs)``, with the floating parameters cast to
     ``cdtype`` when one is given.  The cast is part of the graph, so the
     gradients land in float32 on the master parameters."""
     if cdtype is None:
-        return model(batch, **kwargs)
+        return model(*args, **kwargs)
     params = {n: p.to(cdtype) if p.is_floating_point() else p
               for n, p in model.named_parameters()}
-    return functional_call(model, params, (batch,), kwargs)
+    return functional_call(model, params, args, kwargs)
 
 
 def make_train_step(loss_fn: Callable, compute_dtype: DType = None):
@@ -48,11 +49,11 @@ def make_train_step(loss_fn: Callable, compute_dtype: DType = None):
     the state's generator seeded by (dropout seed, step).  The state is
     updated in place and returned.
     """
-    cdtype = _dtype(compute_dtype)
+    cdtype = as_dtype(compute_dtype)
 
     def train_step(state: TrainState, batch: RecBatch) -> Tuple[TrainState, Dict]:
         generator = state.dropout_generator()
-        scores, aux = _apply(state.model, cdtype, batch, deterministic=False,
+        scores, aux = apply_in_dtype(state.model, cdtype, batch, deterministic=False,
                              generator=generator)
         scores = scores.float()
         loss = loss_fn(scores, batch.labels, batch.cand_mask, batch.impression_valid)
@@ -74,11 +75,11 @@ def make_eval_step(loss_fn: Optional[Callable] = None, ranking: Optional[Ranking
     news carry them and ``with_aspects``), the (B,) valid-row mask and the
     loss (None without ``loss_fn``).  No dropout."""
     ranking = ranking or RankingMetrics()
-    cdtype = _dtype(compute_dtype)
+    cdtype = as_dtype(compute_dtype)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: RecBatch):
-        scores, _ = _apply(state.model, cdtype, batch, deterministic=True)
+        scores, _ = apply_in_dtype(state.model, cdtype, batch, deterministic=True)
         scores = mask_scores(scores.float(), batch.cand_mask)
         valid = batch.impression_valid
         if valid is None:

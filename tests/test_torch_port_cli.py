@@ -160,11 +160,11 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["model=sentirec"], '"FairRec models"'),
+    (["model=sentirec", "model.use_plm=true"], '"PLM tower"'),
     (["data=adressa_demo"], '"Other datasets"'),
     (["data.generate_fixture=true", "data.data_dir={empty}"], '"Other datasets"'),
     (["model.use_plm=true"], '"PLM tower"'),
-    (["model.adversarial=true"], '"FairRec models"'),
+    (["model=senti_debias", "model.use_plm=true"], '"PLM tower"'),
     (["trainer.model_axis=2"], '"Multi-GPU"'),
     (["trainer.devices=4"], '"Multi-GPU"'),
 ])

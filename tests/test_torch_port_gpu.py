@@ -2,7 +2,8 @@
 version, the backward kernel against ``mhsa_backward`` and autograd of the
 plain version, ``FusedSmallMHSA``'s gradient, the NRMS serving path and
 train step with the kernels against the same paths with the plain
-attention, and a train step of each zoo model.  They need an NVIDIA card and skip without one;
+attention, a train step of each zoo model, and the FairRec models (MANNeR's
+attention shapes, train steps against the plain route, an A-module step).  They need an NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
@@ -524,3 +525,78 @@ def test_glove_zoo_model_trains_a_step_on_the_card(cuda, name):
     with torch.no_grad():
         scores, _ = state.model(batch)
     assert scores.shape == batch.cand_idx.shape and bool(torch.isfinite(scores).all())
+
+
+# MANNeR's title + abstract attention (kernel_bench.MANNER_SHAPES, 15 heads of
+# 20 at L = 66 to 82: the wide instances at head dim 20)
+MANNER_SHAPES = [(1792, 66, 300, 15), (256, 82, 300, 15), (64, 80, 300, 15)]
+
+
+@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l,d,h", MANNER_SHAPES)
+def test_manner_shapes_forward_and_backward_match_plain(cuda, u, l, d, h, dtype, masking):
+    """Both kernels at MANNeR's shapes against the plain versions; every
+    launch is a wide one."""
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u + l, masking=masking)
+    assert mhsa.kernel_supports(l, d, h, dtype) and mhsa.wide_instance(l, d, h, dtype)
+    before = mhsa.wide_launches, mhsa.wide_bwd_launches
+    _check_against_plain(qkv, mask, h)
+    _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l + 3))
+    assert (mhsa.wide_launches, mhsa.wide_bwd_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name", ["sentirec", "senti_debias", "manner_cr"])
+def test_fair_rec_train_steps_kernel_route_matches_plain_route(cuda, name):
+    """Two full-width float32 train steps of SentiRec, SentiDebias (its
+    alternating G / D step) and MANNeR's CR module (SupCon) with the kernels
+    and with the plain attention, dropout on, same seeds: per-step losses
+    agree (1e-4), and the kernel route launches the forward and the backward
+    kernel as ``profile_train.attention_launches`` counts."""
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from newsreclib_tpu_torch.profile_train import attention_launches, cell_state_and_step
+
+    cfg = SyntheticConfig(vocab_size=5000, entity_vocab_size=800)
+    batches = [to_device(make_batch(np.random.default_rng(i), batch_size=16, unique_news=256,
+                                    cfg=cfg), cuda) for i in range(2)]
+    losses = {}
+    for route in ("kernel", "plain"):
+        state, step = cell_state_and_step(name, cuda, None, 1e-3)
+        if route == "plain":
+            use_plain_attention(state.model)
+        before = mhsa.launches, mhsa.bwd_launches
+        losses[route] = [step(state, b)[1]["loss"].item() for b in batches]
+        on = route == "kernel"
+        fwd = sum(attention_launches(b, name) for b in batches) * on
+        bwd = sum(attention_launches(b, name, backward=True) for b in batches) * on
+        assert (mhsa.launches, mhsa.bwd_launches) == (before[0] + fwd, before[1] + bwd)
+    assert all(np.isfinite(losses["kernel"]))
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=1e-4, rtol=0)
+
+
+def test_aspect_step_on_the_card(cuda):
+    """Two SupCon steps of an A-module at ``manner_a.yaml``'s widths on
+    m-per-class batches of 64 articles (L = 30 + 50): one wide launch each
+    way a step, the plain route's losses."""
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.news_batching import MPerClassNewsBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.profile_train import cell_config, cell_info
+    from newsreclib_tpu_torch.training.aspect import make_aspect_train_step
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+
+    store, _ = make_serving_workload(np.random.default_rng(0), corpus=2000, n_impressions=10)
+    batches = [to_device(b, cuda) for _, b in
+               zip(range(2), MPerClassNewsBatcher(store, "category", 64, 8).epoch(0))]
+    losses = {}
+    for route in ("kernel", "plain"):
+        model = factory.build_manner_a(cell_config("manner_a"), cell_info(), device=cuda)
+        if route == "plain":
+            use_plain_attention(model)
+        state = create_train_state(model, make_optimizer(1e-3))
+        before = mhsa.wide_launches, mhsa.wide_bwd_launches
+        losses[route] = [make_aspect_train_step()(state, b)[1]["loss"].item() for b in batches]
+        n = 2 if route == "kernel" else 0
+        assert (mhsa.wide_launches, mhsa.wide_bwd_launches) == (before[0] + n, before[1] + n)
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=1e-4, rtol=0)

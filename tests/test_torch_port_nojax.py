@@ -1,9 +1,11 @@
 """The port runs without JAX: the machine with the card has no jax, flax,
 optax, orbax, pandas or yaml.  A subprocess blocks those imports and the JAX
 package, then drives the serving slice and two training steps on the CPU;
-two more build MINS, CenNewsRec and CAUM, and NAML, TANR, LSTUR, NPA, MINER
-and DKN, and train each a step; another runs the training CLI (config
-composition, ETL, fit, checkpoints, test) on a copy of the raw demo files.
+others build MINS, CenNewsRec and CAUM, NAML, TANR, LSTUR, NPA, MINER and
+DKN, and SentiRec and MANNeR's CR module, and train each a step, and drive
+SentiDebias's alternating step, an A-module step and MANNeR's ensemble;
+another runs the training CLI (config composition, ETL, fit, checkpoints,
+test) on a copy of the raw demo files.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -151,6 +153,69 @@ def test_zoo_models_train_with_jax_blocked():
 def test_glove_zoo_models_train_with_jax_blocked():
     """NAML, TANR, LSTUR, NPA, MINER and DKN, the same way."""
     _train_zoo_blocked(["naml", "tanr", "lstur", "npa", "miner", "dkn"])
+
+
+def test_fair_rec_models_train_with_jax_blocked():
+    """SentiRec and MANNeR's CR module from ``build_model``, the same way."""
+    _train_zoo_blocked(["sentirec", "manner_cr"])
+
+
+FAIR_SCRIPT = """
+import json, sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import numpy as np
+import newsreclib_tpu_torch.eval
+from newsreclib_tpu_torch.data.batch import to_device
+from newsreclib_tpu_torch.data.batching import TrainBatcher
+from newsreclib_tpu_torch.data.news_batching import MPerClassNewsBatcher
+from newsreclib_tpu_torch.data.statfix import write_mind_small_statfix_v2
+from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+from newsreclib_tpu_torch.models import factory
+from newsreclib_tpu_torch.models.fair_rec import (create_sentidebias_state, evaluate_ensemble,
+                                                  make_sentidebias_train_step)
+from newsreclib_tpu_torch.training.adversarial import AdversarialTrainer
+from newsreclib_tpu_torch.training.aspect import make_aspect_train_step
+from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+
+store, imp = make_serving_workload(np.random.default_rng(0), corpus=200, n_impressions=30,
+                                   hist_len=10, num_candidates=6, vocab_size=500)
+info = factory.DataInfo(vocab_size=500, entity_vocab_size=800)
+small = {"embed_dim": 60, "text_embed_dim": 60, "num_heads": 6, "query_dim": 16}
+gen, disc = factory.build_senti_debias(small, info, device="cpu")
+state = create_sentidebias_state(gen, disc, g_lr=1e-3, d_lr=1e-3)
+batch = next(TrainBatcher(store, imp, batch_size=4, max_history_len=10, u_bucket_min=64,
+                          split_title_len=16).epoch(0))
+sd = make_sentidebias_train_step()(state, to_device(batch, "cpu"))[1]
+a_model = factory.build_manner_a(small, info, device="cpu")
+a_state = create_train_state(a_model, make_optimizer(1e-3))
+news = next(MPerClassNewsBatcher(store, "category", batch_size=16, m_per_class=4).epoch(0))
+a_loss = make_aspect_train_step()(a_state, to_device(news, "cpu"))[1]["loss"].item()
+cr = factory.build_model(dict(small, name="manner_cr"), info, device="cpu")
+ens = evaluate_ensemble(cr, {"categ": (a_model, 0.5)}, store, imp, max_history_len=10,
+                        target_cells=64, device="cpu")
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r)
+print(json.dumps({"g_loss": sd["g_loss"].item(), "d_loss": sd["d_loss"].item(),
+                  "a_loss": a_loss, "ensemble": ens, "loaded": loaded}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_fair_rec_routes_run_with_jax_blocked():
+    """SentiDebias's alternating step, an A-module SupCon step on an
+    m-per-class batch and the MANNeR ensemble's served metrics, with the
+    adversarial and aspect trainers, the statfix v2 generator and the
+    port's ``eval.py`` imported, all with JAX, flax, pandas, yaml and the
+    JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", FAIR_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert all(0 < out[k] < 100 for k in ("d_loss", "a_loss"))
+    assert abs(out["g_loss"]) < 100
+    assert {"auc", "mrr"} <= set(out["ensemble"])
 
 
 def test_port_sources_import_no_jax():
