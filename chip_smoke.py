@@ -93,7 +93,9 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    held (``CHAOTIC_ROUTES``), and so is its bf16 served-score fault check
    (``LOOSE_SERVED_ROUTES``).  The zoo
    kernel phase of step 7 also holds and times both kernels at
-   ``kernel_bench.MANNER_SHAPES`` with the planted element faults;
+   ``kernel_bench.MANNER_SHAPES`` and at the PLM head's train shapes
+   (``kernel_bench.plm_statfix_shapes``: 16 heads of 48 over 768 at batch
+   8) with the planted element faults;
 9. the models without an MHSA, NAML, TANR, LSTUR, NPA and DKN, at their
    config files' widths on the same store and impressions (which carry
    user ids): ``ZOO_STEPS`` train steps each in float32 and bf16 compute
@@ -104,7 +106,26 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    the served scores of one ``CachedScorer`` epoch equal to the fused
    forward's on the same impressions (NAML, TANR, LSTUR, DKN), and NPA's
    eval-step metrics through the trainer, card against CPU;
-10. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
+10. the PLM phase (``plm_phase``): a tower at roberta-base's widths
+   (``PLM_TOWER``: 12 layers, 768 wide, 12 heads, FFN 3,072, 514 positions
+   from 2), random from seed 0 with the workload's 60,000-id vocabulary,
+   written by ``save_as_hf_bert`` and as a RoBERTa checkpoint directory
+   (safetensors, a ``roberta.`` prefix, heads the loader leaves out), both
+   loaded back on the card identical tensor for tensor; NRMS over it (the
+   model node of ``nrms_statfix_plm_supconloss``: the head's 16 heads of 48,
+   SupCon) from the factory, which loads the RoBERTa directory; its main
+   path, counts at 0 before it: one float32 ``CachedScorer`` epoch over the
+   whole workload (seconds, peak memory), then ``PLM_STEPS``
+   ``TrainBatcher`` steps at batch 8 with layers 0-7 and the embeddings
+   frozen, with exact launch counts, all of the wide instances, the frozen
+   tensors bit-identical after the steps and the others moved; served
+   metrics against the plain attention's (``METRIC_ATOL``) and served
+   scores against the plain route's (within the tolerance attention's gap,
+   the planted faults beyond it); the route check on one batch of 8 with
+   two title segments in float32 and bf16 at ``PLM_ROUTE_LR``
+   (``PLM_ROUTE_RTOL``, the planted faults beyond it; bf16 logged, not held,
+   ``CHAOTIC_ROUTES``; 3 launches a step each way, all wide);
+11. drives the training CLI in-process (``newsreclib_tpu_torch.train.run``)
    at full NRMS width (D = 300, 15 heads, GloVe 300-d, float32 as
    configured) on a copy of the raw ``data/demo`` files under
    ``build/smoke_demo``: ETL from the raw files, 2 epochs with cached
@@ -115,26 +136,43 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    steps' alone.  Every ``val/*`` and ``test/*`` metric must be finite, the
    best and last checkpoints must exist, and the best checkpoint restored
    into a new trainer must give the same ``test/auc`` (1e-6) and, with the
-   plain attention, the same test metrics (``METRIC_ATOL``);
-11. prints one ``{"kernels": [...]}`` line (the wide instances' own
+   plain attention, the same test metrics (``METRIC_ATOL``); then again
+   with the PLM tower (``PLM_CLI_OVERRIDES``: random, two layers at 768, 16
+   head heads, layer 0 frozen), with the same checks;
+12. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
    ``d400_f32_*``; MINER's launches under ``miner_launches``, the FairRec
    models' under ``fair_launches``, the A-modules' and the ensemble's under
-   ``aspect_ensemble_launches``) and, last, ``{"ok": true, ...}``.
+   ``aspect_ensemble_launches``, the PLM phase's under ``plm_launches``;
+   the PLM head's own entries ``fused_small_mhsa_plm_head`` /
+   ``_backward``: its main path's launches, the times at its largest train
+   shape, the other shapes under ``u<U>_l<L>_*``, the served epoch and the
+   PLM CLI run) and, last, ``{"ok": true, ...}``.
+
+Every comparison of training trajectories (kernel route against plain
+route) runs under deterministic algorithms (``reproducible``).
 
 Exits non-zero, printing no result, when no card is present or any phase
-fails.  Writes nothing but the kernel build and the CLI phase's data copy
-and run under ``build/``.
+fails.  Writes nothing but the kernel build, the PLM checkpoints and the
+CLI phase's data copy and runs under ``build/``.
+
+    python3 chip_smoke.py --route-spread [MODEL ...]
+
+builds the kernels, then prints how far each route's losses move from run
+to run with and without deterministic algorithms (``route_spread``), and
+nothing else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
 import os
+import shutil
 import sys
 import time
 
@@ -161,6 +199,17 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 64, 5, 50
 # must differ by more than the tolerance, or the run fails; the 10% logit
 # fault is under the bf16 routes' own spread, and is left to the element
 # checks at the same shapes (kernel phase, check_backward).
+# Every trajectory comparison runs under deterministic algorithms
+# (``reproducible``).  Without them the gradients that CUDA accumulates
+# atomically (embedding and index backward) change the summation order from
+# run to run, and a bf16 route differs from itself: on an H100
+# (``python3 chip_smoke.py --route-spread``: three runs of each route with
+# and without them, PERF.md §6) the kernel route of MANNeR CR in bf16
+# differed from itself by up to 0.0054 and from the plain route by 0.0017
+# to 0.0055; in one full run of this script it read 0.0102, more than
+# ROUTE_ATOL.  Under deterministic algorithms each route of NRMS and of
+# every zoo model repeats bit for bit in both types, and MANNeR CR's bf16
+# kernel route is 0.00177 from the plain one.
 ROUTE_STEPS = 20
 ROUTE_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 ROUTE_FAULTS = {"float32": ("unmasked", "scaled"), "bfloat16": ("unmasked",)}
@@ -200,8 +249,10 @@ ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
 # unstable stretch where bf16 rounding moves the trajectory as far as the
 # planted faults do: on an H100 (this script's route line, three runs) the
 # plain route against itself differed by 0.040 to 0.079 over the 20 steps,
-# keys unmasked by 0.24 to 0.27 and the tolerance attention by 0.25 to 0.30.
-# There the route is logged with that spread and not held; MINER's kernel
+# keys unmasked by 0.24 to 0.27 and the tolerance attention by 0.25 to 0.30
+# (before ``reproducible``; under it the kernel route is 0.091 from the
+# plain one and keys unmasked 0.41).  There the route is logged with the
+# tolerance attention's gap and not held; MINER's kernel
 # route in bf16 is held by the served-score check (the unmasked fault
 # beyond), by its float32 route check and by the element checks of the same
 # kernel instances (NRMS's).  SentiDebias in bf16 compute: its adversarial
@@ -211,7 +262,18 @@ ZOO_FAULTS = {"float32": ("unmasked",), "bfloat16": ("unmasked",)}
 # routes are plain PyTorch and differ only in the order of the attention
 # gradient's sums, by 0.94 (keys unmasked: 5.4 and 4.2).  Its float32 route
 # is held (8.6e-6 on the H100), its bf16 kernel route by the served scores.
-CHAOTIC_ROUTES = {("miner", "bfloat16"), ("senti_debias", "bfloat16")}
+# NRMS with the PLM tower in bf16 compute (the PLM phase): its SupCon loss
+# over bf16 news vectors of a random 12-layer tower is in the hundreds and
+# saturated, so bf16 rounding moves each step's loss by units and the
+# trajectory by as much as the planted faults do: on an H100 (this script,
+# lr 1e-5, 20 steps) the kernel route ended 0.755 of the largest loss away
+# from the plain one, keys unmasked 0.911 and logits 10% too large 0.723,
+# while in float32 the kernel was 1.85e-5 away and the faults 0.890 and
+# 0.526.  Its bf16 kernel route is held by the served scores against the
+# plain route's (``plm_phase``), its served metrics and the element checks
+# at its shapes (zoo kernel phase).
+CHAOTIC_ROUTES = {("miner", "bfloat16"), ("senti_debias", "bfloat16"),
+                  ("nrms_plm", "bfloat16")}
 # Served-score fault checks that cannot be held: SentiDebias in bf16.  After
 # its bf16 route its served scores are at most 0.014 in magnitude, and the
 # bf16 tolerance attention (2e-2 + 1e-2 |x| at every attention output) moves
@@ -261,6 +323,35 @@ ALL_WIDE_MODELS = ("manner_cr",)  # ... at every launch
 SERVED_USER_ATTENTIONS = {"senti_debias": 1}  # served: the bias-free user alone
 ASPECTS, ASPECT_STEPS = ("category", "sentiment"), 4
 ENSEMBLE_WEIGHTS = {"category": 0.1, "sentiment": 0.1}  # manner_ensemble_statfix's
+# The PLM phase: NRMS with the PLM tower at roberta-base's widths (12 layers,
+# 768 wide, 12 heads, FFN 3,072, 514 positions from 2, LayerNorm eps 1e-5, one
+# token type), random from a seed, its vocabulary the workload's 60,000 ids as
+# the statfix PLM configs size theirs; the head's MHSA and the user encoder,
+# 16 heads of 48, run the wide instances.  The checkpoints go under
+# build/smoke_plm.  Train steps at the PLM configs' batch of 8 with layers
+# 0-7 and the embeddings frozen (nrms_mindsmall_plm_celoss_bertsent.yaml).
+PLM_DIR = os.path.join(ROOT, "build", "smoke_plm")
+PLM_TOWER = dict(vocab_size=SERVING["vocab_size"], hidden_dim=768, num_layers=12, num_heads=12,
+                 intermediate_dim=3072, max_position=514, type_vocab_size=1, dropout=0.1,
+                 layer_norm_eps=1e-5, pad_token_id=1, position_offset=2)
+PLM_BATCH, PLM_STEPS = 8, 4
+PLM_FROZEN = list(range(8))
+# The PLM route check: SupCon (the config's loss) on one TrainBatcher batch
+# of 8 at lr 1e-5, a tenth of the config's, with a tolerance relative to the
+# plain route's largest loss.  A random tower's SupCon loss is in the
+# hundreds (temperature 0.1 over 768-wide vectors) and saturated: at lr 1e-4
+# the trajectory is chaotic, and the kernel and plain routes, both right
+# (served metrics 3e-8 apart), drifted 0.66% apart over 20 steps; at lr
+# 1e-5, 1.85e-5 apart, keys unmasked 0.89 and logits 10% too large 0.53
+# (this script, one H100 run each).  ROUTE_ATOL's absolute bounds were set
+# on NRMS's CE of at most ln 5.
+PLM_ROUTE_LR = 1e-5
+PLM_ROUTE_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the training CLI on the demo copy with a random two-layer tower at the
+# statfix PLM configs' width, layer 0 and the embeddings frozen
+PLM_CLI_OVERRIDES = ["model.use_plm=true", "model.plm_model=__random_init__",
+                     "model.plm_num_layers=2", "model.embed_dim=768", "model.num_heads=16",
+                     "model.frozen_layers=[0]"]
 
 
 def log(*a):
@@ -486,19 +577,72 @@ def planted_batch():
                                 unique_news=1024, cfg=cfg, planted_signal=True), "cuda")
 
 
+@contextlib.contextmanager
+def reproducible():
+    """Deterministic algorithms (``torch.use_deterministic_algorithms``,
+    warnings only) for a comparison of training trajectories: the same
+    route then repeats bit for bit, so two routes differ only by what their
+    attention computes (ROUTE_ATOL's comment)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def route_losses(batches, cdtype, lr, attention, model="nrms"):
     """Per-step losses of a fresh ``model`` cell (``profile_train``'s init,
     Adam, the config file's loss, dropout seed 0; SentiDebias's alternating
     step and its G loss) over ``batches`` with every MHSA's attention set to
     ``attention`` (``set_attention``), and the trained model (SentiDebias:
-    its generator)."""
+    its generator), under ``reproducible``."""
     import torch
 
     from newsreclib_tpu_torch.profile_train import cell_state_and_step
 
-    st, stp = cell_state_and_step(model, "cuda", cdtype, lr)
-    set_attention(st.model, attention)
-    return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu(), st.model
+    with reproducible():
+        st, stp = cell_state_and_step(model, "cuda", cdtype, lr)
+        set_attention(st.model, attention)
+        return torch.stack([stp(st, b)[1]["loss"] for b in batches]).cpu(), st.model
+
+
+def route_spread(models) -> None:
+    """``--route-spread [MODEL ...]``: for each model (default NRMS and the
+    zoo's) and compute type, the plain and the kernel route three times each
+    and keys unmasked once, without and with ``reproducible``.  Prints one
+    JSON line each: the largest per-step loss gap of each route's runs from
+    its first, of every kernel run from every plain run, and of the fault
+    from the first plain run."""
+    import torch
+
+    from newsreclib_tpu_torch.profile_train import cell_state_and_step
+
+    planted = [planted_batch()] * ROUTE_STEPS
+
+    def run(model, cdtype, attention, det):
+        if det:
+            return route_losses(planted, cdtype, PLANTED_LR, attention, model)[0]
+        st, stp = cell_state_and_step(model, "cuda", cdtype, PLANTED_LR)
+        set_attention(st.model, attention)
+        return torch.stack([stp(st, b)[1]["loss"] for b in planted]).cpu()
+
+    def gap(a, b):
+        return (a - b).abs().max().item()
+
+    for model in models or ("nrms",) + ZOO + FAIR:
+        for dname, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+            for det in (False, True):
+                plain = [run(model, cdtype, "plain", det) for _ in range(3)]
+                kernel = [run(model, cdtype, None, det) for _ in range(3)]
+                unmasked = run(model, cdtype, unmasked_attention, det)
+                print(json.dumps(dict(
+                    model=model, dtype=dname, reproducible=det,
+                    plain_self=max(gap(plain[0], x) for x in plain[1:]),
+                    kernel_self=max(gap(kernel[0], x) for x in kernel[1:]),
+                    kernel_vs_plain=[gap(k, p) for k in kernel for p in plain],
+                    unmasked=gap(unmasked, plain[0]))), flush=True)
 
 
 def training_phase(card: str, store, imp):
@@ -593,10 +737,12 @@ def training_phase(card: str, store, imp):
     return launches, bwd_launches, step_s, grad_shapes, max(grad_errs)
 
 
-def cli_phase(card: str):
+def cli_phase(card: str, extra=()):
     """The training CLI on the demo data at full NRMS width (module doc,
-    phase 10).  Returns the forward and backward kernel launches of the run
-    and the phase's wall time in seconds."""
+    phase 11), with the overrides ``extra`` after ``CLI_OVERRIDES``
+    (``PLM_CLI_OVERRIDES``: the PLM tower).  Returns the forward and
+    backward kernel launches of the run and the phase's wall time in
+    seconds."""
     import shutil
 
     import torch
@@ -615,11 +761,14 @@ def cli_phase(card: str):
         for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
             shutil.copy(os.path.join(demo, split, name), os.path.join(CLI_DATA, split, name))
     shutil.copy(os.path.join(demo, "glove_demo.txt"), CLI_DATA)
-    cfg = compose(overrides=CLI_OVERRIDES)
+    overrides = CLI_OVERRIDES + list(extra)
+    cfg = compose(overrides=overrides)
     m = cfg["model"]
     log(f"CLI: NRMS D={m['embed_dim']}, {m['num_heads']} heads, query {m['query_dim']}, "
-        f"GloVe {cfg['data']['word_embed_dim']}-d, precision "
-        f"{cfg['trainer'].get('precision') or 'float32'}, {cfg['trainer']['max_epochs']} epochs")
+        + (f"PLM tower of {m['plm_num_layers']} layers, frozen {m['frozen_layers']}, "
+           if m.get("use_plm") else f"GloVe {cfg['data']['word_embed_dim']}-d, ")
+        + f"precision {cfg['trainer'].get('precision') or 'float32'}, "
+        f"{cfg['trainer']['max_epochs']} epochs")
 
     torch.cuda.synchronize()
     mhsa.launches = mhsa.bwd_launches = 0
@@ -642,7 +791,7 @@ def cli_phase(card: str):
         epochs = json.load(f)["epoch"] + 1
 
     # the launches the run's batches give, counted on the host
-    quiet = compose(overrides=CLI_OVERRIDES + ["loggers=[]"])
+    quiet = compose(overrides=overrides + ["loggers=[]"])
     r = train.build_run(quiet)
     train_expected = sum(attention_launches(b) for e in range(epochs)
                          for b in r.train_batcher.epoch(e))
@@ -809,8 +958,7 @@ def zoo_phase(card: str, store, imp, models=ZOO):
             diff = (kernel - plain).abs().max().item()
             faults = {f: gap(fn) for f, fn in FAULTS.items()}
             chaotic = (name, dname) in CHAOTIC_ROUTES
-            spread = (f"; not held (CHAOTIC_ROUTES): the plain route against itself "
-                      f"{gap('plain'):.3g}, the tolerance attention "
+            spread = (f"; not held (CHAOTIC_ROUTES): the tolerance attention "
                       f"{gap(tolerance_attention(dname)):.3g}") if chaotic else ""
             log(f"zoo {name} {dname}: train losses over {ROUTE_STEPS} steps on a "
                 f"planted-signal batch at lr {PLANTED_LR}, kernel vs plain attention: max abs "
@@ -1111,7 +1259,8 @@ def aspect_phase(card: str, store, imp):
             state = create_train_state(model, make_optimizer(1e-4), dropout_seed=0)
             step = make_aspect_train_step(cfg.get("temperature") or 0.1)
             mhsa.launches = mhsa.bwd_launches = mhsa.wide_launches = mhsa.wide_bwd_launches = 0
-            losses[route] = torch.stack([step(state, b)[1]["loss"] for b in batches]).cpu()
+            with reproducible():
+                losses[route] = torch.stack([step(state, b)[1]["loss"] for b in batches]).cpu()
             got = np.array([mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches,
                             mhsa.wide_bwd_launches])
             want = [ASPECT_STEPS] * 4 if route == "kernel" else [0] * 4
@@ -1186,9 +1335,292 @@ def aspect_phase(card: str, store, imp):
     return counts, metrics
 
 
+def write_safetensors(path: str, tensors) -> None:
+    """``tensors`` as a ``.safetensors`` file of the format's documented
+    layout (8-byte little-endian header length, the JSON header of dtypes,
+    shapes and offsets, the little-endian buffer), as Hugging Face's
+    ``save_pretrained`` writes by default; the port reads it with
+    ``plm.read_safetensors``."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().to("cpu").contiguous()
+        data = t.view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for data in blobs:
+            f.write(data)
+
+
+def plm_checkpoints():
+    """The PLM phase's tower (``PLM_TOWER``, random from seed 0) written as a
+    ``BertModel`` directory by ``save_as_hf_bert`` and as a roberta-base
+    layout directory (``RobertaForMaskedLM``: the ``roberta.`` prefix, a
+    pooler and an LM head the loader leaves out, ``model.safetensors``),
+    both loaded back with ``load_hf_torch_weights`` and held on the card
+    against the tower, tensor for tensor, exactly.  Returns the RoBERTa
+    directory and the tower's state on the card."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components import plm
+
+    shutil.rmtree(PLM_DIR, ignore_errors=True)
+    os.makedirs(PLM_DIR)
+    tower = plm.TransformerEncoder(**PLM_TOWER, generator=torch.Generator().manual_seed(0))
+    state = tower.state_dict()
+    bert_dir = plm.save_as_hf_bert(state, PLM_TOWER, os.path.join(PLM_DIR, "bert"))
+    roberta_dir = os.path.join(PLM_DIR, "roberta")
+    os.makedirs(roberta_dir)
+    with open(os.path.join(roberta_dir, "config.json"), "w") as f:
+        json.dump({"architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
+                   "vocab_size": PLM_TOWER["vocab_size"], "hidden_size": PLM_TOWER["hidden_dim"],
+                   "num_hidden_layers": PLM_TOWER["num_layers"],
+                   "num_attention_heads": PLM_TOWER["num_heads"],
+                   "intermediate_size": PLM_TOWER["intermediate_dim"],
+                   "max_position_embeddings": PLM_TOWER["max_position"],
+                   "type_vocab_size": PLM_TOWER["type_vocab_size"],
+                   "hidden_dropout_prob": PLM_TOWER["dropout"],
+                   "layer_norm_eps": PLM_TOWER["layer_norm_eps"],
+                   "pad_token_id": PLM_TOWER["pad_token_id"]}, f)
+    hidden = PLM_TOWER["hidden_dim"]
+    heads = {"roberta.pooler.dense.weight": torch.ones(hidden, hidden),
+             "lm_head.dense.weight": torch.ones(hidden, hidden),
+             "lm_head.bias": torch.ones(PLM_TOWER["vocab_size"])}
+    write_safetensors(os.path.join(roberta_dir, "model.safetensors"),
+                      {**{"roberta." + theirs: state[ours] for ours, theirs in
+                          plm.hf_names(PLM_TOWER["num_layers"]).items()}, **heads})
+    card_state = {k: v.cuda() for k, v in state.items()}
+    for d, offset in ((bert_dir, 0), (roberta_dir, PLM_TOWER["position_offset"])):
+        loaded, kw = plm.load_hf_torch_weights(d)
+        same = set(loaded) == set(card_state) and all(
+            torch.equal(loaded[k].cuda(), v) for k, v in card_state.items())
+        want_kw = {k: v for k, v in PLM_TOWER.items() if k not in ("position_offset",
+                                                                   "pad_token_id")}
+        log(f"PLM weights round trip through {os.path.basename(d)}/ "
+            f"({len(loaded)} tensors): {'identical' if same else 'DIFFERENT'} on the card; "
+            f"position offset {kw['position_offset']}")
+        if not same or kw["position_offset"] != offset or any(
+                kw[k] != v for k, v in want_kw.items()):
+            raise AssertionError(f"the PLM checkpoint in {d} does not load back: {kw}")
+    return roberta_dir, card_state
+
+
+def plm_state_and_step(base, cfg, cdtype, lr, frozen=None):
+    """``(state, train_step)`` of a copy of ``base`` with Adam at ``lr``
+    (``frozen_layers`` ``frozen`` through the training CLI's
+    ``build_optimizer``) and ``cfg``'s loss."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.training.state import create_train_state
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    model = copy.deepcopy(base)
+    mc = dict(cfg, optimizer={"lr": lr}, frozen_layers=frozen)
+    opt = train.build_optimizer({"model": mc, "trainer": {}}, 1, model)
+    return (create_train_state(model, opt, dropout_seed=0),
+            make_train_step(factory.build_loss(cfg), cdtype))
+
+
+def plm_phase(card: str, store, imp):
+    """NRMS with the PLM tower at roberta-base's widths (module doc, step 10):
+
+    * ``plm_checkpoints``: the weights round trip through both layouts;
+    * the main path, with every count at 0 before it and read after it: one
+      ``CachedScorer`` epoch over the whole workload in float32 (the
+      training CLI's evaluation) after a warm-up one, then ``PLM_STEPS``
+      ``TrainBatcher`` steps at batch 8 (``profile_train.PLM_DATA``) with
+      ``PLM_FROZEN`` layers and the embeddings frozen; launches exact (one
+      per corpus chunk and per impression batch served, one per news segment
+      and one for the user encoder a step, each way), every one a wide
+      instance's; the frozen tensors bit-identical after the steps, every
+      other tensor moved (but the key biases, whose gradient is float32
+      noise);
+    * served metrics over the first ``COMPARE_IMPRESSIONS`` impressions
+      against the plain attention's, float32 and bf16 (``METRIC_ATOL``), and
+      the served scores no further from the plain route's than those of
+      ``tolerance_attention``, the faults of ``ROUTE_FAULTS`` further;
+    * the route check on one ``TrainBatcher`` batch of 8 with both title
+      segments, taken ``ROUTE_STEPS`` times at ``PLM_ROUTE_LR`` with the
+      kernels, the plain attention and the planted faults of
+      ``ROUTE_FAULTS``, float32 and bf16: 3 forward and 3 backward launches
+      a step (two title segments and the user encoder), all wide; the
+      per-step losses of the kernel route within ``PLM_ROUTE_RTOL`` of the
+      plain route's largest, the faults' beyond it (bf16: logged with the
+      routes' own spread, not held: ``CHAOTIC_ROUTES``).
+
+    Returns the main path's forward, backward, wide forward and wide backward
+    launches, the served epoch's seconds and peak MB, and the head's
+    attention shapes (U, L) of the train steps."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.models.components.plm import plm_freeze_labels
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import (
+        PLM_CELL,
+        PLM_DATA,
+        attention_launches,
+        cell_config,
+        cell_info,
+    )
+    from newsreclib_tpu_torch.serving import CachedScorer
+
+    t0 = time.perf_counter()
+    checkpoint, tower_state = plm_checkpoints()
+    # the model node of nrms_statfix_plm_supconloss with the checkpoint's tower
+    cfg = dict(cell_config(PLM_CELL), plm_model=checkpoint)
+    model = factory.build_model(cfg, cell_info(), device="cuda").eval()
+    loaded = model.text_encoder_module.encoder.state_dict()
+    if not all(torch.equal(loaded[k], v) for k, v in tower_state.items()):
+        raise AssertionError("the factory did not load the checkpoint's tower")
+    log(f"PLM: NRMS over a {PLM_TOWER['num_layers']}-layer tower {PLM_TOWER['hidden_dim']} wide "
+        f"({PLM_TOWER['num_heads']} heads, FFN {PLM_TOWER['intermediate_dim']}, positions from "
+        f"{PLM_TOWER['position_offset']}), head {cfg['num_heads']} heads, query "
+        f"{cfg['query_dim']}, loss {cfg['loss']}; checkpoints written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: a served epoch, then train steps with frozen layers
+    scorer = CachedScorer(model, device="cuda")
+    scorer.evaluate(store, imp, **EVAL)  # warm-up: builds the device caches
+    state, step = plm_state_and_step(model, cfg, None, 1e-4, PLM_FROZEN)
+    batches = [b for _, b in zip(range(PLM_STEPS), TrainBatcher(
+        store, imp, batch_size=PLM_BATCH, **PLM_DATA).epoch(0))]
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mhsa.launches = mhsa.bwd_launches = mhsa.wide_launches = mhsa.wide_bwd_launches = 0
+    t0 = time.perf_counter()
+    metrics = scorer.evaluate(store, imp, **EVAL)
+    epoch_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    served = mhsa.launches
+    t0 = time.perf_counter()
+    losses = torch.stack([step(state, to_device(b, "cuda"))[1]["loss"] for b in batches]).cpu()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / PLM_STEPS * 1e3
+    got = np.array([mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches,
+                    mhsa.wide_bwd_launches])
+    steps_fwd = sum(attention_launches(b, PLM_CELL) for b in batches)
+    steps_bwd = sum(attention_launches(b, PLM_CELL, backward=True) for b in batches)
+    want = np.array([serving_launches(store, imp) + steps_fwd, steps_bwd] * 2)
+    shapes = sorted({tuple(seg.title.shape) for b in batches for seg in (b.news, b.news2)
+                     if seg is not None}, reverse=True)
+    log(f"PLM served epoch (float32): {epoch_s:.4f} s for {len(imp)} impressions -> "
+        f"{len(imp) / epoch_s:.1f} impressions/s on {card}; peak {peak_mb:.0f} MB; "
+        f"{served} launches; metrics {json.dumps(metrics, sort_keys=True)}")
+    log(f"PLM train steps (float32, batch {PLM_BATCH}, layers {PLM_FROZEN} and the embeddings "
+        f"frozen): {step_ms:.2f} ms a step on {card}; news segments {shapes}; losses "
+        f"{[round(x, 4) for x in losses.tolist()]}; main path launches forward / backward / "
+        f"wide forward / wide backward {got.tolist()} ({want.tolist()} expected)")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"PLM main path launches {got.tolist()} ({want.tolist()} expected)")
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad or len(metrics) < 10 or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"PLM metrics or losses not finite: {metrics}, {losses}")
+    labels = plm_freeze_labels(before, PLM_FROZEN, freeze_embeddings=True)
+    after = state.model.state_dict()
+    frozen = [k for k, v in labels.items() if v == "freeze"]
+    changed = [k for k in frozen if not torch.equal(after[k], before[k])]
+    still = [k for k, v in labels.items() if v == "train" and not k.endswith(".k.bias")
+             and torch.equal(after[k], before[k])]
+    log(f"PLM freezing: {len(frozen)} frozen tensors, {len(changed)} changed; "
+        f"{len(labels) - len(frozen)} trained, {len(still)} of them unmoved")
+    layers = set(PLM_FROZEN) & set(range(PLM_TOWER["num_layers"]))
+    if len(frozen) != 16 * len(layers) + 5 or changed or still:
+        raise AssertionError(f"PLM freezing: changed {changed}, unmoved {still}")
+    del state, before, after
+
+    sub = imp.subset(COMPARE_IMPRESSIONS)
+    for name, m in (("float32", model), ("bfloat16", copy.deepcopy(model).to(torch.bfloat16))):
+        got_m = CachedScorer(m, device="cuda").evaluate(store, sub, **EVAL)
+        want_m = CachedScorer(plain_copy(m), device="cuda").evaluate(store, sub, **EVAL)
+        diff = max(abs(got_m[k] - want_m[k]) for k in want_m)
+        log(f"PLM served metrics, kernel vs plain attention, first {COMPARE_IMPRESSIONS} "
+            f"impressions, {name}: max abs diff {diff:.3g} (tolerance {METRIC_ATOL[name]})")
+        if set(got_m) != set(want_m) or diff > METRIC_ATOL[name]:
+            raise AssertionError(f"PLM served metrics differ ({name}): {got_m} vs {want_m}")
+        del m
+        # served scores: the kernel within the tolerance attention's gap from
+        # the plain route, the planted faults of ROUTE_FAULTS beyond it
+        cdtype = None if name == "float32" else name
+        routes = (("kernel", None), ("plain", "plain"),
+                  ("tolerance", tolerance_attention(name)), *FAULTS.items())
+        scores = {r: served_scores(model, store, sub, cdtype, fn) for r, fn in routes}
+        want_s = scores.pop("plain")
+        gaps = {r: (v - want_s).abs().max().item() for r, v in scores.items()}
+        limit = gaps.pop("tolerance")
+        ratio = {r: g / limit for r, g in gaps.items()}
+        log(f"PLM served scores, {name}: {want_s.numel()} (max |plain| "
+            f"{want_s.abs().max().item():.4g}), max abs diff from the plain route's "
+            f"{json.dumps(gaps)}, over the tolerance attention's {limit:.4g}: "
+            f"{json.dumps(ratio)} (kernel within 1, faults {list(ROUTE_FAULTS[name])} beyond)")
+        missed = [f for f in ROUTE_FAULTS[name] if not ratio[f] > 1]
+        if not bool(torch.isfinite(scores["kernel"]).all()) or not ratio["kernel"] <= 1 or missed:
+            raise AssertionError(f"PLM served scores ({name}): {ratio}")
+        del scores
+
+    fixed = next(b for b in TrainBatcher(store, imp, batch_size=PLM_BATCH, **PLM_DATA).epoch(1)
+                 if b.news2 is not None)
+    route = [to_device(fixed, "cuda")] * ROUTE_STEPS
+    lr = PLM_ROUTE_LR
+    for name, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+        def run(attention):
+            with reproducible():
+                st, stp = plm_state_and_step(model, cfg, cdtype, lr)
+                set_attention(st.model, attention)
+                return torch.stack([stp(st, b)[1]["loss"] for b in route]).cpu()
+
+        mhsa.launches = mhsa.bwd_launches = mhsa.wide_launches = mhsa.wide_bwd_launches = 0
+        kernel = run(None)
+        counts = [mhsa.launches, mhsa.bwd_launches, mhsa.wide_launches, mhsa.wide_bwd_launches]
+        plain = run("plain")
+        scale = plain.abs().max().item()
+
+        def gap(losses):
+            return (losses - plain).abs().max().item() / scale
+
+        diff = gap(kernel)
+        faults = {f: gap(run(fn)) for f, fn in FAULTS.items()}
+        chaotic = (PLM_CELL, name) in CHAOTIC_ROUTES
+        spread = (f"; not held (CHAOTIC_ROUTES): the tolerance attention "
+                  f"{gap(run(tolerance_attention(name))):.3g}") if chaotic else ""
+        log(f"PLM train losses over {ROUTE_STEPS} steps on one batch of {PLM_BATCH} at lr "
+            f"{lr}, kernel vs plain attention, {name}: max abs diff over the largest plain "
+            f"loss {diff:.3g} (tolerance {PLM_ROUTE_RTOL[name]}{spread}); planted faults vs "
+            f"plain: {json.dumps(faults)}; kernel {kernel[0].item():.5f} -> "
+            f"{kernel[-1].item():.5f}; kernel launches {counts} ({3 * ROUTE_STEPS} each way "
+            "expected, all wide)")
+        if counts != [3 * ROUTE_STEPS] * 4:
+            raise AssertionError(f"PLM route launches {counts}")
+        if not bool(torch.isfinite(kernel).all()) or (not chaotic
+                                                      and diff > PLM_ROUTE_RTOL[name]):
+            raise AssertionError(f"PLM train losses differ ({name}): {kernel} vs {plain}")
+        missed = [f for f in ROUTE_FAULTS[name]
+                  if not chaotic and not faults[f] > PLM_ROUTE_RTOL[name]]
+        if missed:
+            raise AssertionError(f"the PLM route check ({name}) does not tell the planted "
+                                 f"faults {missed} from the plain attention: {faults}")
+    return got, epoch_s, peak_mb, shapes
+
+
 def zoo_kernel_phase():
-    """The kernels at the zoo's user-encoder shapes (``kernel_bench.ZOO_SHAPES``)
-    and at ``BOX_SHAPES`` in float32 and bfloat16: forward and backward held
+    """The kernels at the zoo's user-encoder shapes (``kernel_bench.ZOO_SHAPES``),
+    at ``BOX_SHAPES``, ``MANNER_SHAPES`` and the PLM head's train shapes
+    (``kernel_bench.plm_statfix_shapes``) in float32 and bfloat16: forward and backward held
     against ``mhsa_plain`` / autograd of it and timed with the plain versions
     and SDPA; the same check must reject each planted fault of
     ``ELEMENT_FAULTS``."""
@@ -1201,14 +1633,16 @@ def zoo_kernel_phase():
         dtype_name,
         measure_backward,
         measure_shape,
+        plm_statfix_shapes,
     )
     from newsreclib_tpu_torch.ops import mhsa
 
     planted = element_faults()
     fwd, bwd = [], []
+    shapes = ZOO_SHAPES + list(BOX_SHAPES.values()) + MANNER_SHAPES + plm_statfix_shapes()
     for dtype in (torch.float32, torch.bfloat16):
         dname = dtype_name(dtype)
-        for u, l, d, h in ZOO_SHAPES + list(BOX_SHAPES.values()) + MANNER_SHAPES:
+        for u, l, d, h in shapes:
             rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)], d=d, h=h)
             log("zoo_kernel_shape " + json.dumps(rec))
             fwd.append(rec)
@@ -1228,6 +1662,9 @@ def zoo_kernel_phase():
 
 
 def main() -> int:
+    # cuBLAS repeats its results only with a fixed workspace (``reproducible``);
+    # set before the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1250,6 +1687,9 @@ def main() -> int:
     t0 = time.time()
     build.build_all(["mhsa"])
     log(f"kernel build: {time.time() - t0:.1f} s")
+    if sys.argv[1:2] == ["--route-spread"]:
+        route_spread(sys.argv[2:])
+        return 0
 
     t0 = time.time()
     store, imp = make_serving_workload(np.random.default_rng(0), **SERVING)
@@ -1278,8 +1718,10 @@ def main() -> int:
     zoo_counts, zoo_by_model = zoo_phase(card, store, imp)
     fair_counts, fair_by_model = zoo_phase(card, store, imp, FAIR)
     aspect_counts, ensemble_metrics = aspect_phase(card, store, imp)
+    plm_counts, plm_epoch_s, plm_peak_mb, plm_shapes = plm_phase(card, store, imp)
     zoo2_worst = zoo2_phase(card, store, imp)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
+    plm_cli_launches, plm_cli_bwd_launches, plm_cli_s = cli_phase(card, PLM_CLI_OVERRIDES)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -1374,6 +1816,7 @@ def main() -> int:
                          "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
                         + " at head dims above 32 and L above 64",
             "launches": int(count),
+            "plm_launches": int(plm_counts[2 if not prefix else 3]),
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["D"] // r["H"] > 32),
             "ms": main_r[prefix + "ms"],
             "plain_ms": main_r["plain_" + prefix + "ms"],
@@ -1386,6 +1829,51 @@ def main() -> int:
             "f32_library_ms": f32_r["library_" + prefix + "ms"],
             "shape": list(wide_shape),
             **box,
+        })
+    from newsreclib_tpu_torch.kernel_bench import PLM_D, PLM_H
+
+    plm_head = [s + (PLM_D, PLM_H) for s in plm_shapes] + [(PLM_BATCH, SERVING["hist_len"],
+                                                            PLM_D, PLM_H)]
+    for name, recs, prefix, count, cli in (
+            ("fused_small_mhsa_plm_head", zoo_fwd, "", plm_counts[2], plm_cli_launches),
+            ("fused_small_mhsa_plm_head_backward", zoo_bwd, "bwd_", plm_counts[3],
+             plm_cli_bwd_launches)):
+        main_r, f32_r = (zoo_rec(recs, plm_head[0], t) for t in ("bfloat16", "float32"))
+        by_shape = {}
+        for shape in plm_head[1:]:
+            for t, tag in (("bfloat16", ""), ("float32", "f32_")):
+                r = zoo_rec(recs, shape, t)
+                key = f"u{shape[0]}_l{shape[1]}_{tag}"
+                by_shape.update({key + "ms": r[prefix + "ms"],
+                                 key + "bound_ms": r[prefix + "bound_ms"],
+                                 key + "plain_ms": r["plain_" + prefix + "ms"],
+                                 key + "library_ms": r["library_" + prefix + "ms"]})
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
+            "replaces": ("newsreclib_tpu/ops/mhsa.py:160" if not prefix else
+                         "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
+                        + " in the PLM-NR head (newsreclib_tpu/models/components/plm.py:215) "
+                          "and NRMS's user encoder over it, 16 heads of 48",
+            "launches": int(count),
+            "max_abs_err": max(zoo_rec(recs, s, t)["max_abs_err"] for s in plm_head
+                               for t in ("bfloat16", "float32")),
+            "ms": main_r[prefix + "ms"],
+            "plain_ms": main_r["plain_" + prefix + "ms"],
+            "bound_ms": main_r[prefix + "bound_ms"],
+            "bound_by": main_r[prefix + "bound_by"],
+            "library_ms": main_r["library_" + prefix + "ms"],
+            "f32_ms": f32_r[prefix + "ms"],
+            "f32_bound_ms": f32_r[prefix + "bound_ms"],
+            "f32_plain_ms": f32_r["plain_" + prefix + "ms"],
+            "f32_library_ms": f32_r["library_" + prefix + "ms"],
+            "shape": list(plm_head[0]),
+            "cli_launches": cli,
+            "cli_wall_s": plm_cli_s,
+            "served_epoch_s": plm_epoch_s,
+            "served_peak_mb": plm_peak_mb,
+            **by_shape,
         })
     log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
     log("MANNeR ensemble served metrics: " + json.dumps(ensemble_metrics))

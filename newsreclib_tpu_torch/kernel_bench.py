@@ -2,9 +2,9 @@
 version and a library call, at the shapes the serving path gives it.
 
     python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix}] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix}] [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
 two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
@@ -13,7 +13,9 @@ two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
 at L = 96 and 32 with U = 512, and CAUM's default head dim 100) and
 ``MANNER_SHAPES`` (MANNeR's title + abstract attention, 15 heads of 20 at L
 = 66 to 82), in float32 and bfloat16 (``--shapes manner``: the MANNeR
-shapes alone):
+shapes alone; ``--shapes plm_statfix``: ``plm_statfix_shapes()``, the PLM
+head's and the user encoder's attentions, 16 heads of 48 over 768, in the
+train steps of ``nrms_statfix_plm_supconloss``):
 
 * the kernel is held against ``mhsa_plain`` on the same inputs (float32
   atol/rtol 1e-5, bfloat16 atol 2e-2 / rtol 1e-2);
@@ -109,6 +111,28 @@ PLM_SHAPES = [(512, 96, 768, 16), (512, 32, 768, 16), (64, 50, 400, 4)]
 # the statfix data) and the A-module's batch of 64 untrimmed articles
 # (30 + 50).
 MANNER_SHAPES = [(1792, 66, 300, 15), (256, 82, 300, 15), (64, 80, 300, 15)]
+PLM_D, PLM_H = 768, 16  # the PLM head's MHSA and NRMS's user encoder over it
+
+
+def plm_statfix_shapes(batches: int = 50) -> list:
+    """(U, L, 768, 16) of the attention calls of ``nrms_statfix_plm_supconloss``'s
+    train steps, read off ``TrainBatcher`` at that experiment's batch of 8,
+    ``u_bucket_min`` 128 and split at 16 (``profile_train.PLM_DATA``) over the
+    first ``batches`` batches of the bench workload of seed 0, as
+    ``chip_smoke.main_path_shapes`` reads the serving path's: the title
+    segments, largest first, then the user encoder's (8, 50)."""
+    import numpy as np
+
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+    from newsreclib_tpu_torch.profile_train import PLM_DATA
+
+    store, imp = make_serving_workload(np.random.default_rng(0))
+    seen = set()
+    for _, b in zip(range(batches), TrainBatcher(store, imp, batch_size=8, **PLM_DATA).epoch(0)):
+        seen |= {tuple(seg.title.shape) for seg in (b.news, b.news2) if seg is not None}
+    return ([(u, l, PLM_D, PLM_H) for u, l in sorted(seen, reverse=True)]
+            + [(8, PLM_DATA["max_history_len"], PLM_D, PLM_H)])
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -504,8 +528,8 @@ def main(argv=None) -> int:
                     help="time forward + backward at the train step's shapes")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="only this type (default: both)")
-    ap.add_argument("--shapes", choices=("all", "manner"), default="all",
-                    help="manner: MANNER_SHAPES alone")
+    ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix"), default="all",
+                    help="manner: MANNER_SHAPES alone; plm_statfix: plm_statfix_shapes()")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -528,8 +552,9 @@ def main(argv=None) -> int:
     dtypes = (torch.bfloat16, torch.float32)
     for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
         nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
-        shapes = ([(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES + MANNER_SHAPES
-                  if args.shapes == "all" else MANNER_SHAPES)
+        shapes = {"all": lambda: [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES
+                  + MANNER_SHAPES, "manner": lambda: MANNER_SHAPES,
+                  "plm_statfix": plm_statfix_shapes}[args.shapes]()
         for u, l, d, h in shapes:
             # an older source may refuse a shape: its row says so
             takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)

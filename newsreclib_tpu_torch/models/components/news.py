@@ -21,6 +21,7 @@ from newsreclib_tpu_torch.models.components.attention import AdditiveAttention
 from newsreclib_tpu_torch.models.components.dropout import Dropout
 from newsreclib_tpu_torch.models.components.embedding import TokenEmbedding
 from newsreclib_tpu_torch.models.components.linear import Dense, lecun_normal
+from newsreclib_tpu_torch.models.components.plm import share
 
 # the attributes, in the order their vectors are combined
 ATTRIBUTES = ("title", "abstract", "category", "subcategory", "title_entities",
@@ -34,7 +35,9 @@ class NewsEncoder(nn.Module):
     encoders' vectors.  ``combine_type`` is None (one attribute),
     ``"add_att"`` (additive attention over the stacked vectors, which must
     share a width; ``query_dim``), ``"linear"`` (Dense of the concatenation
-    to ``output_dim``) or ``"concat"``."""
+    to ``output_dim``) or ``"concat"``.  ``shared_text_encoder``: the text
+    encoder is a PLM tower that the model registers (``plm.share``), called
+    here, not owned."""
 
     def __init__(self, attributes2encode: Sequence[str],
                  text_encoder: Optional[nn.Module] = None,
@@ -42,7 +45,8 @@ class NewsEncoder(nn.Module):
                  entity_encoder: Optional[nn.Module] = None,
                  combine_type: Optional[str] = None, query_dim: Optional[int] = None,
                  output_dim: Optional[int] = None, text_dim: int = 0, category_dim: int = 0,
-                 entity_dim: int = 0, generator: Optional[torch.Generator] = None):
+                 entity_dim: int = 0, generator: Optional[torch.Generator] = None,
+                 shared_text_encoder: bool = False):
         super().__init__()
         unknown = set(attributes2encode) - set(ATTRIBUTES)
         if unknown:
@@ -53,7 +57,11 @@ class NewsEncoder(nn.Module):
         # an encoder no attribute uses is dropped, as flax creates no
         # parameters for a submodule that is never called
         used = set(self.attributes)
-        self.text_encoder = text_encoder if used & {"title", "abstract"} else None
+        text_encoder = text_encoder if used & {"title", "abstract"} else None
+        if shared_text_encoder:
+            share(self, "text_encoder", text_encoder)
+        else:
+            self.text_encoder = text_encoder
         self.category_encoder = category_encoder if used & {"category", "subcategory"} else None
         self.entity_encoder = (entity_encoder if used & {"title_entities", "abstract_entities"}
                                else None)

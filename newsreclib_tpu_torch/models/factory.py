@@ -5,16 +5,21 @@ The twelve models of ``PORTED_MODELS`` have ``build_model`` routes, with the
 JAX factory's defaults (``newsreclib_tpu/models/factory.py:155-338``);
 SentiDebias's generator / discriminator pair comes from
 ``build_senti_debias`` and MANNeR's A-module from ``build_manner_a``, as in
-the JAX package (MANNeR's ensemble is composed by ``eval.py``).  The PLM
-text tower (``use_plm``) raises ``NotImplementedError`` (ROADMAP queue 1,
-"PLM tower").
-``pack_titles`` is accepted and ignored: the port's attention kernel works
-per article, and packed and unpacked titles give the same vectors
-(``tests/test_nrms.py::test_mhsa_packing_exact``).
+the JAX package (MANNeR's ensemble is composed by ``eval.py``).  With
+``use_plm`` every route but NPA's and DKN's (which, as in the JAX factory,
+have none) takes the PLM text tower (``components/plm.py``) of
+``_build_plm_tower``, its weights loaded from a local Hugging Face checkpoint
+directory ``plm_model`` or drawn at random when ``plm_model`` is not one
+(nothing is fetched).
+``pack_titles`` and ``plm_pack_titles`` are accepted and ignored: the port's
+attention kernel works per article, and packed and unpacked titles give the
+same vectors (``tests/test_nrms.py::test_mhsa_packing_exact``,
+``tests/test_plm.py::test_plm_packing_exact``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Union
@@ -24,6 +29,11 @@ import torch
 
 from newsreclib_tpu_torch.models import fair_rec
 from newsreclib_tpu_torch.models.components.losses import get_loss_fn
+from newsreclib_tpu_torch.models.components.plm import (
+    PLMTextEncoder,
+    TransformerEncoder,
+    load_hf_torch_weights,
+)
 from newsreclib_tpu_torch.models.general_rec import (
     CAUM,
     DKN,
@@ -36,6 +46,8 @@ from newsreclib_tpu_torch.models.general_rec import (
     TANR,
     CenNewsRec,
 )
+
+log = logging.getLogger("newsreclib_tpu_torch")
 
 
 @dataclass
@@ -68,17 +80,68 @@ def title_split_margin(model_name: str, model_cfg: Optional[Dict] = None) -> int
     return int(max((model_cfg or {}).get("window_sizes", (1, 2, 3, 4))))
 
 
+def _build_plm_tower(cfg: Dict, generator: torch.Generator, towers: str = "encoder"):
+    """``(PLMTextEncoder, its width)`` of the ``model`` node ``cfg``
+    (``newsreclib_tpu/models/factory.py:42-91``).  ``plm_model`` a local
+    Hugging Face checkpoint directory: the tower's encoder takes its
+    configuration and weights; anything else (a hub name such as
+    ``roberta-base``, ``__random_init__``): random initialisation at the
+    config's widths, with the JAX factory's warning."""
+    plm_name = cfg.get("plm_model", "roberta-base")
+    state = None
+    if os.path.isdir(plm_name):
+        state, kwargs = load_hf_torch_weights(plm_name)
+    else:
+        log.warning(
+            "PLM weights for %r unavailable (not a local checkpoint directory; nothing is "
+            "fetched); using RANDOM initialization — fine for pipeline tests, useless for "
+            "accuracy", plm_name)
+        kwargs = dict(
+            vocab_size=cfg.get("plm_vocab_size", 50265),
+            hidden_dim=cfg.get("embed_dim", 768),
+            num_layers=cfg.get("plm_num_layers", 12),
+            num_heads=cfg.get("plm_num_heads", 12),
+            intermediate_dim=4 * cfg.get("embed_dim", 768),
+            max_position=cfg.get("plm_max_position", 512),
+        )
+    encoder = TransformerEncoder(**kwargs, generator=generator)
+    if state is not None:
+        encoder.load_state_dict(state)
+        log.info("spliced ported PLM weights into 1 %s towers", towers)
+    tower = PLMTextEncoder(
+        encoder,
+        use_mhsa=cfg.get("plm_use_mhsa", True),
+        num_heads=cfg.get("num_heads", 16),
+        query_dim=cfg.get("query_dim", 200),
+        apply_reduce_dim=cfg.get("apply_reduce_dim", False),
+        reduced_embed_dim=cfg.get("news_embed_dim"),
+        dropout=cfg.get("dropout_probability", 0.2),
+        pack_to=cfg.get("plm_pack_titles", 128),
+        generator=generator,
+    )
+    return tower, tower.out_dim
+
+
+def _plm_kwargs(cfg: Dict, generator: torch.Generator, towers: str = "encoder") -> Dict:
+    """The tower keywords of a model constructor: none without ``use_plm``."""
+    if not cfg.get("use_plm"):
+        return {}
+    tower, dim = _build_plm_tower(cfg, generator, towers)
+    return {"text_encoder_module": tower, "text_encoder_dim": dim}
+
+
 def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "cuda",
                 seed: int = 0):
     """The model of ``cfg`` (the ``model`` node, with ``name``), its weights
-    drawn from ``torch.Generator().manual_seed(seed)`` and moved to
-    ``device``."""
+    drawn from ``torch.Generator().manual_seed(seed)`` (the PLM tower's
+    first, with ``use_plm``) and moved to ``device``."""
     name = cfg["name"]
-    _refuse_plm(cfg)
     d = cfg.get("dropout_probability", 0.2)
+    rng = torch.Generator().manual_seed(seed)
+    plm = {} if name in ("npa", "dkn") else _plm_kwargs(cfg, rng)
     common = dict(late_fusion=cfg.get("late_fusion", False),
                   pretrained_embeddings=info.pretrained_embeddings, device=device,
-                  generator=torch.Generator().manual_seed(seed))
+                  generator=rng, **plm)
     if name == "nrms":
         return NRMS(
             info.vocab_size,
@@ -112,7 +175,8 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
             window_size=cfg.get("window_size", 3),
             query_dim=cfg.get("query_dim", 200),
             dropout=d,
-            gru_hidden_dim=cfg.get("gru_hidden_dim", 400),
+            # the GRU's state is stacked with the news vectors: the tower's width
+            gru_hidden_dim=cfg.get("gru_hidden_dim", plm.get("text_encoder_dim") or 400),
             num_recent_news=cfg.get("num_recent_news", 20),
             **common,
         )
@@ -251,24 +315,19 @@ def build_model(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "c
             pretrained_embeddings=info.pretrained_embeddings,
             pretrained_entity_embeddings=info.pretrained_entity_embeddings,
             device=device,
-            generator=common["generator"],
+            generator=rng,
+            **plm,
         )
     if name in OWN_BUILDERS:
         raise ValueError(f"model {name!r} is built by {OWN_BUILDERS[name]}, not build_model")
     raise ValueError(f"unknown model: {name!r}; build_model builds {', '.join(PORTED_MODELS)}")
 
 
-def _refuse_plm(cfg: Dict) -> None:
-    if cfg.get("use_plm"):
-        raise NotImplementedError(
-            'the PLM text tower (model.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower")')
-
-
 def build_manner_a(cfg: Dict, info: DataInfo, device: Union[str, torch.device] = "cuda",
                    seed: int = 0) -> fair_rec.MANNeRA:
     """MANNeR's A-module (``newsreclib_tpu/models/factory.py:340``), trained
     by ``training/aspect.py::run_aspect_training``, not on slates."""
-    _refuse_plm(cfg)
+    rng = torch.Generator().manual_seed(seed)
     return fair_rec.MANNeRA(
         info.vocab_size,
         entity_vocab_size=info.entity_vocab_size,
@@ -281,7 +340,8 @@ def build_manner_a(cfg: Dict, info: DataInfo, device: Union[str, torch.device] =
         pretrained_embeddings=info.pretrained_embeddings,
         pretrained_entity_embeddings=info.pretrained_entity_embeddings,
         device=device,
-        generator=torch.Generator().manual_seed(seed),
+        generator=rng,
+        **_plm_kwargs(cfg, rng),
     )
 
 
@@ -291,9 +351,10 @@ def build_senti_debias(cfg: Dict, info: DataInfo, device: Union[str, torch.devic
     (``newsreclib_tpu/models/factory.py:366``), trained by
     ``training/adversarial.py``; the discriminator's weights come from the
     same generator of random numbers, after the generator's."""
-    _refuse_plm(cfg)
     rng = torch.Generator().manual_seed(seed)
-    embed_dim = cfg.get("embed_dim", 300)
+    plm = _plm_kwargs(cfg, rng, towers="generator")
+    # the discriminator reads the news tower's vectors
+    embed_dim = plm.get("text_encoder_dim") or cfg.get("embed_dim", 300)
     gen = fair_rec.SentiDebiasGenerator(
         info.vocab_size,
         num_sent_classes=info.num_sent_classes - 1,
@@ -306,6 +367,7 @@ def build_senti_debias(cfg: Dict, info: DataInfo, device: Union[str, torch.devic
         pretrained_embeddings=info.pretrained_embeddings,
         device=device,
         generator=rng,
+        **plm,
     )
     disc = fair_rec.SentiDebiasDiscriminator(
         embed_dim,

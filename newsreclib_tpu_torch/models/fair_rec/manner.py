@@ -35,6 +35,7 @@ from newsreclib_tpu_torch.models.base import encode_all_news, gather_news, late_
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
 from newsreclib_tpu_torch.models.components.linear import Dense
 from newsreclib_tpu_torch.models.components.news import EntityAddAtt
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import NRMSUserEncoder
 
@@ -63,22 +64,31 @@ class MANNeRNewsEncoder(nn.Module):
     """The CR and A modules' news encoder: ``MHSAAddAtt`` over the
     concatenated text, with ``use_entities`` an ``EntityAddAtt`` tower and
     ``combine_linear`` from both vectors back to ``text_embed_dim`` (news
-    without entities get the text vector alone, as in the JAX module)."""
+    without entities get the text vector alone, as in the JAX module).  A
+    PLM tower (``text_encoder_module``, of width ``text_encoder_dim``) that
+    the module above registers replaces ``MHSAAddAtt``."""
 
     def __init__(self, vocab_size: int, entity_vocab_size: int = 1, use_entities: bool = True,
                  text_embed_dim: int = 300, entity_embed_dim: int = 100, num_heads: int = 15,
                  query_dim: int = 200, dropout: float = 0.2,
                  pretrained_embeddings: Optional[np.ndarray] = None,
                  pretrained_entity_embeddings: Optional[np.ndarray] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 text_encoder_module: Optional[nn.Module] = None,
+                 text_encoder_dim: Optional[int] = None):
         super().__init__()
-        self.text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim, dropout,
-                                       pretrained_embeddings, generator)
+        text_dim = text_embed_dim
+        if text_encoder_module is not None:
+            share(self, "text_encoder", text_encoder_module)
+            text_dim = text_encoder_dim
+        else:
+            self.text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim,
+                                           dropout, pretrained_embeddings, generator)
         self.entity_encoder = self.combine_linear = None
         if use_entities:
             self.entity_encoder = EntityAddAtt(entity_vocab_size, entity_embed_dim, query_dim,
                                                dropout, pretrained_entity_embeddings, generator)
-            self.combine_linear = Dense(text_embed_dim + entity_embed_dim, text_embed_dim,
+            self.combine_linear = Dense(text_dim + entity_embed_dim, text_embed_dim,
                                         generator)
 
     def forward(self, news: NewsFeatures, deterministic: bool = True,
@@ -102,7 +112,9 @@ class MANNeRCR(nn.Module):
                  query_dim: int = 200, dropout: float = 0.2, late_fusion: bool = True,
                  pretrained_embeddings: Optional[np.ndarray] = None,
                  pretrained_entity_embeddings: Optional[np.ndarray] = None,
-                 remat: bool = False, device: Union[str, torch.device] = "cuda",
+                 remat: bool = False, text_encoder_module: Optional[nn.Module] = None,
+                 text_encoder_dim: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if remat:
@@ -112,10 +124,13 @@ class MANNeRCR(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
+        if text_encoder_module is not None:
+            self.text_encoder_module = text_encoder_module
         self.news_encoder = MANNeRNewsEncoder(vocab_size, entity_vocab_size, use_entities,
-                                          text_embed_dim, entity_embed_dim, num_heads, query_dim,
-                                          dropout, pretrained_embeddings,
-                                          pretrained_entity_embeddings, generator)
+                                              text_embed_dim, entity_embed_dim, num_heads,
+                                              query_dim, dropout, pretrained_embeddings,
+                                              pretrained_entity_embeddings, generator,
+                                              text_encoder_module, text_encoder_dim)
         self.user_encoder = (None if late_fusion
                              else NRMSUserEncoder(text_embed_dim, num_heads, query_dim,
                                                   generator))
@@ -151,16 +166,21 @@ class MANNeRA(nn.Module):
                  query_dim: int = 200, dropout: float = 0.2,
                  pretrained_embeddings: Optional[np.ndarray] = None,
                  pretrained_entity_embeddings: Optional[np.ndarray] = None,
+                 text_encoder_module: Optional[nn.Module] = None,
+                 text_encoder_dim: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if text_encoder_module is not None:
+            self.text_encoder_module = text_encoder_module
         self.news_encoder = MANNeRNewsEncoder(vocab_size, entity_vocab_size, use_entities,
-                                          text_embed_dim, entity_embed_dim, num_heads, query_dim,
-                                          dropout, pretrained_embeddings,
-                                          pretrained_entity_embeddings, generator)
+                                              text_embed_dim, entity_embed_dim, num_heads,
+                                              query_dim, dropout, pretrained_embeddings,
+                                              pretrained_entity_embeddings, generator,
+                                              text_encoder_module, text_encoder_dim)
         self.to(device)
 
     def forward(self, news: NewsFeatures, deterministic: bool = True,

@@ -33,6 +33,7 @@ from newsreclib_tpu_torch.models.components.category import SentimentEncoder
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
 from newsreclib_tpu_torch.models.components.linear import Dense
 from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import NRMSUserEncoder
 from newsreclib_tpu_torch.training.state import TrainState, create_train_state, make_optimizer
@@ -66,6 +67,8 @@ class SentiDebiasGenerator(nn.Module):
         dropout: float = 0.2,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -74,8 +77,13 @@ class SentiDebiasGenerator(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        self.news_encoder = MHSAAddAtt(vocab_size, embed_dim, num_heads, query_dim, dropout,
-                                       pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder_module
+            share(self, "news_encoder", text_encoder_module)
+            embed_dim = text_encoder_dim
+        else:
+            self.news_encoder = MHSAAddAtt(vocab_size, embed_dim, num_heads, query_dim, dropout,
+                                           pretrained_embeddings, generator)
         # the sentiment tower emits the news tower's width: the bias-aware
         # head dots the user vector of sentiment vectors with them
         self.sentiment_encoder = SentimentEncoder(num_sent_classes, sent_embed_dim, embed_dim,

@@ -36,6 +36,7 @@ from newsreclib_tpu_torch.models.base import (
 )
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
 from newsreclib_tpu_torch.models.components.linear import Dense
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import NRMSUserEncoder
 
@@ -67,6 +68,8 @@ class SentiRec(nn.Module):
         sent_div_loss_coef: float = 10.0,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -77,8 +80,13 @@ class SentiRec(nn.Module):
         self.late_fusion = late_fusion
         self.sent_pred_loss_coef = sent_pred_loss_coef
         self.sent_div_loss_coef = sent_div_loss_coef
-        self.news_encoder = MHSAAddAtt(vocab_size, embed_dim, num_heads, query_dim, dropout,
-                                       pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder_module
+            share(self, "news_encoder", text_encoder_module)
+            embed_dim = text_encoder_dim
+        else:
+            self.news_encoder = MHSAAddAtt(vocab_size, embed_dim, num_heads, query_dim, dropout,
+                                           pretrained_embeddings, generator)
         self.user_encoder = (None if late_fusion
                              else NRMSUserEncoder(embed_dim, num_heads, query_dim, generator))
         self.sent_predictor = Dense(embed_dim, 1, generator)

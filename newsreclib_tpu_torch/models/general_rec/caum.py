@@ -51,6 +51,8 @@ class CAUM(nn.Module):
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
         pretrained_entity_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -59,8 +61,12 @@ class CAUM(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, text_num_heads, query_dim,
-                                  dropout, pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder = text_encoder_module
+            text_embed_dim = text_encoder_dim
+        else:
+            text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, text_num_heads, query_dim,
+                                      dropout, pretrained_embeddings, generator)
         entity_encoder = EntityAddAtt(entity_vocab_size, entity_embed_dim, query_dim, dropout,
                                       pretrained_entity_embeddings, generator)
         category_encoder = LinearEncoder(num_categories, categ_embed_dim, use_dropout=False,
@@ -68,7 +74,8 @@ class CAUM(nn.Module):
         self.news_encoder = NewsEncoder(
             attributes2encode, text_encoder, category_encoder, entity_encoder,
             combine_type="linear", output_dim=news_embed_dim, text_dim=text_embed_dim,
-            category_dim=categ_embed_dim, entity_dim=entity_embed_dim, generator=generator)
+            category_dim=categ_embed_dim, entity_dim=entity_embed_dim, generator=generator,
+            shared_text_encoder=text_encoder_module is not None)
         self.user_encoder = None if late_fusion else CAUMUserEncoder(
             news_embed_dim, num_filters, dense_att_hidden_dim1, dense_att_hidden_dim2,
             user_vector_dim, text_num_heads, dropout, generator)

@@ -20,6 +20,7 @@ from newsreclib_tpu_torch.data.batch import NewsFeatures, RecBatch
 from newsreclib_tpu_torch.device import resolve_device
 from newsreclib_tpu_torch.models.base import encode_all_news, gather_news, late_fusion_user
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import CNNMHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import CenNewsRecUserEncoder
 
@@ -41,6 +42,8 @@ class CenNewsRec(nn.Module):
         num_recent_news: int = 20,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -49,9 +52,14 @@ class CenNewsRec(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        self.news_encoder = CNNMHSAAddAtt(vocab_size, embed_dim, num_filters, window_size,
-                                          num_heads, query_dim, dropout, pretrained_embeddings,
-                                          generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder_module
+            share(self, "news_encoder", text_encoder_module)
+            num_filters = text_encoder_dim
+        else:
+            self.news_encoder = CNNMHSAAddAtt(vocab_size, embed_dim, num_filters, window_size,
+                                              num_heads, query_dim, dropout,
+                                              pretrained_embeddings, generator)
         self.user_encoder = None if late_fusion else CenNewsRecUserEncoder(
             num_filters, num_heads, query_dim, gru_hidden_dim, num_recent_news, dropout,
             generator)

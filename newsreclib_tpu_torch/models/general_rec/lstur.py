@@ -47,6 +47,8 @@ class LSTUR(nn.Module):
         long_short_term_method: str = "ini",
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -55,13 +57,18 @@ class LSTUR(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        text_encoder = CNNAddAtt(vocab_size, text_embed_dim, num_filters, window_size, query_dim,
-                                 dropout, pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder = text_encoder_module
+            num_filters = text_encoder_dim
+        else:
+            text_encoder = CNNAddAtt(vocab_size, text_embed_dim, num_filters, window_size,
+                                     query_dim, dropout, pretrained_embeddings, generator)
         category_encoder = LinearEncoder(num_categories, categ_embed_dim, use_dropout=False,
                                          generator=generator)
         self.news_encoder = NewsEncoder(
             attributes2encode, text_encoder, category_encoder, combine_type="concat",
-            text_dim=num_filters, category_dim=categ_embed_dim, generator=generator)
+            text_dim=num_filters, category_dim=categ_embed_dim, generator=generator,
+            shared_text_encoder=text_encoder_module is not None)
         # the news width as lstur.py:75-88 computes it
         attrs = set(attributes2encode)
         news_dim = num_filters + categ_embed_dim * (("category" in attrs)

@@ -38,6 +38,7 @@ from newsreclib_tpu_torch.models.components.category import LinearEncoder
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
 from newsreclib_tpu_torch.models.components.dropout import Dropout
 from newsreclib_tpu_torch.models.components.linear import Dense
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.utils import pairwise_cosine_similarity
 
@@ -65,6 +66,8 @@ class MINER(nn.Module):
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
         pretrained_categ_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -77,8 +80,13 @@ class MINER(nn.Module):
         self.late_fusion = late_fusion
         self.use_categ_bias = use_categ_bias
         self.score_type = score_type
-        self.text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim, dropout,
-                                       pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder_module
+            share(self, "text_encoder", text_encoder_module)
+            text_embed_dim = text_encoder_dim
+        else:
+            self.text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim,
+                                           dropout, pretrained_embeddings, generator)
         self.reduce_dim = Dense(text_embed_dim, news_embed_dim, generator)
         self.reduce_dropout = Dropout(dropout)
         if not late_fusion:

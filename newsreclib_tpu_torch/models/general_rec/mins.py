@@ -45,6 +45,8 @@ class MINS(nn.Module):
         num_gru_channels: int = 6,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -53,15 +55,19 @@ class MINS(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim, dropout,
-                                  pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder = text_encoder_module
+            text_embed_dim = text_encoder_dim
+        else:
+            text_encoder = MHSAAddAtt(vocab_size, text_embed_dim, num_heads, query_dim, dropout,
+                                      pretrained_embeddings, generator)
         category_encoder = LinearEncoder(num_categories, categ_embed_dim, use_dropout=False,
                                          linear_transform=True, output_dim=text_embed_dim,
                                          generator=generator)
         self.news_encoder = NewsEncoder(
             attributes2encode, text_encoder, category_encoder, combine_type="add_att",
             query_dim=query_dim, text_dim=text_embed_dim, category_dim=text_embed_dim,
-            generator=generator)
+            generator=generator, shared_text_encoder=text_encoder_module is not None)
         self.user_encoder = None if late_fusion else MINSUserEncoder(
             text_embed_dim, query_dim, num_filters or text_embed_dim, num_gru_channels, generator)
         self.to(device)

@@ -4,7 +4,10 @@
 News encoder: ``CNNAddAtt`` shared by title and abstract, the category
 through ``relu(Dense)`` to ``num_filters``, combined by additive attention.
 User encoder: additive attention over the history.  No attention kernel
-runs.  Defaults as ``configs/model/naml.yaml`` and the JAX factory.
+runs, but for a PLM tower's head: the tower (``text_encoder_module``)
+replaces the text encoder, and the downstream widths follow its
+``text_encoder_dim``.  Defaults as ``configs/model/naml.yaml`` and the JAX
+factory.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ class NAML(nn.Module):
         dropout: float = 0.2,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -50,15 +55,19 @@ class NAML(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        text_encoder = CNNAddAtt(vocab_size, text_embed_dim, num_filters, window_size, query_dim,
-                                 dropout, pretrained_embeddings, generator)
+        if text_encoder_module is not None:
+            self.text_encoder_module = text_encoder = text_encoder_module
+            num_filters = text_encoder_dim
+        else:
+            text_encoder = CNNAddAtt(vocab_size, text_embed_dim, num_filters, window_size,
+                                     query_dim, dropout, pretrained_embeddings, generator)
         category_encoder = LinearEncoder(num_categories, categ_embed_dim, use_dropout=False,
                                          linear_transform=True, output_dim=num_filters,
                                          generator=generator)
         self.news_encoder = NewsEncoder(
             attributes2encode, text_encoder, category_encoder, combine_type="add_att",
             query_dim=query_dim, text_dim=num_filters, category_dim=num_filters,
-            generator=generator)
+            generator=generator, shared_text_encoder=text_encoder_module is not None)
         self.user_encoder = None if late_fusion else NAMLUserEncoder(num_filters, query_dim,
                                                                      generator)
         self.to(device)

@@ -5,7 +5,9 @@ The title encoder runs once over the batch's unique news table and the
 history/candidate slots gather from it.  ``encode_news`` and
 ``score_with_vectors`` split the model so that serving can encode the whole
 corpus once (``serving.py``).  Both attentions go through the
-``fused_small_mhsa`` kernel when the model lies on the card.
+``fused_small_mhsa`` kernel when the model lies on the card.  With a PLM
+tower (``text_encoder_module``, ``components/plm.py``) the tower is the news
+encoder and the user encoder works at its width.
 """
 
 from __future__ import annotations
@@ -20,13 +22,15 @@ from newsreclib_tpu_torch.data.batch import NewsFeatures, RecBatch
 from newsreclib_tpu_torch.device import resolve_device
 from newsreclib_tpu_torch.models.base import encode_all_news, gather_news, late_fusion_user
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import NRMSUserEncoder
 
 
 class NRMS(nn.Module):
     """Hyperparameters as the JAX ``NRMS`` (embed 300, heads 15, query 200,
-    dropout 0.2).  Weights are drawn on the CPU from ``generator`` (seed 0
+    dropout 0.2); ``text_encoder_module`` of width ``text_encoder_dim``
+    replaces the GloVe title encoder.  Weights are drawn on the CPU from ``generator`` (seed 0
     when none is given) and moved to ``device``; ``device`` defaults to the
     card, and without one the constructor raises unless ``device="cpu"``."""
 
@@ -39,6 +43,8 @@ class NRMS(nn.Module):
         dropout: float = 0.2,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -47,10 +53,15 @@ class NRMS(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
-        self.news_encoder = MHSAAddAtt(
-            vocab_size, embed_dim, num_heads, query_dim, dropout,
-            pretrained_embeddings, generator,
-        )
+        if text_encoder_module is not None:
+            self.text_encoder_module = text_encoder_module
+            share(self, "news_encoder", text_encoder_module)
+            embed_dim = text_encoder_dim
+        else:
+            self.news_encoder = MHSAAddAtt(
+                vocab_size, embed_dim, num_heads, query_dim, dropout,
+                pretrained_embeddings, generator,
+            )
         self.user_encoder = (
             None if late_fusion
             else NRMSUserEncoder(embed_dim, num_heads, query_dim, generator)

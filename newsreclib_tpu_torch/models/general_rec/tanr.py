@@ -29,6 +29,7 @@ from newsreclib_tpu_torch.models.base import (
 )
 from newsreclib_tpu_torch.models.components.click import dot_product_scores
 from newsreclib_tpu_torch.models.components.linear import Dense
+from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import CNNAddAtt
 from newsreclib_tpu_torch.models.components.user import NAMLUserEncoder
 
@@ -50,6 +51,8 @@ class TANR(nn.Module):
         topic_pred_loss_coef: float = 0.2,
         late_fusion: bool = False,
         pretrained_embeddings: Optional[np.ndarray] = None,
+        text_encoder_module: Optional[nn.Module] = None,
+        text_encoder_dim: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -59,8 +62,13 @@ class TANR(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
         self.topic_pred_loss_coef = topic_pred_loss_coef
-        self.news_encoder = CNNAddAtt(vocab_size, embed_dim, num_filters, window_size, query_dim,
-                                      dropout, pretrained_embeddings, generator)
+        if text_encoder_module is not None:  # a PLM tower of width text_encoder_dim
+            self.text_encoder_module = text_encoder_module
+            share(self, "news_encoder", text_encoder_module)
+            num_filters = text_encoder_dim
+        else:
+            self.news_encoder = CNNAddAtt(vocab_size, embed_dim, num_filters, window_size,
+                                          query_dim, dropout, pretrained_embeddings, generator)
         self.user_encoder = None if late_fusion else NAMLUserEncoder(num_filters, query_dim,
                                                                      generator)
         self.topic_predictor = Dense(num_filters, num_categories, generator)

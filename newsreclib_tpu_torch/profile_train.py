@@ -2,7 +2,7 @@
 
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
         [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn,sentirec,
-                  senti_debias,manner_cr}]
+                  senti_debias,manner_cr,nrms_plm}]
         [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
@@ -22,6 +22,13 @@ file's widths instead, trained on its config file's loss (the workload's
 articles carry abstracts, subcategories, entities and sentiment scores, its
 impressions user ids, for them); ``senti_debias`` runs its alternating
 generator / discriminator step (``models/fair_rec/senti_debias.py``).
+``nrms_plm`` is NRMS with the PLM tower at the model node of
+``experiment=nrms_statfix_plm_supconloss`` (a random 12-layer tower 768
+wide, 12 heads, FFN 3,072; the head's 16 heads of 48; SupCon), its
+vocabulary at the workload's 60,000 ids, trained at that experiment's
+batch of 8 and 32 with its ``u_bucket_min`` of 128; its profile also splits
+the device time of the tower (``tower``: its GEMMs, its plain attention and
+the rest, forward and backward) from the head's attention kernels.
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -42,7 +49,14 @@ For each, after 5 warm-up steps, one JSON line with:
   the whole ``FusedSmallMHSABackward`` node, the kernels that took the most
   device time and the host operations that took the most host time;
 * ``attention_launches_per_step`` / ``attention_bwd_launches_per_step``:
-  the forward and backward kernels' launch counts per step.
+  the forward and backward kernels' launch counts per step;
+* ``tower`` (``nrms_plm``): device ms a step of the PLM tower's GEMMs (its
+  Dense layers), of its plain attention (``components/plm.py::
+  self_attention``: the batched products, mask, softmax and dropout) and of
+  the rest of it (embeddings, LayerNorms, GELU, dropout), forward and
+  backward: the kernels launched under ``torch.profiler`` ranges put
+  around the tower and its attention for the profiled steps, and by the
+  backward nodes whose sequence numbers those ranges' operations carry.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -50,6 +64,7 @@ Needs a CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -60,6 +75,10 @@ DATA = dict(max_history_len=50, neg_sampling_ratio=4, seed=0, u_bucket_min=512,
             split_title_len=16)
 LEARNING_RATE = 1e-4
 BATCH_SIZES = (64, 256)
+# NRMS with the PLM tower (module doc): its experiment, batches and batcher
+PLM_CELL, PLM_EXPERIMENT = "nrms_plm", "nrms_statfix_plm_supconloss"
+PLM_BATCH_SIZES = (8, 32)
+PLM_DATA = dict(DATA, u_bucket_min=128)
 WARMUP = 5
 # attention calls of each model's news encoder on one news segment (MINS
 # encodes title and abstract with its attention, MANNeR's CR module title and
@@ -69,18 +88,27 @@ WARMUP = 5
 # encodes its bias-free and its bias-aware users; MANNeR fuses late)
 TEXT_ATTENTIONS = {"nrms": 1, "mins": 2, "cen_news_rec": 1, "caum": 1, "miner": 1, "naml": 0,
                    "tanr": 0, "lstur": 0, "npa": 0, "dkn": 0, "sentirec": 1,
-                   "senti_debias": 1, "manner_cr": 1}
+                   "senti_debias": 1, "manner_cr": 1, PLM_CELL: 1}
 USER_ATTENTIONS = {"nrms": 1, "mins": 1, "cen_news_rec": 1, "caum": 1, "sentirec": 1,
-                   "senti_debias": 2}
+                   "senti_debias": 2, PLM_CELL: 1}
 # models whose train step is not ``make_train_step`` on the model's loss
 ADVERSARIAL = ("senti_debias",)
 
 
 def cell_config(model: str) -> dict:
-    """The ``model`` node of ``model``'s config file."""
+    """The ``model`` node of ``model``'s config file (``nrms_plm``: of
+    ``PLM_EXPERIMENT``, its vocabulary at ``VOCAB_SIZE``)."""
     from newsreclib_tpu_torch.config.compose import compose
 
+    if model == PLM_CELL:
+        return compose(overrides=[f"experiment={PLM_EXPERIMENT}",
+                                  f"model.plm_vocab_size={VOCAB_SIZE}"])["model"]
     return compose(overrides=[f"model={model}"])["model"]
+
+
+def cell_data(model: str) -> dict:
+    """``TrainBatcher`` keywords of ``model``'s cell."""
+    return PLM_DATA if model == PLM_CELL else DATA
 
 
 def cell_info():
@@ -135,7 +163,7 @@ def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
     from newsreclib_tpu_torch.data.batching import TrainBatcher
 
     state, step = cell_state_and_step(model, device, compute_dtype, learning_rate)
-    return state, TrainBatcher(store, imp, batch_size=batch_size, **DATA), step
+    return state, TrainBatcher(store, imp, batch_size=batch_size, **cell_data(model)), step
 
 
 def attention_launches(batch, model: str = "nrms", backward: bool = False) -> int:
@@ -211,6 +239,100 @@ def _device_breakdown(prof, steps: int) -> dict:
     }
 
 
+GEMM_KERNEL_NAMES = ("gemm", "gemv", "Gemm")
+
+
+def _tower_breakdown(prof, steps: int, cost=None) -> dict:
+    """Device ms a step of the PLM tower's GEMMs, its plain attention and
+    the rest of it, forward and backward (module doc, ``tower``): forward
+    kernels under the ``plm_tower`` / ``plm_tower_attention`` ranges
+    (``tower_ranges``), backward kernels of the autograd nodes whose
+    sequence numbers the ranges' forward operations carry.  ``cost(event)``
+    gives ``(name, us)`` pairs of what an event launched (default: its CUDA
+    kernels but the ranges' own device spans)."""
+    events = prof.events()
+    annotations = {e.name for e in events if e.is_user_annotation}
+    if cost is None:
+        def cost(e):
+            return [(k.name, k.duration) for k in e.kernels if k.name not in annotations]
+
+    def subtree(e):
+        yield e
+        for c in e.cpu_children:
+            yield from subtree(c)
+
+    def kernels(e, skip=()):
+        """(GEMM us, other us) of the kernels ``e`` and its children
+        launched, leaving out the subtrees of ``skip``."""
+        gemm = other = 0.0
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            if x in skip:
+                continue
+            for name, duration in cost(x):
+                if any(n in name for n in GEMM_KERNEL_NAMES):
+                    gemm += duration
+                else:
+                    other += duration
+            stack.extend(x.cpu_children)
+        return gemm, other
+
+    att_roots = [e for e in events if e.name == "plm_tower_attention"]
+    tower_roots = [e for e in events if e.name == "plm_tower"]
+    att_seq = {d.sequence_nr for r in att_roots for d in subtree(r) if d.sequence_nr >= 0}
+    tower_seq = {d.sequence_nr for r in tower_roots for d in subtree(r)
+                 if d.sequence_nr >= 0} - att_seq
+    us = dict.fromkeys(("fwd_gemm", "fwd_attention", "fwd_other", "bwd_gemm",
+                        "bwd_attention", "bwd_other"), 0.0)
+    skip = set(att_roots)
+    for r in att_roots:
+        us["fwd_attention"] += sum(kernels(r))
+    for r in tower_roots:
+        g, o = kernels(r, skip)
+        us["fwd_gemm"] += g
+        us["fwd_other"] += o
+    for e in events:
+        if e.cpu_parent is not None or not e.name.startswith(
+                "autograd::engine::evaluate_function"):
+            continue
+        if e.sequence_nr in att_seq:
+            us["bwd_attention"] += sum(kernels(e))
+        elif e.sequence_nr in tower_seq:
+            g, o = kernels(e)
+            us["bwd_gemm"] += g
+            us["bwd_other"] += o
+    out = {f"{k}_ms": v / 1e3 / steps for k, v in us.items()}
+    for part in ("gemm", "attention", "other"):
+        out[f"{part}_ms"] = out[f"fwd_{part}_ms"] + out[f"bwd_{part}_ms"]
+    return out
+
+
+@contextlib.contextmanager
+def tower_ranges():
+    """Within it, every PLM tower's forward runs in a ``plm_tower`` profiler
+    range and its attention in ``plm_tower_attention`` (for
+    ``_tower_breakdown``); outside, the model code has no range."""
+    from torch.profiler import record_function
+
+    from newsreclib_tpu_torch.models.components import plm
+
+    saved = plm.self_attention, plm.TransformerEncoder.forward
+
+    def ranged(fn, name):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    plm.self_attention = ranged(saved[0], "plm_tower_attention")
+    plm.TransformerEncoder.forward = ranged(saved[1], "plm_tower")
+    try:
+        yield
+    finally:
+        plm.self_attention, plm.TransformerEncoder.forward = saved
+
+
 def profile_cell(store, imp, batch_size: int, steps: int, card: str,
                  compute_dtype="bfloat16", model="nrms") -> dict:
     import torch
@@ -257,9 +379,12 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     loop_s = _sync_s(loop) / steps
 
     profiled = dev[WARMUP + steps:WARMUP + 2 * steps]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tower_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         wall_s = _sync_s(lambda: [step(state, b) for b in profiled])
     breakdown = _device_breakdown(prof, steps)
+    if model == PLM_CELL:
+        breakdown["tower"] = _tower_breakdown(prof, steps)
     busy_ms = breakdown["device_ms_per_step"]
     return {
         "model": model,
@@ -313,7 +438,7 @@ def main(argv=None) -> int:
     build.build_all(["mhsa"])
     store, imp = make_serving_workload(np.random.default_rng(0))
     records = []
-    for batch_size in BATCH_SIZES:
+    for batch_size in PLM_BATCH_SIZES if args.model == PLM_CELL else BATCH_SIZES:
         rec = profile_cell(store, imp, batch_size, args.steps, card,
                            None if args.compute_dtype == "float32" else args.compute_dtype,
                            args.model)

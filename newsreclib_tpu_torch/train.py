@@ -16,7 +16,9 @@ It runs on the card (``cuda``) and raises without one; ``platform=cpu`` (or
 ``models/factory.py::PORTED_MODELS`` train here, SentiDebias
 (``model.adversarial: true``) through ``training/adversarial.py`` and
 MANNeR's A-module (``model=manner_a``) through ``training/aspect.py``, on
-MIND-format data; the PLM tower, the other datasets and the multi-device
+MIND-format data, with the GloVe text encoders or the PLM tower
+(``model.use_plm``, layer freezing by ``model.frozen_layers``); PLM-mode
+tokenisation (``data.use_plm``), the other datasets and the multi-device
 settings raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -35,6 +37,7 @@ from newsreclib_tpu_torch.config.compose import CONFIG_DIR, compose
 from newsreclib_tpu_torch.data.batching import EvalBatcher, TrainBatcher
 from newsreclib_tpu_torch.data.mind import MINDConfig, MINDData
 from newsreclib_tpu_torch.metrics.collector import RankingMetrics
+from newsreclib_tpu_torch.models.components.plm import plm_freeze_labels
 from newsreclib_tpu_torch.models.factory import (
     build_loss,
     build_model,
@@ -137,15 +140,27 @@ def setup_data(cfg: Dict) -> MINDData:
     ))
 
 
-def build_optimizer(cfg: Dict, steps_per_epoch: int = 0):
+def build_optimizer(cfg: Dict, steps_per_epoch: int = 0, model: Optional[torch.nn.Module] = None):
     """The update rule of the ``model.optimizer`` node (lr, weight decay,
     cosine or linear-warmup schedule, gradient clipping); the schedule spans
     ``steps_per_epoch x trainer.max_epochs`` updates unless it names its
-    ``total_steps``."""
+    ``total_steps``.  With ``use_plm`` and ``model.frozen_layers``, the PLM
+    tower's layers of those indices (and its embeddings, unless
+    ``freeze_plm_embeddings`` is false) are frozen in ``model``
+    (``plm_freeze_labels``, as the root ``train.py:219-252``)."""
     mc = cfg["model"]
     opt_cfg = mc.get("optimizer", {})
-    if mc.get("frozen_layers") is not None and mc.get("use_plm"):
-        raise _not_ported("PLM layer freezing", "PLM tower")
+    frozen_layers = mc.get("frozen_layers")
+    freeze_labels = None
+    if frozen_layers is not None and mc.get("use_plm"):
+        if model is None:
+            raise ValueError("freezing PLM layers needs the model")
+        freeze_labels = plm_freeze_labels(
+            (n for n, _ in model.named_parameters()), frozen_layers,
+            freeze_embeddings=bool(mc.get("freeze_plm_embeddings", True)))
+        log.info("PLM layers %s frozen%s: %d of %d parameter tensors", list(frozen_layers),
+                 " with the embeddings" if mc.get("freeze_plm_embeddings", True) else "",
+                 sum(v == "freeze" for v in freeze_labels.values()), len(freeze_labels))
     total_steps = opt_cfg.get("total_steps") or (
         steps_per_epoch * cfg["trainer"].get("max_epochs", 20))
     return make_optimizer(
@@ -155,6 +170,7 @@ def build_optimizer(cfg: Dict, steps_per_epoch: int = 0):
         warmup_steps=opt_cfg.get("warmup_steps", 0),
         total_steps=total_steps,
         grad_clip_norm=opt_cfg.get("grad_clip_norm"),
+        freeze_labels=freeze_labels,
     )
 
 
@@ -287,7 +303,7 @@ def build_run(cfg: Dict) -> Run:
                                      beta=mc.get("beta_coefficient", 10.0),
                                      ranking=ranking, loggers=loggers)
         return Run(trainer, train_batcher, val_batcher, test_batcher)
-    state = create_train_state(model, build_optimizer(cfg, len(train_batcher)),
+    state = create_train_state(model, build_optimizer(cfg, len(train_batcher), model),
                                dropout_seed=cfg.get("seed", 0))
     n_params = param_count(model)
     log.info("params: %d; %d train steps an epoch; compute %s", n_params, len(train_batcher),

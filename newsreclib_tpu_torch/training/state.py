@@ -16,7 +16,8 @@ step for step:
   ``optax.adam``; with weight decay, AdamW, whose ``p * (1 - lr * wd)``
   before the Adam step equals optax's ``- lr * (adam + wd * p)``;
 * parameters labelled ``"freeze"`` get no update and no weight decay
-  (``optax.set_to_zero``) and do not enter the clip's norm.
+  (``optax.set_to_zero``) and do not enter the clip's norm; ``build`` also
+  turns their ``requires_grad`` off, so autograd spends nothing on them.
 """
 
 from __future__ import annotations
@@ -75,6 +76,10 @@ class Optimizer:
 
     def build(self, model: nn.Module) -> torch.optim.Optimizer:
         params = self.trainable(model)
+        if self.freeze_labels is not None:
+            train = {id(p) for p in params}
+            for p in model.parameters():
+                p.requires_grad_(id(p) in train)
         # one fused kernel per step on the card; the reference loop on the CPU
         fused = bool(params) and params[0].is_cuda
         kw = dict(lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8, fused=fused or None)

@@ -159,12 +159,14 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
     assert "no CUDA device is available" in (out / "error.log").read_text()
 
 
+# The PLM tower itself is ported (model.use_plm, tests/test_torch_port_plm.py);
+# its PLM-mode tokenisation (data.use_plm, a roberta-base tokenizer) is not.
 @pytest.mark.parametrize("overrides,item", [
-    (["model=sentirec", "model.use_plm=true"], '"PLM tower"'),
+    (["model=sentirec", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
     (["data=adressa_demo"], '"Other datasets"'),
     (["data.generate_fixture=true", "data.data_dir={empty}"], '"Other datasets"'),
-    (["model.use_plm=true"], '"PLM tower"'),
-    (["model=senti_debias", "model.use_plm=true"], '"PLM tower"'),
+    (["data.use_plm=true"], '"PLM tower"'),
+    (["model=senti_debias", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
     (["trainer.model_axis=2"], '"Multi-GPU"'),
     (["trainer.devices=4"], '"Multi-GPU"'),
 ])

@@ -635,7 +635,10 @@ def test_factory_builds_the_jax_models_parameters(case):
 
 def test_factory_routes_refuse_what_is_not_theirs():
     """``build_model`` points the models with their own builders at them,
-    and every FairRec builder still refuses the PLM tower."""
+    and every FairRec builder takes the PLM tower (ported since; held
+    against the JAX package in ``tests/test_torch_port_plm.py``): the tower
+    once, at ``text_encoder_module``, SentiDebias's discriminator at its
+    width."""
     info = factory.DataInfo(vocab_size=VOCAB)
     for name, builder in (("senti_debias", "build_senti_debias"),
                           ("manner_a", "build_manner_a"), ("manner", "eval")):
@@ -643,11 +646,16 @@ def test_factory_routes_refuse_what_is_not_theirs():
             factory.build_model({"name": name}, info, device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         factory.build_model({"name": "nope"}, info, device="cpu")
+    tower = dict(use_plm=True, plm_model="__random_init__", plm_vocab_size=VOCAB, embed_dim=12,
+                 plm_num_layers=1, plm_num_heads=2, num_heads=2)
     for build in (lambda c: factory.build_model(dict(c, name="sentirec"), info, device="cpu"),
                   lambda c: factory.build_manner_a(c, info, device="cpu"),
-                  lambda c: factory.build_senti_debias(c, info, device="cpu")):
-        with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "PLM tower"'):
-            build({"use_plm": True})
+                  lambda c: factory.build_senti_debias(c, info, device="cpu")[0]):
+        names = [n for n, _ in build(tower).named_parameters()]
+        assert "text_encoder_module.encoder.layer_0.q.weight" in names
+        assert sum(".encoder.layer_0.q.weight" in n for n in names) == 1
+    disc = factory.build_senti_debias(tower, info, device="cpu")[1]
+    assert disc.linear1.weight.shape[1] == 12
     with pytest.raises(NotImplementedError, match="remat"):
         factory.build_model({"name": "manner_cr", "remat": True}, info, device="cpu")
 

@@ -2,8 +2,11 @@
 version, the backward kernel against ``mhsa_backward`` and autograd of the
 plain version, ``FusedSmallMHSA``'s gradient, the NRMS serving path and
 train step with the kernels against the same paths with the plain
-attention, a train step of each zoo model, and the FairRec models (MANNeR's
-attention shapes, train steps against the plain route, an A-module step).  They need an NVIDIA card and skip without one;
+attention, a train step of each zoo model, the FairRec models (MANNeR's
+attention shapes, train steps against the plain route, an A-module step),
+and the PLM tower (a checkpoint loaded on the card, scores against the
+CPU's, frozen layers bit-identical after train steps).  They need an
+NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
@@ -600,3 +603,84 @@ def test_aspect_step_on_the_card(cuda):
         n = 2 if route == "kernel" else 0
         assert (mhsa.wide_launches, mhsa.wide_bwd_launches) == (before[0] + n, before[1] + n)
     np.testing.assert_allclose(losses["kernel"], losses["plain"], atol=1e-4, rtol=0)
+
+
+def _plm_nrms(tmp_path, device):
+    """NRMS over a two-layer tower 96 wide (the head's 2 heads of 48: the
+    wide instances) loaded by the factory from a checkpoint that
+    ``save_as_hf_bert`` wrote, and the tower's weights."""
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.models.components import plm
+
+    kw = dict(vocab_size=5000, hidden_dim=96, num_layers=2, num_heads=4, intermediate_dim=192,
+              max_position=64)
+    tower = plm.TransformerEncoder(**kw, generator=torch.Generator().manual_seed(3))
+    ckpt = plm.save_as_hf_bert(tower.state_dict(), kw, str(tmp_path / "ckpt"))
+    cfg = {"name": "nrms", "use_plm": True, "plm_model": ckpt, "num_heads": 2, "query_dim": 16,
+           "loss": "sup_con_loss"}
+    model = factory.build_model(cfg, factory.DataInfo(vocab_size=5000), device=device)
+    return cfg, model, tower.state_dict()
+
+
+def test_plm_checkpoint_loads_and_scores_on_the_card(cuda, tmp_path):
+    """The factory loads the checkpoint into the tower on the card tensor for
+    tensor; the card's scores (TF32 off) equal the same weights' on the
+    CPU, with one wide forward launch per news segment and one for the
+    user encoder."""
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+
+    _, model, tower = _plm_nrms(tmp_path, cuda)
+    got = model.text_encoder_module.encoder.state_dict()
+    assert all(got[k].device.type == cuda.type and torch.equal(got[k].cpu(), v)
+               for k, v in tower.items())
+    cpu = copy.deepcopy(model).cpu().eval()
+    b = make_batch(np.random.default_rng(0), batch_size=8, unique_news=200,
+                   cfg=SyntheticConfig(vocab_size=5000))
+    before = mhsa.wide_launches
+    with torch.no_grad():
+        card_scores, _ = model.eval()(to_device(b, cuda))
+        assert mhsa.wide_launches == before + 2
+        want, _ = cpu(to_device(b, "cpu"))
+    torch.testing.assert_close(card_scores.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_plm_frozen_layers_stay_bit_identical_on_the_card(cuda, tmp_path):
+    """Two float32 train steps with ``model.frozen_layers: [0]`` (and the
+    embeddings) through the training CLI's ``build_optimizer``: the frozen
+    tensors bit-identical on the card, out of autograd, every other tensor
+    moved (but the key biases, whose gradient is float32 noise), and the
+    kernels launched each way once per attention call."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.profile_train import attention_launches
+    from newsreclib_tpu_torch.training.state import create_train_state
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    cfg, model, _ = _plm_nrms(tmp_path, cuda)
+    cfg = dict(cfg, frozen_layers=[0])
+    state = create_train_state(model, train.build_optimizer({"model": cfg, "trainer": {}}, 1,
+                                                            model))
+    step = make_train_step(factory.build_loss(cfg))
+    store, imp = make_serving_workload(np.random.default_rng(0), corpus=2000, n_impressions=200,
+                                       vocab_size=5000)
+    batches = [b for _, b in zip(range(2), TrainBatcher(
+        store, imp, batch_size=8, max_history_len=50, u_bucket_min=128,
+        split_title_len=16).epoch(0))]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    launches = mhsa.launches, mhsa.bwd_launches
+    losses = [step(state, to_device(b, cuda))[1]["loss"].item() for b in batches]
+    calls = sum(attention_launches(b) for b in batches)
+    assert (mhsa.launches, mhsa.bwd_launches) == (launches[0] + calls, launches[1] + calls)
+    assert all(np.isfinite(losses))
+    labels = state.tx.freeze_labels
+    params = dict(model.named_parameters())
+    after = model.state_dict()
+    for k, label in labels.items():
+        if label == "freeze":
+            assert torch.equal(after[k], before[k]) and not params[k].requires_grad, k
+        elif not k.endswith(".k.bias"):
+            assert not torch.equal(after[k], before[k]), k
+    assert sum(v == "freeze" for v in labels.values()) == 16 + 5

@@ -4,7 +4,9 @@ package, then drives the serving slice and two training steps on the CPU;
 others build MINS, CenNewsRec and CAUM, NAML, TANR, LSTUR, NPA, MINER and
 DKN, and SentiRec and MANNeR's CR module, and train each a step, and drive
 SentiDebias's alternating step, an A-module step and MANNeR's ensemble;
-another runs the training CLI (config composition, ETL, fit, checkpoints,
+another loads, trains (with frozen layers) and serves NRMS with the PLM
+tower with ``transformers`` and ``safetensors`` blocked as well; another
+runs the training CLI (config composition, ETL, fit, checkpoints,
 test) on a copy of the raw demo files.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
@@ -216,6 +218,66 @@ def test_fair_rec_routes_run_with_jax_blocked():
     assert all(0 < out[k] < 100 for k in ("d_loss", "a_loss"))
     assert abs(out["g_loss"]) < 100
     assert {"auc", "mrr"} <= set(out["ensemble"])
+
+
+PLM_SCRIPT = """
+import json, sys, tempfile
+for name in %r + ("transformers", "safetensors"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+import numpy as np
+import torch
+from newsreclib_tpu_torch import train
+from newsreclib_tpu_torch.data.batch import to_device
+from newsreclib_tpu_torch.data.batching import TrainBatcher
+from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+from newsreclib_tpu_torch.models import factory
+from newsreclib_tpu_torch.models.components import plm
+from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+from newsreclib_tpu_torch.serving import CachedScorer
+from newsreclib_tpu_torch.training.state import create_train_state
+from newsreclib_tpu_torch.training.steps import make_train_step
+
+store, imp = make_serving_workload(np.random.default_rng(0), corpus=200, n_impressions=30,
+                                   hist_len=10, num_candidates=6, vocab_size=500)
+kw = dict(vocab_size=500, hidden_dim=32, num_layers=2, num_heads=4, intermediate_dim=64,
+          max_position=64)
+tower = plm.TransformerEncoder(**kw, generator=torch.Generator().manual_seed(1))
+ckpt = plm.save_as_hf_bert(tower.state_dict(), kw, tempfile.mkdtemp())
+cfg = {"name": "nrms", "use_plm": True, "plm_model": ckpt, "num_heads": 2, "query_dim": 8,
+       "frozen_layers": [0]}
+model = factory.build_model(cfg, factory.DataInfo(vocab_size=500), device="cpu")
+loaded_ok = all(torch.equal(model.text_encoder_module.encoder.state_dict()[k], v)
+                for k, v in tower.state_dict().items())
+frozen = {k: v.clone() for k, v in model.state_dict().items() if ".layer_0." in k}
+state = create_train_state(model, train.build_optimizer({"model": cfg, "trainer": {}}, 1, model))
+batch = next(TrainBatcher(store, imp, batch_size=4, max_history_len=10, u_bucket_min=64,
+                          split_title_len=16).epoch(0))
+loss = make_train_step(cross_entropy_loss)(state, to_device(batch, "cpu"))[1]["loss"].item()
+kept = all(torch.equal(model.state_dict()[k], v) for k, v in frozen.items())
+metrics = CachedScorer(model, device="cpu").evaluate(store, imp, max_history_len=10,
+                                                     target_cells=64, encode_batch=64)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r + ("transformers", "safetensors"))
+print(json.dumps({"loss": loss, "loaded_ok": loaded_ok, "frozen_kept": kept,
+                  "metrics": metrics, "loaded": loaded}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_plm_tower_runs_without_jax_or_transformers():
+    """The PLM route with JAX, flax, pandas, yaml, the JAX package,
+    ``transformers`` and ``safetensors`` blocked: a tower written by
+    ``save_as_hf_bert`` loads through the factory, NRMS with it takes a
+    train step with layer 0 and the embeddings frozen (unchanged after it)
+    and serves a ``CachedScorer`` epoch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", PLM_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["loaded_ok"] and out["frozen_kept"]
+    assert 0 < out["loss"] < 10
+    assert {"auc", "mrr"} <= set(out["metrics"])
 
 
 def test_port_sources_import_no_jax():

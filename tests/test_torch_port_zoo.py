@@ -453,10 +453,22 @@ def test_factory_builds_the_jax_models_parameters(name):
 
 
 def test_factory_still_refuses_the_models_not_ported():
-    """What is not ported, the PLM text tower, raises for every model with a
-    route (the zoo's and, since they were ported, the FairRec models'),
-    naming its ROADMAP queue 1 item."""
+    """The PLM text tower is ported: ``use_plm`` now builds every model with
+    a route (the zoo's and the FairRec models') with the tower registered
+    once, at ``text_encoder_module`` (``tests/test_torch_port_plm.py`` holds
+    each route against the JAX package); what the factory does not port
+    still raises: an unknown model and MANNeR's ``remat``."""
+    tower = dict(use_plm=True, plm_model="__random_init__", plm_vocab_size=VOCAB, embed_dim=24,
+                 plm_num_layers=1, plm_num_heads=2, num_heads=2)
+    info = factory.DataInfo(vocab_size=VOCAB, entity_vocab_size=ENTITIES,
+                            num_categories=CATEGORIES)
     for name in ("mins", "caum", "sentirec", "manner_cr"):
-        with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "PLM tower"'):
-            factory.build_model({"name": name, "use_plm": True},
-                                factory.DataInfo(vocab_size=VOCAB), device="cpu")
+        m = factory.build_model({"name": name, **tower}, info, device="cpu")
+        names = [n for n, _ in m.named_parameters()]
+        assert "text_encoder_module.encoder.layer_0.q.weight" in names
+        assert not any(".encoder.layer_0." in n and not n.startswith("text_encoder_module.")
+                       for n in names)
+    with pytest.raises(ValueError, match="unknown model"):
+        factory.build_model({"name": "nope", **tower}, info, device="cpu")
+    with pytest.raises(NotImplementedError, match="remat"):
+        factory.build_model({"name": "manner_cr", "remat": True, **tower}, info, device="cpu")
