@@ -139,7 +139,19 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    plain attention, the same test metrics (``METRIC_ATOL``); then again
    with the PLM tower (``PLM_CLI_OVERRIDES``: random, two layers at 768, 16
    head heads, layer 0 frozen), with the same checks;
-12. prints one ``{"kernels": [...]}`` line (the wide instances' own
+12. the same CLI and checks on the other datasets (``dataset_cli_phase``):
+   Adressa from a copy of ``data/adressa_demo/one_week.tar.gz`` alone under
+   ``build/smoke_adressa`` (the ETL from the raw tar; user encoder at
+   L = 50, 2 epochs, ``save_recs``: the export's corpus encode and
+   impression batches are in the exact launch count, and its JSON must
+   cover every test impression's candidates), with the native host parser
+   built (``data/fastetl.py``) and equal to the Python route on the run's
+   behaviors; then xMIND (``nrms_xmindfix_zeroshot``'s data node, 2
+   epochs) over a copy of the raw ``data/demo`` files laid out as
+   ``MINDsmall_{train,dev}`` with ``glove_statfix.txt`` under
+   ``build/smoke_xmind``, whose fixture step writes the translated news,
+   and whose zero-shot test must hold translated candidates;
+13. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -149,14 +161,15 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    the PLM head's own entries ``fused_small_mhsa_plm_head`` /
    ``_backward``: its main path's launches, the times at its largest train
    shape, the other shapes under ``u<U>_l<L>_*``, the served epoch and the
-   PLM CLI run) and, last, ``{"ok": true, ...}``.
+   PLM CLI run; phase 12's launches under ``adressa_cli_launches`` and
+   ``xmind_cli_launches``) and, last, ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
 
 Exits non-zero, printing no result, when no card is present or any phase
-fails.  Writes nothing but the kernel build, the PLM checkpoints and the
-CLI phase's data copy and runs under ``build/``.
+fails.  Writes nothing but the kernel build, the host parser's build, the
+PLM checkpoints and the CLI phases' data copies and runs under ``build/``.
 
     python3 chip_smoke.py --route-spread [MODEL ...]
 
@@ -222,6 +235,20 @@ CLI_OVERRIDES = ["data=mind_demo", "model=nrms", "trainer.max_epochs=2",
                  f"data.word_embeddings_fpath={os.path.join(CLI_DATA, 'glove_demo.txt')}",
                  f"output_dir={CLI_OUT}"]
 CLI_RETEST_ATOL = 1e-6  # test/auc of the run against the best checkpoint restored
+# Phase 12: the CLI on Adressa (the demo tar alone, copied under build/; with
+# the user encoder at L = 50, titles split at 16, and save_recs) and on xMIND
+# (nrms_xmindfix_zeroshot's data node over a copy of the raw demo files)
+ADRESSA_DATA, ADRESSA_OUT = (os.path.join(ROOT, "build", d) for d in ("smoke_adressa",
+                                                                      "smoke_adressa_cli"))
+XMIND_DATA, XMIND_OUT = (os.path.join(ROOT, "build", d) for d in ("smoke_xmind",
+                                                                  "smoke_xmind_cli"))
+ADRESSA_OVERRIDES = ["data=adressa_demo", "model=nrms", "trainer.max_epochs=2",
+                     "data.max_history_len=50", f"data.data_dir={ADRESSA_DATA}",
+                     f"output_dir={ADRESSA_OUT}", "save_recs=true"]
+XMIND_OVERRIDES = ["experiment=nrms_xmindfix_zeroshot", "trainer.max_epochs=2",
+                   f"data.data_dir={XMIND_DATA}",
+                   f"data.word_embeddings_fpath={os.path.join(XMIND_DATA, 'glove_statfix.txt')}",
+                   f"output_dir={XMIND_OUT}"]
 # The zoo phase: MINS, CenNewsRec, CAUM and MINER at their config files'
 # widths, trained from the same init, batches and dropout seeds on both
 # attention routes, then served over the whole corpus and the first
@@ -743,16 +770,6 @@ def cli_phase(card: str, extra=()):
     (``PLM_CLI_OVERRIDES``: the PLM tower).  Returns the forward and
     backward kernel launches of the run and the phase's wall time in
     seconds."""
-    import shutil
-
-    import torch
-
-    from newsreclib_tpu_torch import train
-    from newsreclib_tpu_torch.config.compose import compose
-    from newsreclib_tpu_torch.models.components.attention import use_plain_attention
-    from newsreclib_tpu_torch.ops import mhsa
-    from newsreclib_tpu_torch.profile_train import attention_launches
-
     for d in (CLI_DATA, CLI_OUT):
         shutil.rmtree(d, ignore_errors=True)
     demo = os.path.join(ROOT, "data", "demo")
@@ -761,14 +778,45 @@ def cli_phase(card: str, extra=()):
         for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
             shutil.copy(os.path.join(demo, split, name), os.path.join(CLI_DATA, split, name))
     shutil.copy(os.path.join(demo, "glove_demo.txt"), CLI_DATA)
-    overrides = CLI_OVERRIDES + list(extra)
+    caches = [os.path.join(CLI_DATA, "MINDdemo_train", f) for f in
+              ("news_store.npz", "parsed_news.tsv", "train_impressions.npz",
+               "transformed_word_embeddings.npy")]
+    launches, bwd_launches, wall_s, _, _ = drive_cli(card, CLI_OVERRIDES + list(extra),
+                                                     CLI_OUT, caches)
+    return launches, bwd_launches, wall_s
+
+
+def drive_cli(card: str, overrides, out_dir: str, caches):
+    """``newsreclib_tpu_torch.train.run`` in-process with ``overrides``, the
+    counts set to 0 just before it and read just after, then the checks of
+    the CLI phases (module doc, phases 11 and 12): the ETL's ``caches``
+    written, both checkpoints, the exact forward and backward launches (the
+    train steps', every evaluation's and, with ``save_recs``, the export's:
+    its corpus encode of the untrimmed test store and its impression
+    batches), finite ``val/*`` and ``test/*`` metrics, and the best
+    checkpoint restored into a new trainer giving the same ``test/auc`` and,
+    with the plain attention, the same test metrics.  Returns the forward
+    and backward launches, the run's wall time in seconds, its metrics and
+    the new trainer's ``Run``."""
+    import torch
+
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.models.components.attention import use_plain_attention
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import attention_launches
+    from newsreclib_tpu_torch import serving
+
     cfg = compose(overrides=overrides)
     m = cfg["model"]
     log(f"CLI: NRMS D={m['embed_dim']}, {m['num_heads']} heads, query {m['query_dim']}, "
         + (f"PLM tower of {m['plm_num_layers']} layers, frozen {m['frozen_layers']}, "
-           if m.get("use_plm") else f"GloVe {cfg['data']['word_embed_dim']}-d, ")
+           if m.get("use_plm") else
+           f"GloVe {cfg['data']['word_embed_dim']}-d, " if cfg["data"].get("word_embeddings_fpath")
+           else "random word embeddings, ")
         + f"precision {cfg['trainer'].get('precision') or 'float32'}, "
-        f"{cfg['trainer']['max_epochs']} epochs")
+        f"{cfg['trainer']['max_epochs']} epochs, data {cfg['data']['name']}"
+        + (", save_recs" if cfg.get("save_recs") else ""))
 
     torch.cuda.synchronize()
     mhsa.launches = mhsa.bwd_launches = 0
@@ -778,20 +826,17 @@ def cli_phase(card: str, extra=()):
     wall_s = time.perf_counter() - t0
     launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
 
-    caches = [os.path.join(CLI_DATA, "MINDdemo_train", f) for f in
-              ("news_store.npz", "parsed_news.tsv", "train_impressions.npz",
-               "transformed_word_embeddings.npy")]
     missing = [c for c in caches if not os.path.exists(c)]
     if missing:
         raise AssertionError(f"the ETL did not run from the raw files: {missing} missing")
-    ckpts = [os.path.join(CLI_OUT, "checkpoints", f"{w}.pt") for w in ("best", "last")]
+    ckpts = [os.path.join(out_dir, "checkpoints", f"{w}.pt") for w in ("best", "last")]
     if not all(os.path.exists(c) for c in ckpts):
         raise AssertionError(f"checkpoints missing: {ckpts}")
-    with open(os.path.join(CLI_OUT, "checkpoints", "last.json")) as f:
+    with open(os.path.join(out_dir, "checkpoints", "last.json")) as f:
         epochs = json.load(f)["epoch"] + 1
 
     # the launches the run's batches give, counted on the host
-    quiet = compose(overrides=overrides + ["loggers=[]"])
+    quiet = compose(overrides=list(overrides) + ["loggers=[]"])
     r = train.build_run(quiet)
     train_expected = sum(attention_launches(b) for e in range(epochs)
                          for b in r.train_batcher.epoch(e))
@@ -799,11 +844,16 @@ def cli_phase(card: str, extra=()):
     eval_launches = [serving_launches(b.store, b.imp, dc["max_history_len"],
                                       dc["eval_target_cells"])
                      for b in (r.val_batcher, r.test_batcher)]
-    expected = train_expected + epochs * eval_launches[0] + eval_launches[1]
+    export_launches = 0
+    if cfg.get("save_recs"):
+        export_launches = serving_launches(r.data.news_store("test"), r.data.impressions("test"),
+                                           dc["max_history_len"], serving.TARGET_CELLS)
+    expected = train_expected + epochs * eval_launches[0] + eval_launches[1] + export_launches
     log(f"CLI run: {wall_s:.2f} s wall on {card}; {epochs} epochs of {len(r.train_batcher)} "
         f"steps; fused_small_mhsa launches {launches} ({expected} expected: {train_expected} in "
-        f"train steps, {eval_launches[0]} a validation, {eval_launches[1]} the test), its "
-        f"backward {bwd_launches} ({train_expected} expected)")
+        f"train steps, {eval_launches[0]} a validation, {eval_launches[1]} the test, "
+        f"{export_launches} the export), its backward {bwd_launches} ({train_expected} "
+        f"expected)")
     log("CLI metrics " + json.dumps(metrics, sort_keys=True))
     if launches != expected or bwd_launches != train_expected:
         raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
@@ -826,7 +876,90 @@ def cli_phase(card: str, extra=()):
         f"{METRIC_ATOL['float32']})")
     if diff > CLI_RETEST_ATOL or set(plain) != set(again) or plain_diff > METRIC_ATOL["float32"]:
         raise AssertionError(f"the restored test differs: {again} / {plain} vs {metrics}")
-    return launches, bwd_launches, wall_s
+    return launches, bwd_launches, wall_s, metrics, r
+
+
+@contextlib.contextmanager
+def python_parser():
+    """The host ETL's pure-Python route for the duration of the block."""
+    from newsreclib_tpu_torch.data import fastetl
+
+    saved = fastetl._lib, fastetl._lib_tried
+    fastetl._lib, fastetl._lib_tried = None, True
+    try:
+        yield
+    finally:
+        fastetl._lib, fastetl._lib_tried = saved
+
+
+def dataset_cli_phase(card: str) -> dict:
+    """Phase 12 (module doc): the training CLI on Adressa, from a copy of
+    ``data/adressa_demo/one_week.tar.gz`` alone (with ``save_recs``), and on
+    xMIND (``nrms_xmindfix_zeroshot``'s data node) over a copy of the raw
+    ``data/demo`` files laid out as ``write_xmind_statfix`` expects them, at
+    full NRMS width, each through ``drive_cli``'s checks; the native host
+    parser built and equal to the Python route on the Adressa run's
+    behaviors; the exported recommendations covering every test
+    impression's candidates.  Returns each run's forward and backward
+    launches, export launches and wall seconds."""
+    from newsreclib_tpu_torch.data import fastetl
+
+    out = {}
+    for d in (ADRESSA_DATA, ADRESSA_OUT, XMIND_DATA, XMIND_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(ADRESSA_DATA)
+    shutil.copy(os.path.join(ROOT, "data", "adressa_demo", "one_week.tar.gz"), ADRESSA_DATA)
+    adressa_root = os.path.join(ADRESSA_DATA, "Adressa_one_week")
+    fwd, bwd, wall_s, metrics, r = drive_cli(
+        card, ADRESSA_OVERRIDES, ADRESSA_OUT,
+        [os.path.join(adressa_root, f) for f in ("news.tsv", "nid2index.tsv", "word2index.tsv",
+                                                 "behaviors_42.tsv", "news_store.npz")])
+    lib = fastetl.get_lib()
+    if lib is None:
+        raise AssertionError("the native host parser (csrc/fastetl.cpp) did not build")
+    for split in ("train", "val", "test"):
+        native = r.data.impressions(split)
+        with python_parser():
+            python = r.data.impressions(split)
+        for f in ("hist_flat", "hist_offsets", "cand_flat", "cand_offsets", "labels_flat",
+                  "user_idx"):
+            if not (getattr(native, f) == getattr(python, f)).all():
+                raise AssertionError(f"native and Python parsers differ: {split} {f}")
+    with open(os.path.join(ADRESSA_OUT, "recommendations.json")) as f:
+        recs = json.load(f)
+    store, imp = r.data.news_store("test"), r.data.impressions("test")
+    row2nid = {v: k for k, v in store.nid2row.items()}
+    uncovered = [i for i in range(len(imp)) if not all(
+        row2nid[c] in recs.get(f"U{imp.user_ids[i]}", {}) for c in imp.cands(i)[0])]
+    if uncovered or not all(math.isfinite(v) for u in recs.values() for v in u.values()):
+        raise AssertionError(f"the export misses the candidates of {len(uncovered)} of "
+                             f"{len(imp)} test impressions, or holds a non-finite score")
+    log(f"Adressa CLI: native parser {fastetl.library_path().name}, equal to the Python route "
+        f"on train/val/test; recommendations of {len(recs)} users cover all {len(imp)} test "
+        f"impressions; test/auc {metrics['test/auc']:.4f}")
+    out["adressa"] = dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s)
+
+    for split in ("train", "dev"):
+        os.makedirs(os.path.join(XMIND_DATA, f"MINDsmall_{split}"))
+        for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+            shutil.copy(os.path.join(ROOT, "data", "demo", f"MINDdemo_{split}", name),
+                        os.path.join(XMIND_DATA, f"MINDsmall_{split}", name))
+    shutil.copy(os.path.join(ROOT, "data", "demo", "glove_demo.txt"),
+                os.path.join(XMIND_DATA, "glove_statfix.txt"))
+    fin = os.path.join(XMIND_DATA, "xMIND", "fin")
+    fwd, bwd, wall_s, metrics, r = drive_cli(
+        card, XMIND_OVERRIDES, XMIND_OUT,
+        [os.path.join(fin, f) for f in ("train/news.tsv", "aligned_embeddings.txt",
+                                        "word2index.tsv", "transformed_word_embeddings.npy")])
+    n_base = len(r.data.mind.news_store("test").nid2row)
+    test_imp = r.data.impressions("test")
+    translated = float((test_imp.cand_flat > n_base).mean())
+    log(f"xMIND CLI: vocabulary {r.data.vocab_size()} (base {r.data.mind.vocab_size()}), "
+        f"{translated:.1%} of the test candidates translated; test/auc {metrics['test/auc']:.4f}")
+    if translated < 0.5:
+        raise AssertionError(f"zero-shot test: only {translated:.1%} of candidates translated")
+    out["xmind"] = dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s)
+    return out
 
 
 def zoo_serving_launches(name, store, imp) -> int:
@@ -1722,6 +1855,7 @@ def main() -> int:
     zoo2_worst = zoo2_phase(card, store, imp)
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
     plm_cli_launches, plm_cli_bwd_launches, plm_cli_s = cli_phase(card, PLM_CLI_OVERRIDES)
+    dataset_runs = dataset_cli_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -1747,6 +1881,8 @@ def main() -> int:
         "train_step_ms": train_step_s * 1e3,
         "cli_launches": cli_launches,
         "cli_wall_s": cli_s,
+        **{f"{name}_cli_launches": run["launches"] for name, run in dataset_runs.items()},
+        **{f"{name}_cli_wall_s": run["wall_s"] for name, run in dataset_runs.items()},
     }, {
         "name": "fused_small_mhsa_backward",
         "route": "cuda",
@@ -1756,6 +1892,7 @@ def main() -> int:
         "launches": bwd_launches,
         "launches_per_step": bwd_launches / TRAIN_TIMED,
         "cli_launches": cli_bwd_launches,
+        **{f"{name}_cli_launches": run["bwd_launches"] for name, run in dataset_runs.items()},
         "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
         "ms": bwd_main["bwd_ms"],
         "plain_ms": bwd_main["plain_bwd_ms"],

@@ -12,7 +12,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -34,6 +34,10 @@ class NewsStore:
     @property
     def num_news(self) -> int:
         return self.title.shape[0] - 1
+
+    def rows(self, nids: Sequence[str]) -> np.ndarray:
+        """The store rows of ``nids`` (0 for an unknown id)."""
+        return np.asarray([self.nid2row.get(n, 0) for n in nids], dtype=np.int32)
 
     def features_for(self, rows: np.ndarray) -> NewsFeatures:
         """Gather a NewsFeatures table for the given row ids."""

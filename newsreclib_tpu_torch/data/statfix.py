@@ -1,6 +1,7 @@
-"""The MINDsmall-scale statistical fixtures (copies of
-``write_mind_small_statfix``, ``write_mind_small_statfix_v2`` and their
-helpers from ``newsreclib_tpu/data/statfix.py``).
+"""The statistical fixtures (copies of ``write_mind_small_statfix``,
+``write_mind_small_statfix_v2``, ``write_adressa_statfix``,
+``write_xmind_statfix`` and their helpers from
+``newsreclib_tpu/data/statfix.py``).
 
 It writes raw MIND files (``MINDsmall_{train,dev}/news.tsv``,
 ``behaviors.tsv``, ``entity_embedding.vec``) and a GloVe-format file that
@@ -17,8 +18,13 @@ generative truth ``statfix_v2_truth.npz``; it is the fixture of the
 ``*_statfix2_*`` experiments.
 
 The code draws the same random numbers in the same order as the JAX
-package's, so for a seed the files are byte-identical.  The Adressa and
-xMIND generators are not here.
+package's, so for a seed the files are byte-identical (the Adressa tar's
+member names and bytes: its gzip header carries the time of writing).
+
+``write_adressa_statfix`` writes a raw Adressa one_week tar.gz with a
+category-preference signal; ``write_xmind_statfix`` writes the xMIND
+companion of the MIND statfix fixture (word-level "translated" news and an
+aligned embedding file under ``xMIND/<lang>/``).
 """
 
 from __future__ import annotations
@@ -451,3 +457,161 @@ def write_mind_small_statfix_v2(data_dir: str, seed: int = 42) -> None:
         user_pol=user_pol,
     )
     print("statfix_v2: done.")
+
+
+# ---------------------------------------------------------------------------
+# Adressa one_week learnability fixture
+# ---------------------------------------------------------------------------
+
+def write_adressa_statfix(
+    data_dir: str,
+    num_news: int = 4000,
+    num_users: int = 1200,
+    events_per_day: int = 30000,
+    num_days: int = 7,
+    n_categories: int = 8,
+    p_random: float = 0.45,
+    seed: int = 0,
+) -> str:
+    """Raw Adressa one_week tar.gz with a statfix-style preference signal.
+
+    The tiny test fixture (``data/testing.py::write_adressa_fixture``) has
+    uniformly random clicks — models can only reach AUC≈0.5 on it.  This
+    generator gives each category a signature-word vocabulary (so category is
+    inferable from the title, Norwegian-looking tokens) and each user a
+    sparse Dirichlet category preference; clicks follow the preference with
+    ``p_random`` uniform exploration.  Because the Adressa ETL synthesizes
+    negatives uniformly from unclicked news
+    (``adressa_dataframe.py:694-731`` semantics, ``data/adressa.py``), a
+    text→preference model separates positives from sampled negatives well
+    above chance; ``p_random`` keeps it in a realistic band.
+
+    Returns the tar path (``<data_dir>/one_week.tar.gz``).
+    """
+    import io
+    import json as _json
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    tar_path = os.path.join(data_dir, "one_week.tar.gz")
+
+    cats = [
+        "nyheter|innenriks", "sport|fotball", "kultur|musikk", "okonomi",
+        "nyheter|utenriks", "sport|vintersport", "kultur|film", "forbruker",
+    ][:n_categories]
+    sig_per_cat = 150
+    n_common = 1200
+    sig = {
+        c: [f"ord{c}x{i}" for i in range(sig_per_cat)] for c in range(n_categories)
+    }
+    common = [f"felles{i}" for i in range(n_common)]
+    common_p = _zipf_probs(n_common)
+    sig_p = _zipf_probs(sig_per_cat)
+
+    news_cat = rng.integers(0, n_categories, size=num_news)
+    by_cat = [np.nonzero(news_cat == c)[0] for c in range(n_categories)]
+
+    def title_for(i: int) -> str:
+        c = int(news_cat[i])
+        n_tok = int(rng.integers(4, 11))
+        toks = []
+        for _ in range(n_tok):
+            if rng.random() < 0.6:
+                toks.append(sig[c][int(rng.choice(sig_per_cat, p=sig_p))])
+            else:
+                toks.append(common[int(rng.choice(n_common, p=common_p))])
+        return " ".join(toks)
+
+    titles = [title_for(i) for i in range(num_news)]
+
+    # sparse per-user category preferences
+    pref = rng.dirichlet(np.full(n_categories, 0.3), size=num_users)
+
+    def pick_article(u: int) -> int:
+        if rng.random() < p_random:
+            return int(rng.integers(0, num_news))
+        c = int(rng.choice(n_categories, p=pref[u]))
+        return int(rng.choice(by_cat[c])) if len(by_cat[c]) else int(rng.integers(0, num_news))
+
+    with tarfile.open(tar_path, "w:gz") as tar:
+        for day in range(1, num_days + 1):
+            base_time = 1483225200 + day * 86400
+            users = rng.integers(0, num_users, size=events_per_day)
+            offsets = rng.integers(0, 86400, size=events_per_day)
+            lines = []
+            for u, dt in zip(users, offsets):
+                a = pick_article(int(u))
+                lines.append(_json.dumps({
+                    "id": f"art{a}",
+                    "title": titles[a],
+                    "category1": cats[int(news_cat[a])],
+                    "userId": f"cx:{int(u)}",
+                    "time": int(base_time + dt),
+                }))
+            blob = ("\n".join(lines) + "\n").encode("utf-8")
+            info = tarfile.TarInfo(name=f"one_week/2017010{day}")
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+    return tar_path
+
+
+# ---------------------------------------------------------------------------
+# xMIND translated-news fixture
+# ---------------------------------------------------------------------------
+
+def write_xmind_statfix(data_dir: str, lang: str = "fin") -> None:
+    """Write the xMIND companion of the statfix fixture: word-level
+    "translated" news + a MUSE-style ALIGNED embedding file.
+
+    The reference's xMIND zero-shot transfer rides a multilingual PLM whose
+    shared embedding space maps a translation near its source text
+    (``xmind_dataframe.py:335-352``).  The offline analog here is
+    cross-lingually aligned word vectors: every token ``w`` of the statfix
+    corpus gets a target-language twin ``<lang>_w`` carrying the SAME vector
+    in ``xMIND/<lang>/aligned_embeddings.txt``.  A model trained on English
+    statfix text then scores translated candidates through the shared
+    embedding geometry — the same mechanism, minus the transformer.
+
+    Idempotent: skips work when the translated news files exist.
+    """
+    xdir = os.path.join(data_dir, "xMIND", lang)
+    done = all(
+        os.path.exists(os.path.join(xdir, split, "news.tsv"))
+        for split in ("train", "dev")
+    ) and os.path.exists(os.path.join(xdir, "aligned_embeddings.txt"))
+    if done:
+        return
+
+    from newsreclib_tpu_torch.data.tokenize import word_tokenize
+
+    _PUNCT = set(".,!?;|")
+
+    def translate(text: str) -> str:
+        # punctuation keeps its surface form: prefixing '.' would produce a
+        # 'fin_.' token the regex tokenizer re-splits into a spurious 'fin_'
+        return " ".join(
+            w if w in _PUNCT else f"{lang}_{w}" for w in word_tokenize(text)
+        )
+
+    print(f"statfix: writing xMIND/{lang} translated news...")
+    for split in ("train", "dev"):
+        src = os.path.join(data_dir, f"MINDsmall_{split}", "news.tsv")
+        if not os.path.exists(src):
+            raise FileNotFoundError(
+                f"{src} missing — generate the MIND statfix fixture first"
+            )
+        os.makedirs(os.path.join(xdir, split), exist_ok=True)
+        with open(src) as f, open(os.path.join(xdir, split, "news.tsv"), "w") as out:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                nid, title, abstract = parts[0], parts[3], parts[4]
+                out.write("\t".join([nid, translate(title), translate(abstract)]) + "\n")
+
+    # aligned vectors: <lang>_w = vector(w) for every word in the base glove
+    print(f"statfix: writing xMIND/{lang} aligned embeddings...")
+    glove = os.path.join(data_dir, "glove_statfix.txt")
+    with open(glove) as f, open(os.path.join(xdir, "aligned_embeddings.txt"), "w") as out:
+        for line in f:
+            out.write(f"{lang}_{line}")
+    print("statfix: xMIND fixture done.")

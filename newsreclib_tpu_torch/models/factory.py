@@ -388,14 +388,22 @@ def build_loss(cfg: Dict) -> Callable:
 
 
 def load_data_info(mind_data, cfg_model: Dict) -> DataInfo:
-    """DataInfo of a ``MINDData`` (sizes from its id maps, matrices from the
-    train split's ``transformed_*_embeddings.npy``)."""
+    """DataInfo of a dataset (``MINDData``, ``AdressaData``, ``XMINDData``):
+    sizes from its maps, matrices from the train split's
+    ``transformed_*_embeddings.npy``; xMIND's word matrix is its extended
+    one (``XMINDData.ensure_word_embeddings``), as in the JAX factory."""
     classes = mind_data.num_classes()
     use_pretrained_w = cfg_model.get("use_pretrained_embeddings", True)
     train_dir = mind_data.split_dir("train")
+    word_dir = (
+        mind_data.ensure_word_embeddings()
+        if use_pretrained_w and hasattr(mind_data, "ensure_word_embeddings")
+        else None
+    ) or train_dir
 
     def npy(name: str, wanted: bool = True) -> Optional[np.ndarray]:
-        path = os.path.join(train_dir, f"transformed_{name}_embeddings.npy")
+        path = os.path.join(word_dir if name == "word" else train_dir,
+                            f"transformed_{name}_embeddings.npy")
         return np.load(path) if wanted and os.path.exists(path) else None
 
     return DataInfo(

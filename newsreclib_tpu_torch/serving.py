@@ -1,7 +1,9 @@
 """Cached serving: encode every article of the corpus once per parameter
 version into an ``(N+1, D)`` table on the device, then score impressions
 with gathers, the user encoder and dot products, and reduce the ranking
-metrics on the device (counterpart of ``newsreclib_tpu/serving.py:120-429``).
+metrics on the device (counterpart of ``newsreclib_tpu/serving.py:120-511``);
+``CachedScorer.export_recommendations`` writes every user's candidate
+scores as JSON (the CLI's ``save_recs``).
 
 The model must expose ``encode_news(news)`` and
 ``score_with_vectors(batch, news_vecs)`` (NRMS, MINS, CenNewsRec and CAUM
@@ -15,6 +17,7 @@ Python loop over batches kept on the device, and ``GlobalEvalBatcher`` is
 from __future__ import annotations
 
 import copy
+import json
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -31,6 +34,7 @@ from newsreclib_tpu_torch.models.base import mask_scores
 # cached device copies per scorer: a run's val and test sets, corpus and batches
 _CACHE_MAX_ENTRIES = 4
 SPLIT_TITLE_LEN = 16  # title width of the short-title bucket of the corpus encode
+TARGET_CELLS = 16384  # cells per impression batch: evaluate's default, export_recommendations'
 
 
 def corpus_segments(store: NewsStore, split_title_len: Optional[int] = SPLIT_TITLE_LEN,
@@ -166,7 +170,7 @@ class CachedScorer:
 
     @torch.inference_mode()
     def evaluate(self, store: NewsStore, impressions: Impressions, max_history_len: int = 50,
-                 target_cells: int = 16384, encode_batch: int = 4096,
+                 target_cells: int = TARGET_CELLS, encode_batch: int = 4096,
                  collect_auc: bool = True) -> Dict[str, float]:
         model = self._serving_model()
         was_training = model.training
@@ -238,3 +242,51 @@ class CachedScorer:
         if auc_parts:
             out["auc"] = float(vals[-1])
         return out
+
+    @torch.inference_mode()
+    def export_recommendations(self, store: NewsStore, impressions: Impressions, fpath: str,
+                               max_history_len: int = 50, encode_batch: int = 4096
+                               ) -> Dict[str, Dict[str, float]]:
+        """Every impression's candidate scores as JSON,
+        ``{"U<id>": {"N<id>": score}}`` (``user_ids``, else ``user_idx``;
+        a later impression of a user overwrites an earlier score of the same
+        candidate), written to ``fpath`` and returned; scores in float32
+        from the model in ``compute_dtype``.  Batches come from the
+        ``BucketedAssembler`` in its bucket order, which tells the
+        impression of each batch row (``newsreclib_tpu/serving.py:431-511``;
+        reference ``abstract_recommender.py:159-193``)."""
+        model = self._serving_model()
+        was_training = model.training
+        model.eval()
+        try:
+            table = build_news_vector_table(model, store, encode_batch, self.compute_dtype,
+                                            self.split_title_len, self.device)
+            assembler = BucketedAssembler(impressions, max_history_len, TARGET_CELLS)
+            order = np.asarray([i for _, idxs in sorted(assembler.buckets.items())
+                                for i in idxs], dtype=np.int64)
+            all_rows, all_scores, all_imp = [], [], []
+            cursor = 0
+            for batch in assembler:
+                scores = model.score_with_vectors(to_device(batch, self.device), table)
+                scores = scores.float().cpu().numpy()
+                n_valid = int(np.sum(batch.impression_valid))
+                cand = batch.cand_idx[:n_valid]
+                valid = cand != 0  # (n_valid, C)
+                all_imp.append(np.repeat(order[cursor:cursor + n_valid], valid.sum(axis=1)))
+                all_rows.append(cand[valid])
+                all_scores.append(scores[:n_valid][valid])
+                cursor += n_valid
+        finally:
+            model.train(was_training)
+        rows = np.concatenate(all_rows) if all_rows else np.zeros(0, np.int32)
+        svals = np.concatenate(all_scores) if all_scores else np.zeros(0, np.float32)
+        imps = np.concatenate(all_imp) if all_imp else np.zeros(0, np.int64)
+        uids = (impressions.user_ids if impressions.user_ids is not None
+                else impressions.user_idx)[imps]
+        row2nid = {v: k for k, v in store.nid2row.items()}
+        recs: Dict[str, Dict[str, float]] = {}
+        for uid, r, v in zip(uids.tolist(), rows.tolist(), svals.tolist()):
+            recs.setdefault(f"U{uid}", {})[str(row2nid.get(r, r))] = float(v)
+        with open(fpath, "w") as f:
+            json.dump(recs, f)
+        return recs

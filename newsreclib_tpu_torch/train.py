@@ -1,9 +1,11 @@
 """Training entry point of the port (counterpart of the repository's
-``train.py``): compose the config, run the MIND ETL (generating the statfix
-fixture first where the config asks for it and it is absent), build the
+``train.py``): compose the config, run the ETL of MIND, Adressa or xMIND
+(generating the configured fixture first where it is absent), build the
 model, fit with early stopping and best / last checkpoints, test from the
-best checkpoint, and write ``metrics.csv``, ``hparams.json`` and
-``config_tree.json`` under ``output_dir``.
+best checkpoint, export every test user's candidate scores with
+``save_recs=true`` (to ``recs_fpath``, default
+``<output_dir>/recommendations.json``), and write ``metrics.csv``,
+``hparams.json`` and ``config_tree.json`` under ``output_dir``.
 
     python -m newsreclib_tpu_torch.train experiment=nrms_statfix_celoss
     python -m newsreclib_tpu_torch.train experiment=nrms_demo platform=cpu \\
@@ -16,10 +18,11 @@ It runs on the card (``cuda``) and raises without one; ``platform=cpu`` (or
 ``models/factory.py::PORTED_MODELS`` train here, SentiDebias
 (``model.adversarial: true``) through ``training/adversarial.py`` and
 MANNeR's A-module (``model=manner_a``) through ``training/aspect.py``, on
-MIND-format data, with the GloVe text encoders or the PLM tower
-(``model.use_plm``, layer freezing by ``model.frozen_layers``); PLM-mode
-tokenisation (``data.use_plm``), the other datasets and the multi-device
-settings raise ``NotImplementedError`` naming their ROADMAP item.
+MIND, Adressa one_week and xMIND data, with the GloVe text encoders or the
+PLM tower (``model.use_plm``, layer freezing by ``model.frozen_layers``);
+PLM-mode tokenisation (``data.use_plm``), Adressa's three_month data and
+the multi-device settings raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -101,28 +104,81 @@ def check_dkn_title_split(model_name: str, dc: Dict) -> None:
             f"KCNN entity ids would be truncated in the short title segment")
 
 
-def setup_data(cfg: Dict) -> MINDData:
-    """The dataset of ``cfg["data"]``; generates the statfix fixture first
-    when ``generate_fixture`` is ``statfix`` or ``statfix_v2`` and its news
-    file is absent."""
+def check_store_attributes(mc: Dict, store, dataset: str) -> None:
+    """Refuse a model whose ``attributes2encode`` names a field the store
+    lacks (an Adressa store holds no abstracts and no entities), with a
+    message: the JAX package fails on such a model inside its first
+    forward."""
+    missing = [a for a in mc.get("attributes2encode") or ()
+               if hasattr(store, a) and getattr(store, a) is None]
+    if missing:
+        raise ValueError(
+            f"model.attributes2encode names {missing}, which the {dataset} store does not "
+            f"hold; set model.attributes2encode to fields it has (e.g. [title, category])")
+
+
+def setup_data(cfg: Dict):
+    """The dataset of ``cfg["data"]`` (``MINDData``, ``AdressaData`` or
+    ``XMINDData``, one interface), as the repository's ``train.py:35-135``
+    builds it, generating a fixture first where ``generate_fixture`` asks
+    for one and its raw file is absent: Adressa's ``statfix`` ->
+    ``write_adressa_statfix`` (at its default seed 0, as there), any other
+    value -> ``write_adressa_fixture``; MIND's ``statfix`` / ``statfix_v2``
+    -> the statfix generators at the data seed, any other value ->
+    ``write_mind_fixture``; xMIND's ``statfix`` also writes
+    ``write_xmind_statfix``'s companion files.  PLM-mode tokenisation and
+    Adressa's ``three_month`` data raise ``NotImplementedError``."""
     dc = cfg["data"]
     dataset = dc.get("dataset", "mind")
-    if dataset != "mind":
+    if dc.get("use_plm"):
+        raise NotImplementedError(
+            'PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower"): '
+            f"it needs the files of the tokenizer {dc.get('plm_tokenizer') or 'roberta-base'}")
+    fixture = dc.get("generate_fixture")
+
+    if dataset == "adressa":
+        from newsreclib_tpu_torch.data.adressa import AdressaConfig, AdressaData
+
+        size = dc.get("dataset_size", "one_week")
+        if size != "one_week":
+            raise _not_ported(f"Adressa's {size} data", "Other datasets")
+        if fixture and not os.path.exists(os.path.join(dc["data_dir"], "one_week.tar.gz")):
+            from newsreclib_tpu_torch.data import statfix, testing
+
+            name = "write_adressa_statfix" if fixture == "statfix" else "write_adressa_fixture"
+            writer = getattr(statfix if fixture == "statfix" else testing, name)
+            _timed_fixture(name, lambda: writer(dc["data_dir"]), dc["data_dir"])
+        return AdressaData(AdressaConfig(
+            data_dir=dc["data_dir"],
+            dataset_size=size,
+            train_date_split=dc.get("train_date_split", 6),
+            test_date_split=dc.get("test_date_split", 7),
+            neg_num=dc.get("neg_num", 20),
+            user_dev_size=dc.get("user_dev_size", 0.2),
+            max_title_len=dc["max_title_len"],
+            word_embeddings_fpath=dc.get("word_embeddings_fpath"),
+            word_embed_dim=dc.get("word_embed_dim", 300),
+            sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
+            download=dc.get("download", False),
+            seed=dc.get("seed", 42),
+        ))
+
+    if dataset not in ("mind", "xmind"):
         raise _not_ported(f"the {dataset} dataset", "Other datasets")
     news_tsv = os.path.join(dc["data_dir"], f"MIND{dc['dataset_size']}_train", "news.tsv")
-    fixture = dc.get("generate_fixture")
     if fixture and not os.path.exists(news_tsv):
-        from newsreclib_tpu_torch.data import statfix
+        from newsreclib_tpu_torch.data import statfix, testing
 
-        writers = {"statfix": statfix.write_mind_small_statfix,
-                   "statfix_v2": statfix.write_mind_small_statfix_v2}
-        if fixture not in writers:
-            raise _not_ported(f"the {fixture!r} fixture generator", "Other datasets")
-        t0 = time.time()
-        writers[fixture](dc["data_dir"], seed=dc.get("seed", 42))
-        log.info("%s fixture generated in %.1f s under %s", fixture, time.time() - t0,
-                 dc["data_dir"])
-    return MINDData(MINDConfig(
+        seed = dc.get("seed", 42)
+        writers = {
+            "statfix": lambda: statfix.write_mind_small_statfix(dc["data_dir"], seed=seed),
+            "statfix_v2": lambda: statfix.write_mind_small_statfix_v2(dc["data_dir"], seed=seed),
+        }
+        writer = writers.get(fixture, lambda: testing.write_mind_fixture(
+            dc["data_dir"], dataset_size=dc["dataset_size"]))
+        _timed_fixture(fixture if fixture in writers else "write_mind_fixture", writer,
+                       dc["data_dir"])
+    mind = MINDData(MINDConfig(
         data_dir=dc["data_dir"],
         dataset_size=dc["dataset_size"],
         valid_time_split=dc["valid_time_split"],
@@ -136,8 +192,31 @@ def setup_data(cfg: Dict) -> MINDData:
         sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
         download=dc.get("download", False),
         seed=dc.get("seed", 0),
-        use_plm=dc.get("use_plm", False),
     ))
+    if dataset == "mind":
+        return mind
+    from newsreclib_tpu_torch.data.xmind import XMINDConfig, XMINDData
+
+    if fixture == "statfix":
+        # the translated news and aligned embeddings of the statfix fixture
+        from newsreclib_tpu_torch.data.statfix import write_xmind_statfix
+
+        _timed_fixture("write_xmind_statfix", lambda: write_xmind_statfix(
+            dc["data_dir"], lang=dc.get("tgt_lang", "fin")), dc["data_dir"])
+    return XMINDData(mind, XMINDConfig(
+        tgt_lang=dc.get("tgt_lang", "fin"),
+        bilingual_train=dc.get("bilingual_train", False),
+        bilingual_test=dc.get("bilingual_test", True),
+        pct_tgt_lang_train=dc.get("pct_tgt_lang_train", 0.5),
+        pct_tgt_lang_test=dc.get("pct_tgt_lang_test", 1.0),
+        seed=dc.get("seed", 42),
+    ))
+
+
+def _timed_fixture(name: str, write, data_dir: str) -> None:
+    t0 = time.time()
+    write()
+    log.info("%s: %.1f s (fixture under %s)", name, time.time() - t0, data_dir)
 
 
 def build_optimizer(cfg: Dict, steps_per_epoch: int = 0, model: Optional[torch.nn.Module] = None):
@@ -201,6 +280,7 @@ class Run(NamedTuple):
     train_batcher: TrainBatcher
     val_batcher: EvalBatcher
     test_batcher: EvalBatcher
+    data: object  # the dataset (MINDData, AdressaData or XMINDData)
 
 
 def build_run(cfg: Dict) -> Run:
@@ -210,9 +290,6 @@ def build_run(cfg: Dict) -> Run:
     device = select_device(cfg)
     check_single_device(cfg)
     mc, dc, tc = cfg["model"], cfg["data"], cfg["trainer"]
-    if cfg.get("save_recs"):
-        raise _not_ported("CachedScorer.export_recommendations (save_recs)",
-                          "Entry points around serving")
     check_dkn_title_split(mc["name"], dc)
     out_dir = cfg["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
@@ -232,6 +309,7 @@ def build_run(cfg: Dict) -> Run:
 
     store_train = timed("news_store(train)", lambda: mind.news_store("train")).trim_titles(
         margin=trim_margin)
+    check_store_attributes(mc, store_train, dc.get("dataset", "mind"))
     info = timed("data_info", lambda: load_data_info(mind, mc))
     train_imp = timed("impressions(train)", lambda: mind.impressions("train"))
     val_imp = timed("impressions(val)", lambda: mind.impressions("val"))
@@ -302,7 +380,7 @@ def build_run(cfg: Dict) -> Run:
                                      alpha=mc.get("alpha_coefficient", 0.15),
                                      beta=mc.get("beta_coefficient", 10.0),
                                      ranking=ranking, loggers=loggers)
-        return Run(trainer, train_batcher, val_batcher, test_batcher)
+        return Run(trainer, train_batcher, val_batcher, test_batcher, mind)
     state = create_train_state(model, build_optimizer(cfg, len(train_batcher), model),
                                dropout_seed=cfg.get("seed", 0))
     n_params = param_count(model)
@@ -313,7 +391,7 @@ def build_run(cfg: Dict) -> Run:
             lg.log_hparams({"param_count": n_params, "cfg": cfg})
 
     trainer = Trainer(state, loss_fn, trainer_cfg, ranking=ranking, loggers=loggers)
-    return Run(trainer, train_batcher, val_batcher, test_batcher)
+    return Run(trainer, train_batcher, val_batcher, test_batcher, mind)
 
 
 def run_aspect(cfg: Dict) -> Dict[str, float]:
@@ -343,8 +421,29 @@ def run(cfg: Dict) -> Dict[str, float]:
     metrics = r.trainer.fit(r.train_batcher, r.val_batcher, resume=bool(cfg.get("ckpt_path")))
     if cfg.get("test_after_train", True):
         metrics.update(r.trainer.test(r.test_batcher))
+    model = getattr(r.trainer.state, "model", None)
+    if cfg.get("save_recs") and hasattr(model, "encode_news"):
+        export_recommendations(cfg, r, model)
     log.info("final metrics: %s", {k: round(v, 4) for k, v in metrics.items()})
     return metrics
+
+
+def export_recommendations(cfg: Dict, r: Run, model) -> str:
+    """``save_recs``: the test split's candidate scores of every user,
+    ``{"U<id>": {"N<id>": score}}``, to ``recs_fpath`` (default
+    ``<output_dir>/recommendations.json``), from the trainer's parameters
+    (the best checkpoint's after the test) in its compute type, as the
+    repository's ``train.py:526-535``."""
+    from newsreclib_tpu_torch.serving import CachedScorer
+
+    recs_fpath = cfg.get("recs_fpath") or os.path.join(cfg["output_dir"], "recommendations.json")
+    CachedScorer(model, compute_dtype=r.trainer.cfg.compute_dtype,
+                 device=next(model.parameters()).device).export_recommendations(
+        r.data.news_store("test"), r.data.impressions("test"), recs_fpath,
+        max_history_len=cfg["data"]["max_history_len"],
+    )
+    log.info("recommendations exported to %s", recs_fpath)
+    return recs_fpath
 
 
 def task_wrapper(fn, cfg: Dict):

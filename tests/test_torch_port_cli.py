@@ -161,10 +161,13 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
 
 # The PLM tower itself is ported (model.use_plm, tests/test_torch_port_plm.py);
 # its PLM-mode tokenisation (data.use_plm, a roberta-base tokenizer) is not.
+# Adressa's one_week data and xMIND are ported (tests/test_torch_port_datasets.py);
+# Adressa's three_month data and datasets the JAX package lacks are not.
 @pytest.mark.parametrize("overrides,item", [
     (["model=sentirec", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
-    (["data=adressa_demo"], '"Other datasets"'),
-    (["data.generate_fixture=true", "data.data_dir={empty}"], '"Other datasets"'),
+    (["data=adressa_demo", "data.dataset_size=three_month", "data.data_dir={empty}"],
+     '"Other datasets"'),
+    (["data.dataset=plista"], '"Other datasets"'),
     (["data.use_plm=true"], '"PLM tower"'),
     (["model=senti_debias", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
     (["trainer.model_axis=2"], '"Multi-GPU"'),

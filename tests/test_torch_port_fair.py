@@ -755,7 +755,8 @@ def test_senti_debias_cli_with_a_resume(tmp_path):
 def test_cli_generates_the_v2_fixture(tmp_path, monkeypatch):
     """``data.generate_fixture: statfix_v2`` writes the v2 fixture (truth
     sidecar included) into an empty ``data_dir`` before the ETL, at reduced
-    size; the JAX package's other fixture generators still raise."""
+    size; Adressa's three_month data, which no generator writes, still
+    raises (the other generators: ``tests/test_torch_port_datasets.py``)."""
     from newsreclib_tpu_torch import train
     from newsreclib_tpu_torch.config.compose import compose
 
@@ -766,6 +767,7 @@ def test_cli_generates_the_v2_fixture(tmp_path, monkeypatch):
     mind = train.setup_data(cfg)
     assert (tmp_path / "v2" / "statfix_v2_truth.npz").exists()
     assert mind.news_store("train").num_news == SMALL_STATFIX["TRAIN_NEWS"]
-    cfg["data"].update(generate_fixture="statfix_adressa", data_dir=str(tmp_path / "other"))
+    cfg["data"].update(dataset="adressa", dataset_size="three_month",
+                       data_dir=str(tmp_path / "other"))
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other datasets"'):
         train.setup_data(cfg)

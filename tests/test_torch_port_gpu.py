@@ -4,8 +4,9 @@ plain version, ``FusedSmallMHSA``'s gradient, the NRMS serving path and
 train step with the kernels against the same paths with the plain
 attention, a train step of each zoo model, the FairRec models (MANNeR's
 attention shapes, train steps against the plain route, an A-module step),
-and the PLM tower (a checkpoint loaded on the card, scores against the
-CPU's, frozen layers bit-identical after train steps).  They need an
+the PLM tower (a checkpoint loaded on the card, scores against the
+CPU's, frozen layers bit-identical after train steps), and the Adressa ETL's
+native host parser with NRMS's recommendation export.  They need an
 NVIDIA card and skip without one;
 this file imports no JAX, so that it runs on a machine without it:
 
@@ -684,3 +685,41 @@ def test_plm_frozen_layers_stay_bit_identical_on_the_card(cuda, tmp_path):
         elif not k.endswith(".k.bias"):
             assert not torch.equal(after[k], before[k]), k
     assert sum(v == "freeze" for v in labels.values()) == 16 + 5
+
+
+def test_adressa_native_parser_and_export_on_the_card(cuda, tmp_path, monkeypatch):
+    """The Adressa ETL of ``write_adressa_fixture``'s tar through the native
+    host parser (built with g++; arrays equal to the Python route's), then
+    NRMS's recommendation export on the card: every test impression's
+    candidates scored, within 1e-5 of the same weights' export on the CPU,
+    with kernel launches on the card."""
+    from newsreclib_tpu_torch.data import adressa, fastetl, testing
+
+    testing.write_adressa_fixture(str(tmp_path))
+    data = adressa.AdressaData(adressa.AdressaConfig(data_dir=str(tmp_path), neg_num=10))
+    assert fastetl.get_lib() is not None
+    store = data.news_store()
+    imp = data.impressions("test")
+    monkeypatch.setattr(fastetl, "_lib", None)  # the pure-Python route from here on
+    monkeypatch.setattr(fastetl, "_lib_tried", True)
+    python = data.impressions("test")
+    for f in ("hist_flat", "hist_offsets", "cand_flat", "cand_offsets", "labels_flat",
+              "user_idx"):
+        assert np.array_equal(getattr(imp, f), getattr(python, f)), f
+    cpu = NRMS(data.vocab_size(), embed_dim=60, num_heads=6, query_dim=16, device="cpu",
+               generator=torch.Generator().manual_seed(0)).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    want = CachedScorer(cpu, device="cpu").export_recommendations(
+        store, imp, str(tmp_path / "cpu.json"), max_history_len=10)
+    before = mhsa.launches
+    got = CachedScorer(card, device=cuda).export_recommendations(
+        store, imp, str(tmp_path / "card.json"), max_history_len=10)
+    assert mhsa.launches > before
+    row2nid = {r: n for n, r in store.nid2row.items()}
+    for i in range(len(imp)):
+        assert all(row2nid[r] in got[f"U{imp.user_ids[i]}"] for r in imp.cands(i)[0])
+    assert set(got) == set(want)
+    for u in want:
+        assert set(got[u]) == set(want[u])
+        np.testing.assert_allclose([got[u][n] for n in want[u]], list(want[u].values()),
+                                   **TOL[torch.float32])

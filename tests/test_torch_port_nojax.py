@@ -7,7 +7,9 @@ SentiDebias's alternating step, an A-module step and MANNeR's ensemble;
 another loads, trains (with frozen layers) and serves NRMS with the PLM
 tower with ``transformers`` and ``safetensors`` blocked as well; another
 runs the training CLI (config composition, ETL, fit, checkpoints,
-test) on a copy of the raw demo files.
+test) on a copy of the raw demo files; another runs the Adressa ETL from a
+fixture tar through the native host parser, an xMIND store and the CLI on
+Adressa data with ``save_recs``.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -280,11 +282,65 @@ def test_plm_tower_runs_without_jax_or_transformers():
     assert {"auc", "mrr"} <= set(out["metrics"])
 
 
+DATASETS_SCRIPT = """
+import json, os, shutil, sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+from newsreclib_tpu_torch.data import adressa, fastetl, mind, statfix, testing, xmind
+from newsreclib_tpu_torch.train import main
+
+work = sys.argv[1]
+tar_dir = os.path.join(work, "adressa")
+testing.write_adressa_fixture(tar_dir)
+data = adressa.AdressaData(adressa.AdressaConfig(data_dir=tar_dir, neg_num=10))
+imp = data.impressions("train")
+native = fastetl.get_lib() is not None
+mind_dir = os.path.join(work, "mind")
+testing.write_mind_fixture(mind_dir, dataset_size="small")
+shutil.copy(os.path.join(mind_dir, "glove_demo.txt"), os.path.join(mind_dir, "glove_statfix.txt"))
+statfix.write_xmind_statfix(mind_dir)
+x = xmind.XMINDData(mind.MINDData(mind.MINDConfig(data_dir=mind_dir)), xmind.XMINDConfig())
+store = x.news_store("train")
+run = os.path.join(work, "run")
+metrics = main(["data=adressa_demo", "model=nrms", "model.embed_dim=60", "model.num_heads=6",
+                "model.query_dim=16", "platform=cpu", "trainer.max_epochs=1",
+                f"data.data_dir={os.path.join(work, 'cli')}", f"output_dir={run}",
+                "save_recs=true"])
+recs = json.load(open(os.path.join(run, "recommendations.json")))
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r)
+print(json.dumps({"n_train": len(imp), "native": native, "xmind_rows": store.num_news,
+                  "test_auc": metrics["test/auc"], "users": len(recs), "loaded": loaded}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_datasets_and_save_recs_run_with_jax_and_pandas_blocked(tmp_path):
+    """The Adressa ETL from ``write_adressa_fixture``'s tar (the native
+    parser where g++ is present), an xMIND store over ``write_mind_fixture``
+    and ``write_xmind_statfix``, and the CLI on ``adressa_demo`` generating
+    its fixture and exporting recommendations, with JAX, flax, pandas, yaml
+    and the JAX package blocked."""
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", DATASETS_SCRIPT, str(tmp_path)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["native"] == (shutil.which("g++") is not None)
+    assert out["n_train"] > 0 and out["xmind_rows"] == 240 and out["users"] > 0
+    assert 0 <= out["test_auc"] <= 1
+
+
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(BLOCKED), re.M)
     files = sorted((ROOT / "newsreclib_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_gpu.py"]
     assert len(files) > 15
+    data = ROOT / "newsreclib_tpu_torch" / "data"
+    assert {data / f"{m}.py" for m in ("adressa", "xmind", "fastetl", "testing",
+                                       "download")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 
