@@ -151,7 +151,21 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    ``MINDsmall_{train,dev}`` with ``glove_statfix.txt`` under
    ``build/smoke_xmind``, whose fixture step writes the translated news,
    and whose zero-shot test must hold translated candidates;
-13. prints one ``{"kernels": [...]}`` line (the wide instances' own
+13. the CLI in PLM mode (``plm_mode_phase``): both kinds of
+   ``write_fixture_tokenizer`` written from ``data/demo``'s texts under
+   ``build/smoke_plm_mode`` (``PLM_MODE_TOKENIZERS``: a WordPiece of
+   characters and ``##`` characters, a byte-level BPE of the bytes and a
+   few merges, the two longest tokenisations of those texts), then for each
+   ``train.run`` with ``data.use_plm`` through it at ``tokenizer_max_len``
+   96 on a copy of the raw demo files, the tower random as
+   ``PLM_CLI_OVERRIDES`` sets it (two layers at 768, the head's 16 heads of
+   48), through ``drive_cli``'s checks (the ETL's ``news_store_plm.npz``
+   written, exact launches, the restored test); the same run again with the
+   plain attention, both under ``reproducible``: every train step's loss
+   and the val and test losses of the two runs equal within
+   ``PLM_ROUTE_RTOL`` of the largest (float32, 1e-4); the store widths and
+   the (U, L) the kernel saw are printed;
+14. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -162,14 +176,17 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    ``_backward``: its main path's launches, the times at its largest train
    shape, the other shapes under ``u<U>_l<L>_*``, the served epoch and the
    PLM CLI run; phase 12's launches under ``adressa_cli_launches`` and
-   ``xmind_cli_launches``) and, last, ``{"ok": true, ...}``.
+   ``xmind_cli_launches``; phase 13's under ``plm_mode_cli_launches`` by
+   tokenizer, with the widths under ``plm_mode_widths``) and, last,
+   ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build, the host parser's build, the
-PLM checkpoints and the CLI phases' data copies and runs under ``build/``.
+PLM checkpoints, the fixture tokenizers and the CLI phases' data copies and
+runs under ``build/``.
 
     python3 chip_smoke.py --route-spread [MODEL ...]
 
@@ -379,6 +396,12 @@ PLM_ROUTE_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 PLM_CLI_OVERRIDES = ["model.use_plm=true", "model.plm_model=__random_init__",
                      "model.plm_num_layers=2", "model.embed_dim=768", "model.num_heads=16",
                      "model.frozen_layers=[0]"]
+# Phase 13: the CLI in PLM mode through both fixture tokenizers (vocabulary
+# sizes: characters only, bytes and merges up to 300), at the PLM configs'
+# tokenizer_max_len, the tower as in PLM_CLI_OVERRIDES
+PLM_MODE_DIR = os.path.join(ROOT, "build", "smoke_plm_mode")
+PLM_MODE_TOKENIZERS = {"wordpiece": 0, "bpe": 300}
+PLM_MODE_MAX_LEN = 96
 
 
 def log(*a):
@@ -959,6 +982,114 @@ def dataset_cli_phase(card: str) -> dict:
     if translated < 0.5:
         raise AssertionError(f"zero-shot test: only {translated:.1%} of candidates translated")
     out["xmind"] = dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s)
+    return out
+
+
+@contextlib.contextmanager
+def kernel_shapes(seen: dict):
+    """Count the ``(U, L)`` of every forward kernel call into ``seen`` for
+    the duration of the block (the kernel's own launch count is untouched)."""
+    from newsreclib_tpu_torch.ops import mhsa
+
+    forward = mhsa._forward
+
+    def recording(qkv, mask, num_heads):
+        key = tuple(qkv.shape[:2])
+        seen[key] = seen.get(key, 0) + 1
+        return forward(qkv, mask, num_heads)
+
+    mhsa._forward = recording
+    try:
+        yield seen
+    finally:
+        mhsa._forward = forward
+
+
+@contextlib.contextmanager
+def plain_attention_models():
+    """The training CLI builds its model with the plain attention for the
+    duration of the block."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.models.components.attention import use_plain_attention
+
+    build = train.build_model
+    train.build_model = lambda *a, **k: use_plain_attention(build(*a, **k))
+    try:
+        yield
+    finally:
+        train.build_model = build
+
+
+def logged_losses(run_dir: str) -> list:
+    """Every train, val and test loss in a run's ``metrics.csv``, in order."""
+    import csv
+
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        return [float(row[k]) for row in csv.DictReader(f)
+                for k in ("train/loss", "val/loss", "test/loss") if row.get(k)]
+
+
+def plm_mode_phase(card: str) -> dict:
+    """Phase 13 (module doc): the CLI in PLM mode through each fixture
+    tokenizer.  Returns, by tokenizer, the run's forward and backward
+    launches, its wall seconds, the store's widths and the kernel's
+    ``(U, L)`` counts."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.data.plm_tokenizer import load_tokenizer
+    from newsreclib_tpu_torch.data.testing import write_fixture_tokenizer
+
+    shutil.rmtree(PLM_MODE_DIR, ignore_errors=True)
+    demo = os.path.join(ROOT, "data", "demo")
+    texts = []
+    for split in ("MINDdemo_train", "MINDdemo_dev"):
+        with open(os.path.join(demo, split, "news.tsv"), encoding="utf-8") as f:
+            for line in f:
+                fields = line.rstrip("\n").split("\t")
+                texts += fields[3:5]
+    out = {}
+    for kind, vocab_size in PLM_MODE_TOKENIZERS.items():
+        tok_dir = write_fixture_tokenizer(os.path.join(PLM_MODE_DIR, kind), texts, kind,
+                                          vocab_size)
+        vocab = load_tokenizer(tok_dir).max_id() + 1
+        data = os.path.join(PLM_MODE_DIR, f"data_{kind}")
+        for split in ("MINDdemo_train", "MINDdemo_dev"):
+            os.makedirs(os.path.join(data, split))
+            for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+                shutil.copy(os.path.join(demo, split, name), os.path.join(data, split, name))
+        shutil.copy(os.path.join(demo, "glove_demo.txt"), data)
+        run_dir = os.path.join(PLM_MODE_DIR, f"run_{kind}")
+        overrides = CLI_OVERRIDES + PLM_CLI_OVERRIDES + [
+            f"data.data_dir={data}", f"data.word_embeddings_fpath={data}/glove_demo.txt",
+            f"output_dir={run_dir}", "data.use_plm=true", f"data.plm_tokenizer={tok_dir}",
+            f"data.tokenizer_max_len={PLM_MODE_MAX_LEN}", f"model.plm_vocab_size={vocab}",
+            "trainer.log_every_n_steps=1"]
+        caches = [os.path.join(data, s, "news_store_plm.npz")
+                  for s in ("MINDdemo_train", "MINDdemo_dev")]
+        with reproducible(), kernel_shapes({}) as seen:
+            fwd, bwd, wall_s, metrics, r = drive_cli(card, overrides, run_dir, caches)
+        with reproducible(), plain_attention_models():
+            train.run(compose(overrides=overrides + [f"output_dir={run_dir}_plain"]))
+        kernel, plain = (logged_losses(d) for d in (run_dir, run_dir + "_plain"))
+        diff = (max(abs(a - b) for a, b in zip(kernel, plain)) / max(map(abs, plain))
+                if len(kernel) == len(plain) else math.inf)
+        store = r.data.news_store("train")
+        widths = {"title": int(store.title.shape[1]), "abstract": int(store.abstract.shape[1]),
+                  "title_trimmed": int(store.trim_titles(margin=0).title.shape[1])}
+        log(f"PLM mode ({kind}, vocabulary {vocab}): store widths {widths}; the kernel saw "
+            f"(U, L) {json.dumps({f'{u}x{l}': n for (u, l), n in sorted(seen.items())})}; "
+            f"kernel vs plain attention route, {len(kernel)} logged train, val and test "
+            f"losses: max abs diff over the largest plain loss {diff:.3g} (tolerance "
+            f"{PLM_ROUTE_RTOL['float32']}); train/loss {metrics['train/loss']:.6f}, test/auc "
+            f"{metrics['test/auc']:.4f}")
+        if not diff <= PLM_ROUTE_RTOL["float32"]:
+            raise AssertionError(f"PLM mode ({kind}): the kernel route's losses {kernel} "
+                                 f"differ from the plain route's {plain}")
+        if widths["title"] != PLM_MODE_MAX_LEN or widths["abstract"] != PLM_MODE_MAX_LEN:
+            raise AssertionError(f"PLM mode ({kind}): store widths {widths}, not "
+                                 f"{PLM_MODE_MAX_LEN}")
+        out[kind] = dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s, widths=widths,
+                         seen_l=sorted({l for _, l in seen}))
     return out
 
 
@@ -1856,6 +1987,7 @@ def main() -> int:
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
     plm_cli_launches, plm_cli_bwd_launches, plm_cli_s = cli_phase(card, PLM_CLI_OVERRIDES)
     dataset_runs = dataset_cli_phase(card)
+    plm_mode_runs = plm_mode_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -2008,6 +2140,11 @@ def main() -> int:
             "shape": list(plm_head[0]),
             "cli_launches": cli,
             "cli_wall_s": plm_cli_s,
+            "plm_mode_cli_launches": {k: run["launches" if not prefix else "bwd_launches"]
+                                      for k, run in plm_mode_runs.items()},
+            "plm_mode_cli_wall_s": {k: run["wall_s"] for k, run in plm_mode_runs.items()},
+            "plm_mode_widths": {k: dict(run["widths"], kernel_l=run["seen_l"])
+                                for k, run in plm_mode_runs.items()},
             "served_epoch_s": plm_epoch_s,
             "served_peak_mb": plm_peak_mb,
             **by_shape,

@@ -26,7 +26,9 @@ byte-identical: ``Adressa_<size>/news.tsv``, ``nid2index.tsv``,
 ``behaviors_<seed>.tsv`` (train), ``{dev,test}/behaviors_<seed>.tsv`` and
 ``news_store.npz``.  The ``val`` split reads the ``dev`` behaviors.
 Behavior lines are parsed by the native host parser (``data/fastetl.py``).
-PLM tokenisation (``use_plm``) is not ported.
+With ``use_plm`` the titles are tokenised by the local tokenizer directory
+``plm_tokenizer`` (``data/plm_tokenizer.py``) at ``tokenizer_max_len``, into
+``news_store_plm.npz`` beside the word-level cache.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 from newsreclib_tpu_torch.data import fastetl
 from newsreclib_tpu_torch.data.batching import Impressions
 from newsreclib_tpu_torch.data.embeddings import build_embedding_matrix
-from newsreclib_tpu_torch.data.mind import _map_to_tsv, _read_raw, _to_tsv
+from newsreclib_tpu_torch.data.mind import PLMTokenizing, _map_to_tsv, _read_raw, _to_tsv
 from newsreclib_tpu_torch.data.news_store import NewsStore, build_news_store
 from newsreclib_tpu_torch.data.sentiment import SentimentAnnotator, get_annotator
 from newsreclib_tpu_torch.data.tokenize import (
@@ -78,7 +80,9 @@ class AdressaConfig:
     sentiment_annotator_kwargs: dict = field(default_factory=dict)
     download: bool = False
     seed: int = 42
-    use_plm: bool = False  # PLM tokenisation: not ported, raises
+    use_plm: bool = False  # titles by the PLM tokenizer
+    plm_tokenizer: Optional[str] = None  # a local tokenizer directory
+    tokenizer_max_len: int = 96
 
 
 class _UserTimeline:
@@ -122,16 +126,12 @@ def _events(tar: tarfile.TarFile, members):
                 continue
 
 
-class AdressaData:
+class AdressaData(PLMTokenizing):
     """The interface of ``MINDData``: ``news_store(split)``,
     ``impressions(split)``, ``vocab_size``, ``num_users``, ``num_classes``,
     ``split_dir``.  One store serves every split."""
 
     def __init__(self, cfg: AdressaConfig, annotator: Optional[SentimentAnnotator] = None):
-        if cfg.use_plm:
-            raise NotImplementedError(
-                'PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, "PLM '
-                'tower")')
         self.cfg = cfg
         self.annotator = annotator or get_annotator(
             cfg.sentiment_annotator, **cfg.sentiment_annotator_kwargs
@@ -271,10 +271,11 @@ class AdressaData:
         return maps
 
     def news_store(self, split: str = "train") -> NewsStore:
-        """The dense store of every split (cached as ``news_store.npz``)."""
+        """The dense store of every split (cached as ``news_store.npz``, or
+        ``news_store_plm.npz`` with ``use_plm``)."""
         if self._store is not None:
             return self._store
-        cache = os.path.join(self.root, "news_store.npz")
+        cache = os.path.join(self.root, f"news_store{'_plm' if self.cfg.use_plm else ''}.npz")
         if os.path.exists(cache):
             self._store = NewsStore.load(cache)
             return self._store
@@ -292,10 +293,16 @@ class AdressaData:
                     self.cfg.categ_embed_dim, seed=self.cfg.seed,
                     out_fpath=os.path.join(self.root, "transformed_categ_embeddings.npy"),
                 )
+        if self.cfg.use_plm:
+            titles = self._plm_tokenize(news["title"], self.cfg.tokenizer_max_len)
+            width = self.cfg.tokenizer_max_len
+        else:
+            titles = [tokens_to_ids(t, maps["word2index"]) for t in self._tok_titles]
+            width = self.cfg.max_title_len
         store = build_news_store(
             nids=news["nid"],
-            tokenized_titles=[tokens_to_ids(t, maps["word2index"]) for t in self._tok_titles],
-            max_title_len=self.cfg.max_title_len,
+            tokenized_titles=titles,
+            max_title_len=width,
             categories=[maps["categ2index"].get(c, 0) for c in news["category"]],
             subcategories=[maps["subcateg2index"].get(c, 0) for c in news["subcategory"]],
             sentiments=[maps["sentiment2index"].get(c, 0) for c in news["sentiment_label"]],

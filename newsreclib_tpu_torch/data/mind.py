@@ -32,7 +32,10 @@ with ``DataFrame.to_csv``; this module gives the same values:
   of first appearance in the train split; an unknown news id maps to row 0.
 
 ``download=True`` raises unless the raw files are present: the port fetches
-nothing.  PLM tokenisation (``use_plm``) is not ported.
+nothing.  With ``use_plm`` titles and abstracts are tokenised by the local
+tokenizer directory ``plm_tokenizer`` (``data/plm_tokenizer.py``) at
+``tokenizer_max_len``, into ``<split>/news_store_plm.npz`` beside the
+word-level cache; the word-level maps and matrices are built as without it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import ast
 import csv
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from datetime import datetime
 from typing import Dict, Iterator, List, Optional
@@ -53,6 +57,7 @@ from newsreclib_tpu_torch.data.embeddings import (
     build_entity_embedding_matrix,
 )
 from newsreclib_tpu_torch.data.news_store import NewsStore, build_news_store
+from newsreclib_tpu_torch.data.plm_tokenizer import load_tokenizer
 from newsreclib_tpu_torch.data.sentiment import SentimentAnnotator, get_annotator
 from newsreclib_tpu_torch.data.tokenize import (
     build_index_map,
@@ -164,18 +169,35 @@ class MINDConfig:
     sentiment_annotator_kwargs: dict = field(default_factory=dict)
     download: bool = False
     seed: int = 0
-    use_plm: bool = False  # PLM tokenisation: not ported, raises
+    use_plm: bool = False  # titles / abstracts by the PLM tokenizer
+    plm_tokenizer: Optional[str] = None  # a local tokenizer directory
+    tokenizer_max_len: int = 96
 
 
-class MINDData:
+class PLMTokenizing:
+    """PLM-mode tokenisation of a dataset (``cfg.use_plm``): the tokenizer
+    of ``cfg.plm_tokenizer``, loaded once, and the seconds spent in it."""
+
+    plm_tokenize_seconds = 0.0
+    _tokenizer = None
+
+    def _plm_tokenize(self, texts, max_len: int) -> List[List[int]]:
+        if not self.cfg.plm_tokenizer:
+            raise ValueError("data.use_plm needs data.plm_tokenizer, a local tokenizer "
+                             "directory")
+        t0 = time.time()
+        if self._tokenizer is None:
+            self._tokenizer = load_tokenizer(self.cfg.plm_tokenizer)
+        ids = self._tokenizer.encode_batch(texts, max_len)
+        self.plm_tokenize_seconds += time.time() - t0
+        return ids
+
+
+class MINDData(PLMTokenizing):
     """MIND's splits: ``train`` and ``val`` are the raw train file cut at
     ``valid_time_split``; ``test`` is the raw dev file."""
 
     def __init__(self, cfg: MINDConfig, annotator: Optional[SentimentAnnotator] = None):
-        if cfg.use_plm:
-            raise NotImplementedError(
-                'PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, "PLM '
-                'tower")')
         self.cfg = cfg
         self.annotator = annotator or get_annotator(
             cfg.sentiment_annotator, **cfg.sentiment_annotator_kwargs
@@ -384,17 +406,26 @@ class MINDData:
         raw_split = "dev" if split == "test" else "train"
         if raw_split in self._stores:
             return self._stores[raw_split]
-        cache = os.path.join(self.split_dir(raw_split), "news_store.npz")
+        suffix = "_plm" if self.cfg.use_plm else ""
+        cache = os.path.join(self.split_dir(raw_split), f"news_store{suffix}.npz")
         if os.path.exists(cache):
             store = NewsStore.load(cache)
         else:
             news = self.load_news(raw_split)
+            if self.cfg.use_plm:
+                width = self.cfg.tokenizer_max_len
+                titles = self._plm_tokenize(news["title"], width)
+                abstracts = self._plm_tokenize(news["abstract"], width)
+                title_width = abstract_width = width
+            else:
+                titles, abstracts = news["tokenized_title"], news["tokenized_abstract"]
+                title_width, abstract_width = self.cfg.max_title_len, self.cfg.max_abstract_len
             store = build_news_store(
                 nids=news["nid"],
-                tokenized_titles=news["tokenized_title"],
-                max_title_len=self.cfg.max_title_len,
-                tokenized_abstracts=news["tokenized_abstract"],
-                max_abstract_len=self.cfg.max_abstract_len,
+                tokenized_titles=titles,
+                max_title_len=title_width,
+                tokenized_abstracts=abstracts,
+                max_abstract_len=abstract_width,
                 categories=news["category_class"],
                 subcategories=news["subcategory_class"],
                 sentiments=news["sentiment_class"],

@@ -2,16 +2,20 @@
 with the same seeds and outputs): MIND's ``news.tsv`` / ``behaviors.tsv`` /
 ``entity_embedding.vec`` in the raw layout the ETL consumes plus a tiny
 GloVe-format file, and a tar.gz of Adressa one_week event files.  Nothing is
-downloaded.
+downloaded.  The port's own addition: ``write_fixture_tokenizer``, a
+WordPiece or byte-level BPE tokenizer directory learned from a corpus.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Tuple
+from collections import Counter
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+from newsreclib_tpu_torch.data import plm_tokenizer as pt
 
 _CATEGORIES = ["news", "sports", "finance", "travel", "lifestyle"]
 _SUBCATS = ["newsus", "newsworld", "football_nfl", "markets", "traveltips", "shopping"]
@@ -158,3 +162,171 @@ def write_adressa_fixture(
             info.size = len(blob)
             tar.addfile(info, io.BytesIO(blob))
     return tar_path
+
+
+FIXTURE_SPECIALS = {
+    "wordpiece": {"pad_token": "[PAD]", "unk_token": "[UNK]", "cls_token": "[CLS]",
+                  "sep_token": "[SEP]", "mask_token": "[MASK]"},
+    "bpe": {"bos_token": "<s>", "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>",
+            "mask_token": "<mask>"},
+}
+
+
+def _learn_bpe_merges(words: Counter, vocab: Dict[str, int], vocab_size: int):
+    """Merges learned greedily: the most frequent adjacent pair of the
+    corpus's words (the first in order of sort among equals) until the
+    vocabulary holds ``vocab_size`` tokens or no pair occurs twice."""
+    splits = {w: list(w) for w in words}
+    merges = []
+    while len(vocab) < vocab_size:
+        pairs: Counter = Counter()
+        for w, n in words.items():
+            s = splits[w]
+            for pair in zip(s, s[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=lambda p: pairs[p])
+        if pairs[best] < 2:
+            break
+        merges.append(best)
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        for w, s in splits.items():
+            i = 0
+            while i < len(s) - 1:
+                if (s[i], s[i + 1]) == best:
+                    s[i:i + 2] = [best[0] + best[1]]
+                i += 1
+    return merges
+
+
+def write_fixture_tokenizer(out_dir: str, texts, kind: str = "wordpiece",
+                            vocab_size: int = 1000) -> str:
+    """Write a deterministic tokenizer directory in the Hugging Face format
+    (``tokenizer.json``, the legacy files and ``tokenizer_config.json``)
+    learned from ``texts``, for tests and smoke runs where no pretrained
+    tokenizer files are at hand.  ``kind="wordpiece"``: a lowercasing,
+    accent-stripping BERT WordPiece tokenizer whose vocabulary is the
+    specials, every character of the corpus with its ``##`` form, then the
+    most frequent whole words (first seen first among equals) up to
+    ``vocab_size``.  ``kind="bpe"``: a RoBERTa byte-level BPE tokenizer
+    (``add_prefix_space`` false): the specials, the 256 byte characters,
+    then merges learned greedily from the corpus up to ``vocab_size``.
+    Returns ``out_dir``."""
+    specials = FIXTURE_SPECIALS[kind]
+    vocab: Dict[str, int] = {}
+    for tok in dict.fromkeys(specials.values()):
+        vocab[tok] = len(vocab)
+    texts = [t for t in texts if isinstance(t, str)]
+    added = [{"id": vocab[t], "content": t, "single_word": False,
+              "lstrip": kind == "bpe" and t == "<mask>", "rstrip": False, "normalized": False,
+              "special": True} for t in vocab]
+    os.makedirs(out_dir, exist_ok=True)
+    if kind == "wordpiece":
+        norm = pt.BertNormalizer(lowercase=True)
+        words = Counter(w for t in texts for w in pt.bert_pre_tokenize(norm(t)))
+        chars = sorted({c for w in words for c in w})
+        for tok in chars + ["##" + c for c in chars]:
+            vocab.setdefault(tok, len(vocab))
+        for w, _ in sorted(words.items(), key=lambda kv: -kv[1]):
+            if len(vocab) >= vocab_size:
+                break
+            vocab.setdefault(w, len(vocab))
+        model = {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                 "max_input_chars_per_word": 100, "vocab": vocab}
+        pipeline = {
+            "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": True, "strip_accents": None,
+                           "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "post_processor": {
+                "type": "TemplateProcessing",
+                "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                           {"Sequence": {"id": "A", "type_id": 0}},
+                           {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+                "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                         {"Sequence": {"id": "A", "type_id": 0}},
+                         {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                         {"Sequence": {"id": "B", "type_id": 1}},
+                         {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+                "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                                   for t in ("[CLS]", "[SEP]")}},
+            "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        }
+        config = {"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                  "strip_accents": None, "tokenize_chinese_chars": True}
+        with open(os.path.join(out_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("".join(t + "\n" for t in vocab))
+    elif kind == "bpe":
+        for b in range(256):
+            vocab.setdefault(pt.BYTE_CHARS[b], len(vocab))
+        split = pt.ByteLevel(add_prefix_space=False)
+        words = Counter(w for t in texts for w in split(t))
+        merges = _learn_bpe_merges(words, vocab, vocab_size)
+        model = {"type": "BPE", "dropout": None, "unk_token": None,
+                 "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                 "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                 "vocab": vocab, "merges": [list(m) for m in merges]}
+        pipeline = {
+            "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", vocab["</s>"]],
+                               "cls": ["<s>", vocab["<s>"]], "trim_offsets": True,
+                               "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+        }
+        config = {"tokenizer_class": "RobertaTokenizer", "add_prefix_space": False,
+                  "errors": "replace", "trim_offsets": True}
+        with open(os.path.join(out_dir, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(vocab, f, ensure_ascii=False)
+        with open(os.path.join(out_dir, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    else:
+        raise ValueError(f"unknown fixture tokenizer kind {kind!r}: wordpiece or bpe")
+    tokenizer = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+                 **pipeline, "model": model}
+    with open(os.path.join(out_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tokenizer, f, ensure_ascii=False)
+    decoder = {str(t["id"]): {k: t[k] for k in ("content", "lstrip", "normalized", "rstrip",
+                                                "single_word", "special")} for t in added}
+    names = dict(specials, **({"sep_token": "</s>", "cls_token": "<s>"} if kind == "bpe" else {}))
+    config.update({"added_tokens_decoder": decoder, "clean_up_tokenization_spaces": False,
+                   "model_max_length": 512, **names})
+    special_map = dict(names)
+    if kind == "bpe":  # the mask token with its flags, as transformers writes it
+        special_map["mask_token"] = {k: v for k, v in decoder[str(vocab["<mask>"])].items()
+                                     if k != "special"}
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=2, ensure_ascii=False)
+    with open(os.path.join(out_dir, "special_tokens_map.json"), "w", encoding="utf-8") as f:
+        json.dump(special_map, f, indent=2, ensure_ascii=False)
+    return out_dir
+
+
+def main(argv=None) -> None:
+    """``python -m newsreclib_tpu_torch.data.testing OUT_DIR NEWS_TSV ...
+    [--kind wordpiece|bpe] [--vocab-size N]``: ``write_fixture_tokenizer``
+    learned from the titles and abstracts of MIND-layout ``news.tsv``
+    files."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("out_dir")
+    ap.add_argument("news_tsv", nargs="+")
+    ap.add_argument("--kind", default="wordpiece", choices=sorted(FIXTURE_SPECIALS))
+    ap.add_argument("--vocab-size", type=int, default=1000)
+    args = ap.parse_args(argv)
+    texts = []
+    for path in args.news_tsv:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                texts += line.rstrip("\n").split("\t")[3:5]
+    write_fixture_tokenizer(args.out_dir, texts, args.kind, args.vocab_size)
+    print(json.dumps({"out_dir": args.out_dir, "texts": len(texts),
+                      "vocab_size": pt.load_tokenizer(args.out_dir).max_id() + 1}))
+
+
+if __name__ == "__main__":
+    main()

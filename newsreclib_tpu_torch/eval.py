@@ -39,6 +39,7 @@ from newsreclib_tpu_torch.models.factory import (
 from newsreclib_tpu_torch.train import (
     _setup_logging,
     check_single_device,
+    check_token_range,
     select_device,
     setup_data,
     task_wrapper,
@@ -128,6 +129,7 @@ def run(cfg: Dict) -> Dict[str, float]:
     os.makedirs(out_dir, exist_ok=True)
     mind = setup_data(cfg)
     mc = cfg["model"]
+    check_token_range(mc, mind.news_store("test"))
     info = load_data_info(mind, mc)
     if mc["name"] == "manner":
         return run_manner_ensemble(cfg, mind, info, out_dir, device)

@@ -18,11 +18,12 @@ It runs on the card (``cuda``) and raises without one; ``platform=cpu`` (or
 ``models/factory.py::PORTED_MODELS`` train here, SentiDebias
 (``model.adversarial: true``) through ``training/adversarial.py`` and
 MANNeR's A-module (``model=manner_a``) through ``training/aspect.py``, on
-MIND, Adressa one_week and xMIND data, with the GloVe text encoders or the
-PLM tower (``model.use_plm``, layer freezing by ``model.frozen_layers``);
-PLM-mode tokenisation (``data.use_plm``), Adressa's three_month data and
-the multi-device settings raise ``NotImplementedError`` naming their
-ROADMAP item.
+MIND, Adressa (one_week and three_month) and xMIND data, with the GloVe
+text encoders or the PLM tower (``model.use_plm``, layer freezing by
+``model.frozen_layers``), on word-level stores or, with ``data.use_plm``,
+on stores tokenised by the local tokenizer directory ``data.plm_tokenizer``
+(nothing is fetched); xMIND in PLM mode and the multi-device settings raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -117,6 +118,37 @@ def check_store_attributes(mc: Dict, store, dataset: str) -> None:
             f"hold; set model.attributes2encode to fields it has (e.g. [title, category])")
 
 
+def plm_vocab_size(mc: Dict):
+    """``(the PLM tower's vocabulary size, where it comes from)``: the
+    checkpoint's ``config.json`` when ``model.plm_model`` is a local
+    directory, else ``model.plm_vocab_size`` (``models/factory.py``)."""
+    plm_model = mc.get("plm_model", "roberta-base")
+    if os.path.isdir(plm_model):
+        from newsreclib_tpu_torch.models.components.plm import encoder_config_from_hf
+
+        with open(os.path.join(plm_model, "config.json")) as f:
+            return encoder_config_from_hf(json.load(f))["vocab_size"], \
+                f"{plm_model}/config.json"
+    return int(mc.get("plm_vocab_size", 50265)), "model.plm_vocab_size"
+
+
+def check_token_range(mc: Dict, store) -> None:
+    """Refuse, for a model with the PLM tower, a store whose largest token id
+    is not below the tower's vocabulary: the JAX package's embedding
+    (``flax.linen.Embed``) reads NaN for such an id without a word, a CUDA
+    gather asserts on the device."""
+    if not mc.get("use_plm"):
+        return
+    largest = max(int(a.max()) for a in (store.title, store.abstract)
+                  if a is not None and a.size)
+    vocab, source = plm_vocab_size(mc)
+    if largest >= vocab:
+        raise ValueError(
+            f"the news store holds token id {largest}, not below the PLM tower's vocabulary "
+            f"of {vocab} ({source}); the tower would read past its embedding table: set "
+            "model.plm_vocab_size (or model.plm_model) to the tokenizer's vocabulary")
+
+
 def setup_data(cfg: Dict):
     """The dataset of ``cfg["data"]`` (``MINDData``, ``AdressaData`` or
     ``XMINDData``, one interface), as the repository's ``train.py:35-135``
@@ -126,22 +158,26 @@ def setup_data(cfg: Dict):
     value -> ``write_adressa_fixture``; MIND's ``statfix`` / ``statfix_v2``
     -> the statfix generators at the data seed, any other value ->
     ``write_mind_fixture``; xMIND's ``statfix`` also writes
-    ``write_xmind_statfix``'s companion files.  PLM-mode tokenisation and
-    Adressa's ``three_month`` data raise ``NotImplementedError``."""
+    ``write_xmind_statfix``'s companion files.  ``data.use_plm`` tokenises
+    with the local tokenizer directory ``data.plm_tokenizer`` at
+    ``data.tokenizer_max_len``; xMIND with it raises
+    ``NotImplementedError`` (the JAX package appends word-level ids of the
+    translated news to the PLM store, and no config composes it)."""
     dc = cfg["data"]
     dataset = dc.get("dataset", "mind")
-    if dc.get("use_plm"):
-        raise NotImplementedError(
-            'PLM tokenisation (data.use_plm) is not ported yet (ROADMAP queue 1, "PLM tower"): '
-            f"it needs the files of the tokenizer {dc.get('plm_tokenizer') or 'roberta-base'}")
     fixture = dc.get("generate_fixture")
+    plm = dict(use_plm=bool(dc.get("use_plm", False)), plm_tokenizer=dc.get("plm_tokenizer"),
+               tokenizer_max_len=dc.get("tokenizer_max_len", 96))
+    if dataset == "xmind" and plm["use_plm"]:
+        raise NotImplementedError(
+            "xMIND in PLM mode (data.use_plm with the xmind dataset) is refused: the JAX "
+            "package appends word-level ids of the translated news to the PLM store "
+            "(newsreclib_tpu/data/xmind.py:62-117), and no config composes it (ROADMAP §3)")
 
     if dataset == "adressa":
         from newsreclib_tpu_torch.data.adressa import AdressaConfig, AdressaData
 
         size = dc.get("dataset_size", "one_week")
-        if size != "one_week":
-            raise _not_ported(f"Adressa's {size} data", "Other datasets")
         if fixture and not os.path.exists(os.path.join(dc["data_dir"], "one_week.tar.gz")):
             from newsreclib_tpu_torch.data import statfix, testing
 
@@ -161,6 +197,7 @@ def setup_data(cfg: Dict):
             sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
             download=dc.get("download", False),
             seed=dc.get("seed", 42),
+            **plm,
         ))
 
     if dataset not in ("mind", "xmind"):
@@ -192,6 +229,7 @@ def setup_data(cfg: Dict):
         sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
         download=dc.get("download", False),
         seed=dc.get("seed", 0),
+        **plm,
     ))
     if dataset == "mind":
         return mind
@@ -310,16 +348,21 @@ def build_run(cfg: Dict) -> Run:
     store_train = timed("news_store(train)", lambda: mind.news_store("train")).trim_titles(
         margin=trim_margin)
     check_store_attributes(mc, store_train, dc.get("dataset", "mind"))
+    check_token_range(mc, store_train)
     info = timed("data_info", lambda: load_data_info(mind, mc))
     train_imp = timed("impressions(train)", lambda: mind.impressions("train"))
     val_imp = timed("impressions(val)", lambda: mind.impressions("val"))
     store_test = timed("news_store(test)", lambda: mind.news_store("test")).trim_titles(
         margin=trim_margin)
+    check_token_range(mc, store_test)
     test_imp = timed("impressions(test)", lambda: mind.impressions("test"))
+    if dc.get("use_plm"):  # the PLM tokenizer's share of the news stores' seconds
+        timings["plm_tokenize"] = mind.plm_tokenize_seconds
     log.info("ETL seconds: %s", json.dumps({k: round(v, 3) for k, v in timings.items()}))
-    log.info("vocab=%d users=%d categ=%d news(train)=%d impressions train/val/test=%d/%d/%d",
-             info.vocab_size, info.num_users, info.num_categories, store_train.num_news,
-             len(train_imp), len(val_imp), len(test_imp))
+    log.info("vocab=%d users=%d categ=%d news(train)=%d impressions train/val/test=%d/%d/%d; "
+             "title width %d (trimmed)", info.vocab_size, info.num_users, info.num_categories,
+             store_train.num_news, len(train_imp), len(val_imp), len(test_imp),
+             store_train.title.shape[1])
 
     adversarial = bool(mc.get("adversarial"))
     model = None if adversarial else build_model(mc, info, device=device, seed=cfg.get("seed", 0))

@@ -159,17 +159,18 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
     assert "no CUDA device is available" in (out / "error.log").read_text()
 
 
-# The PLM tower itself is ported (model.use_plm, tests/test_torch_port_plm.py);
-# its PLM-mode tokenisation (data.use_plm, a roberta-base tokenizer) is not.
-# Adressa's one_week data and xMIND are ported (tests/test_torch_port_datasets.py);
-# Adressa's three_month data and datasets the JAX package lacks are not.
+# The PLM tower and PLM-mode tokenisation are ported (tests/test_torch_port_plm.py,
+# tests/test_torch_port_plm_data.py), and so are Adressa's one_week and
+# three_month data and xMIND (tests/test_torch_port_datasets.py); xMIND in PLM
+# mode, datasets the JAX package lacks and the multi-device settings are not.
 @pytest.mark.parametrize("overrides,item", [
-    (["model=sentirec", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
-    (["data=adressa_demo", "data.dataset_size=three_month", "data.data_dir={empty}"],
-     '"Other datasets"'),
+    (["model=sentirec", "model.use_plm=true", "data.use_plm=true", "data.dataset=xmind"],
+     "xMIND in PLM mode"),
+    (["data.global_rows=true"], '"Multi-GPU"'),
     (["data.dataset=plista"], '"Other datasets"'),
-    (["data.use_plm=true"], '"PLM tower"'),
-    (["model=senti_debias", "model.use_plm=true", "data.use_plm=true"], '"PLM tower"'),
+    (["trainer.distributed=true"], '"Multi-GPU"'),
+    (["model=senti_debias", "model.use_plm=true", "data.use_plm=true", "data.dataset=xmind"],
+     "xMIND in PLM mode"),
     (["trainer.model_axis=2"], '"Multi-GPU"'),
     (["trainer.devices=4"], '"Multi-GPU"'),
 ])

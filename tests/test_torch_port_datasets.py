@@ -230,8 +230,15 @@ def test_committed_adressa_demo_caches_match_a_fresh_etl(tmp_path):
 
 
 def test_adressa_refuses_plm_mode_and_a_missing_tar(tmp_path):
-    with pytest.raises(NotImplementedError, match='"PLM tower"'):
-        adressa.AdressaData(adressa.AdressaConfig(data_dir=str(tmp_path), use_plm=True))
+    """PLM mode with a tokenizer that is not a local directory (the
+    config's ``NbAiLab/nb-bert-base``) is refused when the store is built;
+    a missing tar, when it is read."""
+    (tmp_path / "plm").mkdir()
+    shutil.copy(ADRESSA_DEMO / "one_week.tar.gz", tmp_path / "plm")
+    data = adressa.AdressaData(adressa.AdressaConfig(
+        data_dir=str(tmp_path / "plm"), use_plm=True, plm_tokenizer="NbAiLab/nb-bert-base"))
+    with pytest.raises(FileNotFoundError, match="not a local directory.*fetches nothing"):
+        data.news_store()
     with pytest.raises(FileNotFoundError, match="download disabled"):
         adressa.AdressaData(adressa.AdressaConfig(data_dir=str(tmp_path))).prepare_raw()
 
@@ -429,7 +436,8 @@ def test_setup_data_routes_the_adressa_nodes(tmp_path, monkeypatch):
     """``adressa_statfix`` writes ``write_adressa_statfix``'s tar at its
     default seed 0 (as the repository's ``train.py``; reduced size here),
     ``adressa_demo`` (``generate_fixture: true``) ``write_adressa_fixture``'s;
-    an existing tar is never overwritten; ``three_month`` raises."""
+    an existing tar is never overwritten; ``three_month`` takes the node's
+    week splits and reads ``three_month.tar.gz``."""
     from newsreclib_tpu_torch import train
 
     def small_statfix(data_dir):
@@ -451,9 +459,12 @@ def test_setup_data_routes_the_adressa_nodes(tmp_path, monkeypatch):
     before = (tmp_path / "demo" / "one_week.tar.gz").stat().st_mtime_ns
     train.setup_data(_compose("adressa_demo", tmp_path / "demo"))
     assert (tmp_path / "demo" / "one_week.tar.gz").stat().st_mtime_ns == before
-    with pytest.raises(NotImplementedError, match='"Other datasets"'):
-        train.setup_data(_compose("adressa_demo", tmp_path / "tm",
-                                  "data.dataset_size=three_month"))
+    data = train.setup_data(_compose("adressa_demo", tmp_path / "tm",
+                                     "data.dataset_size=three_month",
+                                     "data.train_date_split=4", "data.test_date_split=5"))
+    assert (data.cfg.dataset_size, data.cfg.train_date_split, data.cfg.test_date_split) == (
+        "three_month", 4, 5)
+    assert data._tar_path() == str(tmp_path / "tm" / "three_month.tar.gz")
 
 
 def test_setup_data_routes_the_mind_demo_and_xmind_statfix_nodes(tmp_path, monkeypatch):

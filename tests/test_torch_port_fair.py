@@ -755,8 +755,9 @@ def test_senti_debias_cli_with_a_resume(tmp_path):
 def test_cli_generates_the_v2_fixture(tmp_path, monkeypatch):
     """``data.generate_fixture: statfix_v2`` writes the v2 fixture (truth
     sidecar included) into an empty ``data_dir`` before the ETL, at reduced
-    size; Adressa's three_month data, which no generator writes, still
-    raises (the other generators: ``tests/test_torch_port_datasets.py``)."""
+    size; Adressa's three_month data, which no generator writes, is routed
+    but its tar is missing (the other generators:
+    ``tests/test_torch_port_datasets.py``)."""
     from newsreclib_tpu_torch import train
     from newsreclib_tpu_torch.config.compose import compose
 
@@ -769,5 +770,5 @@ def test_cli_generates_the_v2_fixture(tmp_path, monkeypatch):
     assert mind.news_store("train").num_news == SMALL_STATFIX["TRAIN_NEWS"]
     cfg["data"].update(dataset="adressa", dataset_size="three_month",
                        data_dir=str(tmp_path / "other"))
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other datasets"'):
-        train.setup_data(cfg)
+    with pytest.raises(FileNotFoundError, match="three_month.tar.gz missing"):
+        train.setup_data(cfg).news_store()

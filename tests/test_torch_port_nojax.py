@@ -9,7 +9,9 @@ tower with ``transformers`` and ``safetensors`` blocked as well; another
 runs the training CLI (config composition, ETL, fit, checkpoints,
 test) on a copy of the raw demo files; another runs the Adressa ETL from a
 fixture tar through the native host parser, an xMIND store and the CLI on
-Adressa data with ``save_recs``.
+Adressa data with ``save_recs``; another writes fixture tokenizers and runs
+the CLI in PLM mode and an Adressa PLM store with ``transformers``,
+``tokenizers``, ``regex`` and ``safetensors`` blocked as well.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -333,6 +335,73 @@ def test_datasets_and_save_recs_run_with_jax_and_pandas_blocked(tmp_path):
     assert 0 <= out["test_auc"] <= 1
 
 
+TOKENIZER_LIBS = ("transformers", "tokenizers", "regex", "safetensors")
+PLM_MODE_SCRIPT = """
+import json, os, shutil, sys
+for name in %r + %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+from newsreclib_tpu_torch.data import adressa, testing
+from newsreclib_tpu_torch.train import main
+
+work, demo = sys.argv[1], sys.argv[2]
+texts = [line.split("\\t")[3] for line in open(os.path.join(demo, "MINDdemo_train", "news.tsv"))]
+wordpiece = testing.write_fixture_tokenizer(os.path.join(work, "wp"), texts, "wordpiece", 200)
+bpe = testing.write_fixture_tokenizer(os.path.join(work, "bpe"), texts, "bpe", 300)
+data = os.path.join(work, "data")
+for split in ("MINDdemo_train", "MINDdemo_dev"):
+    os.makedirs(os.path.join(data, split))
+    for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+        shutil.copy(os.path.join(demo, split, name), os.path.join(data, split, name))
+metrics = main(["experiment=nrms_demo", "platform=cpu", f"data.data_dir={data}",
+                f"data.word_embeddings_fpath={os.path.join(demo, 'glove_demo.txt')}",
+                f"output_dir={os.path.join(work, 'run')}", "trainer.max_epochs=1",
+                "trainer.limit_train_batches=2", "data.use_plm=true",
+                f"data.plm_tokenizer={wordpiece}", "data.tokenizer_max_len=24",
+                "model.use_plm=true", "model.plm_model=__random_init__",
+                "model.plm_vocab_size=200", "model.embed_dim=16", "model.plm_num_layers=1",
+                "model.plm_num_heads=2", "model.num_heads=2"])
+ad = os.path.join(work, "adressa")
+testing.write_adressa_fixture(ad)
+store = adressa.AdressaData(adressa.AdressaConfig(
+    data_dir=ad, use_plm=True, plm_tokenizer=bpe, tokenizer_max_len=24)).news_store()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r + %r)
+print(json.dumps({"metrics": metrics, "adressa_width": store.title.shape[1],
+                  "loaded": loaded}))
+""" % (BLOCKED, TOKENIZER_LIBS, BLOCKED, TOKENIZER_LIBS)
+
+
+def test_plm_mode_runs_without_jax_or_tokenizer_libraries(tmp_path):
+    """Both fixture tokenizers written, the CLI in PLM mode on a copy of the
+    demo files and an Adressa PLM store, with JAX, flax, pandas, yaml, the
+    JAX package, ``transformers``, ``tokenizers``, ``regex`` and
+    ``safetensors`` blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", PLM_MODE_SCRIPT, str(tmp_path),
+                           str(ROOT / "data" / "demo")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert {"train/loss", "test/mrr"} <= set(out["metrics"])
+    assert out["adressa_width"] == 24
+
+
+# the one port module that imports a tokenizer library: the copy of the JAX
+# package's transformers sentiment pipeline, which no config selects
+TOKENIZER_LIB_USERS = {"data/sentiment.py"}
+
+
+def test_port_sources_import_no_tokenizer_library():
+    pattern = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(TOKENIZER_LIBS), re.M)
+    files = sorted((ROOT / "newsreclib_tpu_torch").rglob("*.py"))
+    assert ROOT / "newsreclib_tpu_torch" / "data" / "plm_tokenizer.py" in files
+    users = {str(f.relative_to(ROOT / "newsreclib_tpu_torch")) for f in files
+             if pattern.search(f.read_text())}
+    assert users == TOKENIZER_LIB_USERS
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(BLOCKED), re.M)
     files = sorted((ROOT / "newsreclib_tpu_torch").rglob("*.py"))
@@ -340,7 +409,7 @@ def test_port_sources_import_no_jax():
     assert len(files) > 15
     data = ROOT / "newsreclib_tpu_torch" / "data"
     assert {data / f"{m}.py" for m in ("adressa", "xmind", "fastetl", "testing",
-                                       "download")} <= set(files)
+                                       "download", "plm_tokenizer")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

@@ -10,6 +10,8 @@ different order (the Pallas kernel online, the others by softmax), which
 moves float32 results by a few ulp.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -293,15 +295,25 @@ def test_kernel_library_is_keyed_by_source_and_built_under_build():
     assert (build.CSRC / "mhsa.cu").exists()
 
 
-def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch):
+# The parts compile at once, so the stand-in nvcc of each appends its line to
+# the log in whatever order they finish: "shuffled" makes them finish 3, 1, 2.
+PART_DELAYS = {"as_started": {}, "shuffled": {3: 0.0, 1: 0.3, 2: 0.6}}
+
+
+@pytest.mark.parametrize("order", sorted(PART_DELAYS))
+def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch, order):
     """``csrc/mhsa.cu`` builds as ``PARTS["mhsa"]`` nvcc compilations with
-    ``NRL_PART`` 1, 2, 3 for sm_90a, then one link of their objects into
-    the library; the objects are removed.  A stand-in nvcc records each
-    command and writes its output."""
+    ``NRL_PART`` 1, 2, 3 for sm_90a, then one link of their objects, in part
+    order, into the library; the objects are removed.  A stand-in nvcc
+    records each command and writes its output; each part's line is found
+    by its ``-DNRL_PART=k``, whatever order the parts logged in."""
     log = tmp_path / "calls.txt"
     fake = tmp_path / "cuda" / "bin" / "nvcc"
     fake.parent.mkdir(parents=True)
+    delays = "".join(f"    -DNRL_PART={k}) sleep {s} ;;\n"
+                     for k, s in PART_DELAYS[order].items())
     fake.write_text("#!/bin/sh\n"
+                    'for a in "$@"; do\n  case "$a" in\n' + delays + "  esac\ndone\n"
                     f'echo "$@" >> {log}\n'
                     'while [ "$1" != "-o" ]; do shift; done\n'
                     'echo built > "$2"\n')
@@ -310,17 +322,23 @@ def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     build.build_all(["mhsa"])
     calls = log.read_text().splitlines()
-    assert len(calls) == build.PARTS["mhsa"] + 1
-    objects = []
-    for k, call in enumerate(calls[:-1], start=1):
+    parts = build.PARTS["mhsa"]
+    assert len(calls) == parts + 1
+    compiles, link = calls[:-1], calls[-1].split()
+    logged = [int(m) for c in compiles for m in re.findall(r"-DNRL_PART=(\d+)", c)]
+    assert sorted(logged) == list(range(1, parts + 1))  # each part exactly once
+    if order == "shuffled":
+        assert logged == list(PART_DELAYS[order])
+    objects = {}
+    for k, call in zip(logged, compiles):
         assert f"-c -DNRL_PART={k}" in call and call.endswith("mhsa.cu")
         assert "arch=compute_90a,code=sm_90a" in call
         args = call.split()
-        objects.append(args[args.index("-o") + 1])
+        objects[k] = args[args.index("-o") + 1]
     # nvcc takes a file for an object to link only by its ".o" suffix
-    assert all(o.endswith(".o") for o in objects)
-    link = calls[-1].split()
-    assert link[0] == "-shared" and link[-len(objects):] == objects
+    assert all(o.endswith(".o") for o in objects.values())
+    assert len(set(objects.values())) == parts
+    assert link[0] == "-shared" and link[-parts:] == [objects[k] for k in range(1, parts + 1)]
     target = build.library_path("mhsa")
     assert target.parent == tmp_path / "kernels" and target.read_text() == "built\n"
     assert sorted(p.name for p in target.parent.iterdir()) == [target.name]
