@@ -165,7 +165,29 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    and the val and test losses of the two runs equal within
    ``PLM_ROUTE_RTOL`` of the largest (float32, 1e-4); the store widths and
    the (U, L) the kernel saw are printed;
-14. prints one ``{"kernels": [...]}`` line (the wide instances' own
+14. the hyperparameter sweep (``sweep_phase``):
+   ``newsreclib_tpu_torch.sweep`` over ``demo_grid`` (two learning rates)
+   with phase 11's overrides (NRMS at full width, 2 epochs, the demo copy
+   under ``build/smoke_demo``), run from ``build/smoke_sweep``: both
+   trials have a finite value, the results JSON is written under
+   ``build/smoke_sweep/outputs/torch/``, each trial writes its
+   checkpoints, and the forward and backward kernel launches are exactly
+   twice phase 11's;
+15. MANNeR's remat (``remat_phase``): the CR module at ``manner_cr.yaml``'s
+   widths, ``REMAT_STEPS`` float32 train steps at batch 64 on
+   ``TrainBatcher`` batches with and without ``remat`` from the same
+   weights and dropout seeds (the card's generator): losses and gradients
+   within ``REMAT_RTOL`` (relative), the generator in the same state after
+   every backward pass, the wide forward kernel launched exactly twice a
+   news segment with remat (the forward and its recomputation) and once
+   without, the backward once; the peak memory of both is printed;
+16. the BERT sentiment annotator (``annotator_phase``): random two-layer
+   RoBERTa (three labels) and BERT (two labels) classifiers at
+   roberta-base's widths, written under ``build/smoke_annotator`` beside
+   fixture tokenizers from ``data/demo`` by ``write_fixture_classifier``,
+   annotate ``ANNOTATOR_TEXTS`` texts on the card and on the CPU: the same
+   labels, scores within ``ANNOTATOR_ATOL``;
+17. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -177,16 +199,18 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    shape, the other shapes under ``u<U>_l<L>_*``, the served epoch and the
    PLM CLI run; phase 12's launches under ``adressa_cli_launches`` and
    ``xmind_cli_launches``; phase 13's under ``plm_mode_cli_launches`` by
-   tokenizer, with the widths under ``plm_mode_widths``) and, last,
-   ``{"ok": true, ...}``.
+   tokenizer, with the widths under ``plm_mode_widths``; phase 14's under
+   ``sweep_launches``, phase 15's under ``remat_launches`` (with and
+   without remat) in the wide entries, phase 16's under
+   ``annotator_launches``) and, last, ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
 
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build, the host parser's build, the
-PLM checkpoints, the fixture tokenizers and the CLI phases' data copies and
-runs under ``build/``.
+PLM checkpoints, the fixture tokenizers and classifiers, the CLI phases'
+data copies and runs and the sweep's under ``build/``.
 
     python3 chip_smoke.py --route-spread [MODEL ...]
 
@@ -402,6 +426,19 @@ PLM_CLI_OVERRIDES = ["model.use_plm=true", "model.plm_model=__random_init__",
 PLM_MODE_DIR = os.path.join(ROOT, "build", "smoke_plm_mode")
 PLM_MODE_TOKENIZERS = {"wordpiece": 0, "bpe": 300}
 PLM_MODE_MAX_LEN = 96
+# Phase 14: demo_grid over the CLI phase's NRMS run (2 trials of 2 epochs) on
+# the CLI phase's data copy, from this directory (the results JSON lands
+# under it, at outputs/torch/sweep_results.json)
+SWEEP_DIR = os.path.join(ROOT, "build", "smoke_sweep")
+# Phase 15: MANNeR's CR module at manner_cr.yaml's widths, float32 train steps
+# at batch 64 with and without remat; losses and gradients relative
+REMAT_STEPS, REMAT_RTOL = 3, 1e-5
+# Phase 16: random two-layer classifiers at roberta-base's widths beside
+# fixture tokenizers from data/demo, annotating ANNOTATOR_TEXTS texts on the
+# card and on the CPU
+ANNOTATOR_DIR = os.path.join(ROOT, "build", "smoke_annotator")
+ANNOTATOR_TEXTS, ANNOTATOR_ATOL, ANNOTATOR_MAX_LEN = 256, 1e-4, 64
+ANNOTATOR_CLASSIFIERS = {"bpe": 3, "wordpiece": 2}  # tokenizer kind -> labels
 
 
 def log(*a):
@@ -1090,6 +1127,205 @@ def plm_mode_phase(card: str) -> dict:
                                  f"{PLM_MODE_MAX_LEN}")
         out[kind] = dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s, widths=widths,
                          seen_l=sorted({l for _, l in seen}))
+    return out
+
+
+def demo_texts():
+    """The titles and abstracts of ``data/demo``'s news files."""
+    texts = []
+    for split in ("MINDdemo_train", "MINDdemo_dev"):
+        with open(os.path.join(ROOT, "data", "demo", split, "news.tsv"), encoding="utf-8") as f:
+            for line in f:
+                texts += line.rstrip("\n").split("\t")[3:5]
+    return texts
+
+
+def sweep_phase(card: str, cli_fwd: int, cli_bwd: int) -> dict:
+    """Phase 14 (module doc): ``newsreclib_tpu_torch.sweep`` over
+    ``demo_grid`` with the CLI phase's overrides (its data copy, NRMS at
+    full width, 2 epochs), run from ``SWEEP_DIR``, the counts set to 0 just
+    before it and read just after: both trials have a finite value, the
+    results JSON is written under ``SWEEP_DIR``, and the forward and
+    backward launches are twice the CLI run's (``cli_fwd``, ``cli_bwd``).
+    Returns the launches, the wall seconds and the results."""
+    import torch
+
+    from newsreclib_tpu_torch import sweep
+    from newsreclib_tpu_torch.ops import mhsa
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    os.makedirs(SWEEP_DIR)
+    overrides = [o for o in CLI_OVERRIDES if not o.startswith("output_dir=")]
+    overrides.append(f"output_dir={os.path.join(SWEEP_DIR, 'run')}")
+    cwd = os.getcwd()
+    os.chdir(SWEEP_DIR)
+    try:
+        torch.cuda.synchronize()
+        mhsa.launches = mhsa.bwd_launches = 0
+        t0 = time.perf_counter()
+        results = sweep.main(["hparams_search=demo_grid", *overrides])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        fwd, bwd = mhsa.launches, mhsa.bwd_launches
+    finally:
+        os.chdir(cwd)
+    path = os.path.join(SWEEP_DIR, "outputs", "torch", "sweep_results.json")
+    with open(path) as f:
+        written = json.load(f)
+    values = [t["value"] for t in written["trials"]]
+    log(f"sweep demo_grid: {len(values)} trials in {wall_s:.2f} s wall on {card}; "
+        f"{written['metric']} {values}, best {written['best']}; results in "
+        f"{os.path.relpath(path, ROOT)}; fused_small_mhsa launches {fwd} ({2 * cli_fwd} "
+        f"expected: twice the CLI run's), its backward {bwd} ({2 * cli_bwd} expected)")
+    if written != json.loads(json.dumps(results)) or len(values) != 2:
+        raise AssertionError(f"the sweep's results file differs from its return: {written}")
+    if not all(v is not None and math.isfinite(v) for v in values):
+        raise AssertionError(f"a sweep trial has no value: {written['trials']}")
+    if fwd != 2 * cli_fwd or bwd != 2 * cli_bwd:
+        raise AssertionError(f"{fwd} forward and {bwd} backward kernel launches in the sweep "
+                             f"({2 * cli_fwd} and {2 * cli_bwd} expected)")
+    for t in range(2):
+        if not os.path.exists(os.path.join(SWEEP_DIR, "run", f"trial_{t}", "checkpoints",
+                                           "best.pt")):
+            raise AssertionError(f"trial {t} wrote no checkpoint")
+    return dict(launches=fwd, bwd_launches=bwd, wall_s=wall_s, values=values)
+
+
+def remat_run(store, imp, remat: bool) -> dict:
+    """``REMAT_STEPS`` float32 train steps of MANNeR's CR module (the
+    ``profile_train`` cell at batch 64, seed 0, Adam lr 1e-4) with or
+    without ``remat``, under ``reproducible``: per step the loss, every
+    gradient (on the host) and the dropout generator's state after the
+    backward pass; the forward, backward and wide launches, the news
+    segments and the peak of allocated memory over the steps."""
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, LEARNING_RATE, build_cell_model, \
+        cell_config
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+
+    loss_fn = factory.build_loss(cell_config("manner_cr"))
+    batches = [to_device(b, "cuda") for _, b in zip(
+        range(REMAT_STEPS), TrainBatcher(store, imp, batch_size=TRAIN_BATCH, **DATA).epoch(0))]
+    state = create_train_state(build_cell_model("manner_cr", "cuda", remat),
+                               make_optimizer(LEARNING_RATE), dropout_seed=0)
+    out = dict(losses=[], grads=[], generators=[])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mhsa.launches = mhsa.bwd_launches = mhsa.wide_launches = mhsa.wide_bwd_launches = 0
+    with reproducible():
+        for b in batches:
+            g = state.dropout_generator()
+            scores, _ = state.model(b, deterministic=False, generator=g)
+            loss = loss_fn(scores.float(), b.labels, b.cand_mask, b.impression_valid)
+            loss.backward()
+            out["losses"].append(loss.item())
+            out["grads"].append({n: p.grad.detach().cpu() for n, p in
+                                 state.model.named_parameters() if p.grad is not None})
+            out["generators"].append(g.get_state())
+            state.apply_gradients()
+    torch.cuda.synchronize()
+    out.update(peak_mb=torch.cuda.max_memory_allocated() / 2**20, fwd=mhsa.launches,
+               bwd=mhsa.bwd_launches, wide=mhsa.wide_launches, wide_bwd=mhsa.wide_bwd_launches,
+               segments=sum(1 + (b.news2 is not None) for b in batches))
+    return out
+
+
+def remat_phase(card: str, store, imp) -> dict:
+    """Phase 15 (module doc): MANNeR-CR with and without remat from the
+    same weights and dropout seeds: losses and gradients within
+    ``REMAT_RTOL`` of the largest of their tensor, the dropout generator in
+    the same state after every backward pass, the wide forward kernel
+    launched exactly twice a news segment with remat and once without (every
+    launch wide), the backward once either way; prints the largest
+    differences and the peak memory of both.  Returns the launches and peaks
+    of both runs."""
+    plain, remat = remat_run(store, imp, False), remat_run(store, imp, True)
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"], plain["losses"]))
+    grad_diff = max((a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                    for a, b in zip(remat["grads"], plain["grads"]) for k in b)
+    same_generators = all(a.equal(b) for a, b in zip(remat["generators"], plain["generators"]))
+    log(f"MANNeR-CR remat ({REMAT_STEPS} float32 steps at batch {TRAIN_BATCH}, "
+        f"{plain['segments']} news segments) on {card}: losses {remat['losses']} against "
+        f"{plain['losses']} without, largest relative difference {loss_diff:.3g}; gradients "
+        f"{grad_diff:.3g} of their tensor's largest (tolerance {REMAT_RTOL}); dropout "
+        f"generator states equal: {same_generators}; wide forward launches {remat['wide']} "
+        f"(without: {plain['wide']}), backward {remat['wide_bwd']} (without: "
+        f"{plain['wide_bwd']}); peak allocated {remat['peak_mb']:.1f} MB with remat, "
+        f"{plain['peak_mb']:.1f} MB without")
+    if not (loss_diff <= REMAT_RTOL and grad_diff <= REMAT_RTOL and same_generators):
+        raise AssertionError("MANNeR-CR with remat differs from the model without")
+    if set(remat["grads"][0]) != set(plain["grads"][0]):
+        raise AssertionError("remat changed which parameters get a gradient")
+    segments = plain["segments"]
+    for run, per_segment in ((plain, 1), (remat, 2)):
+        if not (run["wide"] == run["fwd"] == per_segment * segments
+                and run["wide_bwd"] == run["bwd"] == segments):
+            raise AssertionError(f"{run['fwd']} forward ({run['wide']} wide) and {run['bwd']} "
+                                 f"backward ({run['wide_bwd']} wide) launches over {segments} "
+                                 f"segments; {per_segment} a segment expected forward, 1 back")
+    return {name: dict(launches=run["wide"], bwd_launches=run["wide_bwd"],
+                       peak_mb=run["peak_mb"]) for name, run in (("no_remat", plain),
+                                                                  ("remat", remat))} | dict(
+        segments=segments, loss_rel_diff=loss_diff, grad_rel_diff=grad_diff)
+
+
+def annotator_phase(card: str) -> dict:
+    """Phase 16 (module doc): a random two-layer RoBERTa classifier (three
+    labels, byte-level BPE) and a BERT one (two labels, WordPiece) at
+    roberta-base's widths written under ``ANNOTATOR_DIR`` by
+    ``write_fixture_classifier``; ``BERTSentimentAnnotator`` annotates
+    ``ANNOTATOR_TEXTS`` texts of ``data/demo`` (an empty one and one beyond
+    ``ANNOTATOR_MAX_LEN`` tokens among them) on the card and with
+    ``device="cpu"``: the labels equal and the scores within
+    ``ANNOTATOR_ATOL``.  The tower's attention is plain torch: no kernel
+    launch.  Returns the seconds of both devices and the launches by
+    classifier."""
+    import torch
+
+    from newsreclib_tpu_torch.data.sentiment import BERTSentimentAnnotator
+    from newsreclib_tpu_torch.data.testing import write_fixture_classifier
+    from newsreclib_tpu_torch.ops import mhsa
+
+    shutil.rmtree(ANNOTATOR_DIR, ignore_errors=True)
+    corpus = demo_texts()
+    texts = corpus[:ANNOTATOR_TEXTS - 2] + ["", " ".join(corpus[:60])]
+    out = {}
+    for kind, labels in ANNOTATOR_CLASSIFIERS.items():
+        d = write_fixture_classifier(os.path.join(ANNOTATOR_DIR, kind), corpus, kind,
+                                     num_labels=labels, hidden_dim=768, num_layers=2,
+                                     num_heads=12, intermediate_dim=3072,
+                                     max_len=ANNOTATOR_MAX_LEN)
+        results, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            annotator = BERTSentimentAnnotator(model_name=d, device=device)
+            annotator.annotate_many(texts[:8])  # warm-up
+            if device == "cuda":
+                torch.cuda.synchronize()
+                mhsa.launches = 0
+            t0 = time.perf_counter()
+            results[device] = annotator.annotate_many(texts)
+            seconds[device] = time.perf_counter() - t0
+            if device == "cuda":
+                launches = mhsa.launches
+        card_r, cpu_r = results["cuda"], results["cpu"]
+        same = sum(a[0] == b[0] for a, b in zip(card_r, cpu_r))
+        err = max(abs(a[1] - b[1]) for a, b in zip(card_r, cpu_r))
+        counts = {c: sum(r[0] == c for r in card_r) for c in ("negative", "neutral", "positive")}
+        log(f"annotator ({kind}, {labels} labels, 2 layers of 768): {len(texts)} texts in "
+            f"{seconds['cuda']:.3f} s on {card}, {seconds['cpu']:.3f} s on the CPU; labels "
+            f"equal {same}/{len(texts)} ({counts}), scores max abs diff {err:.3g} (tolerance "
+            f"{ANNOTATOR_ATOL}); fused_small_mhsa launches {launches}")
+        if same != len(texts) or not err <= ANNOTATOR_ATOL or len(card_r) != len(texts):
+            raise AssertionError(f"annotator ({kind}): the card's labels or scores differ from "
+                                 "the CPU's")
+        out[kind] = dict(card_s=seconds["cuda"], cpu_s=seconds["cpu"], launches=launches,
+                         max_abs_err=err)
     return out
 
 
@@ -1988,6 +2224,9 @@ def main() -> int:
     plm_cli_launches, plm_cli_bwd_launches, plm_cli_s = cli_phase(card, PLM_CLI_OVERRIDES)
     dataset_runs = dataset_cli_phase(card)
     plm_mode_runs = plm_mode_phase(card)
+    sweep_run = sweep_phase(card, cli_launches, cli_bwd_launches)
+    remat = remat_phase(card, store, imp)
+    annotator = annotator_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -2015,6 +2254,9 @@ def main() -> int:
         "cli_wall_s": cli_s,
         **{f"{name}_cli_launches": run["launches"] for name, run in dataset_runs.items()},
         **{f"{name}_cli_wall_s": run["wall_s"] for name, run in dataset_runs.items()},
+        "sweep_launches": sweep_run["launches"],
+        "sweep_wall_s": sweep_run["wall_s"],
+        "annotator_launches": {k: run["launches"] for k, run in annotator.items()},
     }, {
         "name": "fused_small_mhsa_backward",
         "route": "cuda",
@@ -2025,6 +2267,7 @@ def main() -> int:
         "launches_per_step": bwd_launches / TRAIN_TIMED,
         "cli_launches": cli_bwd_launches,
         **{f"{name}_cli_launches": run["bwd_launches"] for name, run in dataset_runs.items()},
+        "sweep_launches": sweep_run["bwd_launches"],
         "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
         "ms": bwd_main["bwd_ms"],
         "plain_ms": bwd_main["plain_bwd_ms"],
@@ -2065,7 +2308,11 @@ def main() -> int:
              zoo_counts[3] + fair_counts[3] + aspect_counts[3])):
         main_r, f32_r = (zoo_rec(recs, wide_shape, t) for t in ("bfloat16", "float32"))
         box = {"manner_cr_launches": int(fair_by_model["manner_cr"][2 if not prefix else 3]),
-               "aspect_ensemble_launches": int(aspect_counts[2 if not prefix else 3])}
+               "aspect_ensemble_launches": int(aspect_counts[2 if not prefix else 3]),
+               "remat_launches": {k: remat[k]["bwd_launches" if prefix else "launches"]
+                                  for k in ("remat", "no_remat")},
+               "remat_segments": remat["segments"],
+               "remat_peak_mb": {k: remat[k]["peak_mb"] for k in ("remat", "no_remat")}}
         for key, shape in {**BOX_SHAPES, **manner_shapes}.items():
             for t, tag in (("bfloat16", ""), ("float32", "f32_")):
                 r = zoo_rec(recs, shape, t)

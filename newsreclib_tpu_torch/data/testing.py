@@ -2,8 +2,10 @@
 with the same seeds and outputs): MIND's ``news.tsv`` / ``behaviors.tsv`` /
 ``entity_embedding.vec`` in the raw layout the ETL consumes plus a tiny
 GloVe-format file, and a tar.gz of Adressa one_week event files.  Nothing is
-downloaded.  The port's own addition: ``write_fixture_tokenizer``, a
-WordPiece or byte-level BPE tokenizer directory learned from a corpus.
+downloaded.  The port's own additions: ``write_fixture_tokenizer``, a
+WordPiece or byte-level BPE tokenizer directory learned from a corpus, and
+``write_fixture_classifier``, a random BERT / RoBERTa sequence classifier
+beside one.
 """
 
 from __future__ import annotations
@@ -303,6 +305,49 @@ def write_fixture_tokenizer(out_dir: str, texts, kind: str = "wordpiece",
     with open(os.path.join(out_dir, "special_tokens_map.json"), "w", encoding="utf-8") as f:
         json.dump(special_map, f, indent=2, ensure_ascii=False)
     return out_dir
+
+
+FIXTURE_LABELS = {1: ("LABEL_0",), 2: ("NEGATIVE", "POSITIVE"),
+                  3: ("negative", "neutral", "positive")}
+
+
+def write_fixture_classifier(out_dir: str, texts, kind: str = "bpe", num_labels: int = 3,
+                             hidden_dim: int = 64, num_layers: int = 2, num_heads: int = 4,
+                             intermediate_dim: int = 128, max_len: int = 64,
+                             vocab_size: int = 1000, seed: int = 0) -> str:
+    """Write a sequence-classification checkpoint directory with random
+    weights from ``seed`` beside ``write_fixture_tokenizer``'s files of
+    ``kind`` learned from ``texts``: a ``RobertaForSequenceClassification``
+    for ``bpe``, a ``BertForSequenceClassification`` for ``wordpiece``, the
+    labels of ``FIXTURE_LABELS[num_labels]``, truncation at ``max_len``
+    tokens (``model_max_length``).  For tests and smoke runs of the BERT
+    sentiment annotator where no pretrained classifier is at hand.  Returns
+    ``out_dir``."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components.plm import (
+        SequenceClassifier,
+        save_as_hf_classifier,
+    )
+
+    write_fixture_tokenizer(out_dir, texts, kind, vocab_size)
+    config_path = os.path.join(out_dir, "tokenizer_config.json")
+    with open(config_path, encoding="utf-8") as f:
+        config = json.load(f)
+    config["model_max_length"] = max_len
+    with open(config_path, "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=2, ensure_ascii=False)
+    roberta = kind == "bpe"
+    encoder = dict(vocab_size=pt.load_tokenizer(out_dir).max_id() + 1, hidden_dim=hidden_dim,
+                   num_layers=num_layers, num_heads=num_heads,
+                   intermediate_dim=intermediate_dim,
+                   max_position=max_len + 2 if roberta else max_len,
+                   type_vocab_size=1 if roberta else 2, dropout=0.1,
+                   layer_norm_eps=1e-5 if roberta else 1e-12, pad_token_id=1 if roberta else 0,
+                   position_offset=2 if roberta else 0)
+    model = SequenceClassifier(encoder, num_labels, torch.Generator().manual_seed(seed))
+    return save_as_hf_classifier(model, encoder, dict(enumerate(FIXTURE_LABELS[num_labels])),
+                                 out_dir, "roberta" if roberta else "bert")
 
 
 def main(argv=None) -> None:

@@ -22,6 +22,10 @@ pooling, layer freezing labels and Hugging Face checkpoint I/O without
   directory (``config.json`` with ``json``, ``pytorch_model.bin`` with
   ``torch.load(weights_only=True)``, ``model.safetensors`` with
   ``read_safetensors``); nothing is fetched.
+* ``SequenceClassifier``, ``load_hf_classifier`` and
+  ``save_as_hf_classifier``: a BERT / RoBERTa sequence-classification
+  checkpoint (the tower and its head) for the BERT sentiment annotator
+  (``data/sentiment.py``).
 
 Parameter names are the JAX package's (``convert.py``): LayerNorms hold
 ``scale`` and ``bias``, embedding tables ``weight``.  Initialisation is
@@ -328,18 +332,19 @@ def encoder_config_from_hf(config: Mapping[str, Any]) -> Dict[str, Any]:
     )
 
 
-def load_hf_torch_weights(directory: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+def load_hf_torch_weights(directory: str, weights: Optional[Mapping[str, torch.Tensor]] = None
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """``(state dict of a TransformerEncoder, its keywords)`` from a local
     Hugging Face checkpoint directory of a BertModel / RobertaModel (or a
     model with one as its base: the ``bert.`` / ``roberta.`` prefix is
     stripped and the pooler and the LM / classification heads are left out,
     as ``AutoModel`` does; old ``LayerNorm.gamma`` / ``beta`` names are
-    read as ``weight`` / ``bias``).  Tensors come back float32 on the
-    CPU."""
+    read as ``weight`` / ``bias``).  ``weights``: the directory's state
+    dict when it is already read.  Tensors come back float32 on the CPU."""
     with open(os.path.join(directory, "config.json")) as f:
         kwargs = encoder_config_from_hf(json.load(f))
     sd = {}
-    for name, t in _read_weights(directory).items():
+    for name, t in (_read_weights(directory) if weights is None else weights).items():
         for prefix in _HF_PREFIXES:
             if name.startswith(prefix):
                 name = name[len(prefix):]
@@ -353,19 +358,14 @@ def load_hf_torch_weights(directory: str) -> Tuple[Dict[str, torch.Tensor], Dict
     return state, kwargs
 
 
-def save_as_hf_bert(state: Mapping[str, torch.Tensor], encoder_kwargs: Mapping[str, Any],
-                    out_dir: str) -> str:
-    """Write a ``TransformerEncoder``'s state dict as a ``BertModel``-layout
-    checkpoint directory (``config.json`` and ``pytorch_model.bin``, no
-    pooler) that ``load_hf_torch_weights`` of either package reads back;
-    the inverse of ``load_hf_torch_weights``."""
-    num_layers = encoder_kwargs.get("num_layers", 12)
-    config = {
-        "architectures": ["BertModel"],
-        "model_type": "bert",
+def _hf_config(encoder_kwargs: Mapping[str, Any], architecture: str,
+               model_type: str) -> Dict[str, Any]:
+    return {
+        "architectures": [architecture],
+        "model_type": model_type,
         "vocab_size": encoder_kwargs["vocab_size"],
         "hidden_size": encoder_kwargs.get("hidden_dim", 768),
-        "num_hidden_layers": num_layers,
+        "num_hidden_layers": encoder_kwargs.get("num_layers", 12),
         "num_attention_heads": encoder_kwargs.get("num_heads", 12),
         "intermediate_size": encoder_kwargs.get("intermediate_dim", 3072),
         "hidden_act": "gelu",
@@ -378,10 +378,106 @@ def save_as_hf_bert(state: Mapping[str, torch.Tensor], encoder_kwargs: Mapping[s
         "position_embedding_type": "absolute",
         "initializer_range": 0.02,
     }
+
+
+def _hf_state(state: Mapping[str, torch.Tensor], num_layers: int,
+              prefix: str = "") -> Dict[str, torch.Tensor]:
+    return {prefix + theirs: state[ours].detach().to("cpu", torch.float32).contiguous().clone()
+            for ours, theirs in hf_names(num_layers).items()}
+
+
+def _write_hf(config: Mapping[str, Any], sd: Mapping[str, torch.Tensor], out_dir: str) -> str:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    sd = {theirs: state[ours].detach().to("cpu", torch.float32).contiguous().clone()
-          for ours, theirs in hf_names(num_layers).items()}
-    torch.save(sd, os.path.join(out_dir, "pytorch_model.bin"))
+    torch.save(dict(sd), os.path.join(out_dir, "pytorch_model.bin"))
     return out_dir
+
+
+def save_as_hf_bert(state: Mapping[str, torch.Tensor], encoder_kwargs: Mapping[str, Any],
+                    out_dir: str) -> str:
+    """Write a ``TransformerEncoder``'s state dict as a ``BertModel``-layout
+    checkpoint directory (``config.json`` and ``pytorch_model.bin``, no
+    pooler) that ``load_hf_torch_weights`` of either package reads back;
+    the inverse of ``load_hf_torch_weights``."""
+    return _write_hf(_hf_config(encoder_kwargs, "BertModel", "bert"),
+                     _hf_state(state, encoder_kwargs.get("num_layers", 12)), out_dir)
+
+
+# ---------------- sequence classification ----------------
+
+# the head of a BertForSequenceClassification / RobertaForSequenceClassification
+# checkpoint, by the port's names: ``pre`` (the pooler's dense, RoBERTa's
+# classifier.dense) then tanh, then ``out``
+HF_CLASSIFIER_HEADS = {
+    "bert": {"pre": "bert.pooler.dense", "out": "classifier"},
+    "roberta": {"pre": "classifier.dense", "out": "classifier.out_proj"},
+}
+
+
+class SequenceClassifier(nn.Module):
+    """A BERT / RoBERTa sequence classifier: the tower, then on the first
+    token's vector ``pre`` (dense), tanh and ``out`` (dense to the labels)
+    -> ``(U, num_labels)`` logits; BERT's pooler and classifier and
+    RoBERTa's classification head are the same function without
+    dropout."""
+
+    def __init__(self, encoder_kwargs: Mapping[str, Any], num_labels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.encoder = TransformerEncoder(**encoder_kwargs, generator=generator)
+        d = self.encoder.hidden_dim
+        self.pre = Dense(d, d, generator)
+        self.out = Dense(d, num_labels, generator)
+
+    def forward(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        hidden = self.encoder(tokens, mask)
+        return self.out(torch.tanh(self.pre(hidden[:, 0])))
+
+
+def load_hf_classifier(directory: str) -> Tuple[SequenceClassifier, Dict[str, Any]]:
+    """``(SequenceClassifier on the CPU, config.json)`` from a local
+    ``BertForSequenceClassification`` / ``RobertaForSequenceClassification``
+    checkpoint directory (``config.json`` and ``model.safetensors`` or
+    ``pytorch_model.bin``); nothing is fetched."""
+    with open(os.path.join(directory, "config.json")) as f:
+        config = json.load(f)
+    model_type = config.get("model_type", "bert")
+    if model_type not in HF_CLASSIFIER_HEADS:
+        raise ValueError(f"{directory}: model_type {model_type!r} is not a BERT or RoBERTa "
+                         "sequence classifier")
+    weights = _read_weights(directory)
+    state, kwargs = load_hf_torch_weights(directory, weights)
+    num_labels = len(config.get("id2label") or {}) or config.get("num_labels", 2)
+    model = SequenceClassifier(kwargs, num_labels)
+    model.encoder.load_state_dict(state)
+    for ours, theirs in HF_CLASSIFIER_HEADS[model_type].items():
+        for leaf in ("weight", "bias"):
+            name = f"{theirs}.{leaf}"
+            if name not in weights:
+                raise KeyError(f"{directory} holds no {name}: not a sequence classifier")
+            getattr(getattr(model, ours), leaf).data.copy_(weights[name].float())
+    return model.eval(), config
+
+
+def save_as_hf_classifier(model: SequenceClassifier, encoder_kwargs: Mapping[str, Any],
+                          id2label: Mapping[int, str], out_dir: str,
+                          model_type: str = "bert") -> str:
+    """Write ``model`` as a ``BertForSequenceClassification`` (``model_type``
+    "bert") or ``RobertaForSequenceClassification`` ("roberta") checkpoint
+    directory with the labels ``id2label`` (the inverse of
+    ``load_hf_classifier``; ``transformers`` loads it too)."""
+    architecture = {"bert": "BertForSequenceClassification",
+                    "roberta": "RobertaForSequenceClassification"}[model_type]
+    config = _hf_config(encoder_kwargs, architecture, model_type)
+    config.update(id2label={str(i): l for i, l in id2label.items()},
+                  label2id={l: int(i) for i, l in id2label.items()})
+    if model_type == "roberta":
+        config.update(bos_token_id=0, eos_token_id=2)
+    sd = _hf_state(model.encoder.state_dict(), encoder_kwargs.get("num_layers", 12),
+                   f"{model_type}.")
+    for ours, theirs in HF_CLASSIFIER_HEADS[model_type].items():
+        for leaf in ("weight", "bias"):
+            sd[f"{theirs}.{leaf}"] = getattr(getattr(model, ours), leaf).detach().to(
+                "cpu", torch.float32).contiguous().clone()
+    return _write_hf(config, sd, out_dir)

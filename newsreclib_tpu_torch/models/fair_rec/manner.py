@@ -17,8 +17,10 @@
 
 On the card the text attention runs the ``fused_small_mhsa`` kernel at
 L = title width + abstract width (66 and 80 on split statfix batches), 15
-heads of 20: the kernel's wide instances (L above 64).  The JAX model's
-``remat`` option is not ported: ``MANNeRCR(remat=True)`` raises.
+heads of 20: the kernel's wide instances (L above 64).
+``MANNeRCR(remat=True)`` recomputes the news tower in the backward pass
+instead of keeping its activations (the JAX model's ``nn.remat``),
+replaying the forward's dropout masks (``checkpointed_news_encoder``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from newsreclib_tpu_torch.data.batch import NewsFeatures, RecBatch, to_device
 from newsreclib_tpu_torch.device import resolve_device
@@ -102,6 +105,56 @@ class MANNeRNewsEncoder(nn.Module):
         return self.combine_linear(torch.cat([text_vec, ent_vec], dim=-1))
 
 
+def _parameter_slots(encoder: nn.Module):
+    """``(module, name)`` of every parameter the news tower reads, a PLM
+    tower that it reaches through ``share`` included."""
+    modules = list(encoder.modules())
+    tower = getattr(encoder, "text_encoder", None)
+    if tower is not None and not any(tower is m for m in modules):
+        modules += list(tower.modules())
+    return [(m, n) for m in modules for n, p in m._parameters.items() if p is not None]
+
+
+def checkpointed_news_encoder(encoder: nn.Module, news: NewsFeatures,
+                              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``encoder(news, False, generator)`` under ``torch.utils.checkpoint``
+    (activations recomputed in the backward pass).
+
+    Checkpoint restores the global RNG states only, and dropout draws from
+    ``generator``: its state before the forward is kept, and the
+    recomputation draws from that state (the forward's masks) and puts the
+    generator back where it found it, so the generator ends the step where
+    it would without the checkpoint.  The recomputation also reads the
+    parameter tensors the forward read: under ``functional_call`` (the
+    bf16 casts of ``apply_in_dtype``) the module holds them only during the
+    forward."""
+    slots = _parameter_slots(encoder)
+    seen = [m._parameters[n] for m, n in slots]
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(news: NewsFeatures) -> torch.Tensor:
+        if not calls:  # the forward
+            calls.append(True)
+            return encoder(news, False, generator)
+        held = [m._parameters[n] for m, n in slots]  # the recomputation
+        after = None if generator is None else generator.get_state()
+        for (m, n), t in zip(slots, seen):
+            m._parameters[n] = t
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return encoder(news, False, generator)
+        finally:
+            for (m, n), t in zip(slots, held):
+                m._parameters[n] = t
+            if generator is not None:
+                generator.set_state(after)
+
+    # without a generator, dropout draws from the global RNG, which checkpoint restores
+    return checkpoint(run, news, use_reentrant=False, preserve_rng_state=generator is None)
+
+
 class MANNeRCR(nn.Module):
     """CR-module, hyperparameters as the JAX ``MANNeRCR``.  Weights are drawn
     on the CPU from ``generator`` (seed 0 when none is given) and moved to
@@ -117,13 +170,11 @@ class MANNeRCR(nn.Module):
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("MANNeRCR(remat=True) is not ported: the port keeps the "
-                                      "news tower's activations")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.late_fusion = late_fusion
+        self.remat = remat
         if text_encoder_module is not None:
             self.text_encoder_module = text_encoder_module
         self.news_encoder = MANNeRNewsEncoder(vocab_size, entity_vocab_size, use_entities,
@@ -138,7 +189,11 @@ class MANNeRCR(nn.Module):
 
     def encode_news(self, news: NewsFeatures, deterministic: bool = True,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Unique news -> (U, D) vectors (cacheable)."""
+        """Unique news -> (U, D) vectors (cacheable); with ``remat``, in a
+        training forward (gradients on, dropout on), the news tower's
+        activations are recomputed in the backward pass."""
+        if self.remat and torch.is_grad_enabled() and not deterministic:
+            return checkpointed_news_encoder(self.news_encoder, news, generator)
         return self.news_encoder(news, deterministic, generator)
 
     def score_with_vectors(self, batch: RecBatch, news_vecs: torch.Tensor) -> torch.Tensor:

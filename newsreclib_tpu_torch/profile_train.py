@@ -3,7 +3,7 @@
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
         [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn,sentirec,
                   senti_debias,manner_cr,nrms_plm}]
-        [--json OUT.jsonl]
+        [--remat] [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
 ``newsreclib_tpu/configs/model/nrms.yaml`` (D = 300, 15 heads of 20, query
@@ -29,6 +29,10 @@ vocabulary at the workload's 60,000 ids, trained at that experiment's
 batch of 8 and 32 with its ``u_bucket_min`` of 128; its profile also splits
 the device time of the tower (``tower``: its GEMMs, its plain attention and
 the rest, forward and backward) from the head's attention kernels.
+
+``--remat`` builds the model with ``model.remat`` (MANNeR's CR module:
+the news tower's activations recomputed in the backward pass, so its
+attention's forward kernel runs twice a news segment).
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -95,15 +99,17 @@ USER_ATTENTIONS = {"nrms": 1, "mins": 1, "cen_news_rec": 1, "caum": 1, "sentirec
 ADVERSARIAL = ("senti_debias",)
 
 
-def cell_config(model: str) -> dict:
+def cell_config(model: str, remat: bool = False) -> dict:
     """The ``model`` node of ``model``'s config file (``nrms_plm``: of
-    ``PLM_EXPERIMENT``, its vocabulary at ``VOCAB_SIZE``)."""
+    ``PLM_EXPERIMENT``, its vocabulary at ``VOCAB_SIZE``), with ``remat``
+    its ``remat`` set."""
     from newsreclib_tpu_torch.config.compose import compose
 
+    extra = ["model.remat=true"] if remat else []
     if model == PLM_CELL:
         return compose(overrides=[f"experiment={PLM_EXPERIMENT}",
-                                  f"model.plm_vocab_size={VOCAB_SIZE}"])["model"]
-    return compose(overrides=[f"model={model}"])["model"]
+                                  f"model.plm_vocab_size={VOCAB_SIZE}", *extra])["model"]
+    return compose(overrides=[f"model={model}", *extra])["model"]
 
 
 def cell_data(model: str) -> dict:
@@ -121,16 +127,16 @@ def cell_info():
                             entity_vocab_size=SERVING_ENTITIES, num_users=SERVING_USERS)
 
 
-def build_cell_model(model: str, device):
+def build_cell_model(model: str, device, remat: bool = False):
     """``model`` from ``build_model`` at its config file's widths, random
     weights from seed 0."""
     from newsreclib_tpu_torch.models import factory
 
-    return factory.build_model(cell_config(model), cell_info(), device=device, seed=0)
+    return factory.build_model(cell_config(model, remat), cell_info(), device=device, seed=0)
 
 
 def cell_state_and_step(model: str, device, compute_dtype="bfloat16",
-                        learning_rate=LEARNING_RATE):
+                        learning_rate=LEARNING_RATE, remat: bool = False):
     """``(state, train_step)`` of ``model``'s cell: Adam at
     ``learning_rate`` and the config file's loss through ``make_train_step``;
     SentiDebias's alternating G / D step (D at twice G's rate, as its config
@@ -139,7 +145,7 @@ def cell_state_and_step(model: str, device, compute_dtype="bfloat16",
     from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
     from newsreclib_tpu_torch.training.steps import make_train_step
 
-    cfg = cell_config(model)
+    cfg = cell_config(model, remat)
     if model in ADVERSARIAL:
         from newsreclib_tpu_torch.models.fair_rec import (
             create_sentidebias_state,
@@ -151,30 +157,32 @@ def cell_state_and_step(model: str, device, compute_dtype="bfloat16",
         return state, make_sentidebias_train_step(cfg.get("alpha_coefficient", 0.15),
                                                   cfg.get("beta_coefficient", 10.0),
                                                   compute_dtype)
-    state = create_train_state(build_cell_model(model, device), make_optimizer(learning_rate),
-                               dropout_seed=0)
+    state = create_train_state(build_cell_model(model, device, remat),
+                               make_optimizer(learning_rate), dropout_seed=0)
     return state, make_train_step(factory.build_loss(cfg), compute_dtype)
 
 
 def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
-              learning_rate=LEARNING_RATE, model="nrms"):
+              learning_rate=LEARNING_RATE, model="nrms", remat: bool = False):
     """``(state, batcher, train_step)`` of the cell in the module doc
     (``compute_dtype`` None: float32 compute)."""
     from newsreclib_tpu_torch.data.batching import TrainBatcher
 
-    state, step = cell_state_and_step(model, device, compute_dtype, learning_rate)
+    state, step = cell_state_and_step(model, device, compute_dtype, learning_rate, remat)
     return state, TrainBatcher(store, imp, batch_size=batch_size, **cell_data(model)), step
 
 
-def attention_launches(batch, model: str = "nrms", backward: bool = False) -> int:
+def attention_launches(batch, model: str = "nrms", backward: bool = False,
+                       remat: bool = False) -> int:
     """Attention kernel launches of one train step of ``model`` on
     ``batch``, of the forward kernel (of the backward kernel with
     ``backward``): the news encoder's per news segment and the user
     encoder's; SentiDebias's discriminator step runs the news tower's
-    forward once more."""
+    forward once more, and so does the backward pass of a model built with
+    ``remat``."""
     segments = 1 + (batch.news2 is not None)
     n = TEXT_ATTENTIONS[model] * segments + USER_ATTENTIONS.get(model, 0)
-    if model in ADVERSARIAL and not backward:
+    if (model in ADVERSARIAL or remat) and not backward:
         n += TEXT_ATTENTIONS[model] * segments
     return n
 
@@ -334,7 +342,7 @@ def tower_ranges():
 
 
 def profile_cell(store, imp, batch_size: int, steps: int, card: str,
-                 compute_dtype="bfloat16", model="nrms") -> dict:
+                 compute_dtype="bfloat16", model="nrms", remat: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,9 +350,10 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     from newsreclib_tpu_torch.models.components.attention import use_plain_attention
     from newsreclib_tpu_torch.ops import mhsa
 
-    state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype, model=model)
+    state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype, model=model,
+                                     remat=remat)
     plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda", compute_dtype,
-                                           model=model)
+                                           model=model, remat=remat)
     use_plain_attention(plain_state.model)
     t0 = time.perf_counter()
     host = [b for _, b in zip(range(WARMUP + 2 * steps), batcher.epoch(0))]
@@ -359,7 +368,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     mhsa.launches = mhsa.bwd_launches = 0
     kernel_s = [_sync_s(lambda: [step(state, b) for b in timed]) / steps]
     launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
-    expected = sum(attention_launches(b, model) for b in timed)
+    expected = sum(attention_launches(b, model, remat=remat) for b in timed)
     bwd_expected = sum(attention_launches(b, model, backward=True) for b in timed)
     if launches != expected or bwd_launches != bwd_expected:
         raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
@@ -388,6 +397,7 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     busy_ms = breakdown["device_ms_per_step"]
     return {
         "model": model,
+        "remat": remat,
         "batch_size": batch_size,
         "compute_dtype": compute_dtype or "float32",
         "title_shapes": sorted({(tuple(b.news.title.shape),
@@ -419,6 +429,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="float32: the training CLI's default route")
     ap.add_argument("--model", choices=sorted(TEXT_ATTENTIONS), default="nrms")
+    ap.add_argument("--remat", action="store_true",
+                    help="model.remat: recompute the news tower in the backward pass")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     import numpy as np
@@ -441,7 +453,7 @@ def main(argv=None) -> int:
     for batch_size in PLM_BATCH_SIZES if args.model == PLM_CELL else BATCH_SIZES:
         rec = profile_cell(store, imp, batch_size, args.steps, card,
                            None if args.compute_dtype == "float32" else args.compute_dtype,
-                           args.model)
+                           args.model, args.remat)
         print("profile_train " + json.dumps(rec), flush=True)
         records.append(rec)
     if args.json is not None:

@@ -149,6 +149,17 @@ def check_token_range(mc: Dict, store) -> None:
             "model.plm_vocab_size (or model.plm_model) to the tokenizer's vocabulary")
 
 
+def annotator_kwargs(cfg: Dict) -> Dict:
+    """The sentiment annotator's keywords: ``data.sentiment_annotator_kwargs``,
+    and for the BERT annotator the run's device (the card, or the CPU under
+    ``platform=cpu``) unless they name one."""
+    dc = cfg["data"]
+    kwargs = dict(dc.get("sentiment_annotator_kwargs") or {})
+    if dc.get("sentiment_annotator") == "bert":
+        kwargs.setdefault("device", select_device(cfg).type)
+    return kwargs
+
+
 def setup_data(cfg: Dict):
     """The dataset of ``cfg["data"]`` (``MINDData``, ``AdressaData`` or
     ``XMINDData``, one interface), as the repository's ``train.py:35-135``
@@ -195,6 +206,7 @@ def setup_data(cfg: Dict):
             word_embeddings_fpath=dc.get("word_embeddings_fpath"),
             word_embed_dim=dc.get("word_embed_dim", 300),
             sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
+            sentiment_annotator_kwargs=annotator_kwargs(cfg),
             download=dc.get("download", False),
             seed=dc.get("seed", 42),
             **plm,
@@ -227,6 +239,7 @@ def setup_data(cfg: Dict):
         word_embeddings_fpath=dc.get("word_embeddings_fpath"),
         word_embed_dim=dc.get("word_embed_dim", 300),
         sentiment_annotator=dc.get("sentiment_annotator", "lexicon"),
+        sentiment_annotator_kwargs=annotator_kwargs(cfg),
         download=dc.get("download", False),
         seed=dc.get("seed", 0),
         **plm,

@@ -4,9 +4,12 @@
 ``run_aspect_training`` is the CLI's ``model.name == manner_a`` route: m
 articles per class a batch (``MPerClassNewsBatcher``), early stopping on
 the validation SupCon loss, best / last checkpoints, and the kNN label
-purity of the learned space over a sample of validation articles.  The JAX
-package's t-SNE plot (``tsne_plot``, matplotlib and scikit-learn) is not
-ported: the run logs that it is not made (ROADMAP queue 1).
+purity of the learned space over a sample of validation articles, and a
+t-SNE scatter of that sample (``tsne_plot``) saved as
+``<out_dir>/tsne_<aspect>.png``.  The plot imports matplotlib and
+scikit-learn when it is made; where either is missing, or the plot fails,
+the run logs that it was skipped and why, and goes on: the report must not
+fail a run, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -179,6 +182,47 @@ def run_aspect_training(cfg: Dict, mind, info, loggers, out_dir: str,
     log.info("aspect kNN label purity (k=10, n=%d): %.4f", len(emb), history["val/knn_purity"])
     for lg in loggers:
         lg.log_metrics({"val/knn_purity": history["val/knn_purity"]}, gstep)
-    log.info("t-SNE plot of the %s space not made: tsne_plot is not ported (ROADMAP queue 1, "
-             '"FairRec models")', aspect)
+    try:
+        tsne_plot(emb, lab, os.path.join(out_dir, f"tsne_{aspect}.png"))
+    except Exception as e:  # noqa: BLE001 -- the picture must not fail a run
+        log.warning("t-SNE plot of the %s space skipped: %s: %s", aspect, type(e).__name__, e)
     return history
+
+
+def tsne_embedding(embeddings: np.ndarray, labels: np.ndarray, max_points: int = 2000,
+                   seed: int = 0):
+    """``(xy, labels, sel)``: at most ``max_points`` rows of ``embeddings``
+    drawn without replacement by ``default_rng(seed)`` (``sel``, None when
+    all are kept) and their scikit-learn t-SNE coordinates (PCA init,
+    ``random_state=seed``, perplexity a tenth of the points within [5,
+    30])."""
+    from sklearn.manifold import TSNE
+
+    sel = None
+    if len(embeddings) > max_points:
+        sel = np.random.default_rng(seed).choice(len(embeddings), max_points, replace=False)
+        embeddings, labels = embeddings[sel], labels[sel]
+    xy = TSNE(n_components=2, random_state=seed, init="pca",
+              perplexity=min(30, max(5, len(embeddings) // 10))).fit_transform(embeddings)
+    return xy, labels, sel
+
+
+def tsne_plot(embeddings: np.ndarray, labels: np.ndarray, fpath: str, max_points: int = 2000,
+              seed: int = 0) -> str:
+    """t-SNE scatter of an aspect embedding space (``tsne_embedding``),
+    coloured by class, saved as a PNG at ``fpath``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    xy, labels, _ = tsne_embedding(embeddings, labels, max_points, seed)
+    fig, ax = plt.subplots(figsize=(7, 6))
+    scatter = ax.scatter(xy[:, 0], xy[:, 1], c=labels, s=6, cmap="tab20", alpha=0.7)
+    ax.set_title("A-module embedding space (t-SNE)")
+    fig.colorbar(scatter, ax=ax, label="aspect class")
+    os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+    fig.savefig(fpath, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    log.info("t-SNE plot saved to %s", fpath)
+    return fpath

@@ -21,6 +21,7 @@ epoch metrics 1e-4.
 import filecmp
 import json
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -87,6 +88,9 @@ MODELS = {
     "manner_cr_user": (jfair.MANNeRCR, fair_rec.MANNeRCR,
                        dict(entity_vocab_size=ENTITIES, text_embed_dim=D, entity_embed_dim=6,
                             num_heads=HEADS, query_dim=QUERY, late_fusion=False)),
+    "manner_cr_remat": (jfair.MANNeRCR, fair_rec.MANNeRCR,
+                        dict(entity_vocab_size=ENTITIES, text_embed_dim=D, entity_embed_dim=6,
+                             num_heads=HEADS, query_dim=QUERY, remat=True)),
     "manner_cr_text": (jfair.MANNeRCR, fair_rec.MANNeRCR,
                        dict(text_embed_dim=D, num_heads=HEADS, query_dim=QUERY,
                             use_entities=False)),
@@ -355,11 +359,13 @@ def assert_same_update(jparams, jopt_state, model, opt):
 
 
 @pytest.mark.parametrize("name,loss", [("sentirec", "cross_entropy_loss"),
-                                       ("manner_cr", "sup_con_loss")])
+                                       ("manner_cr", "sup_con_loss"),
+                                       ("manner_cr_remat", "sup_con_loss")])
 def test_one_adam_step_matches_jax(name, loss):
     """One train step (the configs' loss plus the aux terms, Adam lr 1e-4,
     dropout off) on a split batch from the same parameters: the loss and
-    the aux terms, and every updated parameter."""
+    the aux terms, and every updated parameter (``manner_cr_remat``: both
+    news towers under remat, the JAX one in ``nn.remat``)."""
     b = jax_batch(seed=19, split=True)
     jm, params, tm = both_models(name, b, dropout=0.0)
     js = jstate.create_train_state(jm, b, jax.random.key(0), jstate.make_optimizer(1e-4))
@@ -373,6 +379,87 @@ def test_one_adam_step_matches_jax(name, loss):
     for k in jout:
         np.testing.assert_allclose(tout[k].item(), float(jout[k]), rtol=1e-5, err_msg=k)
     assert_same_update(js.params, js.opt_state, ts.model, ts.opt)
+
+
+def _remat_step(model, batch, cdtype, seed=5):
+    """Loss, gradients and the generator's state after one SupCon forward
+    and backward with dropout on (``apply_in_dtype``, as the train step)."""
+    g = torch.Generator().manual_seed(seed)
+    scores, _ = tsteps.apply_in_dtype(model.train(), cdtype, batch, deterministic=False,
+                                      generator=g)
+    loss = losses.get_loss_fn("sup_con_loss", temperature=0.1)(
+        scores.float(), batch.labels, batch.cand_mask, batch.impression_valid)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    return loss.detach(), grads, g.get_state()
+
+
+@pytest.mark.parametrize("cdtype", [None, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["split", "unsplit", "plm"])
+def test_manner_remat_matches_no_remat_with_dropout(case, cdtype):
+    """``MANNeRCR(remat=True)`` against ``remat=False`` from the same
+    weights and dropout generator, dropout at 0.2: the loss, every
+    parameter's gradient and the generator's state after the backward pass
+    within 1e-6 (the recomputation replays the forward's masks from the
+    generator and leaves it where the forward did); ``plm``: the PLM tower
+    (registered once, reached through ``share``) in the news tower."""
+    b = port_batch(jax_batch(seed=23, split=case != "unsplit"))
+    cfg = dict(name="manner_cr", text_embed_dim=D, entity_embed_dim=6, num_heads=HEADS,
+               query_dim=QUERY, dropout_probability=0.2)
+    if case == "plm":
+        cfg.update(use_plm=True, plm_model="__random_init__", plm_vocab_size=VOCAB,
+                   plm_num_layers=1, plm_num_heads=2, embed_dim=D)
+    info = factory.DataInfo(vocab_size=VOCAB, entity_vocab_size=ENTITIES)
+    runs = [_remat_step(factory.build_model(dict(cfg, remat=remat), info, device="cpu"), b,
+                        cdtype) for remat in (False, True)]
+    (loss0, grads0, gen0), (loss1, grads1, gen1) = runs
+    assert loss1.item() == pytest.approx(loss0.item(), rel=1e-6, abs=1e-6)
+    assert set(grads1) == set(grads0) and len(grads0) > 10
+    for k, v in grads0.items():
+        np.testing.assert_allclose(grads1[k].float().numpy(), v.float().numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+    assert torch.equal(gen1, gen0)
+    # the masks matter: another generator seed gives another loss
+    other, _, _ = _remat_step(factory.build_model(dict(cfg, remat=True), info, device="cpu"),
+                              b, cdtype, seed=6)
+    assert other.item() != loss1.item()
+
+
+def test_manner_remat_recomputes_the_news_tower_in_the_backward(monkeypatch):
+    """With remat the attention's forward runs twice a news segment in a
+    training step (the forward and its recomputation) and its backward
+    once; without, once each; in eval, once."""
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import attention_launches
+
+    forward, backward = mhsa._forward, mhsa._backward
+    counts = {"fwd": 0, "bwd": 0}
+
+    def fwd(*a, **k):
+        counts["fwd"] += 1
+        return forward(*a, **k)
+
+    def bwd(*a, **k):
+        counts["bwd"] += 1
+        return backward(*a, **k)
+
+    monkeypatch.setattr(mhsa, "_forward", fwd)
+    monkeypatch.setattr(mhsa, "_backward", bwd)
+    b = port_batch(jax_batch(seed=24, split=True))
+    info = factory.DataInfo(vocab_size=VOCAB, entity_vocab_size=ENTITIES)
+    for remat in (False, True):
+        counts.update(fwd=0, bwd=0)
+        model = factory.build_model(dict(name="manner_cr", text_embed_dim=D, entity_embed_dim=6,
+                                         num_heads=HEADS, query_dim=QUERY, remat=remat),
+                                    info, device="cpu")
+        _remat_step(model, b, None)
+        assert counts == {"fwd": attention_launches(b, "manner_cr", remat=remat),
+                          "bwd": attention_launches(b, "manner_cr", backward=True)}
+        assert counts["fwd"] == (4 if remat else 2) and counts["bwd"] == 2
+        counts.update(fwd=0, bwd=0)
+        with torch.no_grad():
+            model.eval()(b)
+        assert counts == {"fwd": 2, "bwd": 0}
 
 
 def test_sentidebias_alternating_step_matches_jax():
@@ -525,6 +612,86 @@ def test_knn_label_purity_matches_jax():
     assert 0.25 < want <= 1.0
 
 
+def _tsne_points():
+    rng = np.random.default_rng(8)
+    labels = rng.integers(0, 5, size=260)
+    return (rng.normal(size=(260, 8)) + 3.0 * np.eye(8)[labels]).astype(np.float32), labels
+
+
+def test_tsne_plot_matches_jax(tmp_path, monkeypatch):
+    """The port's t-SNE report gives the JAX one's subsample and
+    coordinates (the same scikit-learn, seed and settings) and writes the
+    PNG."""
+    from sklearn.manifold import TSNE
+
+    seen = []
+    fit = TSNE.fit_transform
+
+    def recording(self, x, *a, **k):
+        xy = fit(self, x, *a, **k)
+        seen.append((np.array(x), xy.copy(), self.get_params()))
+        return xy
+
+    monkeypatch.setattr(TSNE, "fit_transform", recording)
+    emb, labels = _tsne_points()
+    jpath = jaspect.tsne_plot(emb, labels, str(tmp_path / "jax" / "t.png"), max_points=200)
+    xy, sel_labels, sel = aspect.tsne_embedding(emb, labels, max_points=200)
+    path = aspect.tsne_plot(emb, labels, str(tmp_path / "port" / "t.png"), max_points=200)
+    assert len(seen) == 3
+    (jx, jxy, jparams), (tx, txy, tparams), (px, pxy, _) = seen
+    np.testing.assert_array_equal(tx, jx)
+    np.testing.assert_array_equal(emb[sel], jx)
+    np.testing.assert_array_equal(sel_labels, labels[sel])
+    assert tparams == jparams and tx.shape == (200, 8)
+    np.testing.assert_allclose(xy, jxy, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(pxy, jxy, rtol=1e-5, atol=1e-4)
+    for p in (jpath, path):
+        assert Path(p).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    # fewer points than max_points: all of them, no draw
+    xy, kept, sel = aspect.tsne_embedding(emb[:60], labels[:60], max_points=200)
+    assert sel is None and xy.shape == (60, 2) and (kept == labels[:60]).all()
+
+
+def test_aspect_run_logs_a_skipped_plot_without_its_libraries(tmp_path, monkeypatch):
+    """With matplotlib and scikit-learn blocked the A-module CLI run logs
+    that the t-SNE plot was skipped and why, and finishes with its
+    metrics; with them it saves the plot."""
+    import logging
+    import sys
+
+    from newsreclib_tpu_torch import train
+    from tests.test_torch_port_cli import demo_copy
+
+    data = demo_copy(tmp_path / "data")
+    args = ["experiment=manner_a_categ_demo", "trainer.max_epochs=1"]
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append  # on the port's logger: the CLI resets the root's handlers
+    logger = logging.getLogger("newsreclib_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        with monkeypatch.context() as m:
+            for name in ("matplotlib", "sklearn", "sklearn.manifold"):
+                m.setitem(sys.modules, name, None)
+            out = train.main([*args, *_cli_args(data, tmp_path / "blocked",
+                                                "trainer.limit_train_batches=2")])
+        skipped = [r.getMessage() for r in records if "t-SNE" in r.getMessage()]
+        records.clear()
+        ok = train.main([*args, *_cli_args(data, tmp_path / "plotted",
+                                           "trainer.limit_train_batches=2")])
+    finally:
+        logger.removeHandler(handler)
+    assert {"train/loss", "val/loss", "best_loss", "val/knn_purity"} <= set(out)
+    assert all(math.isfinite(v) for v in out.values())
+    assert (tmp_path / "blocked" / "checkpoints" / "best.pt").exists()
+    assert not list((tmp_path / "blocked").glob("tsne_*.png"))
+    assert len(skipped) == 1 and "skipped: ModuleNotFoundError" in skipped[0], skipped
+    assert "matplotlib" in skipped[0]
+    assert ok["val/knn_purity"] == out["val/knn_purity"]
+    assert len(list((tmp_path / "plotted").glob("tsne_*.png"))) == 1
+    assert not [r for r in records if "t-SNE" in r.getMessage()]
+
+
 # ----------------------------------------------------------------- serving
 
 def _zoo_width_models(name, b):
@@ -656,8 +823,11 @@ def test_factory_routes_refuse_what_is_not_theirs():
         assert sum(".encoder.layer_0.q.weight" in n for n in names) == 1
     disc = factory.build_senti_debias(tower, info, device="cpu")[1]
     assert disc.linear1.weight.shape[1] == 12
-    with pytest.raises(NotImplementedError, match="remat"):
-        factory.build_model({"name": "manner_cr", "remat": True}, info, device="cpu")
+    remat = factory.build_model({"name": "manner_cr", "remat": True}, info, device="cpu")
+    plain = factory.build_model({"name": "manner_cr"}, info, device="cpu")
+    assert remat.remat and not plain.remat
+    assert {k: v.shape for k, v in remat.state_dict().items()} == \
+        {k: v.shape for k, v in plain.state_dict().items()}
 
 
 # ----------------------------------------------------------------- data

@@ -11,7 +11,9 @@ test) on a copy of the raw demo files; another runs the Adressa ETL from a
 fixture tar through the native host parser, an xMIND store and the CLI on
 Adressa data with ``save_recs``; another writes fixture tokenizers and runs
 the CLI in PLM mode and an Adressa PLM store with ``transformers``,
-``tokenizers``, ``regex`` and ``safetensors`` blocked as well.
+``tokenizers``, ``regex`` and ``safetensors`` blocked as well; another runs
+the sweep's console script, the BERT sentiment annotator and the profiling
+and timing utilities with those blocked too.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -387,9 +389,63 @@ def test_plm_mode_runs_without_jax_or_tokenizer_libraries(tmp_path):
     assert out["adressa_width"] == 24
 
 
-# the one port module that imports a tokenizer library: the copy of the JAX
-# package's transformers sentiment pipeline, which no config selects
-TOKENIZER_LIB_USERS = {"data/sentiment.py"}
+SWEEP_SCRIPT = """
+import json, os, shutil, sys
+for name in %r + %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import torch
+from newsreclib_tpu_torch import cli
+from newsreclib_tpu_torch.data import sentiment, testing
+from newsreclib_tpu_torch.utils import profiling, timing
+
+work, demo = sys.argv[1], sys.argv[2]
+data = os.path.join(work, "data")
+for split in ("MINDdemo_train", "MINDdemo_dev"):
+    os.makedirs(os.path.join(data, split))
+    for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+        shutil.copy(os.path.join(demo, split, name), os.path.join(data, split, name))
+os.chdir(work)
+sys.argv = ["newsreclib-torch-sweep", "hparams_search=demo_grid", "experiment=nrms_demo",
+            "platform=cpu", f"data.data_dir={data}",
+            f"data.word_embeddings_fpath={os.path.join(demo, 'glove_demo.txt')}",
+            "trainer.max_epochs=1", "trainer.limit_train_batches=2"]
+cli.sweep_command()
+with open(os.path.join(work, "outputs", "torch", "sweep_results.json")) as f:
+    results = json.load(f)
+texts = [line.split("\\t")[3] for line in open(os.path.join(demo, "MINDdemo_train", "news.tsv"))]
+clf = testing.write_fixture_classifier(os.path.join(work, "clf"), texts, "bpe", hidden_dim=16,
+                                       num_heads=2, intermediate_dim=32, max_len=24)
+labels = sentiment.get_annotator("bert", model_name=clf, device="cpu").annotate_many(texts[:8])
+timer = profiling.StepTimer()
+with profiling.trace(os.path.join(work, "trace")), timer.phase("matmul"):
+    seconds = timing.timeit_pipelined(torch.mm, torch.ones(8, 8), torch.ones(8, 8), steps=3)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in %r + %r)
+print(json.dumps({"values": [t["value"] for t in results["trials"]], "labels": labels,
+                  "seconds": seconds, "loaded": loaded}))
+""" % (BLOCKED, TOKENIZER_LIBS, BLOCKED, TOKENIZER_LIBS)
+
+
+def test_sweep_annotator_and_utilities_run_without_jax_or_tokenizer_libraries(tmp_path):
+    """The sweep's console script over ``demo_grid`` on a copy of the demo
+    files, the BERT sentiment annotator on a fixture classifier, a trace,
+    ``StepTimer`` and ``timeit_pipelined``, with JAX, flax, pandas, yaml,
+    the JAX package and the tokenizer libraries blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", SWEEP_SCRIPT, str(tmp_path),
+                           str(ROOT / "data" / "demo")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert len(out["values"]) == 2 and all(0 <= v <= 1 for v in out["values"])
+    assert len(out["labels"]) == 8 and out["seconds"] > 0
+    assert list((tmp_path / "trace").glob("*.pt.trace.json"))
+
+
+# no port module imports a tokenizer library: the BERT sentiment annotator
+# reads its checkpoint with the port's tokenizer reader and tower
+TOKENIZER_LIB_USERS = set()
 
 
 def test_port_sources_import_no_tokenizer_library():

@@ -456,8 +456,8 @@ def test_factory_still_refuses_the_models_not_ported():
     """The PLM text tower is ported: ``use_plm`` now builds every model with
     a route (the zoo's and the FairRec models') with the tower registered
     once, at ``text_encoder_module`` (``tests/test_torch_port_plm.py`` holds
-    each route against the JAX package); what the factory does not port
-    still raises: an unknown model and MANNeR's ``remat``."""
+    each route against the JAX package); an unknown model still raises, and
+    MANNeR's ``remat`` (ported) builds with the tower registered once."""
     tower = dict(use_plm=True, plm_model="__random_init__", plm_vocab_size=VOCAB, embed_dim=24,
                  plm_num_layers=1, plm_num_heads=2, num_heads=2)
     info = factory.DataInfo(vocab_size=VOCAB, entity_vocab_size=ENTITIES,
@@ -470,5 +470,8 @@ def test_factory_still_refuses_the_models_not_ported():
                        for n in names)
     with pytest.raises(ValueError, match="unknown model"):
         factory.build_model({"name": "nope", **tower}, info, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        factory.build_model({"name": "manner_cr", "remat": True, **tower}, info, device="cpu")
+    remat = factory.build_model({"name": "manner_cr", "remat": True, **tower}, info,
+                                device="cpu")
+    assert remat.remat
+    names = [n for n, _ in remat.named_parameters()]
+    assert sum(".encoder.layer_0.q.weight" in n for n in names) == 1
