@@ -187,7 +187,27 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    fixture tokenizers from ``data/demo`` by ``write_fixture_classifier``,
    annotate ``ANNOTATOR_TEXTS`` texts on the card and on the CPU: the same
    labels, scores within ``ANNOTATOR_ATOL``;
-17. prints one ``{"kernels": [...]}`` line (the wide instances' own
+17. the training CLI in multi-host mode at world size 1
+   (``distributed_cli_phase``): ``trainer.distributed=true
+   data.global_rows=true`` on phase 11's demo copy at full NRMS width as
+   rank 0 of one (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, a free
+   ``MASTER_PORT``), over NCCL, every collective of the step counted
+   (``parallel/collectives.py::calls``), the exact launches, and the test
+   metrics within ``DIST_CLI_ATOL`` of the same run without
+   ``distributed`` (both without dropout, under ``reproducible``);
+18. two ranks sharing ``cuda:0`` over gloo (``two_rank_phase``; NCCL
+   refuses two ranks on one device), started by the port's launcher: NRMS
+   at full width data-parallel (global batch 64, 5 f32 steps), then with
+   the word table row-sharded over 2 model ranks, then over a 2-layer
+   768-wide tower tensor-parallel over 2 model ranks (batch 16), at lr
+   ``TWO_RANK_LR``: each case's losses within ``TWO_RANK_ATOL`` of one
+   rank on the same global batches, its parameters within
+   ``TWO_RANK_UPDATE_RTOL`` of one rank's update, a planted fault
+   (``TWO_RANK_FAULTS``: the gradient all-reduce, or the sharded lookup's,
+   dropped on every rank) beyond it, each rank's launches exact (2 a
+   step, forward and backward).  One card cannot show a true multi-GPU
+   run;
+19. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -202,7 +222,9 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    tokenizer, with the widths under ``plm_mode_widths``; phase 14's under
    ``sweep_launches``, phase 15's under ``remat_launches`` (with and
    without remat) in the wide entries, phase 16's under
-   ``annotator_launches``) and, last, ``{"ok": true, ...}``.
+   ``annotator_launches``, phase 17's under ``distributed_cli_launches``
+   with its collectives, phase 18's per rank under
+   ``two_rank_launches_per_rank``) and, last, ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
@@ -210,7 +232,8 @@ route) runs under deterministic algorithms (``reproducible``).
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build, the host parser's build, the
 PLM checkpoints, the fixture tokenizers and classifiers, the CLI phases'
-data copies and runs and the sweep's under ``build/``.
+data copies and runs and the sweep's under ``build/``; phase 18's ranks are
+stopped when the phase ends or fails.
 
     python3 chip_smoke.py --route-spread [MODEL ...]
 
@@ -423,6 +446,34 @@ PLM_CLI_OVERRIDES = ["model.use_plm=true", "model.plm_model=__random_init__",
 # Phase 13: the CLI in PLM mode through both fixture tokenizers (vocabulary
 # sizes: characters only, bytes and merges up to 300), at the PLM configs'
 # tokenizer_max_len, the tower as in PLM_CLI_OVERRIDES
+# Phase 17: the CLI through trainer.distributed at world size 1 over NCCL,
+# against the same run without it (both without dropout and under
+# deterministic algorithms: the same arithmetic, only the dedup table's
+# layout differs, host-split against on-device).  Phase 18: two ranks that
+# share cuda:0 over gloo (NCCL refuses two ranks on one device) against one
+# rank on the same global batches: NRMS data-parallel, NRMS with the word
+# table row-sharded over 2 model ranks, and a 2-layer 768-wide tower
+# tensor-parallel over 2 model ranks; float32 at TWO_RANK_LR, losses within
+# TWO_RANK_ATOL (the same sums in another order), the tower's relative to
+# the loss (PLM_ROUTE_RTOL's rule: its random 768-wide tower's losses run to
+# 10-16, and sums split over two ranks moved step 5's by 1.2e-5 of it on an
+# H100); the parameters' distance from one rank's within TWO_RANK_UPDATE_RTOL
+# of one rank's update (in norm: NRMS's losses stay within 1e-4 of ln 5
+# whatever the collectives do, the parameters do not), and the planted
+# faults of TWO_RANK_FAULTS must exceed it.
+DIST_OUT, DIST_REF_OUT = (os.path.join(ROOT, "build", d) for d in ("smoke_dist_cli",
+                                                                   "smoke_dist_ref"))
+DIST_CLI_ATOL = 1e-4
+TWO_RANK_BATCH, TWO_RANK_TP_BATCH, TWO_RANK_STEPS = 64, 16, 5
+TWO_RANK_TOWER = dict(vocab_size=SERVING["vocab_size"], hidden_dim=768, num_layers=2,
+                      num_heads=12, intermediate_dim=3072, max_position=64, dropout=0.0)
+TWO_RANK_ATOL = 1e-4
+# lr 1e-3 drove the random tower's losses to 50 and its two-rank parameters
+# 1.3e-2 of the update off one rank's on an H100 (the same sums in another
+# order, amplified); at 1e-4 the planted faults still move the parameters
+TWO_RANK_LR, TWO_RANK_UPDATE_RTOL = 1e-4, 1e-2
+TWO_RANK_FAULTS = {"dp": "no_gradient_all_reduce", "rows": "no_lookup_all_reduce"}
+TWO_RANK_REF = os.path.join(ROOT, "build", "smoke_two_rank")
 PLM_MODE_DIR = os.path.join(ROOT, "build", "smoke_plm_mode")
 PLM_MODE_TOKENIZERS = {"wordpiece": 0, "bpe": 300}
 PLM_MODE_MAX_LEN = 96
@@ -470,6 +521,20 @@ def serving_launches(store, imp, hist_len=SERVING["hist_len"], target_cells=TARG
     buckets = BucketedAssembler(imp, hist_len, target_cells).buckets
     return encode + sum(math.ceil(len(idx) / max(1, target_cells // c))
                         for c, idx in buckets.items())
+
+
+def global_row_shapes(store, imp):
+    """The (U, L) the global-row route gives the kernel on the serving
+    workload at batch ``TWO_RANK_BATCH`` (phase 18's data-parallel and
+    row-sharded cases): the densified table (``global_u_bucket`` rows at the
+    full title width) and the users of one rank of two."""
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.profile_train import DATA
+
+    data = {k: v for k, v in DATA.items() if k != "split_title_len"}
+    batcher = TrainBatcher(store, imp, batch_size=TWO_RANK_BATCH, global_rows=True, **data)
+    return [(batcher.global_u_bucket(), store.title.shape[1]),
+            (TWO_RANK_BATCH // 2, DATA["max_history_len"])]
 
 
 def kernel_phase(shapes):
@@ -2161,6 +2226,321 @@ def zoo_kernel_phase():
     return fwd, bwd
 
 
+def distributed_cli_phase(card: str) -> dict:
+    """Phase 17 (module doc): the training CLI with ``trainer.distributed=true
+    data.global_rows=true`` as rank 0 of a world of one (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and a free ``MASTER_PORT`` set), on phase
+    11's demo copy at full NRMS width, against the same run without
+    ``distributed``.  Checks: the backend is NCCL; every collective of the
+    multi-host step ran as often as the steps give; the forward and backward
+    kernel launches are exact; the test metrics agree within
+    ``DIST_CLI_ATOL``.  Returns the launches, the collectives, the steps and
+    both runs' wall times and steps a second."""
+    import torch
+
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.parallel import collectives
+    from newsreclib_tpu_torch.parallel.launch import free_port
+    from newsreclib_tpu_torch.profile_train import attention_launches
+
+    base = CLI_OVERRIDES[:-1] + ["model.dropout_probability=0"]
+    dist = ["trainer.distributed=true", "data.global_rows=true"]
+    for d in (DIST_OUT, DIST_REF_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    with reproducible():
+        t0 = time.perf_counter()
+        ref = train.run(compose(overrides=base + [f"output_dir={DIST_REF_OUT}"]))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(free_port())}
+        seen = {}
+        setup = train.setup_parallelism
+
+        def capture(*a, **k):
+            seen["mesh"] = setup(*a, **k)
+            return seen["mesh"]
+
+        os.environ.update(env)
+        train.setup_parallelism = capture
+        try:
+            cfg = compose(overrides=base + dist + [f"output_dir={DIST_OUT}"])
+            torch.cuda.synchronize()
+            collectives.reset_counts()
+            mhsa.launches = mhsa.bwd_launches = 0
+            t0 = time.perf_counter()
+            metrics = train.run(cfg)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
+            calls = dict(collectives.calls)
+        finally:
+            train.setup_parallelism = setup
+            for k in env:
+                os.environ.pop(k, None)
+    mesh = seen["mesh"]
+    with open(os.path.join(DIST_OUT, "checkpoints", "last.json")) as f:
+        epochs = json.load(f)["epoch"] + 1
+    quiet = compose(overrides=base + dist + [f"output_dir={DIST_OUT}", "loggers=[]"])
+    rd = train.load_run_data(quiet)
+    dc = quiet["data"]
+    batcher = TrainBatcher(rd.store_train, rd.train_imp, batch_size=dc["batch_size"],
+                           max_history_len=dc["max_history_len"],
+                           neg_sampling_ratio=dc["neg_sampling_ratio"], seed=quiet.get("seed", 0),
+                           u_bucket_min=dc.get("u_bucket_min", 512), global_rows=True)
+    steps = epochs * len(batcher)
+    train_expected = sum(attention_launches(b) for e in range(epochs) for b in batcher.epoch(e))
+    evals = [serving_launches(store, imp, dc["max_history_len"], dc["eval_target_cells"])
+             for store, imp in ((rd.store_train, rd.val_imp), (rd.store_test, rd.test_imp))]
+    expected = train_expected + epochs * evals[0] + evals[1]
+    want_calls = {"all_reduce_gradients": steps, "gather_scores": steps,
+                  "gather_loss_inputs": 3 * steps, "gather_batch": 7 * steps, "broadcast": epochs + 1}
+    diffs = {k: abs(metrics[k] - ref[k]) for k in ref if k.startswith("test/")}
+    worst = max(diffs.values())
+    log(f"distributed CLI (phase 17): rank {mesh.rank} of {mesh.world} over {mesh.backend}, "
+        f"{wall_s:.2f} s wall ({ref_s:.2f} s without distributed) on {card}; {epochs} epochs of "
+        f"{len(batcher)} steps; train/steps_per_sec {metrics['train/steps_per_sec']:.2f} "
+        f"({ref['train/steps_per_sec']:.2f} without); collectives {json.dumps(calls)} "
+        f"({json.dumps(want_calls)} expected); fused_small_mhsa launches {launches} "
+        f"({expected} expected: {train_expected} in train steps), its backward {bwd_launches} "
+        f"({train_expected} expected); test metrics vs the run without distributed: max abs "
+        f"diff {worst:.3g} (tolerance {DIST_CLI_ATOL}), test/auc {metrics['test/auc']:.6f}")
+    if mesh.backend != "nccl" or mesh.world != 1 or mesh.replicated_batches:
+        raise AssertionError(f"not a multi-host NCCL rank: {mesh}")
+    if calls != want_calls:
+        raise AssertionError(f"collectives {calls}, {want_calls} expected")
+    if launches != expected or bwd_launches != train_expected:
+        raise AssertionError(f"{launches} forward and {bwd_launches} backward kernel launches "
+                             f"({expected} and {train_expected} expected)")
+    bad = [k for k, v in metrics.items() if k.startswith(("val/", "test/")) and
+           not math.isfinite(v)]
+    if bad or set(diffs) != {k for k in metrics if k.startswith("test/")} or \
+            worst > DIST_CLI_ATOL:
+        raise AssertionError(f"distributed test metrics {metrics} vs {ref}")
+    return {"launches": launches, "bwd_launches": bwd_launches, "wall_s": wall_s,
+            "ref_wall_s": ref_s, "steps": steps, "collectives": calls,
+            "steps_per_sec": metrics["train/steps_per_sec"],
+            "ref_steps_per_sec": ref["train/steps_per_sec"], "max_metric_diff": worst}
+
+
+def two_rank_model(kind: str):
+    """Phase 18's model, the same initial weights in every process: NRMS at
+    full width (``dp``, ``rows``) or over a 2-layer 768-wide tower (``tp``),
+    dropout 0, float32; and its global batch size."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components.plm import PLMTextEncoder, TransformerEncoder
+    from newsreclib_tpu_torch.models.general_rec import NRMS
+
+    g = torch.Generator().manual_seed(0)
+    if kind == "tp":
+        tower = PLMTextEncoder(TransformerEncoder(**TWO_RANK_TOWER, generator=g), num_heads=16,
+                               query_dim=200, dropout=0.0, generator=g)
+        return NRMS(SERVING["vocab_size"], num_heads=16, query_dim=200, dropout=0.0,
+                    text_encoder_module=tower, text_encoder_dim=768, device="cuda",
+                    generator=g), TWO_RANK_TP_BATCH
+    return NRMS(SERVING["vocab_size"], embed_dim=D, num_heads=15, query_dim=200, dropout=0.0,
+                device="cuda", generator=g), TWO_RANK_BATCH
+
+
+def two_rank_run(kind: str, store, imp, mesh=None) -> dict:
+    """``TWO_RANK_STEPS`` global-row train steps of ``two_rank_model(kind)``
+    at ``TWO_RANK_LR`` through ``Trainer`` (on ``mesh``, or on one device),
+    under deterministic algorithms: the logged (global) losses, this
+    process's kernel launches, and the full parameters before and after (on
+    the host; a collective on a sharded mesh)."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.parallel.mesh import gather_state
+    from newsreclib_tpu_torch.profile_train import DATA
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    class Losses:
+        def __init__(self):
+            self.losses = []
+
+        def log_metrics(self, m, step):
+            if "train/loss" in m and "epoch" in m and len(self.losses) < TWO_RANK_STEPS:
+                self.losses.append(m["train/loss"])
+
+    def on_host(sd):
+        return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+    model, batch = two_rank_model(kind)
+    start = on_host(model.state_dict())
+    data = {k: v for k, v in DATA.items() if k != "split_title_len"}
+    batcher = TrainBatcher(store, imp, batch_size=batch, global_rows=True, **data)
+    corpus = store.features_for(np.arange(store.title.shape[0]))
+    cap = Losses()
+    cfg = TrainerConfig(max_epochs=1, log_every_n_steps=1, ckpt_dir=None,
+                        limit_train_batches=TWO_RANK_STEPS, tp_transformer=kind == "tp")
+    with reproducible():
+        trainer = Trainer(create_train_state(model, make_optimizer(TWO_RANK_LR)),
+                          cross_entropy_loss, cfg, loggers=[cap], mesh=mesh, corpus=corpus,
+                          u_bucket=batcher.global_u_bucket())
+        torch.cuda.synchronize()
+        mhsa.launches = mhsa.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer.train_epoch(batcher, 0)
+        torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches, bwd_launches = mhsa.launches, mhsa.bwd_launches
+    end = on_host(gather_state(trainer.state, with_opt=False)["params"])
+    return {"losses": cap.losses, "launches": launches, "bwd_launches": bwd_launches, "s": s,
+            "start": start, "end": end,
+            "sharded": sorted(trainer.state.sharded)[:4] + (["..."] if
+                                                            len(trainer.state.sharded) > 4 else [])}
+
+
+def update_distance(end, ref) -> float:
+    """The distance of the parameters ``end`` from the one-rank run's over
+    the one-rank run's update (``ref``'s "start" -> "end"), in norm over
+    every parameter but the attention key biases: their gradient is
+    structurally zero, float32 noise that Adam turns into updates of up to
+    the learning rate on either route."""
+    off = update = 0.0
+    for k, want in ref["end"].items():
+        keep = slice(None)
+        if k.endswith("qkv.bias"):
+            d = want.shape[0] // 3
+            keep = [*range(d), *range(2 * d, 3 * d)]
+        elif k.endswith(".k.bias"):
+            continue
+        a, b, s0 = (t[k][keep].double() for t in (end, ref["end"], ref["start"]))
+        off += float(((a - b) ** 2).sum())
+        update += float(((b - s0) ** 2).sum())
+    return math.sqrt(off / update)
+
+
+@contextlib.contextmanager
+def planted_collective_fault(fault: str):
+    """Phase 18's planted faults, on every rank (a rank that skipped a
+    collective alone would hang the other): ``no_gradient_all_reduce``, each
+    data rank steps on its own gradient; ``no_lookup_all_reduce``, each
+    model rank looks up its own rows of the sharded table only."""
+    from newsreclib_tpu_torch.parallel import collectives, embedding
+
+    saved = collectives.all_reduce_gradients, embedding.all_reduce_
+    if fault == "no_gradient_all_reduce":
+        collectives.all_reduce_gradients = lambda params, group: None
+    elif fault == "no_lookup_all_reduce":
+        embedding.all_reduce_ = lambda t, group, name: t
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        collectives.all_reduce_gradients, embedding.all_reduce_ = saved
+
+
+def two_rank_worker(rank: int, world: int, store, imp) -> dict:
+    """One of phase 18's two ranks: both share ``cuda:0`` over gloo.  Each
+    case's run, its distance from the one-rank run (``TWO_RANK_REF``), and
+    the same with the case's planted fault."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from newsreclib_tpu_torch.parallel.mesh import destroy, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    out = {}
+    try:
+        for kind, model_axis in (("dp", 1), ("rows", 2), ("tp", 2)):
+            mesh = init_mesh(rank, world, model_axis, device, backend="gloo")
+            ref = torch.load(os.path.join(TWO_RANK_REF, f"{kind}.pt"))
+            run = two_rank_run(kind, store, imp, mesh)
+            run["update_distance"] = update_distance(run.pop("end"), ref)
+            run.pop("start")
+            run["backend"] = mesh.backend
+            if kind in TWO_RANK_FAULTS:
+                with planted_collective_fault(TWO_RANK_FAULTS[kind]):
+                    faulty = two_rank_run(kind, store, imp, mesh)
+                run["fault_distance"] = update_distance(faulty["end"], ref)
+            out[kind] = run
+            del ref
+            torch.cuda.empty_cache()
+    finally:
+        destroy()
+    return out
+
+
+def two_rank_phase(card: str, store, imp) -> dict:
+    """Phase 18 (module doc): one rank per case first (its parameters kept
+    in ``TWO_RANK_REF``), then two ranks sharing ``cuda:0`` over gloo: each
+    case's per-step losses and parameters against one rank's on the same
+    global batches, the planted faults refused, and each rank's
+    ``fused_small_mhsa`` launches (2 a step, forward and backward: the
+    news table's encode, whole on every rank, and the rank's users).
+    Returns the runs' launches, distances and times."""
+    import torch
+
+    from newsreclib_tpu_torch.parallel.launch import spawn
+
+    os.makedirs(TWO_RANK_REF, exist_ok=True)
+    ones = {}
+    for kind in ("dp", "rows", "tp"):
+        one = two_rank_run(kind, store, imp)
+        torch.save({"start": one.pop("start"), "end": one.pop("end")},
+                   os.path.join(TWO_RANK_REF, f"{kind}.pt"))
+        ones[kind] = one
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(two_rank_worker, 2, (store, imp), timeout=600)
+    wall_s = time.perf_counter() - t0
+    out = {"wall_s": wall_s}
+    for kind in ("dp", "rows", "tp"):
+        one = ones[kind]
+        want = 2 * TWO_RANK_STEPS
+        got = [r[kind] for r in ranks]
+        scale = max(abs(v) for v in one["losses"]) if kind == "tp" else 1.0
+        diff = max(max(abs(a - b) for a, b in zip(r["losses"], one["losses"]))
+                   for r in got) / scale
+        dist = max(r["update_distance"] for r in got)
+        fault = min(r["fault_distance"] for r in got) if kind in TWO_RANK_FAULTS else None
+        log(f"two ranks on cuda:0 over {got[0]['backend']} (phase 18), {kind}: losses "
+            f"{[round(v, 6) for v in got[0]['losses']]}, one rank "
+            f"{[round(v, 6) for v in one['losses']]}: max {'relative' if kind == 'tp' else 'abs'}"
+            f" diff {diff:.3g} (tolerance {TWO_RANK_ATOL}); parameters off one rank's by "
+            f"{[r['update_distance'] for r in got]} of its update (tolerance "
+            f"{TWO_RANK_UPDATE_RTOL})"
+            + (f", with {TWO_RANK_FAULTS[kind]} planted "
+               f"{[r['fault_distance'] for r in got]}" if fault is not None else "")
+            + f"; launches per rank {[r['launches'] for r in got]} forward, "
+            f"{[r['bwd_launches'] for r in got]} backward ({want} expected, one rank alone "
+            f"{one['launches']}); {[round(r['s'], 2) for r in got]} s per rank, one rank "
+            f"{one['s']:.2f} s; sharded {got[0]['sharded']}")
+        if got[0]["backend"] != "gloo" or any(len(r["losses"]) != TWO_RANK_STEPS for r in got):
+            raise AssertionError(f"phase 18 {kind}: {got}")
+        if diff > TWO_RANK_ATOL or not all(math.isfinite(v) for v in one["losses"]):
+            raise AssertionError(f"phase 18 {kind}: losses {got} vs {one['losses']}")
+        if not dist <= TWO_RANK_UPDATE_RTOL:
+            raise AssertionError(f"phase 18 {kind}: parameters {dist} of the update off")
+        if fault is not None and not fault > TWO_RANK_UPDATE_RTOL:
+            raise AssertionError(f"phase 18 {kind}: the parameter check does not tell the "
+                                 f"planted {TWO_RANK_FAULTS[kind]} from the run ({fault})")
+        if any(r["launches"] != want or r["bwd_launches"] != want for r in got) or \
+                one["launches"] != want:
+            raise AssertionError(f"phase 18 {kind}: launches {got}, {want} a rank expected")
+        if kind != "dp" and not got[0]["sharded"]:
+            raise AssertionError(f"phase 18 {kind}: nothing was sharded")
+        out[kind] = {"launches_per_rank": [r["launches"] for r in got],
+                     "bwd_launches_per_rank": [r["bwd_launches"] for r in got],
+                     "max_loss_diff": diff, "update_distance": dist, "fault_distance": fault}
+    log(f"phase 18: {wall_s:.1f} s for the two ranks (start, three cases, two planted "
+        f"faults)")
+    return out
+
+
 def main() -> int:
     # cuBLAS repeats its results only with a fixed workspace (``reproducible``);
     # set before the first cuBLAS handle is made
@@ -2203,12 +2583,13 @@ def main() -> int:
     launches = serving_phase(card, store, imp)
     train_launches, bwd_launches, train_step_s, train_shapes, grad_err = training_phase(
         card, store, imp)
+    row_shapes = global_row_shapes(store, imp)
     checked = list(shapes)
-    for s in train_shapes + EXTRA_SHAPES:
+    for s in train_shapes + EXTRA_SHAPES + row_shapes:
         if s not in checked:
             checked.append(s)
     records = kernel_phase(checked)
-    bwd_records = backward_phase(train_shapes)
+    bwd_records = backward_phase(train_shapes + [s for s in row_shapes if s not in train_shapes])
     bwd_main, bwd_f32 = (next(r for r in bwd_records if r["dtype"] == name)
                          for name in ("bfloat16", "float32"))
     zoo_fwd, zoo_bwd = zoo_kernel_phase()
@@ -2227,6 +2608,8 @@ def main() -> int:
     sweep_run = sweep_phase(card, cli_launches, cli_bwd_launches)
     remat = remat_phase(card, store, imp)
     annotator = annotator_phase(card)
+    dist_cli = distributed_cli_phase(card)
+    two_rank = two_rank_phase(card, store, imp)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -2257,6 +2640,16 @@ def main() -> int:
         "sweep_launches": sweep_run["launches"],
         "sweep_wall_s": sweep_run["wall_s"],
         "annotator_launches": {k: run["launches"] for k, run in annotator.items()},
+        "distributed_cli_launches": dist_cli["launches"],
+        "distributed_cli_wall_s": dist_cli["wall_s"],
+        "distributed_cli_collectives": dist_cli["collectives"],
+        "two_rank_launches_per_rank": {k: two_rank[k]["launches_per_rank"]
+                                       for k in ("dp", "rows", "tp")},
+        "two_rank_wall_s": two_rank["wall_s"],
+        "two_rank_update_distance": {k: two_rank[k]["update_distance"]
+                                     for k in ("dp", "rows", "tp")},
+        "two_rank_fault_distance": {k: two_rank[k]["fault_distance"] for k in TWO_RANK_FAULTS},
+        "global_row_shapes": row_shapes,
     }, {
         "name": "fused_small_mhsa_backward",
         "route": "cuda",
@@ -2268,6 +2661,9 @@ def main() -> int:
         "cli_launches": cli_bwd_launches,
         **{f"{name}_cli_launches": run["bwd_launches"] for name, run in dataset_runs.items()},
         "sweep_launches": sweep_run["bwd_launches"],
+        "distributed_cli_launches": dist_cli["bwd_launches"],
+        "two_rank_launches_per_rank": {k: two_rank[k]["bwd_launches_per_rank"]
+                                       for k in ("dp", "rows", "tp")},
         "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
         "ms": bwd_main["bwd_ms"],
         "plain_ms": bwd_main["plain_bwd_ms"],

@@ -5,7 +5,9 @@ the port's ``train``, ``eval`` and ``sweep`` modules with the command line's
 overrides, on the card unless given ``platform=cpu``.
 
 The port's entry points are modules of the package, so the scripts import
-them by module path and work from any directory.
+them by module path and work from any directory.  Under a launcher
+(torchrun, or ``python -m newsreclib_tpu_torch.parallel.launch``) each
+rank's entry point takes ``cuda:<LOCAL_RANK>`` (``train.py::select_device``).
 """
 
 from __future__ import annotations

@@ -37,11 +37,16 @@ MANNeR's ``news_encoder/{text_encoder, entity_encoder, combine_linear}``
 (CR module and A-module) and the ensemble's ``cr`` and
 ``aspect_towers_<i>``.  It is the inverse of the weight copy in
 ``tests/test_torch_parity.py::_copy_mha``.
+
+``shard_state_dict`` gives one rank's shard of such a state dict on a
+``(data, model)`` grid (``parallel/mesh.py``), ``unshard_state_dict`` the
+full state dict back from a model group's shards: the multi-rank tests
+start the port's ranks from the JAX parameters with them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -59,4 +64,43 @@ def flax_to_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Ten
         elif name == "embedding":
             name = "weight"
         out[prefix + name] = torch.tensor(arr)
+    return out
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], rank: int, world: int, model_axis: int = 1,
+                     tp_transformer: bool = False,
+                     row_shard_embeddings: bool = True) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a full state dict ``sd`` on a ``world``-rank
+    grid with ``model_axis`` model ranks (``parallel/mesh.py``'s rule:
+    the embedding tables' rows, with ``tp_transformer`` the PLM tower's
+    column- and row-parallel weights; the last block padded with zeros)."""
+    from newsreclib_tpu_torch.parallel.mesh import shard_specs, shard_tensor
+
+    if world % model_axis:
+        raise ValueError(f"world size {world} is not divisible by model_axis {model_axis}")
+    specs = shard_specs({k: tuple(v.shape) for k, v in sd.items()}, model_axis,
+                        row_shard_embeddings, tp_transformer)
+    j = rank % model_axis
+    return {k: shard_tensor(v, specs[k], model_axis, j) if k in specs else v
+            for k, v in sd.items()}
+
+
+def unshard_state_dict(shards, full_shapes: Mapping[str, Tuple[int, ...]], model_axis: int = 1,
+                       tp_transformer: bool = False,
+                       row_shard_embeddings: bool = True) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_state_dict``: the full state dict from the
+    shards of the first ``model_axis`` ranks (one model group, in rank
+    order), the padding stripped; ``full_shapes`` gives each tensor's full
+    shape."""
+    from newsreclib_tpu_torch.parallel.mesh import shard_specs
+
+    specs = shard_specs(dict(full_shapes), model_axis, row_shard_embeddings, tp_transformer)
+    out = {}
+    for k, shape in full_shapes.items():
+        if k in specs:
+            dim = specs[k]
+            out[k] = torch.cat([s[k] for s in shards[:model_axis]], dim=dim).narrow(
+                dim, 0, shape[dim]).contiguous()
+        else:
+            out[k] = shards[0][k]
     return out

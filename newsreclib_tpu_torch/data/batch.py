@@ -10,8 +10,9 @@ tensor on the model's device.
     ``cand_idx (B, C)`` plus boolean masks.  When ``news2`` is set, the
     unique table is split in two row segments (short titles at a narrow
     width, the long tail at full width); the indices address
-    ``concat(rows(news), rows(news2))``.  A global-row batch (serving) has
-    ``news=None`` and store rows in the index matrices.
+    ``concat(rows(news), rows(news2))``.  A global-row batch (serving, and
+    multi-rank training) has ``news=None`` and store rows in the index
+    matrices; ``densify`` dedups one on the device.
   * ``NewsBatch`` holds articles and their aspect labels (MANNeR's
     A-module trains on it).
 """
@@ -84,3 +85,40 @@ def to_device(batch: Union[RecBatch, NewsFeatures, "NewsBatch"], device):
         else:
             fields[name] = _to_tensor(value, device)
     return type(batch)(**fields)
+
+
+def densify(batch: RecBatch, corpus: NewsFeatures, u_bucket: int):
+    """On-device dedup of a global-row batch (``newsreclib_tpu/data/batch.py:92-142``):
+    ``batch`` carries ``news=None`` and corpus rows in ``hist_idx`` /
+    ``cand_idx``; the rows (with 0 first) map to a unique table of
+    ``u_bucket`` rows in ascending order, 0-filled past the unique count
+    (``jnp.unique(..., size=u_bucket, fill_value=0)``), whose features are
+    gathered from ``corpus`` (tensors on the device), and the indices are
+    remapped.  Static shapes and no host synchronisation: the dedup is a
+    sort, a cumulative sum and a scatter.  Returns ``(batch, overflow)``,
+    ``overflow`` a device bool set when the unique count exceeds
+    ``u_bucket`` (callers poison the loss with NaN)."""
+    hist = batch.hist_idx.to(torch.int64)
+    cand = batch.cand_idx.to(torch.int64)
+    b, h = hist.shape
+    c = cand.shape[1]
+    rows = torch.cat([hist.new_zeros(1), hist.reshape(-1), cand.reshape(-1)])
+    srt, perm = torch.sort(rows, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    rank = torch.cumsum(first.to(torch.int64), 0) - 1
+    overflow = rank[-1] + 1 > u_bucket
+    # past the bucket (an overflow, whose loss is NaN) indices stay in range,
+    # as JAX's gathers clamp them
+    rank = rank.clamp(max=u_bucket - 1)
+    inv = torch.empty_like(rank).scatter_(0, perm, rank)
+    unique = srt.new_zeros(u_bucket).scatter_(0, rank, srt)
+    news = NewsFeatures(*(None if t is None else t.index_select(0, unique) for t in corpus))
+    return batch._replace(
+        news=news,
+        hist_idx=inv[1:1 + b * h].reshape(b, h).to(torch.int32),
+        cand_idx=inv[1 + b * h:].reshape(b, c).to(torch.int32),
+        hist_mask=batch.hist_mask if batch.hist_mask is not None else hist != 0,
+        cand_mask=batch.cand_mask if batch.cand_mask is not None else cand != 0,
+        labels=None if batch.labels is None else batch.labels.float(),
+    ), overflow

@@ -13,9 +13,13 @@ the JAX package's at the same seed.
   matrices into it; ``split_news_by_length`` splits the table into a
   short-title and a full-width segment.
 
-Not ported: the multi-host global-row training mode (``global_rows``,
-``num_steps``, ``global_u_bucket``), ``batch_multiple`` of sharded eval and
-the ``lean`` wire format of the JAX package's remote TPU link.
+Multi-rank training: ``TrainBatcher(global_rows=True)`` emits batches with
+``news=None`` and store rows (the step dedups them on the device,
+``data/batch.py::densify``), ``num_steps`` caps an epoch so every rank runs
+the same number of steps, ``global_u_bucket`` sizes the on-device dedup
+table; ``batch_multiple`` rounds eval batches to a multiple, as the JAX
+package rounds them to its data axis (the port evaluates a multi-rank run
+on rank 0 alone, so its CLI leaves it at 1).  Not ported: the ``lean`` wire format of the JAX package's remote TPU link.
 """
 
 from __future__ import annotations
@@ -232,9 +236,14 @@ class TrainBatcher:
         seed: int = 0,
         u_bucket_min: int = 512,
         drop_last: bool = True,
+        global_rows: bool = False,
+        num_steps: Optional[int] = None,
         split_title_len: Optional[int] = None,
         split_margin: int = 0,
     ):
+        """``global_rows=True``: batches with ``news=None`` and store rows,
+        no host dedup (the multi-rank layout).  ``num_steps`` caps the steps
+        of an epoch, so every rank of a multi-host run takes as many."""
         self.store = store
         self.imp = impressions
         self.batch_size = batch_size
@@ -243,6 +252,8 @@ class TrainBatcher:
         self.seed = seed
         self.u_bucket_min = u_bucket_min
         self.drop_last = drop_last
+        self.global_rows = global_rows
+        self.num_steps = num_steps
         self.split_title_len = split_title_len
         self.split_margin = split_margin
         # one training sample per positive
@@ -263,7 +274,18 @@ class TrainBatcher:
 
     def __len__(self) -> int:
         n = len(self.sample_imp)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        steps = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return steps if self.num_steps is None else min(steps, self.num_steps)
+
+    def global_u_bucket(self, global_batch_size: Optional[int] = None) -> int:
+        """The on-device dedup table's size for ``global_rows`` batches: the
+        bucket of ``min(B * (H + C) + 1, N + 1)``, which cannot overflow.
+        Pass the global batch size of a multi-host run (``densify`` runs on
+        the global batch)."""
+        b = global_batch_size or self.batch_size
+        h, c = self.max_history_len, self.k + 1
+        worst = min(b * (h + c) + 1, self.store.title.shape[0])
+        return next_bucket(worst, self.u_bucket_min)
 
     def num_samples(self) -> int:
         return len(self.sample_imp)
@@ -308,6 +330,11 @@ class TrainBatcher:
             valid = np.zeros(b, dtype=bool)
             valid[:nsel] = True
 
+            if self.global_rows:
+                yield RecBatch(news=None, hist_idx=hist_idx, hist_mask=hist_idx != 0,
+                               cand_idx=cand_idx, cand_mask=cand_idx != 0, labels=labels,
+                               user_idx=user_idx, impression_valid=valid)
+                continue
             news, news2, hist_local, cand_local = _dedup(
                 self.store, hist_idx, cand_idx, self.u_bucket_min,
                 self.split_title_len, self.split_margin,
@@ -343,10 +370,14 @@ class BucketedAssembler:
         target_cells: int,
         min_cand_bucket: int = 8,
         max_cand_bucket: int = 512,
+        batch_multiple: int = 1,
     ):
         self.imp = impressions
         self.max_history_len = max_history_len
         self.target_cells = target_cells
+        # batch rows divisible by the data axis of sharded evaluation; the
+        # last batch of a bucket is padded with invalid rows either way
+        self.batch_multiple = max(1, int(batch_multiple))
         sizes = np.diff(impressions.cand_offsets)
         n_trunc = int(np.sum(sizes > max_cand_bucket))
         if n_trunc:
@@ -368,6 +399,8 @@ class BucketedAssembler:
         h = self.max_history_len
         for c, idxs in sorted(self.buckets.items()):
             b = max(1, self.target_cells // c)
+            if self.batch_multiple > 1:
+                b = max(self.batch_multiple, b - (b % self.batch_multiple))
             lens = np.minimum(np.diff(self.imp.cand_offsets)[idxs], c)
             cand_pad = np.zeros((len(idxs), c), dtype=np.int32)
             label_pad = np.zeros((len(idxs), c), dtype=np.float32)
@@ -416,6 +449,7 @@ class EvalBatcher:
         min_cand_bucket: int = 8,
         max_cand_bucket: int = 512,
         u_bucket_min: int = 512,
+        batch_multiple: int = 1,
         split_title_len: Optional[int] = None,
         split_margin: int = 0,
     ):
@@ -427,7 +461,8 @@ class EvalBatcher:
         self.split_title_len = split_title_len
         self.split_margin = split_margin
         self._assembler = BucketedAssembler(impressions, max_history_len, target_cells,
-                                            min_cand_bucket, max_cand_bucket)
+                                            min_cand_bucket, max_cand_bucket,
+                                            batch_multiple=batch_multiple)
 
     def __iter__(self) -> Iterator[RecBatch]:
         for raw in self._assembler:

@@ -9,7 +9,9 @@ checkpoints.
         model.aspects.sent.ckpt=A2_RUN/checkpoints
 
 It composes ``newsreclib_tpu/configs/eval.yaml`` with the overrides, runs on
-the card (``cuda``) and raises without one unless ``platform=cpu``; metrics
+the card (``cuda``; ``cuda:<LOCAL_RANK>`` under a launcher) and raises
+without one unless ``platform=cpu``; it evaluates on one device, and reads
+the full checkpoints a multi-rank training run writes; metrics
 go to ``output_dir`` (default ``outputs/torch/eval_<model>_<data>``).
 Any model the training CLI trains is restored from the 'best' checkpoint
 of ``ckpt_path`` (SentiDebias: its generator, bias-free scores); the
@@ -38,7 +40,6 @@ from newsreclib_tpu_torch.models.factory import (
 )
 from newsreclib_tpu_torch.train import (
     _setup_logging,
-    check_single_device,
     check_token_range,
     select_device,
     setup_data,
@@ -124,7 +125,6 @@ def run_manner_ensemble(cfg: Dict, mind, info, out_dir: str, device) -> Dict[str
 def run(cfg: Dict) -> Dict[str, float]:
     _setup_logging()
     device = select_device(cfg)
-    check_single_device(cfg)
     out_dir = cfg["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
     mind = setup_data(cfg)

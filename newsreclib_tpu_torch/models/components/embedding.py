@@ -21,7 +21,11 @@ from newsreclib_tpu_torch.models.components.linear import normal
 class TokenEmbedding(nn.Module):
     """Token table, optionally from a pretrained matrix.  ``frozen`` detaches
     the table in the forward (the JAX ``stop_gradient``), so it gets no
-    gradient."""
+    gradient.  ``shard`` (set by ``parallel/mesh.py::place_state``): the
+    table holds this rank's block of rows and the lookup is
+    ``parallel/embedding.py::sharded_lookup`` over the model group."""
+
+    shard = None
 
     def __init__(self, vocab_size: int, embed_dim: int,
                  pretrained: Optional[np.ndarray] = None,
@@ -39,5 +43,10 @@ class TokenEmbedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         table = self.weight.detach() if self.frozen else self.weight
-        out = F.embedding(ids, table)
+        if self.shard is not None:
+            from newsreclib_tpu_torch.parallel.embedding import sharded_lookup
+
+            out = sharded_lookup(table, ids, self.shard.lo, self.shard.group)
+        else:
+            out = F.embedding(ids, table)
         return out * (ids != 0).unsqueeze(-1).to(out.dtype)

@@ -96,11 +96,14 @@ class Embed(nn.Module):
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: Optional[torch.Tensor], num_heads: int, rate: float,
                    deterministic: bool = True,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   head_part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The tower's attention, plain torch as in the JAX layer: ``(..., L, H)``
     projections and a ``(..., L)`` key mask -> ``(..., L, H)``.  Masked keys
     take the finite -1e30 (a fully masked row stays finite), and dropout
-    acts on the probabilities."""
+    acts on the probabilities.  ``head_part=(size, index)``: the heads are
+    block ``index`` of ``size`` of the layer's, and the dropout draws over
+    all of them and keeps the block (``dropout.keep_mask``)."""
     *lead, l, h = q.shape
     hd = h // num_heads
 
@@ -110,12 +113,17 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = split(q) @ split(k).transpose(-1, -2) / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask[..., None, None, :], logits, _MASK_MIN)
-    att = dropout(torch.softmax(logits, dim=-1), rate, deterministic, generator)
+    att = dropout(torch.softmax(logits, dim=-1), rate, deterministic, generator,
+                  None if head_part is None else (-3, *head_part))
     return (att @ split(v)).transpose(-2, -3).reshape(*lead, l, h)
 
 
 class TransformerLayer(nn.Module):
-    """Post-LN BERT encoder layer (``newsreclib_tpu/models/components/plm.py:32-74``)."""
+    """Post-LN BERT encoder layer (``newsreclib_tpu/models/components/plm.py:32-74``).
+    ``tp`` (set by ``parallel/mesh.py::place_state`` under
+    ``tp_transformer``): the layer holds its tensor-parallel shards."""
+
+    tp = None
 
     def __init__(self, hidden_dim: int, num_heads: int, intermediate_dim: int,
                  dropout: float = 0.1, layer_norm_eps: float = 1e-12,
@@ -138,11 +146,37 @@ class TransformerLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self._forward_tp(x, mask, deterministic, generator)
         ctx = self_attention(self.q(x), self.k(x), self.v(x), mask, self.num_heads, self.rate,
                              deterministic, generator)
         ctx = self.dropout(self.attn_out(ctx), deterministic, generator)
         x = self.attn_ln(x + ctx)
         ff = self.ff2(F.gelu(self.ff1(x), approximate="none"))
+        ff = self.dropout(ff, deterministic, generator)
+        return self.ff_ln(x + ff)
+
+    def _forward_tp(self, x, mask, deterministic, generator):
+        """Megatron tensor parallelism over ``self.tp.group``: this rank holds
+        a contiguous block of the heads (q, k, v column-parallel) and of the
+        MLP's hidden units (ff1 column-parallel); attn_out and ff2 are
+        row-parallel, their partial outputs summed over the group before the
+        bias.  ``copy_to_group`` / ``reduce_from_group`` are the conjugate
+        pair (identity forward, all-reduce backward, and the reverse).  The
+        dropout on the attention probabilities draws over every head and
+        keeps this rank's, so the ranks apply one device's masks."""
+        from newsreclib_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+
+        group = self.tp.group
+        xin = copy_to_group(x, group)
+        ctx = self_attention(self.q(xin), self.k(xin), self.v(xin), mask,
+                             self.num_heads // self.tp.size, self.rate, deterministic, generator,
+                             (self.tp.size, self.tp.index))
+        ctx = reduce_from_group(F.linear(ctx, self.attn_out.weight), group) + self.attn_out.bias
+        ctx = self.dropout(ctx, deterministic, generator)
+        x = self.attn_ln(x + ctx)
+        h = F.gelu(self.ff1(copy_to_group(x, group)), approximate="none")
+        ff = reduce_from_group(F.linear(h, self.ff2.weight), group) + self.ff2.bias
         ff = self.dropout(ff, deterministic, generator)
         return self.ff_ln(x + ff)
 

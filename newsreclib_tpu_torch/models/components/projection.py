@@ -20,7 +20,7 @@ class UserProjection(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.user_embed = nn.Parameter(uniform((num_users, user_embed_dim), 0.0, 1.0, generator))
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, over_rows=True)
 
     def forward(self, users: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -34,7 +34,7 @@ class UserPreferenceQueryProjection(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.proj = Dense(in_dim, preference_query_dim, generator)
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, over_rows=True)
 
     def forward(self, projected_users: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -138,7 +138,7 @@ class CNNPersAtt(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embedding = TokenEmbedding(vocab_size, embed_dim, pretrained, generator=generator)
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, over_rows=True)  # per history / candidate slot
         self.cnn = Conv1d(embed_dim, num_filters, window_size, generator)
         self.pers_att = PersonalizedAttention(query_dim, num_filters, generator)
 

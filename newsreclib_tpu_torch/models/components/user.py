@@ -20,7 +20,7 @@ from newsreclib_tpu_torch.models.components.attention import (
     PersonalizedAttention,
     masked_softmax,
 )
-from newsreclib_tpu_torch.models.components.dropout import Dropout
+from newsreclib_tpu_torch.models.components.dropout import Dropout, batch_rows_part, keep_mask
 from newsreclib_tpu_torch.models.components.linear import Dense, normal
 from newsreclib_tpu_torch.models.components.projection import UserPreferenceQueryProjection
 from newsreclib_tpu_torch.models.components.rnn import MaskedGRU
@@ -82,7 +82,7 @@ class LSTURUserEncoder(nn.Module):
         if not deterministic and p > 0.0:
             if generator is None:
                 raise ValueError("user masking with deterministic=False needs a generator")
-            keep = torch.rand((lt.shape[0], 1), generator=generator, device=lt.device) < 1.0 - p
+            keep = keep_mask((lt.shape[0], 1), 1.0 - p, generator, lt.device, batch_rows_part())
             lt = torch.where(keep, lt / (1.0 - p), 0.0)
         if self.method == "ini":
             return self.gru(hist, mask, init_h=lt)
@@ -173,7 +173,7 @@ class CenNewsRecUserEncoder(nn.Module):
                              f"{num_filters}: the two interests are stacked")
         self.num_recent_news = num_recent_news
         self.mhsa = MultiHeadSelfAttention(num_filters, num_heads, generator)
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, over_rows=True)
         self.add_att = AdditiveAttention(num_filters, query_dim, generator)
         self.gru = MaskedGRU(num_filters, gru_hidden_dim, generator)
         self.final_add_att = AdditiveAttention(gru_hidden_dim, query_dim, generator)
@@ -201,7 +201,7 @@ class CAUMUserEncoder(nn.Module):
                  user_vector_dim: int = 400, num_heads: int = 4, dropout: float = 0.2,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, over_rows=True)
         self.linear1 = Dense(4 * news_embed_dim, num_filters, generator)
         self.linear2 = Dense(2 * news_embed_dim, user_vector_dim, generator)
         self.mhsa = MultiHeadSelfAttention(user_vector_dim, num_heads, generator)

@@ -37,7 +37,14 @@ from newsreclib_tpu_torch.models.components.plm import share
 from newsreclib_tpu_torch.models.components.text import MHSAAddAtt
 from newsreclib_tpu_torch.models.components.user import NRMSUserEncoder
 from newsreclib_tpu_torch.training.state import TrainState, create_train_state, make_optimizer
-from newsreclib_tpu_torch.training.steps import apply_in_dtype, as_dtype
+from newsreclib_tpu_torch.training.steps import (
+    apply_in_dtype,
+    as_dtype,
+    data_mean,
+    global_loss,
+    reduce_gradients,
+    rows_of,
+)
 
 
 def _abs_cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -197,21 +204,34 @@ def make_sentidebias_train_step(alpha: float = 0.15, beta: float = 10.0,
 
     ``compute_dtype`` ("bfloat16"): both networks run on bf16 casts of their
     float32 master parameters, losses in float32 (the JAX step has no
-    mixed-precision route; the CLI's SentiDebias config trains in float32)."""
+    mixed-precision route; the CLI's SentiDebias config trains in float32).
+
+    On a data-parallel state (``state.g.grid``): G's recommendation loss is
+    the global batch's (``training/steps.py::global_loss``), its other terms
+    and D's loss (means over the replicated news table, and the users'
+    orthogonality over the rank's rows) enter divided by the data size and
+    are reported as their mean over the data ranks, and each network sums
+    its own gradients over the data group.  On one device these are the
+    plain losses and nothing is reduced."""
     cdtype = as_dtype(compute_dtype)
 
     def step(state: SentiDebiasState, batch: RecBatch):
+        grid = state.g.grid
+        n = 1 if grid is None else grid.data_size
         gen = state.g.dropout_generator()
         drawn_from = gen.get_state()
-        out = apply_in_dtype(state.g.model, cdtype, batch, deterministic=False, generator=gen,
-                             full=True)
+        with rows_of(grid):
+            out = apply_in_dtype(state.g.model, cdtype, batch, deterministic=False,
+                                 generator=gen, full=True)
         adv = _sent_ce(apply_in_dtype(state.d.model, cdtype, out["news_vecs"]),
                        out["news_sentiments"], out["news_valid"])
-        rec = cross_entropy_loss(out["combined_scores"].float(), batch.labels, batch.cand_mask,
-                                 batch.impression_valid)
+        rec_obj, rec = global_loss(cross_entropy_loss, out["combined_scores"].float(), batch,
+                                   {}, grid)
         orth = out["loss_orth"].float()
-        g_loss = rec + beta * orth - alpha * adv
-        g_loss.backward(inputs=[p for p in state.g.model.parameters() if p.requires_grad])
+        extra = beta * orth - alpha * adv
+        (rec_obj + extra / n).backward(
+            inputs=[p for p in state.g.model.parameters() if p.requires_grad])
+        reduce_gradients(state.g)
         state.g.apply_gradients()
 
         gen.set_state(drawn_from)
@@ -221,11 +241,12 @@ def make_sentidebias_train_step(alpha: float = 0.15, beta: float = 10.0,
                                             news.title_mask, False, gen), batch)
         d_loss = _sent_ce(apply_in_dtype(state.d.model, cdtype, news_vecs),
                           out["news_sentiments"], out["news_valid"])
-        d_loss.backward()
+        (d_loss / n).backward()
+        reduce_gradients(state.d)
         state.d.apply_gradients()
-        metrics = {"loss": g_loss.detach(), "g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                   "rec_loss": rec.detach(), "adv_loss": adv.detach(),
-                   "orth_loss": orth.detach()}
+        g_loss = rec + data_mean(extra.detach(), grid)
+        metrics = {"loss": g_loss, "g_loss": g_loss, "d_loss": data_mean(d_loss.detach(), grid),
+                   "rec_loss": rec, "adv_loss": adv.detach(), "orth_loss": orth.detach()}
         return state, metrics
 
     return step

@@ -3,7 +3,7 @@
     python3 -m newsreclib_tpu_torch.profile_train [--steps 20] [--compute-dtype float32]
         [--model {nrms,mins,cen_news_rec,caum,naml,tanr,lstur,npa,miner,dkn,sentirec,
                   senti_debias,manner_cr,nrms_plm}]
-        [--remat] [--json OUT.jsonl]
+        [--remat] [--global-rows] [--distributed] [--json OUT.jsonl]
 
 The cell (``make_cell``): NRMS at the width of
 ``newsreclib_tpu/configs/model/nrms.yaml`` (D = 300, 15 heads of 20, query
@@ -33,6 +33,14 @@ the rest, forward and backward) from the head's attention kernels.
 ``--remat`` builds the model with ``model.remat`` (MANNeR's CR module:
 the news tower's activations recomputed in the backward pass, so its
 attention's forward kernel runs twice a news segment).
+
+``--global-rows`` feeds global-row batches (``TrainBatcher(global_rows=True)``,
+deduplicated on the card by ``data/batch.py::densify`` against the whole
+store: the route of every multi-rank run); ``--distributed`` also makes
+the process rank 0 of a multi-host world of one over NCCL
+(``parallel/mesh.py``), so the step gathers the batch and the loss's inputs
+and sums the gradients as a rank does: what the collectives cost at world
+size 1.
 
 For each, after 5 warm-up steps, one JSON line with:
 
@@ -163,13 +171,34 @@ def cell_state_and_step(model: str, device, compute_dtype="bfloat16",
 
 
 def make_cell(store, imp, batch_size, device, compute_dtype="bfloat16",
-              learning_rate=LEARNING_RATE, model="nrms", remat: bool = False):
+              learning_rate=LEARNING_RATE, model="nrms", remat: bool = False,
+              global_rows: bool = False, mesh=None):
     """``(state, batcher, train_step)`` of the cell in the module doc
-    (``compute_dtype`` None: float32 compute)."""
+    (``compute_dtype`` None: float32 compute).  ``global_rows``: the
+    batcher's global-row batches, which ``train_step(state, batch)``
+    densifies against the store on ``device``; ``mesh``: the state placed
+    on it (``parallel/mesh.py::place_state``)."""
     from newsreclib_tpu_torch.data.batching import TrainBatcher
 
     state, step = cell_state_and_step(model, device, compute_dtype, learning_rate, remat)
-    return state, TrainBatcher(store, imp, batch_size=batch_size, **cell_data(model)), step
+    batcher = TrainBatcher(store, imp, batch_size=batch_size, global_rows=global_rows,
+                           **cell_data(model))
+    if not global_rows:
+        return state, batcher, step
+    import numpy as np
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.training.steps import as_dtype, make_train_step
+
+    if mesh is not None:
+        from newsreclib_tpu_torch.parallel.mesh import place_state
+
+        place_state(state, mesh)
+    corpus = to_device(store.features_for(np.arange(store.title.shape[0])), device)
+    rows_step = make_train_step(factory.build_loss(cell_config(model, remat)),
+                                as_dtype(compute_dtype), u_bucket=batcher.global_u_bucket())
+    return state, batcher, lambda st, b: rows_step(st, b, corpus)
 
 
 def attention_launches(batch, model: str = "nrms", backward: bool = False,
@@ -342,7 +371,8 @@ def tower_ranges():
 
 
 def profile_cell(store, imp, batch_size: int, steps: int, card: str,
-                 compute_dtype="bfloat16", model="nrms", remat: bool = False) -> dict:
+                 compute_dtype="bfloat16", model="nrms", remat: bool = False,
+                 global_rows: bool = False, mesh=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -351,9 +381,10 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
     from newsreclib_tpu_torch.ops import mhsa
 
     state, batcher, step = make_cell(store, imp, batch_size, "cuda", compute_dtype, model=model,
-                                     remat=remat)
+                                     remat=remat, global_rows=global_rows, mesh=mesh)
     plain_state, _, plain_step = make_cell(store, imp, batch_size, "cuda", compute_dtype,
-                                           model=model, remat=remat)
+                                           model=model, remat=remat, global_rows=global_rows,
+                                           mesh=mesh)
     use_plain_attention(plain_state.model)
     t0 = time.perf_counter()
     host = [b for _, b in zip(range(WARMUP + 2 * steps), batcher.epoch(0))]
@@ -400,9 +431,11 @@ def profile_cell(store, imp, batch_size: int, steps: int, card: str,
         "remat": remat,
         "batch_size": batch_size,
         "compute_dtype": compute_dtype or "float32",
-        "title_shapes": sorted({(tuple(b.news.title.shape),
-                                 None if b.news2 is None else tuple(b.news2.title.shape))
-                                for b in timed}),
+        "global_rows": global_rows,
+        "distributed": None if mesh is None else f"rank 0 of {mesh.world}, {mesh.backend}",
+        "title_shapes": None if global_rows else sorted(
+            {(tuple(b.news.title.shape), None if b.news2 is None else tuple(b.news2.title.shape))
+             for b in timed}),
         "steps": steps,
         "host_batch_ms": host_batch_ms,
         "step_ms": step_s * 1e3,
@@ -431,6 +464,10 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=sorted(TEXT_ATTENTIONS), default="nrms")
     ap.add_argument("--remat", action="store_true",
                     help="model.remat: recompute the news tower in the backward pass")
+    ap.add_argument("--global-rows", action="store_true",
+                    help="global-row batches, deduplicated on the card")
+    ap.add_argument("--distributed", action="store_true",
+                    help="with --global-rows: rank 0 of a multi-host world of one over NCCL")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     import numpy as np
@@ -449,16 +486,27 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build_all(["mhsa"])
     store, imp = make_serving_workload(np.random.default_rng(0))
+    mesh = None
+    if args.distributed:
+        from newsreclib_tpu_torch.parallel.launch import free_port
+        from newsreclib_tpu_torch.parallel.mesh import init_mesh
+
+        mesh = init_mesh(0, 1, 1, torch.device("cuda", 0), "nccl",
+                         f"tcp://127.0.0.1:{free_port()}", replicated_batches=False)
     records = []
     for batch_size in PLM_BATCH_SIZES if args.model == PLM_CELL else BATCH_SIZES:
         rec = profile_cell(store, imp, batch_size, args.steps, card,
                            None if args.compute_dtype == "float32" else args.compute_dtype,
-                           args.model, args.remat)
+                           args.model, args.remat, args.global_rows or args.distributed, mesh)
         print("profile_train " + json.dumps(rec), flush=True)
         records.append(rec)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
+    if mesh is not None:
+        from newsreclib_tpu_torch.parallel.mesh import destroy
+
+        destroy()
     return 0
 
 

@@ -22,8 +22,32 @@ MIND, Adressa (one_week and three_month) and xMIND data, with the GloVe
 text encoders or the PLM tower (``model.use_plm``, layer freezing by
 ``model.frozen_layers``), on word-level stores or, with ``data.use_plm``,
 on stores tokenised by the local tokenizer directory ``data.plm_tokenizer``
-(nothing is fetched); xMIND in PLM mode and the multi-device settings raise
-``NotImplementedError``.
+(nothing is fetched); xMIND in PLM mode raises ``NotImplementedError``.
+
+Several devices (``setup_parallelism``, the root ``train.py:178-213``), one
+process per device:
+
+* ``trainer.devices=N`` (N > 1, or ``all`` with more than one card; on the
+  CPU, ``platform=cpu``, N ranks over gloo) starts N local ranks
+  (``parallel/launch.py::spawn``); every rank builds the same global batch
+  from the same batcher and seed and keeps its rows (JAX's single-host
+  mesh).  N is clamped as JAX clamps it: to the cards present, then down
+  until the data axis divides ``data.batch_size``.
+* ``trainer.distributed=true``, or the variables torchrun sets (``RANK``,
+  ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``):
+  multi-host mode, this process is one rank; each data rank takes a strided
+  shard of the train impressions, its batcher seed is ``seed + 7919 x data
+  rank``, epochs run in lockstep (``num_steps``) and batches carry global
+  rows deduplicated on the device.  Multi-host adversarial (SentiDebias)
+  training is refused, as in JAX.
+
+``trainer.model_axis`` > 1 row-shards the embedding tables
+(``trainer.row_shard_embeddings``, default true) and, with
+``trainer.tp_transformer``, splits the PLM tower tensor-parallel over the
+model ranks (``parallel/mesh.py``).  Training batches carry global rows
+whenever there is more than one rank, or with ``data.global_rows``.  Each
+rank uses ``cuda:<local rank>`` (NCCL) or the CPU (gloo); rank 0 alone
+logs, evaluates and writes checkpoints, and ``run`` returns its metrics.
 """
 
 from __future__ import annotations
@@ -35,6 +59,7 @@ import sys
 import time
 from typing import Dict, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from newsreclib_tpu_torch.config.compose import CONFIG_DIR, compose
@@ -63,31 +88,84 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1, "{item}")')
 
 
-def select_device(cfg: Dict) -> torch.device:
-    """``platform`` (or ``$NEWSRECLIB_PLATFORM``): absent, ``cuda`` or
-    ``gpu`` -> the card, which must be present; ``cpu`` -> the CPU."""
+def platform_of(cfg: Dict) -> str:
+    """``platform`` (or ``$NEWSRECLIB_PLATFORM``): ``cuda`` (absent, ``cuda``
+    or ``gpu``) or ``cpu``."""
     platform = os.environ.get("NEWSRECLIB_PLATFORM") or cfg.get("platform") or "cuda"
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("cuda", "gpu"):
+    if platform == "gpu":
+        return "cuda"
+    if platform not in ("cuda", "cpu"):
         raise ValueError(f"unknown platform {platform!r}: the port runs on cuda or cpu")
+    return platform
+
+
+def select_device(cfg: Dict) -> torch.device:
+    """The CPU for ``platform=cpu``; else the card, which must be present:
+    ``cuda:<LOCAL_RANK>`` (made current) under a launcher, else ``cuda``."""
+    if platform_of(cfg) == "cpu":
+        return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; run with platform=cpu "
                            "(or NEWSRECLIB_PLATFORM=cpu) to train on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        from newsreclib_tpu_torch.parallel.mesh import rank_device
+
+        return rank_device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 
-def check_single_device(cfg: Dict) -> None:
-    """Refuse the JAX package's multi-device settings (ROADMAP queue 1, "Multi-GPU")."""
+def local_rank_count(cfg: Dict) -> int:
+    """The ranks ``trainer.devices`` asks for on this node, clamped as the
+    root ``train.py:195-206`` clamps them: ``all`` (the default) is every
+    card (one on the CPU), an integer at most the cards present (any number
+    of CPU ranks), then down until the data axis divides the batch and the
+    model axis divides the count."""
     tc = cfg.get("trainer", {})
-    if tc.get("distributed"):
-        raise _not_ported("multi-host training", "Multi-GPU")
-    if int(tc.get("model_axis", 1)) > 1 or tc.get("tp_transformer"):
-        raise _not_ported("model-axis sharding and tensor parallelism", "Multi-GPU")
-    if tc.get("devices", "all") not in ("all", None, -1, 1):
-        raise _not_ported("data parallelism over several devices", "Multi-GPU")
-    if cfg.get("data", {}).get("global_rows"):
-        raise _not_ported("global-row training", "Multi-GPU")
+    want = tc.get("devices", "all")
+    every = want in ("all", None, -1)
+    if platform_of(cfg) == "cpu":
+        n = 1 if every else int(want)
+    else:
+        avail = torch.cuda.device_count() if torch.cuda.is_available() else 1
+        n = avail if every else min(int(want), avail)
+    model_axis = int(tc.get("model_axis", 1))
+    batch = int(cfg.get("data", {}).get("batch_size", n))
+    while n > 1 and (batch % max(n // model_axis, 1) or n % model_axis):
+        n -= 1
+    if n % model_axis:
+        raise ValueError(f"trainer.model_axis={model_axis} needs a multiple of "
+                         f"{model_axis} devices; {n} available")
+    return n
+
+
+def setup_parallelism(cfg: Dict, rank: Optional[int] = None, world: Optional[int] = None):
+    """This process's ``parallel/mesh.py::Mesh``, or None on one device.
+    ``rank`` / ``world`` given: a rank of ``trainer.devices`` (single-node
+    mode, the launcher's variables set); else multi-host mode when
+    ``trainer.distributed`` or the launcher's variables ask for it."""
+    from newsreclib_tpu_torch.parallel.mesh import env_rank, init_mesh, rank_device
+
+    tc = cfg.get("trainer", {})
+    single_node = rank is not None
+    if not single_node:
+        found = env_rank()
+        if found is None:
+            if tc.get("distributed"):
+                raise RuntimeError(
+                    "trainer.distributed=true needs RANK, WORLD_SIZE, MASTER_ADDR and "
+                    "MASTER_PORT (as torchrun or newsreclib_tpu_torch.parallel.launch set "
+                    "them)")
+            return None
+        rank, world, local_rank = found
+    else:
+        local_rank = rank
+    device = rank_device(platform_of(cfg), local_rank)
+    mesh = init_mesh(rank, world, int(tc.get("model_axis", 1)), device,
+                     replicated_batches=single_node)
+    log.info("rank %d of %d (%s mode): data %d of %d, model %d of %d, %s over %s", rank, world,
+             "single-node" if single_node else "multi-host", mesh.data_index, mesh.data_size,
+             mesh.model_index, mesh.model_axis, device, mesh.backend)
+    return mesh
 
 
 def check_dkn_title_split(model_name: str, dc: Dict) -> None:
@@ -332,22 +410,53 @@ class Run(NamedTuple):
     val_batcher: EvalBatcher
     test_batcher: EvalBatcher
     data: object  # the dataset (MINDData, AdressaData or XMINDData)
+    mesh: object = None  # this rank's parallel/mesh.py::Mesh, None on one device
 
 
-def build_run(cfg: Dict) -> Run:
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        from newsreclib_tpu_torch.parallel.collectives import broadcast_value
+
+        broadcast_value(0.0, mesh.device)
+
+
+def build_run(cfg: Dict, mesh=None) -> Run:
     """Everything ``run`` fits and tests with: the data (ETL and fixture as
     needed), the model on its device, the batchers, the loggers and the
-    trainer."""
-    device = select_device(cfg)
-    check_single_device(cfg)
+    trainer.  ``mesh``: this rank's ``Mesh`` (``setup_parallelism``); rank 0
+    runs the ETL first, the other ranks then read its caches."""
+    device = select_device(cfg) if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.rank
     mc, dc, tc = cfg["model"], cfg["data"], cfg["trainer"]
     check_dkn_title_split(mc["name"], dc)
     out_dir = cfg["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
-    write_config_tree(cfg, out_dir)
+    if rank == 0:
+        write_config_tree(cfg, out_dir)
     log.info("device: %s%s", device,
              f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+    if rank:
+        _barrier(mesh)  # rank 0's ETL writes the caches the others read
+    data = load_run_data(cfg)
+    if rank == 0:
+        _barrier(mesh)
+    return _build_run(cfg, mesh, device, data)
 
+
+class RunData(NamedTuple):
+    data: object
+    store_train: object
+    store_test: object
+    train_imp: object
+    val_imp: object
+    test_imp: object
+    info: object
+
+
+def load_run_data(cfg: Dict) -> RunData:
+    """The dataset, its train and test news stores (titles trimmed), its
+    impressions and the model's data info, timed."""
+    mc, dc = cfg["model"], cfg["data"]
     mind = setup_data(cfg)
     trim_margin = title_split_margin(mc["name"], mc)
     timings = {}
@@ -376,8 +485,23 @@ def build_run(cfg: Dict) -> Run:
              "title width %d (trimmed)", info.vocab_size, info.num_users, info.num_categories,
              store_train.num_news, len(train_imp), len(val_imp), len(test_imp),
              store_train.title.shape[1])
+    return RunData(mind, store_train, store_test, train_imp, val_imp, test_imp, info)
+
+
+def _build_run(cfg: Dict, mesh, device: torch.device, rd: RunData) -> Run:
+    mc, dc, tc = cfg["model"], cfg["data"], cfg["trainer"]
+    mind, store_train, store_test, info = rd.data, rd.store_train, rd.store_test, rd.info
+    train_imp = rd.train_imp
+    out_dir = cfg["output_dir"]
+    trim_margin = title_split_margin(mc["name"], mc)
+    world = 1 if mesh is None else mesh.world
+    multi_host = mesh is not None and not mesh.replicated_batches
 
     adversarial = bool(mc.get("adversarial"))
+    if adversarial and multi_host and world > 1:
+        raise NotImplementedError(
+            "multi-host adversarial (SentiDebias) training is not wired; "
+            "run it single-host or data-parallel within one host")
     model = None if adversarial else build_model(mc, info, device=device, seed=cfg.get("seed", 0))
     loss_fn = build_loss(mc)
     split_len = dc.get("split_title_len", 16)
@@ -388,21 +512,49 @@ def build_run(cfg: Dict) -> Run:
         split_title_len=split_len,
         split_margin=trim_margin,
     )
+    # more than one rank: global-row batches (data.batch_size is the global
+    # batch), deduplicated on the device against the whole store
+    global_rows = (world > 1 or bool(dc.get("global_rows"))) and not adversarial
+    local_batch, num_steps, seed = dc["batch_size"], None, cfg.get("seed", 0)
+    if mesh is not None and dc["batch_size"] % mesh.data_size:
+        raise ValueError(f"batch_size {dc['batch_size']} not divisible by the data axis "
+                         f"{mesh.data_size}")
+    if multi_host and mesh.data_size > 1:
+        from newsreclib_tpu_torch.parallel.data import shard_impressions
+
+        n, i = mesh.data_size, mesh.data_index
+        local_batch = dc["batch_size"] // n
+        # lockstep epochs: every rank takes the fewest steps of any shard
+        pos_per_imp = np.add.reduceat(train_imp.labels_flat.astype(np.int64),
+                                      train_imp.cand_offsets[:-1])
+        num_steps = min(int(pos_per_imp[p::n].sum()) // local_batch for p in range(n))
+        train_imp = shard_impressions(train_imp, i, n)
+        seed += 7919 * i  # decorrelates the data ranks' sampling and shuffling
+        log.info("data rank %d/%d: %d train impressions, %d steps an epoch", i, n,
+                 len(train_imp), num_steps)
     train_batcher = TrainBatcher(
-        store_train, train_imp, batch_size=dc["batch_size"],
+        store_train, train_imp, batch_size=local_batch,
         max_history_len=dc["max_history_len"], neg_sampling_ratio=dc["neg_sampling_ratio"],
-        seed=cfg.get("seed", 0), u_bucket_min=dc.get("u_bucket_min", 512),
-        split_title_len=split_len, split_margin=trim_margin,
+        seed=seed, u_bucket_min=dc.get("u_bucket_min", 512), global_rows=global_rows,
+        num_steps=num_steps, split_title_len=split_len, split_margin=trim_margin,
     )
-    val_batcher = EvalBatcher(store_train, val_imp, **eval_kwargs)
-    test_batcher = EvalBatcher(store_test, test_imp, **eval_kwargs)
+    corpus = u_bucket = None
+    if global_rows:
+        corpus = store_train.features_for(np.arange(store_train.title.shape[0]))
+        u_bucket = train_batcher.global_u_bucket(dc["batch_size"])
+        log.info("global-row training: corpus table %d rows, u_bucket %d",
+                 store_train.title.shape[0], u_bucket)
+    val_batcher = EvalBatcher(store_train, rd.val_imp, **eval_kwargs)
+    test_batcher = EvalBatcher(store_test, rd.test_imp, **eval_kwargs)
 
     ranking = RankingMetrics(
         top_k_list=tuple(mc.get("top_k_list", (5, 10))),
         num_categ_classes=info.num_categories,
         num_sent_classes=info.num_sent_classes,
     )
-    loggers = make_loggers(out_dir, cfg.get("loggers", ["stdout", "csv"]))
+    # rank-zero loggers: the other ranks train silently
+    rank = 0 if mesh is None else mesh.rank
+    loggers = make_loggers(out_dir, cfg.get("loggers", ["stdout", "csv"]) if rank == 0 else [])
     trainer_cfg = TrainerConfig(
         max_epochs=tc["max_epochs"],
         patience=tc["patience"],
@@ -415,6 +567,8 @@ def build_run(cfg: Dict) -> Run:
         limit_train_batches=tc.get("limit_train_batches"),
         limit_eval_batches=tc.get("limit_eval_batches"),
         cached_eval=tc.get("cached_eval", True),
+        row_shard_embeddings=tc.get("row_shard_embeddings", True),
+        tp_transformer=tc.get("tp_transformer", False),
         compute_dtype=normalize_precision(tc.get("precision")),
         overfit_batches=tc.get("overfit_batches"),
     )
@@ -435,8 +589,8 @@ def build_run(cfg: Dict) -> Run:
         trainer = AdversarialTrainer(sd_state, loss_fn, trainer_cfg,
                                      alpha=mc.get("alpha_coefficient", 0.15),
                                      beta=mc.get("beta_coefficient", 10.0),
-                                     ranking=ranking, loggers=loggers)
-        return Run(trainer, train_batcher, val_batcher, test_batcher, mind)
+                                     ranking=ranking, loggers=loggers, mesh=mesh)
+        return Run(trainer, train_batcher, val_batcher, test_batcher, mind, mesh)
     state = create_train_state(model, build_optimizer(cfg, len(train_batcher), model),
                                dropout_seed=cfg.get("seed", 0))
     n_params = param_count(model)
@@ -446,8 +600,9 @@ def build_run(cfg: Dict) -> Run:
         if hasattr(lg, "log_hparams"):
             lg.log_hparams({"param_count": n_params, "cfg": cfg})
 
-    trainer = Trainer(state, loss_fn, trainer_cfg, ranking=ranking, loggers=loggers)
-    return Run(trainer, train_batcher, val_batcher, test_batcher, mind)
+    trainer = Trainer(state, loss_fn, trainer_cfg, ranking=ranking, loggers=loggers,
+                      mesh=mesh, corpus=corpus, u_bucket=u_bucket)
+    return Run(trainer, train_batcher, val_batcher, test_batcher, mind, mesh)
 
 
 def run_aspect(cfg: Dict) -> Dict[str, float]:
@@ -457,7 +612,6 @@ def run_aspect(cfg: Dict) -> Dict[str, float]:
     from newsreclib_tpu_torch.training.aspect import run_aspect_training
 
     device = select_device(cfg)
-    check_single_device(cfg)
     out_dir = cfg["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
     write_config_tree(cfg, out_dir)
@@ -470,14 +624,50 @@ def run_aspect(cfg: Dict) -> Dict[str, float]:
 
 
 def run(cfg: Dict) -> Dict[str, float]:
+    """Train and test as ``cfg`` says (module doc); on several ranks, rank
+    0's metrics.  MANNeR's A-module trains on one device (rank 0 of a
+    multi-host run; the JAX package trains it outside its mesh)."""
+    from newsreclib_tpu_torch.parallel.mesh import destroy, env_rank
+
     _setup_logging()
+    launched = env_rank()
     if cfg["model"]["name"] == "manner_a":
-        return run_aspect(cfg)
-    r = build_run(cfg)
+        return run_aspect(cfg) if launched is None or launched[0] == 0 else {}
+    if launched is None and not cfg["trainer"].get("distributed"):
+        n = local_rank_count(cfg)
+        if n == 1:
+            return run_rank(cfg, None)
+        from newsreclib_tpu_torch.parallel.launch import spawn
+
+        log.info("trainer.devices: %d local ranks", n)
+        return spawn(_local_rank, n, (cfg,))[0]
+    mesh = setup_parallelism(cfg)
+    try:
+        return run_rank(cfg, mesh)
+    finally:
+        destroy()
+
+
+def _local_rank(rank: int, world: int, cfg: Dict) -> Dict[str, float]:
+    """One rank of ``trainer.devices=N`` (a ``spawn`` process)."""
+    from newsreclib_tpu_torch.parallel.mesh import destroy
+
+    _setup_logging()
+    mesh = setup_parallelism(cfg, rank, world)
+    try:
+        return run_rank(cfg, mesh)
+    finally:
+        destroy()
+
+
+def run_rank(cfg: Dict, mesh=None) -> Dict[str, float]:
+    """Fit, test and (``save_recs``, rank 0) export on this rank."""
+    r = build_run(cfg, mesh)
     metrics = r.trainer.fit(r.train_batcher, r.val_batcher, resume=bool(cfg.get("ckpt_path")))
     if cfg.get("test_after_train", True):
         metrics.update(r.trainer.test(r.test_batcher))
-    model = getattr(r.trainer.state, "model", None)
+    # the one-device model (rank 0's full copy on several ranks)
+    model = getattr(r.trainer, "_eval_model", None)
     if cfg.get("save_recs") and hasattr(model, "encode_news"):
         export_recommendations(cfg, r, model)
     log.info("final metrics: %s", {k: round(v, 4) for k, v in metrics.items()})

@@ -5,6 +5,12 @@ standard ``Trainer`` on the generator for validation, test and the
 generator's best / last checkpoints.  The discriminator has its own 'last'
 checkpoint under ``<ckpt_dir>/disc``, so a resume restores both networks
 and both optimizer states.
+
+``mesh``: single-node data parallelism (``newsreclib_tpu/training/
+adversarial.py:39-54``): both networks are placed on the grid, each rank
+trains on its rows of the global batch, and each network sums its own
+gradients over the data group; evaluation, the broadcast of the monitored
+value and the checkpoints follow ``Trainer``'s multi-rank rules.
 """
 
 from __future__ import annotations
@@ -17,7 +23,6 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from newsreclib_tpu_torch.data.batch import to_device
 from newsreclib_tpu_torch.data.batching import EvalBatcher, TrainBatcher
 from newsreclib_tpu_torch.metrics.collector import RankingMetrics
 from newsreclib_tpu_torch.models.fair_rec.senti_debias import (
@@ -36,11 +41,18 @@ class AdversarialTrainer:
 
     def __init__(self, state: SentiDebiasState, loss_fn, cfg: TrainerConfig,
                  alpha: float = 0.15, beta: float = 10.0,
-                 ranking: Optional[RankingMetrics] = None, loggers=()):
-        self.state = state
+                 ranking: Optional[RankingMetrics] = None, loggers=(), mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.step_fn = make_sentidebias_train_step(alpha, beta, cfg.compute_dtype)
-        self._eval_trainer = Trainer(state.g, loss_fn, cfg, ranking=ranking, loggers=loggers)
+        # the standard trainer over the generator places it on the mesh
+        self._eval_trainer = Trainer(state.g, loss_fn, cfg, ranking=ranking, loggers=loggers,
+                                     mesh=mesh)
+        if mesh is not None:
+            from newsreclib_tpu_torch.parallel.mesh import place_state
+
+            place_state(state.d, mesh, cfg.row_shard_embeddings)
+        self.state = state
         self.device = self._eval_trainer.device
         self.loggers = list(loggers)
         self.global_step = 0
@@ -90,7 +102,8 @@ class AdversarialTrainer:
             for i, batch in enumerate(train_batcher.epoch(epoch)):
                 if self.cfg.limit_train_batches and i >= self.cfg.limit_train_batches:
                     break
-                self.state, metrics = self.step_fn(self.state, to_device(batch, self.device))
+                self.state, metrics = self.step_fn(self.state,
+                                                   self._eval_trainer._prepare(batch))
                 self.global_step += 1
                 pending.append((i, metrics["g_loss"], metrics["d_loss"]))
                 drain()
@@ -113,13 +126,24 @@ class AdversarialTrainer:
                      time.time() - t1)
             self._log(metrics, self.global_step)
             history = metrics
+            if ckpt:
+                trees = [None, None]
+                if self.mesh is not None:  # collectives: every rank gathers
+                    from newsreclib_tpu_torch.parallel.mesh import gather_state
+
+                    trees = [gather_state(s) if s.sharded else None
+                             for s in (self.state.g, self.state.d)]
+                if self._eval_trainer.rank == 0:
+                    ckpt.save(self.state.g, self.global_step, metric=monitored,
+                              extra={"epoch": epoch}, tree=trees[0])
+                    if self._d_ckpt:
+                        self._d_ckpt.save(self.state.d, self.global_step, tree=trees[1])
+            if self.mesh is not None:
+                from newsreclib_tpu_torch.parallel.collectives import broadcast_value
+
+                monitored = broadcast_value(monitored, self.device)
             improved = best is None or (
                 monitored < best if self.cfg.mode == "min" else monitored > best)
-            if ckpt:
-                ckpt.save(self.state.g, self.global_step, metric=monitored,
-                          extra={"epoch": epoch})
-                if self._d_ckpt:
-                    self._d_ckpt.save(self.state.d, self.global_step)
             if improved:
                 best, bad = monitored, 0
             else:

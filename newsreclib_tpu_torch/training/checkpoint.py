@@ -6,6 +6,12 @@ monitored metric improves (lower for ``mode="min"``, higher for ``"max"``).
 Each holds the model's parameters, the optimizer's state and the step.
 ``last.json`` / ``best.json`` hold the loop's bookkeeping (step, metric,
 epoch), as in the JAX package.
+
+A sharded multi-rank run (``parallel/mesh.py``) writes the full state in
+the same format: the trainer gathers it on every rank (a collective) and
+rank 0 alone passes it to ``save`` as ``tree``; ``restore`` cuts a full
+checkpoint back to the shards of a sharded state, so the port's one-device
+``eval`` and a resumed run of either kind read the same files.
 """
 
 from __future__ import annotations
@@ -42,11 +48,15 @@ class Checkpointer:
         os.replace(tmp, self._path(which))
 
     def save(self, state, step: int, metric: Optional[float] = None,
-             extra: Optional[Dict[str, Any]] = None) -> bool:
+             extra: Optional[Dict[str, Any]] = None,
+             tree: Optional[Dict[str, Any]] = None) -> bool:
         """Save 'last'; also 'best' when ``metric`` improves on the best so
-        far.  Returns True if this became the best checkpoint."""
-        tree = {"params": state.model.state_dict(), "opt_state": state.opt.state_dict(),
-                "step": state.step}
+        far.  Returns True if this became the best checkpoint.  ``tree``:
+        the state to write when it is not ``state``'s own (the gathered full
+        state of a sharded run, ``parallel/mesh.py::gather_state``)."""
+        if tree is None:
+            tree = {"params": state.model.state_dict(), "opt_state": state.opt.state_dict(),
+                    "step": state.step}
         self._save_tree(tree, "last")
         self._write_json("last", {"step": step, "metric": metric, **(extra or {})})
         is_best = metric is not None and (
@@ -62,9 +72,14 @@ class Checkpointer:
 
     def restore(self, state, which: str = "best"):
         """Load the parameters, optimizer state and step of ``which`` into
-        ``state`` (in place; returned)."""
+        ``state`` (in place; returned); a sharded state gets its shards."""
         device = next(state.model.parameters()).device
         tree = torch.load(self._path(which), map_location=device, weights_only=True)
+        if getattr(state, "sharded", None):
+            from newsreclib_tpu_torch.parallel.mesh import load_full_state
+
+            load_full_state(state, tree)
+            return state
         state.model.load_state_dict(tree["params"])
         state.opt.load_state_dict(tree["opt_state"])
         state.step = int(tree["step"])

@@ -23,8 +23,8 @@ step for step:
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import List, Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,17 +87,38 @@ class Optimizer:
             return torch.optim.AdamW(params, weight_decay=self.weight_decay, **kw)
         return torch.optim.Adam(params, **kw)
 
-    def update(self, opt: torch.optim.Optimizer, step: int) -> None:
+    def update(self, opt: torch.optim.Optimizer, step: int, shards=None) -> None:
         """Clip the gradients, set the learning rate of update ``step`` and
-        step; no host synchronisation."""
+        step; no host synchronisation.  ``shards``: ``(ids of the sharded
+        parameters, their model group)`` of a sharded state, whose clip norm
+        counts each sharded parameter once over all its shards (the squares
+        of the local blocks summed over the group) and each replicated one
+        once."""
         params = [p for g in opt.param_groups for p in g["params"]]
         grads = [p.grad for p in params if p.grad is not None]
         if self.grad_clip_norm and grads:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if shards is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            else:
+                norm = _sharded_norm(params, *shards)
             torch._foreach_mul_(grads, (self.grad_clip_norm / norm).clamp(max=1.0))
         for g in opt.param_groups:
             g["lr"] = self.lr(step)
         opt.step()
+
+
+def _sharded_norm(params, sharded_ids, group) -> torch.Tensor:
+    from newsreclib_tpu_torch.parallel.collectives import all_reduce_
+
+    def sq(grads):
+        if not grads:
+            return torch.zeros((), device=params[0].device)
+        return torch.stack(torch._foreach_norm(grads)).square().sum()
+
+    local = [p.grad for p in params if p.grad is not None and id(p) in sharded_ids]
+    replicated = [p.grad for p in params if p.grad is not None and id(p) not in sharded_ids]
+    sharded_sq = all_reduce_(sq(local).reshape(1), group, "clip_norm")
+    return (sq(replicated) + sharded_sq[0]).sqrt()
 
 
 def make_optimizer(learning_rate: float = 1e-4, weight_decay: float = 0.0,
@@ -124,6 +145,10 @@ class TrainState:
     dropout_seed: int
     generator: torch.Generator
     step: int = 0
+    # set by parallel/mesh.py::place_state: this rank's Mesh and the sharded
+    # parameters, {name: (dimension, full size)}
+    grid: Optional[Any] = None
+    sharded: Dict[str, Tuple[int, int]] = field(default_factory=dict)
 
     def dropout_generator(self) -> torch.Generator:
         """The generator of this step's dropout, reseeded from (seed, step)
@@ -132,7 +157,11 @@ class TrainState:
         return self.generator.manual_seed(int(mixed[0]))
 
     def apply_gradients(self) -> None:
-        self.tx.update(self.opt, self.step)
+        shards = None
+        if self.sharded and self.grid.model_axis > 1:
+            params = dict(self.model.named_parameters())
+            shards = ({id(params[n]) for n in self.sharded}, self.grid.model_group)
+        self.tx.update(self.opt, self.step, shards)
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
 

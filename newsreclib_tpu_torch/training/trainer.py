@@ -1,21 +1,33 @@
 """Training loop: epochs, validation, early stopping, checkpoints (counterpart
-of ``newsreclib_tpu/training/trainer.py``), on one device.
+of ``newsreclib_tpu/training/trainer.py``).
 
 Fit-time evaluation uses the cached serving path (``serving.CachedScorer``:
 encode the corpus once per parameter version, then gather and score)
 whenever the model has ``encode_news`` / ``score_with_vectors`` and
 ``limit_eval_batches`` is unset; otherwise it streams ``EvalBatcher``
-batches through the eval step (``StreamingEval``).  The JAX package's mesh,
-multi-host and global-row branches are not ported (ROADMAP queue 1, "Multi-GPU")
-and raise if asked for.
+batches through the eval step (``StreamingEval``).
+
+Multi-rank (``mesh``, ``parallel/mesh.py``): the state is cut to this rank's
+shards (``place_state``), every batch to this rank's rows (a host-dedup
+batch here, a global-row batch inside the step), and the step sums the
+gradients over the data group.  ``corpus`` + ``u_bucket`` select global-row
+training (``data/batch.py::densify``), which multi-host mode requires.
+Evaluation follows the JAX package's multi-host rule (``trainer.py:243-297``):
+every rank joins the gather of a sharded state, then rank 0 scores the full
+set on its own device with a one-device copy of the model, so its metrics
+are one device's; the monitored value is broadcast from rank 0, rank 0
+alone writes the (gathered, full) checkpoints, and a restore cuts them back
+to the shards.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from collections import deque
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -28,9 +40,6 @@ from newsreclib_tpu_torch.training.state import TrainState
 from newsreclib_tpu_torch.training.steps import make_eval_step, make_train_step
 
 log = logging.getLogger("newsreclib_tpu_torch")
-
-_MULTI_DEVICE = ('is not ported yet (ROADMAP queue 1, "Multi-GPU"); the port trains on one '
-                 "device")
 
 
 @dataclass
@@ -45,6 +54,10 @@ class TrainerConfig:
     limit_train_batches: Optional[int] = None
     limit_eval_batches: Optional[int] = None
     cached_eval: bool = True  # fit-time eval from the news-vector cache
+    row_shard_embeddings: bool = True  # over the mesh's model axis, if > 1
+    # Megatron tensor parallelism of the PLM tower over the model axis
+    # (parallel/mesh.py): q/k/v/ff1 column-, attn_out/ff2 row-parallel
+    tp_transformer: bool = False
     # "bfloat16": bf16 compute on float32 master parameters; None: float32
     compute_dtype: Optional[str] = None
     # the finite check reads each step's loss this many steps later, so the
@@ -83,31 +96,80 @@ class Trainer:
         corpus=None,
         u_bucket: Optional[int] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"training over a device mesh {_MULTI_DEVICE}")
-        if corpus is not None or u_bucket is not None:
-            raise NotImplementedError(f"global-row training {_MULTI_DEVICE}")
+        """``mesh``: this rank's ``parallel/mesh.py::Mesh`` (None: one
+        device); ``state`` holds the full model, which the trainer cuts to
+        the rank's shards.  ``corpus`` (the store's ``NewsFeatures``,
+        numpy) and ``u_bucket``: global-row training (module doc)."""
         self.cfg = cfg
+        self.mesh = mesh
+        self.device = next(state.model.parameters()).device
+        # rank 0 evaluates a sharded run on a one-device copy of the model
+        self._eval_model = state.model
+        if mesh is not None:
+            from newsreclib_tpu_torch.parallel.mesh import place_state, shard_specs
+
+            specs = shard_specs({n: tuple(p.shape) for n, p in state.model.named_parameters()},
+                                mesh.model_axis, cfg.row_shard_embeddings, cfg.tp_transformer)
+            if specs:  # the full model before it is cut to this rank's shards
+                self._eval_model = copy.deepcopy(state.model) if mesh.rank == 0 else None
+            state = place_state(state, mesh, cfg.row_shard_embeddings, cfg.tp_transformer)
         self.state = state
         self.model = state.model
-        self.device = next(state.model.parameters()).device
         self.loggers = list(loggers)
         self.ranking = ranking or RankingMetrics()
-        self.train_step = make_train_step(loss_fn, compute_dtype=cfg.compute_dtype)
+        self.train_step = make_train_step(loss_fn, compute_dtype=cfg.compute_dtype,
+                                          u_bucket=u_bucket)
         self.eval_step = make_eval_step(loss_fn=loss_fn, ranking=self.ranking,
                                         compute_dtype=cfg.compute_dtype)
+        self.corpus = None if corpus is None else to_device(corpus, self.device)
         self.collect_auc_inputs = collect_auc_inputs
         self.ckpt = Checkpointer(cfg.ckpt_dir, mode=cfg.mode) if cfg.ckpt_dir else None
         self.global_step = 0
         self._cached_scorer = None
-        if (cfg.cached_eval and hasattr(type(self.model), "encode_news")
+        if (cfg.cached_eval and self._eval_model is not None
+                and hasattr(type(self.model), "encode_news")
                 and hasattr(type(self.model), "score_with_vectors")):
             from newsreclib_tpu_torch.serving import CachedScorer
 
             self._cached_scorer = CachedScorer(
-                self.model, ranking=self.ranking, compute_dtype=cfg.compute_dtype,
+                self._eval_model, ranking=self.ranking, compute_dtype=cfg.compute_dtype,
                 device=self.device, loss_fn=loss_fn,
             )
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _prepare(self, batch):
+        """A host batch on this rank's device: a host-dedup batch cut to the
+        rank's rows here; a global-row batch goes whole (the step densifies
+        and cuts it)."""
+        if self.mesh is not None and batch.news is not None:
+            # several multi-host data ranks: a rank's dedup table is not the
+            # global batch's
+            if not self.mesh.replicated_batches and self.mesh.data_size > 1:
+                raise ValueError(
+                    "multi-host shard_batch requires global-row batches (news=None): use "
+                    "TrainBatcher(global_rows=True) + Trainer(corpus=..., u_bucket=...)")
+            from newsreclib_tpu_torch.parallel.mesh import shard_batch
+
+            batch = shard_batch(batch, self.mesh)
+        return to_device(batch, self.device)
+
+    def _step(self, batch):
+        if self.corpus is not None:
+            return self.train_step(self.state, self._prepare(batch), self.corpus)
+        return self.train_step(self.state, self._prepare(batch))
+
+    def _full_state(self, with_opt: bool = True) -> Optional[Dict]:
+        """The full state tree of a sharded state (a collective: every rank
+        calls it), None otherwise; ``with_opt=False``: the parameters
+        alone."""
+        if not self.state.sharded:
+            return None
+        from newsreclib_tpu_torch.parallel.mesh import gather_state
+
+        return gather_state(self.state, with_opt)
 
     # ---------- loops ----------
 
@@ -134,7 +196,7 @@ class Trainer:
         for i, batch in enumerate(batcher.epoch(epoch)):
             if self.cfg.limit_train_batches and i >= self.cfg.limit_train_batches:
                 break
-            self.state, metrics = self.train_step(self.state, to_device(batch, self.device))
+            self.state, metrics = self._step(batch)
             loss = metrics["loss"]
             pending.append((i, loss))
             n += 1
@@ -154,6 +216,17 @@ class Trainer:
         }
 
     def evaluate(self, batcher: EvalBatcher, prefix: str = "val") -> Dict[str, float]:
+        """The metrics of ``batcher``'s impressions under ``prefix``; on a
+        multi-rank run rank 0's (the others return {}), after every rank
+        joined the gather of a sharded state."""
+        model = self.model
+        if self.mesh is not None:
+            tree = self._full_state(with_opt=False)  # before the rank gate: a collective
+            if self.rank != 0:
+                return {}
+            model = self._eval_model
+            if tree is not None:
+                model.load_state_dict(tree["params"])
         # the cached path unless the batches are limited (debug configs must
         # see the limit honoured) or the model cannot split
         if (self._cached_scorer is not None and not self.cfg.limit_eval_batches
@@ -171,7 +244,7 @@ class Trainer:
             if self.cfg.limit_eval_batches and i >= self.cfg.limit_eval_batches:
                 break
             batch = to_device(batch, self.device)
-            scores, per_imp, valid, loss = self.eval_step(self.state, batch)
+            scores, per_imp, valid, loss = self.eval_step(SimpleNamespace(model=model), batch)
             stream.update(
                 scores, per_imp, valid,
                 batch.labels if self.collect_auc_inputs else None,
@@ -216,16 +289,22 @@ class Trainer:
                 monitored = val_metrics.get(f"val/{self.cfg.monitor}")
             else:
                 monitored = train_metrics["train/loss"]
+            tree = self._full_state() if self.ckpt else None  # a collective
             log.info("epoch %d: %.3f s training, %.3f s validation", epoch, t1 - t0,
                      time.time() - t1)
             self._log(metrics, self.global_step)
             history = metrics
+            if self.ckpt and self.rank == 0:  # rank 0 alone writes the full state
+                self.ckpt.save(self.state, self.global_step, metric=monitored,
+                               extra={"epoch": epoch}, tree=tree)
+            if self.mesh is not None:
+                # every rank decides on rank 0's value, once rank 0 has saved
+                from newsreclib_tpu_torch.parallel.collectives import broadcast_value
+
+                monitored = broadcast_value(monitored, self.device)
             improved = best is None or (
                 monitored < best if self.cfg.mode == "min" else monitored > best
             )
-            if self.ckpt:
-                self.ckpt.save(self.state, self.global_step, metric=monitored,
-                               extra={"epoch": epoch})
             if improved:
                 best = monitored
                 bad_epochs = 0

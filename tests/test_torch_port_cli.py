@@ -161,18 +161,16 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
 
 # The PLM tower and PLM-mode tokenisation are ported (tests/test_torch_port_plm.py,
 # tests/test_torch_port_plm_data.py), and so are Adressa's one_week and
-# three_month data and xMIND (tests/test_torch_port_datasets.py); xMIND in PLM
-# mode, datasets the JAX package lacks and the multi-device settings are not.
+# three_month data and xMIND (tests/test_torch_port_datasets.py) and the
+# multi-device settings (tests/test_torch_port_parallel.py,
+# tests/test_torch_port_multiprocess.py); xMIND in PLM mode and datasets the
+# JAX package lacks are not.
 @pytest.mark.parametrize("overrides,item", [
     (["model=sentirec", "model.use_plm=true", "data.use_plm=true", "data.dataset=xmind"],
      "xMIND in PLM mode"),
-    (["data.global_rows=true"], '"Multi-GPU"'),
     (["data.dataset=plista"], '"Other datasets"'),
-    (["trainer.distributed=true"], '"Multi-GPU"'),
     (["model=senti_debias", "model.use_plm=true", "data.use_plm=true", "data.dataset=xmind"],
      "xMIND in PLM mode"),
-    (["trainer.model_axis=2"], '"Multi-GPU"'),
-    (["trainer.devices=4"], '"Multi-GPU"'),
 ])
 def test_unported_routes_raise(tmp_path, overrides, item):
     from newsreclib_tpu_torch.train import main

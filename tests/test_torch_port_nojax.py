@@ -13,7 +13,9 @@ Adressa data with ``save_recs``; another writes fixture tokenizers and runs
 the CLI in PLM mode and an Adressa PLM store with ``transformers``,
 ``tokenizers``, ``regex`` and ``safetensors`` blocked as well; another runs
 the sweep's console script, the BERT sentiment annotator and the profiling
-and timing utilities with those blocked too.
+and timing utilities with those blocked too; another starts 2 CPU ranks of
+the training CLI through the port's launcher (multi-host mode, the word
+table row-sharded), every interpreter with them blocked.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -443,6 +445,56 @@ def test_sweep_annotator_and_utilities_run_without_jax_or_tokenizer_libraries(tm
     assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
+BLOCKER = """
+import sys
+for name in %r:
+    sys.modules[name] = None  # any import of it now raises ImportError
+""" % (BLOCKED,)
+
+
+def test_multi_rank_training_runs_with_jax_blocked(tmp_path):
+    """The port's launcher starts 2 CPU ranks of the training CLI in
+    multi-host mode (``trainer.distributed=true``) with the word table
+    row-sharded over them (``trainer.model_axis=2``) on a copy of the demo
+    files, every interpreter (the launcher and both ``spawn`` ranks) with
+    JAX, flax, pandas, yaml and the JAX package blocked by a
+    ``sitecustomize``; the parallel modules import in it too."""
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sitecustomize.py").write_text(BLOCKER)
+    data = tmp_path / "data"
+    for split in ("MINDdemo_train", "MINDdemo_dev"):
+        (data / split).mkdir(parents=True)
+        for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+            (data / split / name).write_bytes((ROOT / "data" / "demo" / split / name)
+                                              .read_bytes())
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path / "site"), str(ROOT)]),
+               OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "NEWSRECLIB_PLATFORM"):
+        env.pop(k, None)
+    modules = subprocess.run(
+        [sys.executable, "-c", "import json, sys; import newsreclib_tpu_torch.parallel.mesh, "
+         "newsreclib_tpu_torch.parallel.collectives, newsreclib_tpu_torch.parallel.embedding, "
+         "newsreclib_tpu_torch.parallel.data, newsreclib_tpu_torch.parallel.launch; "
+         "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+         "and m.split('.')[0] in %r)))" % (BLOCKED,)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert modules.returncode == 0, modules.stderr[-3000:]
+    assert json.loads(modules.stdout.strip().splitlines()[-1]) == []
+    out = tmp_path / "run"
+    proc = subprocess.run(
+        [sys.executable, "-m", "newsreclib_tpu_torch.parallel.launch", "--nprocs", "2",
+         "--timeout", "200", "newsreclib_tpu_torch.train", "experiment=nrms_demo",
+         "platform=cpu", "trainer.distributed=true", "trainer.model_axis=2",
+         "trainer.max_epochs=1", "trainer.limit_train_batches=2", f"data.data_dir={data}",
+         "data.word_embeddings_fpath=null", f"output_dir={out}"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=260,
+        start_new_session=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (out / "checkpoints" / "best.pt").exists()
+    assert "test/auc" in (out / "metrics.csv").read_text()
+
+
 # no port module imports a tokenizer library: the BERT sentiment annotator
 # reads its checkpoint with the port's tokenizer reader and tower
 TOKENIZER_LIB_USERS = set()
@@ -466,6 +518,9 @@ def test_port_sources_import_no_jax():
     data = ROOT / "newsreclib_tpu_torch" / "data"
     assert {data / f"{m}.py" for m in ("adressa", "xmind", "fastetl", "testing",
                                        "download", "plm_tokenizer")} <= set(files)
+    parallel = ROOT / "newsreclib_tpu_torch" / "parallel"
+    assert {parallel / f"{m}.py" for m in ("mesh", "collectives", "embedding", "data",
+                                           "launch")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

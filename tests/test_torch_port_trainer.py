@@ -240,11 +240,31 @@ def test_non_finite_loss_stops_the_epoch(tmp_path):
 
 
 def test_trainer_refuses_mesh_and_global_rows(tmp_path):
-    make_state, loss_fn, _, _ = small_setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        Trainer(make_state(), loss_fn, TrainerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        Trainer(make_state(), loss_fn, TrainerConfig(), u_bucket=512)
+    """The mesh and global rows are ported (tests/test_torch_port_parallel.py);
+    what the trainer still refuses: a host-dedup batch on a rank of a
+    multi-host grid with several data ranks (its dedup table is not the
+    global batch's; JAX's ``shard_batch`` refusal), and a model axis that
+    does not split a tensor-parallel tower's heads."""
+    from newsreclib_tpu_torch.parallel.mesh import Mesh
+
+    make_state, loss_fn, train_b, _ = small_setup(tmp_path)
+    multi_host = Mesh(0, 2, 1, torch.device("cpu"), "gloo", None, None, False)
+    trainer = Trainer(make_state(), loss_fn, TrainerConfig(), mesh=multi_host)
+    with pytest.raises(ValueError, match="global-row batches"):
+        trainer._prepare(next(iter(train_b.epoch(0))))
+
+    from newsreclib_tpu_torch.models.components.plm import PLMTextEncoder, TransformerEncoder
+    from newsreclib_tpu_torch.models.general_rec import NRMS
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+
+    tower = PLMTextEncoder(TransformerEncoder(64, hidden_dim=24, num_layers=1, num_heads=3,
+                                              intermediate_dim=48), num_heads=4, query_dim=8)
+    model = NRMS(64, num_heads=4, query_dim=8, text_encoder_module=tower, text_encoder_dim=24,
+                 device="cpu")
+    grid = Mesh(0, 2, 2, torch.device("cpu"), "gloo", None, None, True)
+    with pytest.raises(ValueError, match="do not split over 2 model ranks"):
+        Trainer(create_train_state(model, make_optimizer()), loss_fn,
+                TrainerConfig(tp_transformer=True), mesh=grid)
 
 
 # ---------------------------------------------------------------- metrics
