@@ -207,7 +207,23 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    dropped on every rank) beyond it, each rank's launches exact (2 a
    step, forward and backward).  One card cannot show a true multi-GPU
    run;
-19. prints one ``{"kernels": [...]}`` line (the wide instances' own
+19. the long instances (L above 128, head dims beyond the box; phase 19a,
+   ``long_kernel_phase``, runs with the profiled phases after step 7's
+   kernel phase, 19b, ``long_phase``, last): both kernels at
+   ``kernel_bench.LONG_SHAPES`` (NRMS's user encoder at history 200 in a
+   train step and a served batch, the PLM head at 256 tokens, head dims
+   100, 150 and 1,024) in float32 and bf16 against ``mhsa_plain``,
+   ``mhsa_backward`` and autograd of the plain version, timed at
+   ``LONG_TIMED`` with the plain versions and SDPA, and a bf16 shape whose
+   qkv passes 2^31 values (``LONG_HUGE``) on its first and last sequences;
+   then NRMS at ``data.max_history_len=200``: a cached-serving epoch of the
+   serving workload drawn with 5 to 200 clicks (exact launches, the user
+   encoder's in the long instances, metrics against the plain attention's),
+   ``LONG_TRAIN_STEPS`` ``TrainBatcher`` steps at batch 64 in float32 and
+   bf16, kernel route against plain route, step 4's route check on a
+   planted-signal batch at history 200 with the planted faults, and the
+   demo CLI at history 200 through phase 11's checks;
+20. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -224,7 +240,11 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    without remat) in the wide entries, phase 16's under
    ``annotator_launches``, phase 17's under ``distributed_cli_launches``
    with its collectives, phase 18's per rank under
-   ``two_rank_launches_per_rank``) and, last, ``{"ok": true, ...}``.
+   ``two_rank_launches_per_rank``; the long instances' own entries
+   ``fused_small_mhsa_long`` / ``_backward``: phase 19b's launches, the
+   times at the train user encoder's (64, 200, 300, 15) and, under
+   ``u<U>_l<L>_d<D>_*``, at the other ``LONG_TIMED`` shapes) and, last,
+   ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
@@ -490,6 +510,24 @@ REMAT_STEPS, REMAT_RTOL = 3, 1e-5
 ANNOTATOR_DIR = os.path.join(ROOT, "build", "smoke_annotator")
 ANNOTATOR_TEXTS, ANNOTATOR_ATOL, ANNOTATOR_MAX_LEN = 256, 1e-4, 64
 ANNOTATOR_CLASSIFIERS = {"bpe": 3, "wordpiece": 2}  # tokenizer kind -> labels
+# Phase 19, the long instances (L above 128, head dims beyond the box):
+# NRMS's history cap raised to 200 (``data.max_history_len=200``), the
+# serving workload drawn with 5 to 200 clicks; ``kernel_bench.LONG_SHAPES``
+# checked, the main path's timed (``LONG_TIMED``); a bf16 shape whose qkv
+# holds more than 2^31 values, checked on its first and last
+# ``LONG_HUGE_CHECKED`` sequences against the plain version of those slices.
+# The other shapes' times: ``kernel_bench --shapes long`` (PERF.md, §6).
+LONG_HISTORY = 200
+LONG_SERVING = dict(SERVING, hist_len=LONG_HISTORY)
+LONG_TIMED = [(64, 200, 300, 15), (512, 200, 300, 15)]
+LONG_HUGE, LONG_HUGE_CHECKED = (2048, 512, 768, 16), 8
+LONG_TRAIN_STEPS = 5
+# The planted faults of the route check at history 200: keys unmasked.  The
+# 10% logit fault stays within ROUTE_ATOL there (the planted loss falls to 0
+# either way); it is left to the element checks of phase 19a
+# (``ELEMENT_FAULTS``).
+LONG_ROUTE_FAULTS = ("unmasked",)
+LONG_CLI_OVERRIDES = [f"data.max_history_len={LONG_HISTORY}"]
 
 
 def log(*a):
@@ -715,9 +753,10 @@ def set_attention(model, attention):
     return model
 
 
-def planted_batch():
+def planted_batch(hist_len=SERVING["hist_len"]):
     """The planted-signal batch of the route checks, on the card: batch 64,
-    history 50, 5 candidates over 1,024 articles with every field."""
+    history ``hist_len`` (50), 5 candidates over 1,024 articles with every
+    field."""
     import numpy as np
 
     from newsreclib_tpu_torch.data.batch import to_device
@@ -725,7 +764,7 @@ def planted_batch():
 
     cfg = SyntheticConfig(vocab_size=SERVING["vocab_size"])
     return to_device(make_batch(np.random.default_rng(0), batch_size=TRAIN_BATCH,
-                                hist_len=SERVING["hist_len"], num_candidates=5,
+                                hist_len=hist_len, num_candidates=5,
                                 unique_news=1024, cfg=cfg, planted_signal=True), "cuda")
 
 
@@ -2541,6 +2580,240 @@ def two_rank_phase(card: str, store, imp) -> dict:
     return out
 
 
+def long_kernel_phase():
+    """Phase 19a (module doc): both long kernels at ``kernel_bench.LONG_SHAPES``
+    in float32 and bfloat16, forward against ``mhsa_plain``, backward against
+    ``mhsa_backward`` and autograd of ``mhsa_plain`` (a fully masked sequence
+    gets no q or k gradient), timed at ``LONG_TIMED`` with the plain
+    versions and SDPA and made to reject the planted faults of
+    ``ELEMENT_FAULTS``; then the bf16 ``LONG_HUGE``, whose qkv passes 2^31
+    values, on its first and last ``LONG_HUGE_CHECKED`` sequences.  Returns
+    the forward and backward records and the largest errors each way."""
+    import torch
+
+    from newsreclib_tpu_torch.kernel_bench import (
+        ATOL,
+        LONG_SHAPES,
+        RTOL,
+        check_backward,
+        dtype_name,
+        measure_backward,
+        measure_shape,
+        mhsa_inputs,
+    )
+    from newsreclib_tpu_torch.ops import mhsa
+
+    def held(got, want, what):
+        name = dtype_name(got.dtype)
+        err = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got).all()) or not bool(
+                (err <= ATOL[name] + RTOL[name] * want.float().abs()).all()):
+            raise AssertionError(f"long instance {what} != plain: max abs err "
+                                 f"{err.max().item()}")
+        return err.max().item()
+
+    t_phase = time.perf_counter()
+    planted = element_faults()
+    fwd, bwd, errs = [], [], [0.0, 0.0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for u, l, d, h in LONG_SHAPES:
+            assert mhsa.long_instance(l, d, h)
+            if (u, l, d, h) in LONG_TIMED:
+                rec = measure_shape(u, l, dtype, [("kernel", mhsa.fused_small_mhsa)], d=d, h=h)
+                log("long_kernel_shape " + json.dumps(rec))
+                fwd.append(rec)
+                rec = measure_backward(u, l, dtype, d=d, h=h)
+                log("long_backward_shape " + json.dumps(rec))
+                bwd.append(rec)
+                shape_errs = [fwd[-1]["max_abs_err"], rec["max_abs_err"]]
+                for fault in ELEMENT_FAULTS[dtype_name(dtype)]:
+                    try:
+                        check_backward(u, l, dtype, d=d, h=h, **planted[fault])
+                    except AssertionError as e:
+                        log(f"planted fault {fault} at {(u, l, d, h)} {dtype}: caught ({e})")
+                    else:
+                        raise AssertionError(f"the element check at {(u, l, d, h)} {dtype} "
+                                             f"does not tell the planted fault {fault} from "
+                                             "the plain version")
+            else:
+                shape_errs = list(check_backward(u, l, dtype, d=d, h=h)[:2])
+            qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l, d=d)
+            g = torch.randn((u, l, d), generator=torch.Generator(device="cuda").manual_seed(u),
+                            device="cuda").to(dtype)
+            got = mhsa._backward(qkv, mask, h, g)
+            shape_errs.append(held(got, mhsa.mhsa_backward(qkv, mask, h, g),
+                                   f"backward at {(u, l, d, h)}"))
+            if not bool((got[0, :, :2 * d] == 0).all()):
+                raise AssertionError(f"the fully masked sequence got a q or k gradient at "
+                                     f"{(u, l, d, h)} {dtype}")
+            errs = [max(errs[0], shape_errs[0]), max(errs[1], *shape_errs[1:])]
+            log(f"long instance at {(u, l, d, h)} {dtype}: forward and backward held; max abs "
+                f"err: output {shape_errs[0]:.3g}, gradient against autograd of mhsa_plain "
+                f"{shape_errs[1]:.3g} and against mhsa_backward {shape_errs[2]:.3g}")
+
+    u, l, d, h = LONG_HUGE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn((u, l, 3 * d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    mask = torch.rand((u, l), generator=gen, device="cuda") < 0.7
+    mask[:, 0] = True
+    mask[0] = False
+    g = torch.randn((u, l, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    if qkv.numel() <= 2**31:
+        raise AssertionError(f"{LONG_HUGE} holds no more than 2^31 values")
+    t0 = time.perf_counter()
+    out = mhsa.fused_small_mhsa(qkv, mask, h)
+    dqkv = mhsa._backward(qkv, mask, h, g)
+    torch.cuda.synchronize()
+    huge_s = time.perf_counter() - t0
+    n = LONG_HUGE_CHECKED
+    for part in (slice(0, n), slice(u - n, u)):
+        errs[0] = max(errs[0], held(out[part], mhsa.mhsa_plain(qkv[part], mask[part], h),
+                                    f"forward at {LONG_HUGE}, sequences {part}"))
+        errs[1] = max(errs[1], held(dqkv[part], mhsa.mhsa_backward(qkv[part], mask[part], h,
+                                                                    g[part]),
+                                    f"backward at {LONG_HUGE}, sequences {part}"))
+    log(f"long instance at {LONG_HUGE} bfloat16 ({qkv.numel()} qkv values, > 2^31): forward "
+        f"and backward {huge_s:.2f} s, held on sequences 0-{n - 1} and {u - n}-{u - 1}")
+    del qkv, mask, g, out, dqkv
+    torch.cuda.empty_cache()
+    log(f"long kernel phase (19a): {time.perf_counter() - t_phase:.1f} s")
+    return fwd, bwd, errs
+
+
+def long_phase(card: str) -> dict:
+    """Phase 19b (module doc): the long instances on the main path at
+    ``data.max_history_len=200``, every count set to 0 just before each run
+    and read just after: one cached-serving epoch of the serving workload
+    drawn with up to 200 clicks (bf16, exact launches, the user encoder's
+    all long; metrics against the plain attention's in bf16 over the epoch
+    and in float32 over ``COMPARE_IMPRESSIONS``); ``LONG_TRAIN_STEPS``
+    ``TrainBatcher`` steps at batch 64 and history 200 in float32 and bf16
+    compute from the same weights under ``reproducible``, kernel route
+    against plain route (``ROUTE_ATOL``) with exact launches, then phase 4's
+    route check on a planted-signal batch at history 200 (the planted
+    faults of ``LONG_ROUTE_FAULTS`` beyond the tolerance); the demo CLI with
+    ``LONG_CLI_OVERRIDES`` through ``cli_phase``'s checks (exact launches,
+    the restored test with the plain attention), every user-encoder call at
+    L = 200 in the long instances.  Returns the launches and timings."""
+    import numpy as np
+    import torch
+
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.data.synthetic import make_serving_workload
+    from newsreclib_tpu_torch.models.general_rec import NRMS
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, attention_launches
+    from newsreclib_tpu_torch.serving import CachedScorer, corpus_segments
+
+    def reset():
+        torch.cuda.synchronize()
+        for k in ("launches", "bwd_launches", "wide_launches", "wide_bwd_launches",
+                  "long_launches", "long_bwd_launches"):
+            setattr(mhsa, k, 0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(fwd=mhsa.launches, bwd=mhsa.bwd_launches, long=mhsa.long_launches,
+                    long_bwd=mhsa.long_bwd_launches)
+
+    t_phase = time.perf_counter()
+    out = {}
+    store, imp = make_serving_workload(np.random.default_rng(0), **LONG_SERVING)
+    evl = dict(EVAL, max_history_len=LONG_HISTORY)
+    model = NRMS(SERVING["vocab_size"], device="cuda",
+                 generator=torch.Generator().manual_seed(0)).eval()
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    scorer = CachedScorer(model_bf16, device="cuda")
+    scorer.evaluate(store, imp, **evl)  # warm-up: builds the device caches
+    reset()
+    t0 = time.perf_counter()
+    metrics = scorer.evaluate(store, imp, **evl)
+    epoch_s = time.perf_counter() - t0
+    got = counts()
+    encode = sum(math.ceil(len(rows) / ENCODE_BATCH)
+                 for rows, _ in corpus_segments(store, 16, ENCODE_BATCH))
+    expected = serving_launches(store, imp, LONG_HISTORY)
+    log(f"long serving epoch (history up to {LONG_HISTORY}): {epoch_s:.4f} s for {len(imp)} "
+        f"impressions on {card}; launches {json.dumps(got)} ({expected} expected, "
+        f"{expected - encode} of them the user encoder's, long)")
+    if got["fwd"] != expected or got["long"] != expected - encode or got["bwd"]:
+        raise AssertionError(f"long serving epoch launches {got} ({expected} expected, "
+                             f"{expected - encode} long)")
+    want = CachedScorer(plain_copy(model_bf16), device="cuda").evaluate(store, imp, **evl)
+    sub = imp.subset(COMPARE_IMPRESSIONS)
+    got32 = CachedScorer(model, device="cuda").evaluate(store, sub, **evl)
+    want32 = CachedScorer(plain_copy(model), device="cuda").evaluate(store, sub, **evl)
+    for name, a, b in (("bfloat16", metrics, want), ("float32", got32, want32)):
+        diff = max(abs(a[k] - b[k]) for k in b)
+        log(f"long served metrics, kernel vs plain attention, {name}: max abs diff {diff:.3g} "
+            f"(tolerance {METRIC_ATOL[name]})")
+        if set(a) != set(b) or diff > METRIC_ATOL[name] or not all(
+                math.isfinite(v) for v in a.values()):
+            raise AssertionError(f"long served metrics differ ({name}): {a} vs {b}")
+    out["serving"] = dict(got, epoch_s=epoch_s, metrics=metrics)
+
+    data = dict(DATA, max_history_len=LONG_HISTORY)
+    batches = [b for _, b in zip(range(LONG_TRAIN_STEPS),
+                                 TrainBatcher(store, imp, batch_size=TRAIN_BATCH,
+                                              **data).epoch(0))]
+    expected = sum(attention_launches(b) for b in batches)
+    users = {tuple(b.hist_idx.shape) for b in batches}
+    batches = [to_device(b, "cuda") for b in batches]
+    planted = [planted_batch(LONG_HISTORY)] * ROUTE_STEPS
+    out["train"] = {}
+    for name, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+        reset()
+        t0 = time.perf_counter()
+        kernel = route_losses(batches, cdtype, PLANTED_LR, None)[0]
+        wall_s = time.perf_counter() - t0
+        got = counts()
+        plain = route_losses(batches, cdtype, PLANTED_LR, "plain")[0]
+        diff = (kernel - plain).abs().max().item()
+        log(f"long train steps ({LONG_TRAIN_STEPS} at batch {TRAIN_BATCH}, histories "
+            f"{sorted(users)}), {name}: launches {json.dumps(got)} ({expected} expected each "
+            f"way, {LONG_TRAIN_STEPS} long); kernel vs plain route max abs diff {diff:.3g} "
+            f"(tolerance {ROUTE_ATOL[name]}); losses {kernel.tolist()}; {wall_s:.2f} s")
+        if (got["fwd"], got["bwd"], got["long"], got["long_bwd"]) != (
+                expected, expected, LONG_TRAIN_STEPS, LONG_TRAIN_STEPS):
+            raise AssertionError(f"long train launches {got} ({expected} each way, "
+                                 f"{LONG_TRAIN_STEPS} long expected)")
+        if not bool(torch.isfinite(kernel).all()) or diff > ROUTE_ATOL[name]:
+            raise AssertionError(f"long train losses differ ({name}): {kernel} vs {plain}")
+        # the route check of phase 4 on a planted-signal batch at history 200
+        kernel = route_losses(planted, cdtype, PLANTED_LR, None)[0]
+        plain = route_losses(planted, cdtype, PLANTED_LR, "plain")[0]
+        route = (kernel - plain).abs().max().item()
+        faults = {f: (route_losses(planted, cdtype, PLANTED_LR, FAULTS[f])[0]
+                      - plain).abs().max().item() for f in LONG_ROUTE_FAULTS}
+        log(f"long route check, {ROUTE_STEPS} steps on a planted-signal batch at history "
+            f"{LONG_HISTORY}, {name}: kernel vs plain max abs diff {route:.3g} (tolerance "
+            f"{ROUTE_ATOL[name]}); planted faults {json.dumps(faults)}; kernel "
+            f"{kernel[0].item():.5f} -> {kernel[-1].item():.5f}")
+        if not bool(torch.isfinite(kernel).all()) or route > ROUTE_ATOL[name]:
+            raise AssertionError(f"long route losses differ ({name}): {kernel} vs {plain}")
+        missed = [f for f, v in faults.items() if not v > ROUTE_ATOL[name]]
+        if missed:
+            raise AssertionError(f"the long route check ({name}) does not tell the planted "
+                                 f"faults {missed} from the plain attention: {faults}")
+        out["train"][name] = dict(got, diff=diff, route_diff=route, wall_s=wall_s)
+
+    reset()
+    with kernel_shapes({}) as seen:
+        fwd, bwd, wall_s = cli_phase(card, LONG_CLI_OVERRIDES)
+    got = counts()
+    at_history = sum(n for (_, l), n in seen.items() if l == LONG_HISTORY)
+    log(f"long CLI run (history {LONG_HISTORY}): launches {json.dumps(got)}, the kernel saw "
+        f"(U, L) {json.dumps({f'{u}x{l}': n for (u, l), n in sorted(seen.items())})}")
+    if not at_history or got["long"] != at_history or got["long"] != sum(
+            n for (_, l), n in seen.items() if mhsa.long_instance(l, D, 15)):
+        raise AssertionError(f"the long CLI run's user encoder did not run in the long "
+                             f"instances: {got}, shapes {seen}")
+    out["cli"] = dict(got, wall_s=wall_s)
+    log(f"long phase (19b): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     # cuBLAS repeats its results only with a fixed workspace (``reproducible``);
     # set before the first cuBLAS handle is made
@@ -2593,6 +2866,7 @@ def main() -> int:
     bwd_main, bwd_f32 = (next(r for r in bwd_records if r["dtype"] == name)
                          for name in ("bfloat16", "float32"))
     zoo_fwd, zoo_bwd = zoo_kernel_phase()
+    long_fwd, long_bwd, long_errs = long_kernel_phase()
     # after the profiled phases: with the CLI phase before them, a profiler
     # window recorded no device time, and with the zoo phase before them six
     # windows in a row recorded fewer kernels than calls (one H100 run each)
@@ -2610,6 +2884,7 @@ def main() -> int:
     annotator = annotator_phase(card)
     dist_cli = distributed_cli_phase(card)
     two_rank = two_rank_phase(card, store, imp)
+    long_run = long_phase(card)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -2791,6 +3066,39 @@ def main() -> int:
             "served_epoch_s": plm_epoch_s,
             "served_peak_mb": plm_peak_mb,
             **by_shape,
+        })
+    for name, recs, prefix, err in (("fused_small_mhsa_long", long_fwd, "", long_errs[0]),
+                                    ("fused_small_mhsa_long_backward", long_bwd, "bwd_",
+                                     long_errs[1])):
+        by_shape = {}
+        for shape in LONG_TIMED:
+            for t, tag in (("bfloat16", ""), ("float32", "f32_")):
+                r = zoo_rec(recs, shape, t)
+                key = "" if shape == LONG_TIMED[0] else f"u{shape[0]}_l{shape[1]}_d{shape[2]}_"
+                by_shape.update({key + tag + "ms": r[prefix + "ms"],
+                                 key + tag + "bound_ms": r[prefix + "bound_ms"],
+                                 key + tag + "bound_by": r[prefix + "bound_by"],
+                                 key + tag + "plain_ms": r["plain_" + prefix + "ms"],
+                                 key + tag + "library_ms": r["library_" + prefix + "ms"]})
+        runs = [long_run["serving"]] if not prefix else []
+        runs += list(long_run["train"].values()) + [long_run["cli"]]
+        key = "long_bwd" if prefix else "long"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
+            "replaces": ("newsreclib_tpu/ops/mhsa.py:160" if not prefix else
+                         "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
+                        + " at L above 128 and head dims beyond the wide instances' box",
+            "launches": sum(run[key] for run in runs),
+            "max_abs_err": err,
+            **by_shape,
+            "shape": list(LONG_TIMED[0]),
+            "serving_launches": long_run["serving"][key],
+            "serving_epoch_s": long_run["serving"]["epoch_s"],
+            "train_launches": {k: v[key] for k, v in long_run["train"].items()},
+            "cli_launches": long_run["cli"][key],
+            "cli_wall_s": long_run["cli"]["wall_s"],
         })
     log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
     log("MANNeR ensemble served metrics: " + json.dumps(ensemble_metrics))

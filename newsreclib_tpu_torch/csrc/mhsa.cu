@@ -3,9 +3,10 @@
 // 30) and of its user encoder (L = 50), at D = 300, H = 15, hd = 20, of
 // the other GloVe models (MINS, CenNewsRec, CAUM: hd 15, 20 and 50, D up to
 // 400), and of the PLM tower's MHSA (16 heads of 48, L up to 96).  The
-// forward is described first; the backward (nrl_mhsa_bwd) after it; the
-// general per-head instances, for head dims above 32 and L above 64, last
-// ("wide").
+// forward is described first; the backward (nrl_mhsa_bwd) after it; then
+// the general per-head instances, for head dims above 32 and L above 64
+// ("wide"); last the streaming instances for every shape outside their box,
+// such as NRMS's user encoder at a history of 200 ("long").
 //
 // Replaces the TPU kernel newsreclib_tpu/ops/mhsa.py::fused_small_mhsa (body
 // _attention_kernel, pallas_call at ops/mhsa.py:198) and computes what
@@ -116,18 +117,19 @@
 // takes L * 3 hd * 4 bytes (+ L * hd * 4 for dO in the backward), each
 // rounded up to 16, plus the key biases: at most 33 KB.  A wide block takes
 // at most 141,312 bytes (below), so inside the box every shape fits.
-// ops/mhsa.py::kernel_supports applies the same rule first; L > 128 would
-// need the keys streamed through shared memory, as the TPU kernel streams
-// them.
+// Every other shape, any L and head dims up to 1,024, runs in the long
+// instances, which stream the keys through shared memory as the TPU kernel
+// streams them (see "long" below; their blocks fit at every head dim up to
+// 1,024).  ops/mhsa.py::kernel_supports applies the same rule first.
 //
 // C entry point (bound with ctypes):
 //   int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out,
 //                    int U, int L, int D, int H, int dtype, void* stream)
 // qkv (U, L, 3D) and out (U, L, D) are contiguous, dtype 0 = float32,
 // 1 = bfloat16; mask (U, L) is one byte per position, nonzero = valid key;
-// (L, D / H) in the box above.  Launches on `stream`, does not synchronise,
-// allocates nothing, and returns the cudaError_t of the launch (0 on
-// success; cudaErrorInvalidValue for a shape outside the rule).
+// (L, D / H) within the rule above.  Launches on `stream`, does not
+// synchronise, allocates nothing, and returns the cudaError_t of the launch
+// (0 on success; cudaErrorInvalidValue for a shape outside the rule).
 //
 // Backward.  The TPU kernel has none: the JAX package trains through XLA
 // autodiff of mhsa_reference, and this computes that gradient (what
@@ -191,20 +193,23 @@
 //   run to run.
 //
 //   int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* dout,
-//                    void* dqkv, int U, int L, int D, int H, int dtype,
-//                    void* stream)
+//                    void* dqkv, void* workspace, int U, int L, int D, int H,
+//                    int dtype, void* stream)
+//   size_t nrl_mhsa_bwd_workspace(int U, int L, int D, int H, int dtype)
 // qkv (U, L, 3D), dout (U, L, D) and dqkv (U, L, 3D) contiguous in the
-// input type; the rest as nrl_mhsa_fwd.
+// input type; workspace at least nrl_mhsa_bwd_workspace bytes, 4-byte
+// aligned (the long instances' row statistics; 0 bytes, any pointer, for
+// the others); the rest as nrl_mhsa_fwd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-// Built whole by default.  ops/build.py compiles it in three parts at once
+// Built whole by default.  ops/build.py compiles it in four parts at once
 // and links them (the wide instances are most of the build time): NRL_PART
 // 1 holds the hd <= 32 instances, the shape rule and the C entry points,
-// 2 the wide bf16 instances, 3 the wide f32 ones.
+// 2 the wide bf16 instances, 3 the wide f32 ones, 4 the long ones.
 #ifndef NRL_PART
 #define NRL_PART 0
 #endif
@@ -214,9 +219,10 @@ namespace {
 
 constexpr float kMaskMin = -1e30f;
 constexpr int kNarrowMaxLen = 64;    // L of the hd <= 32 instances (their key bias buffers)
-constexpr int kMaxLen = 128;         // L of the wide instances
-constexpr int kMaxHeadDim = 128;     // head dim, at L <= 64
-constexpr int kLongMaxHeadDim = 64;  // head dim at L above 64
+constexpr int kBoxMaxLen = 128;      // L of the wide instances
+constexpr int kBoxMaxHeadDim = 128;  // their head dim at L <= 64
+constexpr int kBoxLongHeadDim = 64;  // their head dim at L above 64
+constexpr int kMaxHeadDim = 1024;    // head dim of the long instances (any L)
 constexpr int kSmemLimit = 232448;       // one block's dynamic shared memory
 constexpr int kSmemTarget = 113 * 1024;  // per block, so that two fit on an SM
 constexpr int kMaxDevices = 64;
@@ -1427,8 +1433,8 @@ constexpr int kNarrowHeadDim = 32;  // the widest head of the hd <= 32 instances
 // The shapes the kernels take: head dim up to 128 at L <= 64, up to 64 at
 // L <= 128.
 __host__ __device__ inline bool kernel_box(int L, int hd) {
-  return L >= 1 && hd >= 1 && ((L <= kNarrowMaxLen && hd <= kMaxHeadDim) ||
-                               (L <= kMaxLen && hd <= kLongMaxHeadDim));
+  return L >= 1 && hd >= 1 && ((L <= kNarrowMaxLen && hd <= kBoxMaxHeadDim) ||
+                               (L <= kBoxMaxLen && hd <= kBoxLongHeadDim));
 }
 
 // Row stride, in values, of a staged head array.
@@ -2436,6 +2442,523 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
     wide_bwd_b_f32<KT>(w, warp, g + D, g + 2 * D, 3 * D);
 }
 
+// ---------------------------------------------------------------- long ---
+//
+// The streaming instances ("long"), in both types: every shape outside the
+// box of kernel_box, that is L above 128, head dims above 64 at L above 64,
+// and head dims above 128, up to kMaxHeadDim (1,024, bert-large's width as
+// one head) at any L.  NRMS's user encoder at data.max_history_len = 200
+// (L = 200, 15 heads of 20), the PLM head at tokenizer_max_len = 256 (16
+// heads of 48), CAUM's default head dim 100 at L = 100 and two heads over
+// 300 (head dim 150) run here.  Shapes inside the box keep their instances.
+//
+// Like the TPU kernel (_attention_kernel, ops/mhsa.py:105), the forward
+// streams the keys with an online softmax whose running max starts at the
+// finite -1e30 (never -inf): a tile whose keys are all masked then leaves
+// the running state as it was, and a fully masked sequence ends with the
+// uniform mean of v over its L keys, however many tiles they span.
+//
+// What bounds it on the H100.  At the train user encoder's (64, 200, 300,
+// 15) the products: 4 U L^2 D = 3.1 GFLOP against 23 MB of qkv and
+// context, so 0.046 ms at the f32 CUDA-core rate against 0.007 ms of bytes
+// (bf16: 0.0031 ms on the tensor cores, 0.0052 ms of bytes).  This first
+// version is the simple one, without tensor cores: every product runs
+// in f32 FMA on the CUDA cores, from tiles staged in shared memory as f32
+// (bf16 is upcast when staged), so both types get the plain version's f32
+// sums in another order (float32 within 1e-5; bf16 rounds once, at the
+// output).  Making it fast (mma.sync / wgmma, TMA, a ring of tiles) is
+// later work.  The design:
+//
+// * Tiles of T rows, T from the head dim (long_tile: 64 up to head dim 64,
+//   32 up to 256, 16 up to 512, 8 up to 1,024), so that the largest block
+//   (the dK/dV kernel's six T x hd tiles and two T x T ones) fits the
+//   232,448 bytes of shared memory.  Rows are staged with an odd stride
+//   (hd | 1 floats), so the column reads of the products fall in distinct
+//   banks.  Rows past L are staged as zeros; keys past L take the bias
+//   -inf (p = 0), masked keys -1e30.  All offsets into qkv, dO and the
+//   outputs are 64-bit: U L 3D passes 2^31 values at PLM widths.
+// * 128 threads a block.  The T x T logit tile is computed in registers,
+//   a thread holding T / 16 rows (rows ty + 16 a) by T / 8 keys (tx + 8 b);
+//   the 8 threads of a row are neighbouring lanes, so the row max and sum
+//   of the online softmax are three shuffles each.  The p (or dS) tile then
+//   goes to shared memory, and the T x hd product with v (or k, q, dO)
+//   accumulates into an f32 tile in shared memory, each thread a 4 x 4
+//   block of it (rows r + T / 4 a, columns 4 c .. 4 c + 3) per turn.
+// * Forward: one block per (sequence, head, query tile); the key and value
+//   tiles stream through shared memory.
+// * Backward, FlashAttention-2's split, three launches, no atomics:
+//   (1) one block per query tile streams the keys as the forward does and
+//   writes per query row its max (in log2 units), 1 / sum and D =
+//   rowsum(dP * P), summed online, into a workspace of U H L x 3 floats
+//   (nrl_mhsa_bwd_workspace; the wrapper allocates it through torch's
+//   allocator); (2) one block per query tile: P from those
+//   statistics, dP = dO V^T, dS = P (dP - D) and 0 at masked keys, dQ +=
+//   dS K over the key tiles; (3) one block per key tile: the same P^T and
+//   dS^T with keys as the rows, dV += P^T dO and dK += dS^T Q over the
+//   query tiles.  (2) and (3) form each logit as the same chain of FMAs in
+//   the same order, so P is the same bits in both, and (1) forms dP as
+//   they do, so dP - D cancels as in the plain version.  A fully masked
+//   sequence gets dS = 0, so no gradient on q and k, and dV = the mean of
+//   dO.
+constexpr int kLongThreads = 128;
+
+// Rows of a tile, from the head dim.
+__host__ __device__ inline int long_tile(int hd) {
+  return hd <= 64 ? 64 : hd <= 256 ? 32 : hd <= 512 ? 16 : 8;
+}
+// Shared memory of the long kernels: 0 the forward (the backward's
+// statistics kernel needs less), 1 the dQ kernel, 2 the dK / dV kernel (the
+// largest): T x hs tiles (hs = hd | 1 floats a row), T x (T + 1) tiles of p
+// or dS, and four vectors of T floats.
+__host__ __device__ inline size_t long_smem(int hd, int kind) {
+  const size_t T = long_tile(hd), hs = hd | 1;
+  return 4 * ((kind + 4) * T * hs + (kind == 2 ? 2 : 1) * T * (T + 1) + 4 * T);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Rows r0 .. r0 + T - 1 of one head's hd columns of a sequence (`src`: its
+// row 0 at the head's first column, rows `row` values apart) into `dst` as
+// f32 (T rows of hs floats), rows at or past L as zeros; a warp a row.
+template <typename E>
+__device__ void long_stage(float* dst, const E* src, size_t row, int r0, int T, int L, int hd,
+                           int hs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < T; r += kLongThreads / 32) {
+    if (r0 + r < L) {
+      const E* s = src + (size_t)(r0 + r) * row;
+      for (int c = lane; c < hd; c += 32) dst[r * hs + c] = to_f32(s[c]);
+    } else {
+      for (int c = lane; c < hd; c += 32) dst[r * hs + c] = 0.f;
+    }
+  }
+}
+
+// Key biases of keys k0 .. k0 + T - 1: 0 (valid), -1e30 (masked), -inf (past L).
+__device__ void long_biases(float* sbias, const uint8_t* msk, int k0, int T, int L) {
+  for (int j = threadIdx.x; j < T; j += kLongThreads)
+    sbias[j] = k0 + j < L ? (msk[k0 + j] ? 0.f : kMaskMin) : -INFINITY;
+}
+
+// Per query row q0 + i of the tile: max (log2 units), 1 / sum and D from
+// the workspace, 0 past L (so that P recomputed from them is 0).
+__device__ void long_load_stats(float* sm, float* sinv, float* sdd, const float* stats, int q0,
+                                int T, int L) {
+  for (int i = threadIdx.x; i < T; i += kLongThreads) {
+    const bool on = q0 + i < L;
+    sm[i] = on ? stats[3 * (size_t)(q0 + i)] : 0.f;
+    sinv[i] = on ? stats[3 * (size_t)(q0 + i) + 1] : 0.f;
+    sdd[i] = on ? stats[3 * (size_t)(q0 + i) + 2] : 0.f;
+  }
+}
+
+template <int T>
+struct LongTile {
+  static constexpr int TM = T >= 16 ? T / 16 : 1;  // rows of a thread (ty + 16 a)
+  static constexpr int TN = T / 8;                 // columns of a thread (tx + 8 b)
+  static constexpr int RT = T >= 16 ? 16 : T;      // threads down the rows (ty < RT)
+};
+
+// NP tiles of dot products at once: acc[p][a][b] = sum over k < hd of
+// ra[p][row a] * cb[p][row b], one FMA chain in k order (so the same logit
+// comes out the same bits whichever side holds the queries).
+template <int T, int NP>
+__device__ __forceinline__ void long_dots(float (&acc)[NP][LongTile<T>::TM][LongTile<T>::TN],
+                                          const float* const (&ra)[NP],
+                                          const float* const (&cb)[NP], int ty, int tx, int hd,
+                                          int hs) {
+  using LT = LongTile<T>;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int a = 0; a < LT::TM; ++a)
+#pragma unroll
+      for (int b = 0; b < LT::TN; ++b) acc[p][a][b] = 0.f;
+  for (int k = 0; k < hd; ++k) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float x[LT::TM], y[LT::TN];
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a) x[a] = ra[p][(ty + 16 * a) * hs + k];
+#pragma unroll
+      for (int b = 0; b < LT::TN; ++b) y[b] = cb[p][(tx + 8 * b) * hs + k];
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a)
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) acc[p][a][b] = fmaf(x[a], y[b], acc[p][a][b]);
+    }
+  }
+}
+
+// acc (T x hd, rows of hs) = acc * rowscale[i] (where given) + A B, with A
+// a T x T tile (rows of T + 1) and B T x hd (rows of hs); a thread a 4 x 4
+// block per turn: rows r + T / 4 a, columns 4 c .. 4 c + 3 below hd.
+template <int T>
+__device__ void long_accum(float* acc, const float* A, const float* B, const float* rowscale,
+                           int hd, int hs) {
+  constexpr int RG = T / 4;
+  const int blocks = RG * ((hd + 3) / 4);
+  for (int t = threadIdx.x; t < blocks; t += kLongThreads) {
+    const int r = t % RG, c0 = t / RG * 4;
+    int col[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) col[b] = c0 + b < hd ? c0 + b : hd - 1;
+    float o[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = r + RG * a;
+      const float s = rowscale ? rowscale[i] : 1.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) o[a][b] = acc[i * hs + col[b]] * s;
+    }
+    for (int j = 0; j < T; ++j) {
+      float x[4], y[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) x[a] = A[(r + RG * a) * (T + 1) + j];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) y[b] = B[j * hs + col[b]];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) o[a][b] = fmaf(x[a], y[b], o[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (c0 + b < hd) acc[(r + RG * a) * hs + c0 + b] = o[a][b];
+  }
+}
+
+// Zero n floats of shared memory.
+__device__ void long_zero(float* dst, int n) {
+  for (int i = threadIdx.x; i < n; i += kLongThreads) dst[i] = 0.f;
+}
+
+// Sum over the 8 neighbouring lanes of a row (max with MAX).
+template <bool MAX>
+__device__ __forceinline__ float row8(float x) {
+#pragma unroll
+  for (int o = 1; o <= 4; o <<= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = MAX ? fmaxf(x, y) : x + y;
+  }
+  return x;
+}
+
+// The block's (sequence, head, tile) from blockIdx.x, tiles fastest.
+struct LongBlock {
+  size_t u;
+  int h, t0;
+};
+__device__ __forceinline__ LongBlock long_block(int H, int ntiles, int T) {
+  const size_t b = blockIdx.x;
+  const size_t uh = b / ntiles;
+  return LongBlock{uh / H, (int)(uh % H), (int)(b % ntiles) * T};
+}
+
+// Forward: one block per (sequence, head, query tile), the key tiles
+// streamed with the online softmax.
+template <typename E, int T>
+__global__ void __launch_bounds__(kLongThreads)
+    mhsa_long_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                     E* __restrict__ out, int L, int D, int H, float scale_log2) {
+  using LT = LongTile<T>;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, hs = hd | 1;
+  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* so = sq + T * hs;
+  float* sk = so + T * hs;
+  float* sv = sk + T * hs;
+  float* sp = sv + T * hs;
+  float* sbias = sp + T * (T + 1);
+  float* salpha = sbias + T;
+  float* sinv = salpha + T;
+  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const uint8_t* msk = mask + blk.u * L;
+  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
+  long_zero(so, T * hs);
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const bool on = ty < LT::RT;
+  float m_run[LT::TM], l_run[LT::TM];
+#pragma unroll
+  for (int a = 0; a < LT::TM; ++a) {
+    m_run[a] = kMaskMin;
+    l_run[a] = 0.f;
+  }
+  for (int k0 = 0; k0 < L; k0 += T) {
+    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_biases(sbias, msk, k0, T, L);
+    __syncthreads();
+    if (on) {
+      float s[1][LT::TM][LT::TN];
+      const float* const ra[1] = {sq};
+      const float* const cb[1] = {sk};
+      long_dots<T, 1>(s, ra, cb, ty, tx, hd, hs);
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a) {
+        const int i = ty + 16 * a;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          s[0][a][b] = fmaf(s[0][a][b], scale_log2, sbias[tx + 8 * b]);
+          mx = fmaxf(mx, s[0][a][b]);
+        }
+        const float m_new = fmaxf(m_run[a], row8<true>(mx));
+        const float alpha = ex2(m_run[a] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          const float p = ex2(s[0][a][b] - m_new);
+          sp[i * (T + 1) + tx + 8 * b] = p;
+          sum += p;
+        }
+        l_run[a] = l_run[a] * alpha + row8<false>(sum);
+        m_run[a] = m_new;
+        if (tx == 0) salpha[i] = alpha;
+      }
+    }
+    __syncthreads();
+    long_accum<T>(so, sp, sv, salpha, hd, hs);
+    __syncthreads();
+  }
+  if (on && tx == 0) {
+#pragma unroll
+    for (int a = 0; a < LT::TM; ++a) sinv[ty + 16 * a] = 1.f / l_run[a];  // >= 1: 2^0 is a term
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
+  E* o = out + (blk.u * L + blk.t0) * D + (size_t)blk.h * hd;
+  for (int i = warp; i < rows; i += kLongThreads / 32)
+    for (int c = lane; c < hd; c += 32) from_f32(o + (size_t)i * D + c, so[i * hs + c] * sinv[i]);
+}
+
+// Backward, the row statistics: one block per (sequence, head, query
+// tile), the key tiles streamed; per query row its max (log2 units), 1 /
+// sum and D = rowsum(dP * P) into stats ((U, H, L) x 3 floats).  D sums
+// p dP online as the forward sums p v, with dP = dO V^T formed by the same
+// FMA chains as the dQ and dK / dV kernels form it, so that dP - D cancels
+// as it does in the plain version (a row with one valid key gets dS = 0).
+template <typename E, int T>
+__global__ void __launch_bounds__(kLongThreads)
+    mhsa_long_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                           const E* __restrict__ dout, float* __restrict__ stats, int L, int D,
+                           int H, float scale_log2) {
+  using LT = LongTile<T>;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, hs = hd | 1;
+  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + T * hs;
+  float* sk = sdo + T * hs;
+  float* sv = sk + T * hs;
+  float* sbias = sv + T * hs;
+  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const uint8_t* msk = mask + blk.u * L;
+  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
+  long_stage(sdo, dout + blk.u * L * D + (size_t)blk.h * hd, (size_t)D, blk.t0, T, L, hd, hs);
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const bool on = ty < LT::RT;
+  float m_run[LT::TM], l_run[LT::TM], d_run[LT::TM];
+#pragma unroll
+  for (int a = 0; a < LT::TM; ++a) {
+    m_run[a] = kMaskMin;
+    l_run[a] = d_run[a] = 0.f;
+  }
+  for (int k0 = 0; k0 < L; k0 += T) {
+    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_biases(sbias, msk, k0, T, L);
+    __syncthreads();
+    if (on) {
+      float x[2][LT::TM][LT::TN];
+      const float* const ra[2] = {sq, sdo};
+      const float* const cb[2] = {sk, sv};
+      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          x[0][a][b] = fmaf(x[0][a][b], scale_log2, sbias[tx + 8 * b]);
+          mx = fmaxf(mx, x[0][a][b]);
+        }
+        const float m_new = fmaxf(m_run[a], row8<true>(mx));
+        const float alpha = ex2(m_run[a] - m_new);
+        float sum = 0.f, dsum = 0.f;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          const float p = ex2(x[0][a][b] - m_new);
+          sum += p;
+          dsum = fmaf(p, x[1][a][b], dsum);
+        }
+        l_run[a] = l_run[a] * alpha + row8<false>(sum);
+        d_run[a] = d_run[a] * alpha + row8<false>(dsum);
+        m_run[a] = m_new;
+      }
+    }
+    __syncthreads();
+  }
+  if (on && tx == 0) {
+    float* st = stats + ((blk.u * H + blk.h) * L + blk.t0) * 3;
+#pragma unroll
+    for (int a = 0; a < LT::TM; ++a) {
+      const int i = ty + 16 * a;
+      if (blk.t0 + i < L) {
+        st[3 * i] = m_run[a];
+        st[3 * i + 1] = 1.f / l_run[a];
+        st[3 * i + 2] = d_run[a] / l_run[a];
+      }
+    }
+  }
+}
+
+// P and dS of one logit from its dot products, bias and query statistics.
+__device__ __forceinline__ void long_p_ds(float s, float dp, float bias, float m, float inv,
+                                          float dd, float scale_log2, float& p, float& ds) {
+  p = ex2(fmaf(s, scale_log2, bias) - m) * inv;
+  ds = bias == 0.f ? p * (dp - dd) : 0.f;
+}
+
+// Backward, dQ: one block per (sequence, head, query tile), the key tiles
+// streamed: dQ = scale sum over keys of dS K.
+template <typename E, int T>
+__global__ void __launch_bounds__(kLongThreads)
+    mhsa_long_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                        const E* __restrict__ dout, const float* __restrict__ stats,
+                        E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
+                        float scale) {
+  using LT = LongTile<T>;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, hs = hd | 1;
+  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + T * hs;
+  float* sdq = sdo + T * hs;
+  float* sk = sdq + T * hs;
+  float* sv = sk + T * hs;
+  float* sds = sv + T * hs;
+  float* sbias = sds + T * (T + 1);
+  float* sm = sbias + T;
+  float* sinv = sm + T;
+  float* sdd = sinv + T;
+  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const uint8_t* msk = mask + blk.u * L;
+  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
+  long_stage(sdo, dout + blk.u * L * D + (size_t)blk.h * hd, (size_t)D, blk.t0, T, L, hd, hs);
+  long_zero(sdq, T * hs);
+  long_load_stats(sm, sinv, sdd, stats + (blk.u * H + blk.h) * L * 3, blk.t0, T, L);
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  for (int k0 = 0; k0 < L; k0 += T) {
+    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
+    long_biases(sbias, msk, k0, T, L);
+    __syncthreads();
+    if (ty < LT::RT) {
+      float x[2][LT::TM][LT::TN];
+      const float* const ra[2] = {sq, sdo};
+      const float* const cb[2] = {sk, sv};
+      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a) {
+        const int i = ty + 16 * a;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          const int j = tx + 8 * b;
+          float p, ds;
+          long_p_ds(x[0][a][b], x[1][a][b], sbias[j], sm[i], sinv[i], sdd[i], scale_log2, p, ds);
+          sds[i * (T + 1) + j] = ds;
+        }
+      }
+    }
+    __syncthreads();
+    long_accum<T>(sdq, sds, sk, nullptr, hd, hs);
+    __syncthreads();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
+  E* g = dqkv + (blk.u * L + blk.t0) * 3 * D + (size_t)blk.h * hd;
+  for (int i = warp; i < rows; i += kLongThreads / 32)
+    for (int c = lane; c < hd; c += 32) from_f32(g + (size_t)i * 3 * D + c, sdq[i * hs + c] * scale);
+}
+
+// Backward, dK and dV: one block per (sequence, head, key tile), the query
+// tiles streamed, keys as the rows of the logit tile: dV = sum over queries
+// of P^T dO, dK = scale sum of dS^T Q.
+template <typename E, int T>
+__global__ void __launch_bounds__(kLongThreads)
+    mhsa_long_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                         const E* __restrict__ dout, const float* __restrict__ stats,
+                         E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
+                         float scale) {
+  using LT = LongTile<T>;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, hs = hd | 1;
+  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + T * hs;
+  float* sdk = sv + T * hs;
+  float* sdv = sdk + T * hs;
+  float* sq = sdv + T * hs;
+  float* sdo = sq + T * hs;
+  float* sp = sdo + T * hs;
+  float* sds = sp + T * (T + 1);
+  float* sbias = sds + T * (T + 1);
+  float* sm = sbias + T;
+  float* sinv = sm + T;
+  float* sdd = sinv + T;
+  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const E* gbase = dout + blk.u * L * D + (size_t)blk.h * hd;
+  const float* st = stats + (blk.u * H + blk.h) * L * 3;
+  long_stage(sk, base + D, 3 * (size_t)D, blk.t0, T, L, hd, hs);
+  long_stage(sv, base + 2 * D, 3 * (size_t)D, blk.t0, T, L, hd, hs);
+  long_biases(sbias, mask + blk.u * L, blk.t0, T, L);
+  long_zero(sdk, 2 * T * hs);  // dK and dV
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  for (int q0 = 0; q0 < L; q0 += T) {
+    long_stage(sq, base, 3 * (size_t)D, q0, T, L, hd, hs);
+    long_stage(sdo, gbase, (size_t)D, q0, T, L, hd, hs);
+    long_load_stats(sm, sinv, sdd, st, q0, T, L);
+    __syncthreads();
+    if (ty < LT::RT) {
+      float x[2][LT::TM][LT::TN];
+      const float* const ra[2] = {sk, sv};
+      const float* const cb[2] = {sq, sdo};
+      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
+#pragma unroll
+      for (int a = 0; a < LT::TM; ++a) {
+        const int j = ty + 16 * a;
+#pragma unroll
+        for (int b = 0; b < LT::TN; ++b) {
+          const int i = tx + 8 * b;
+          float p, ds;
+          long_p_ds(x[0][a][b], x[1][a][b], sbias[j], sm[i], sinv[i], sdd[i], scale_log2, p, ds);
+          sp[j * (T + 1) + i] = p;
+          sds[j * (T + 1) + i] = ds;
+        }
+      }
+    }
+    __syncthreads();
+    long_accum<T>(sdv, sp, sdo, nullptr, hd, hs);
+    long_accum<T>(sdk, sds, sq, nullptr, hd, hs);
+    __syncthreads();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
+  E* g = dqkv + (blk.u * L + blk.t0) * 3 * D + (size_t)blk.h * hd;
+  for (int i = warp; i < rows; i += kLongThreads / 32)
+    for (int c = lane; c < hd; c += 32) {
+      from_f32(g + (size_t)i * 3 * D + D + c, sdk[i * hs + c] * scale);
+      from_f32(g + (size_t)i * 3 * D + 2 * D + c, sdv[i * hs + c]);
+    }
+}
+
 // ---------------------------------------------------------------- host ---
 
 int num_sms(int dev) {
@@ -2477,13 +3000,18 @@ Launch plan(int U, int L, int D, int es, int dev) {
   return Launch{S, (U + S - 1) / S, smem_bytes(S, L, D, es)};
 }
 
+// Whether (L, D, H) runs in the long instances: outside the box of
+// kernel_box (ops/mhsa.py::long_instance).
+bool long_instance(int L, int D, int H) { return !kernel_box(L, D / H); }
+
 // Whether (L, D, H) in the type of element size es runs in the wide
-// instances: head dim above 32, L above 64, or a bf16 shape whose single
-// sequence's slab does not fit one block (kernel_supports in ops/mhsa.py
-// routes by the same rule).
+// instances: inside the box, head dim above 32, L above 64, or a bf16 shape
+// whose single sequence's slab does not fit one block (kernel_supports in
+// ops/mhsa.py routes by the same rule).
 bool wide_instance(int L, int D, int H, int es) {
-  return D / H > kNarrowHeadDim || L > kNarrowMaxLen ||
-         (es == 2 && smem_bytes(1, L, D, es) > (size_t)kSmemLimit);
+  return kernel_box(L, D / H) &&
+         (D / H > kNarrowHeadDim || L > kNarrowMaxLen ||
+          (es == 2 && smem_bytes(1, L, D, es) > (size_t)kSmemLimit));
 }
 
 // The wide instances, either type: one block per (sequence, head), U H of
@@ -2516,6 +3044,57 @@ cudaError_t launch_bwd_wide_inst(const void* qkv, const uint8_t* mask, const voi
   kernel<<<U * H, 32 * KT, wide_smem(L, hd, sizeof(T), true), stream>>>(
       static_cast<const T*>(qkv), mask, static_cast<const T*>(dout), static_cast<T*>(dqkv), L, D,
       H, scale_log2);
+  return cudaGetLastError();
+}
+
+// The long instances, either type: U H ceil(L / T) blocks of kLongThreads,
+// with the shared memory of long_smem (opted in once per kernel and
+// device).  The backward's three launches share the workspace of per-row
+// statistics.
+template <typename E, int T>
+cudaError_t launch_long_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                             int H, int dev, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_long_kernel<E, T>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const int hd = D / H;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  const unsigned grid = (unsigned)((size_t)U * H * ((L + T - 1) / T));
+  kernel<<<grid, kLongThreads, long_smem(hd, 0), stream>>>(
+      static_cast<const E*>(qkv), mask, static_cast<E*>(out), L, D, H, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename E, int T>
+cudaError_t launch_bwd_long_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                 void* dqkv, void* workspace, int U, int L, int D, int H, int dev,
+                                 cudaStream_t stream) {
+  static bool stats_set[kMaxDevices] = {false}, dq_set[kMaxDevices] = {false},
+              dkv_set[kMaxDevices] = {false};
+  auto stats_kernel = mhsa_long_stats_kernel<E, T>;
+  auto dq_kernel = mhsa_long_dq_kernel<E, T>;
+  auto dkv_kernel = mhsa_long_dkv_kernel<E, T>;
+  cudaError_t err = allow_smem(stats_kernel, dev, stats_set);
+  if (err == cudaSuccess) err = allow_smem(dq_kernel, dev, dq_set);
+  if (err == cudaSuccess) err = allow_smem(dkv_kernel, dev, dkv_set);
+  if (err != cudaSuccess) return err;
+  const int hd = D / H;
+  const float scale = 1.f / sqrtf((float)hd);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  const unsigned grid = (unsigned)((size_t)U * H * ((L + T - 1) / T));
+  const E* q = static_cast<const E*>(qkv);
+  const E* g = static_cast<const E*>(dout);
+  E* dq = static_cast<E*>(dqkv);
+  float* st = static_cast<float*>(workspace);
+  stats_kernel<<<grid, kLongThreads, long_smem(hd, 0), stream>>>(q, mask, g, st, L, D, H,
+                                                                  scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq_kernel<<<grid, kLongThreads, long_smem(hd, 1), stream>>>(q, mask, g, st, dq, L, D, H,
+                                                               scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkv_kernel<<<grid, kLongThreads, long_smem(hd, 2), stream>>>(q, mask, g, st, dq, L, D, H,
+                                                                scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -2579,6 +3158,53 @@ template cudaError_t launch_wide<float>(const void*, const uint8_t*, void*, int,
                                         cudaStream_t);
 template cudaError_t launch_bwd_wide<float>(const void*, const uint8_t*, const void*, void*, int,
                                             int, int, int, int, cudaStream_t);
+#endif
+
+// The long instances' dispatch by tile rows, both types in part 4.
+template <typename T>
+cudaError_t launch_long(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                        int H, int dev, cudaStream_t stream);
+template <typename T>
+cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            void* workspace, int U, int L, int D, int H, int dev,
+                            cudaStream_t stream);
+
+#if NRL_BUILDS(4)
+template <typename T>
+cudaError_t launch_long(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                        int H, int dev, cudaStream_t stream) {
+  switch (long_tile(D / H)) {
+    case 64: return launch_long_inst<T, 64>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 32: return launch_long_inst<T, 32>(qkv, mask, out, U, L, D, H, dev, stream);
+    case 16: return launch_long_inst<T, 16>(qkv, mask, out, U, L, D, H, dev, stream);
+    default: return launch_long_inst<T, 8>(qkv, mask, out, U, L, D, H, dev, stream);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                            void* workspace, int U, int L, int D, int H, int dev,
+                            cudaStream_t stream) {
+#define NRL_BWD_LONG(R) \
+  launch_bwd_long_inst<T, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
+  switch (long_tile(D / H)) {
+    case 64: return NRL_BWD_LONG(64);
+    case 32: return NRL_BWD_LONG(32);
+    case 16: return NRL_BWD_LONG(16);
+    default: return NRL_BWD_LONG(8);
+  }
+#undef NRL_BWD_LONG
+}
+
+template cudaError_t launch_long<__nv_bfloat16>(const void*, const uint8_t*, void*, int, int, int,
+                                                int, int, cudaStream_t);
+template cudaError_t launch_long<float>(const void*, const uint8_t*, void*, int, int, int, int, int,
+                                        cudaStream_t);
+template cudaError_t launch_bwd_long<__nv_bfloat16>(const void*, const uint8_t*, const void*,
+                                                    void*, void*, int, int, int, int, int,
+                                                    cudaStream_t);
+template cudaError_t launch_bwd_long<float>(const void*, const uint8_t*, const void*, void*, void*,
+                                            int, int, int, int, int, cudaStream_t);
 #endif
 
 }  // namespace nrl_mhsa
@@ -2753,28 +3379,40 @@ cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dou
 }
 // The shared memory of the instance that runs (L, D, H) in the type of
 // element size es, the larger of its forward and backward: what it stages.
-// Wide (wide_instance): one head's q, k, v and dO columns in the input type
+// Long (long_instance): the dK / dV kernel's tiles (long_smem); wide
+// (wide_instance): one head's q, k, v and dO columns in the input type
 // and the row statistics (wide_smem); f32 up to hd = 32: one head's q, k, v
 // and dO columns; bf16 up to hd = 32: the whole (L, 3D) slab of one
 // sequence (smem_bytes).
 size_t instance_smem(int L, int D, int H, int es) {
   const int hd = D / H;
+  if (long_instance(L, D, H)) return long_smem(hd, 2);
   if (wide_instance(L, D, H, es)) return wide_smem(L, hd, es, true);
   if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kNarrowMaxLen * 4;
   return smem_bytes(1, L, D, es);
 }
 
 // The arguments both entry points take; 0 if the kernels take them
-// (ops/mhsa.py::kernel_supports is the same rule): the box of kernel_box,
-// and what the instance stages within one block's shared memory (always, in
-// the box).
+// (ops/mhsa.py::kernel_supports is the same rule): float32 or bfloat16,
+// heads dividing D, any L >= 1, head dim up to kMaxHeadDim, what the
+// instance stages within one block's shared memory (always), and a long
+// instance's grid within 2^31 - 1 blocks.
 int check_args(int U, int L, int D, int H, int dtype) {
-  if (U <= 0 || H <= 0 || D <= 0 || D % H != 0 || !kernel_box(L, D / H) ||
+  if (U <= 0 || H <= 0 || D <= 0 || D % H != 0 || L < 1 || D / H > kMaxHeadDim ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (instance_smem(L, D, H, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
+  const int T = long_tile(D / H);
+  if (long_instance(L, D, H) && (size_t)U * H * ((L + T - 1) / T) > 0x7fffffffu)
+    return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// Bytes of the backward's workspace: U H L x (max, 1 / sum, D) floats for a
+// long instance, none for the others.
+size_t bwd_workspace(int U, int L, int D, int H) {
+  return long_instance(L, D, H) ? (size_t)U * H * L * 3 * sizeof(float) : 0;
 }
 
 #endif  // NRL_BUILDS(1)
@@ -2790,18 +3428,36 @@ extern "C" int nrl_mhsa_fwd(const void* qkv, const uint8_t* mask, void* out, int
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (long_instance(L, D, H))
+    return (int)(dtype == 0
+                     ? nrl_mhsa::launch_long<float>(qkv, mask, out, U, L, D, H, dev, s)
+                     : nrl_mhsa::launch_long<__nv_bfloat16>(qkv, mask, out, U, L, D, H, dev, s));
   if (dtype == 0) return (int)launch_f32(qkv, mask, out, U, L, D, H, dev, s);
   return (int)launch_bf16(qkv, mask, out, U, L, D, H, dev, s);
 }
 
+// Bytes of workspace nrl_mhsa_bwd needs at (U, L, D, H) (0: none; pass any
+// pointer), or 0 for arguments it refuses.
+extern "C" size_t nrl_mhsa_bwd_workspace(int U, int L, int D, int H, int dtype) {
+  return check_args(U, L, D, H, dtype) ? 0 : bwd_workspace(U, L, D, H);
+}
+
 extern "C" int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
-                            int U, int L, int D, int H, int dtype, void* stream) {
+                            void* workspace, int U, int L, int D, int H, int dtype,
+                            void* stream) {
   const int bad = check_args(U, L, D, H, dtype);
   if (bad) return bad;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (long_instance(L, D, H)) {
+    if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? nrl_mhsa::launch_bwd_long<float>(qkv, mask, dout, dqkv, workspace,
+                                                               U, L, D, H, dev, s)
+                            : nrl_mhsa::launch_bwd_long<__nv_bfloat16>(
+                                  qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, s));
+  }
   if (dtype == 0) return (int)launch_bwd_f32(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
   return (int)launch_bwd_bf16(qkv, mask, dout, dqkv, U, L, D, H, dev, s);
 }

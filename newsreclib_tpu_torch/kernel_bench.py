@@ -2,9 +2,9 @@
 version and a library call, at the shapes the serving path gives it.
 
     python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner,plm_statfix}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner,plm_statfix}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
 two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
@@ -15,7 +15,9 @@ at L = 96 and 32 with U = 512, and CAUM's default head dim 100) and
 = 66 to 82), in float32 and bfloat16 (``--shapes manner``: the MANNeR
 shapes alone; ``--shapes plm_statfix``: ``plm_statfix_shapes()``, the PLM
 head's and the user encoder's attentions, 16 heads of 48 over 768, in the
-train steps of ``nrms_statfix_plm_supconloss``):
+train steps of ``nrms_statfix_plm_supconloss``; ``--shapes long``:
+``LONG_SHAPES``, the kernel's long instances, L above 128 and head dims
+beyond the wide instances' box):
 
 * the kernel is held against ``mhsa_plain`` on the same inputs (float32
   atol/rtol 1e-5, bfloat16 atol 2e-2 / rtol 1e-2);
@@ -112,6 +114,13 @@ PLM_SHAPES = [(512, 96, 768, 16), (512, 32, 768, 16), (64, 50, 400, 4)]
 # (30 + 50).
 MANNER_SHAPES = [(1792, 66, 300, 15), (256, 82, 300, 15), (64, 80, 300, 15)]
 PLM_D, PLM_H = 768, 16  # the PLM head's MHSA and NRMS's user encoder over it
+# (U, L, D, heads) of the long instances (``mhsa.long_instance``): NRMS's user
+# encoder at data.max_history_len=200 in a train step (batch 64) and in a
+# served impression batch (512 users), the PLM head at tokenizer_max_len=256
+# (512 news rows), CAUM's default head dim 100 at L = 100, two heads over 300
+# (head dim 150) at L = 200, and head dim 1,024 (one head) at L = 129.
+LONG_SHAPES = [(64, 200, 300, 15), (512, 200, 300, 15), (512, 256, 768, 16),
+               (64, 100, 400, 4), (64, 200, 300, 2), (8, 129, 1024, 1)]
 
 
 def plm_statfix_shapes(batches: int = 50) -> list:
@@ -253,17 +262,26 @@ def raw_launcher(lib: ctypes.CDLL):
 
 def raw_backward(lib: ctypes.CDLL):
     """``(qkv, mask, num_heads, grad_out) -> dqkv`` through another build's
-    ``nrl_mhsa_bwd``, with the wrapper's allocation and no launch count."""
+    ``nrl_mhsa_bwd``, with the wrapper's allocation and no launch count.  A
+    build with ``nrl_mhsa_bwd_workspace`` takes a workspace pointer after
+    dqkv (allocated here); an older one does not."""
     fn = lib.nrl_mhsa_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    workspace = getattr(lib, "nrl_mhsa_bwd_workspace", None)
+    fn.argtypes = ([ctypes.c_void_p] * (4 + (workspace is not None)) + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    if workspace is not None:
+        workspace.argtypes, workspace.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
 
     def launch(qkv, mask, num_heads, grad_out):
         u, l, d3 = qkv.shape
         dqkv = torch.empty_like(qkv)
-        rc = fn(qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(), dqkv.data_ptr(), u, l,
-                d3 // 3, num_heads, dtypes[qkv.dtype], torch.cuda.current_stream().cuda_stream)
+        args = (u, l, d3 // 3, num_heads, dtypes[qkv.dtype])
+        buf = [] if workspace is None else [
+            torch.empty(workspace(*args), dtype=torch.uint8, device=qkv.device)]
+        rc = fn(qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(), dqkv.data_ptr(),
+                *(b.data_ptr() for b in buf), *args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"baseline nrl_mhsa_bwd failed: cudaError {rc}")
         return dqkv
@@ -528,8 +546,9 @@ def main(argv=None) -> int:
                     help="time forward + backward at the train step's shapes")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="only this type (default: both)")
-    ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix"), default="all",
-                    help="manner: MANNER_SHAPES alone; plm_statfix: plm_statfix_shapes()")
+    ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix", "long"), default="all",
+                    help="manner: MANNER_SHAPES alone; plm_statfix: plm_statfix_shapes(); "
+                         "long: LONG_SHAPES")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -554,7 +573,7 @@ def main(argv=None) -> int:
         nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
         shapes = {"all": lambda: [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES
                   + MANNER_SHAPES, "manner": lambda: MANNER_SHAPES,
-                  "plm_statfix": plm_statfix_shapes}[args.shapes]()
+                  "plm_statfix": plm_statfix_shapes, "long": lambda: LONG_SHAPES}[args.shapes]()
         for u, l, d, h in shapes:
             # an older source may refuse a shape: its row says so
             takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)

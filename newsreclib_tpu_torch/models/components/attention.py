@@ -66,9 +66,9 @@ class MultiHeadSelfAttention(nn.Module):
     ``(..., L, D)`` + key mask ``(..., L)`` -> ``(..., L, D)``.
 
     The attention itself is ``self.attention``, by default
-    ``ops.mhsa.fused_small_mhsa``: the CUDA kernel on the card, which raises
-    on a shape it does not take (``ops.mhsa.kernel_supports``), and the plain
-    version at any shape on the CPU; leading dims are flattened into its
+    ``ops.mhsa.fused_small_mhsa``: the CUDA kernel on the card (any L, head
+    dims up to 1,024, float32 or bfloat16: ``ops.mhsa.kernel_supports``),
+    and the plain version on the CPU; leading dims are flattened into its
     sequence axis.  Assigning ``ops.mhsa.mhsa_plain`` runs the plain version
     on any device, which is how the kernel is held against it end to end.
     """

@@ -5,7 +5,8 @@
 launches the hand-written kernel ``csrc/mhsa.cu``; on a CPU tensor it runs
 ``mhsa_plain``, the same function in plain PyTorch, at any shape.  There is
 no fallback from one to the other: a CUDA tensor whose shape the kernel does
-not take (``kernel_supports``) raises.
+not take (``kernel_supports``: float16, heads not dividing D, head dims above
+1,024) raises.  The kernel takes every L.
 
 Contract (as the TPU kernel's): ``qkv (U, L, 3D)`` is the fused in-projection
 output, ``mask (U, L)`` bool marks the valid keys, the result is the context
@@ -16,7 +17,8 @@ rows at masked query positions hold values the caller zeroes.
 ``FusedSmallMHSA`` makes the kernel differentiable: its forward is
 ``fused_small_mhsa`` and its backward ``_backward``, which on a CUDA tensor
 launches the hand-written backward kernel (``nrl_mhsa_bwd`` in
-``csrc/mhsa.cu``: P recomputed from the saved qkv, dqkv in one launch) and
+``csrc/mhsa.cu``: P recomputed from the saved qkv, dqkv in one launch, or,
+in the long instances, three launches sharing a workspace) and
 on a CPU tensor runs ``mhsa_backward``, the same gradient in plain PyTorch.
 The JAX package trains through XLA autodiff of the plain attention
 (``jax.grad`` of ``mhsa_reference``), which both match.
@@ -30,24 +32,30 @@ import math
 import torch
 
 _MASK_MIN = -1e30
-# The box of shapes the kernels take (csrc/mhsa.cu, kernel_box): head dim up
-# to MAX_HEAD_DIM at L <= NARROW_MAX_LEN, up to LONG_MAX_HEAD_DIM at
-# L <= MAX_LEN.
-MAX_LEN = 128
-MAX_HEAD_DIM = 128
+# The box of shapes the narrow and wide instances take (csrc/mhsa.cu,
+# kernel_box): head dim up to BOX_MAX_HEAD_DIM at L <= NARROW_MAX_LEN, up to
+# BOX_LONG_HEAD_DIM at L <= BOX_MAX_LEN.  Every other shape, any L and head
+# dims up to MAX_HEAD_DIM, runs in the long instances (``long_instance``).
+BOX_MAX_LEN = 128
+BOX_MAX_HEAD_DIM = 128
 NARROW_MAX_LEN = 64
-LONG_MAX_HEAD_DIM = 64
+BOX_LONG_HEAD_DIM = 64
 NARROW_HEAD_DIM = 32  # head dims above it run the kernel's wide instances
+MAX_HEAD_DIM = 1024  # the long instances' bound (bert-large's width as one head)
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the forward and of the backward kernel since the last reset,
-# and of those, the launches of the wide instances (``wide_instance``); the
-# CPU path counts none.
+# and of those, the launches of the wide instances (``wide_instance``) and
+# of the long ones (``long_instance``); the CPU path counts none.  One
+# backward counts once, whatever it launches inside (the long instances'
+# backward is three kernels).
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
+long_launches = 0
+long_bwd_launches = 0
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -105,13 +113,33 @@ def _narrow_bf16_bytes(l: int, d: int) -> int:
     return _align16(16 + l * 3 * d * 2) + NARROW_MAX_LEN * 4
 
 
+def in_box(l: int, hd: int) -> bool:
+    """The shapes the narrow and wide instances take: head dim up to 128 at
+    L <= 64, up to 64 at L <= 128."""
+    return l >= 1 and hd >= 1 and ((l <= NARROW_MAX_LEN and hd <= BOX_MAX_HEAD_DIM)
+                                   or (l <= BOX_MAX_LEN and hd <= BOX_LONG_HEAD_DIM))
+
+
+def long_instance(l: int, d: int, num_heads: int) -> bool:
+    """Whether (L, D, heads) runs in the kernel's long instances
+    (``csrc/mhsa.cu``, ``long_instance``): every shape outside ``in_box``,
+    in either type (the keys streamed through shared memory in tiles)."""
+    return not in_box(l, d // num_heads)
+
+
 def wide_instance(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether (L, D, heads) in ``dtype`` runs in the kernel's wide
-    instances (``csrc/mhsa.cu``, ``wide_instance``): head dim above 32, L
-    above 64, or a bfloat16 shape whose single sequence's slab does not fit
-    one block."""
-    return (d // num_heads > NARROW_HEAD_DIM or l > NARROW_MAX_LEN
-            or (dtype == torch.bfloat16 and _narrow_bf16_bytes(l, d) > _SMEM_LIMIT))
+    instances (``csrc/mhsa.cu``, ``wide_instance``): inside the box, head
+    dim above 32, L above 64, or a bfloat16 shape whose single sequence's
+    slab does not fit one block."""
+    return in_box(l, d // num_heads) and (
+        d // num_heads > NARROW_HEAD_DIM or l > NARROW_MAX_LEN
+        or (dtype == torch.bfloat16 and _narrow_bf16_bytes(l, d) > _SMEM_LIMIT))
+
+
+def long_tile(hd: int) -> int:
+    """Rows of a long instance's tiles at head dim ``hd`` (``long_tile``)."""
+    return 64 if hd <= 64 else 32 if hd <= 256 else 16 if hd <= 512 else 8
 
 
 def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
@@ -119,6 +147,9 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     ``dtype``, the larger of its forward's and backward's: what that
     instance stages (``csrc/mhsa.cu``, ``instance_smem``).
 
+    * long (``long_instance``): the dK / dV kernel's six T x hd tiles in
+      float32 with rows of hd | 1 floats, two T x (T + 1) tiles and four
+      vectors of T floats, T = ``long_tile(hd)``;
     * wide (``wide_instance``): one head's q, k, v and dO columns in the
       input type, Lp = 16 ceil(L / 16) rows each, padded to
       16 ceil(hd / 16) + 8 values (bfloat16) or 8 ceil(hd / 8) + 4
@@ -128,6 +159,9 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     * bfloat16, head dim up to 32: the whole (L, 3D) slab of one sequence
       plus 16 bytes of alignment slack, plus 64 key biases."""
     hd = d // num_heads
+    if long_instance(l, d, num_heads):
+        t = long_tile(hd)
+        return 4 * (6 * t * (hd | 1) + 2 * t * (t + 1) + 4 * t)
     if wide_instance(l, d, num_heads, dtype):
         lp = (l + 15) // 16 * 16
         if dtype == torch.bfloat16:
@@ -140,26 +174,22 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     return _narrow_bf16_bytes(l, d)
 
 
-def in_box(l: int, hd: int) -> bool:
-    """The shapes the kernels take: head dim up to 128 at L <= 64, up to 64
-    at L <= 128."""
-    return l >= 1 and hd >= 1 and ((l <= NARROW_MAX_LEN and hd <= MAX_HEAD_DIM)
-                                   or (l <= MAX_LEN and hd <= LONG_MAX_HEAD_DIM))
-
-
 def kernel_supports(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether ``csrc/mhsa.cu`` takes sequences of length ``l``, width ``d``
     and ``num_heads`` heads in ``dtype``: float32 or bfloat16, heads
-    dividing D, (L, head dim) in the box of ``in_box``, and what the
-    instance stages within one block's shared memory (``smem_bytes``;
-    inside the box it always fits).  The GloVe models' attentions are
-    inside: NRMS (D = 300, 15 heads of 20), MINS (6 heads of 50),
-    CenNewsRec and CAUM (D = 400, 20 heads of 20), L <= 50; so are the PLM
-    tower's MHSA (16 heads of 48, L up to 96) and CAUM's default of 4
-    heads over 400 (head dim 100)."""
-    if dtype not in _DTYPES or num_heads <= 0 or d <= 0 or d % num_heads:
+    dividing D, any L >= 1, head dim up to ``MAX_HEAD_DIM`` (1,024), and
+    what the instance stages within one block's shared memory
+    (``smem_bytes``; it always fits).  Inside ``in_box`` the narrow and wide
+    instances run: NRMS (D = 300, 15 heads of 20), MINS (6 heads of 50),
+    CenNewsRec and CAUM (D = 400, 20 heads of 20) at L <= 50, the PLM
+    tower's MHSA (16 heads of 48) up to L = 96 and CAUM's default of 4
+    heads over 400 (head dim 100) at L = 50; every other shape (NRMS's user
+    encoder at history 200, the PLM head at 256 tokens, head dims above
+    128) in the long instances."""
+    if dtype not in _DTYPES or num_heads <= 0 or d <= 0 or d % num_heads or l < 1:
         return False
-    return in_box(l, d // num_heads) and smem_bytes(l, d, num_heads, dtype) <= _SMEM_LIMIT
+    return (d // num_heads <= MAX_HEAD_DIM
+            and smem_bytes(l, d, num_heads, dtype) <= _SMEM_LIMIT)
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> None:
@@ -186,8 +216,7 @@ def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
     if not kernel_supports(l, d3 // 3, num_heads, qkv.dtype):
         raise ValueError(
             f"the attention kernel does not take L={l}, D={d3 // 3}, {num_heads} heads, "
-            f"{qkv.dtype}: it needs head dim <= {MAX_HEAD_DIM} at L <= {NARROW_MAX_LEN} or "
-            f"head dim <= {LONG_MAX_HEAD_DIM} at L <= {MAX_LEN}, and what its instance "
+            f"{qkv.dtype}: it needs head dim <= {MAX_HEAD_DIM} (any L), and what its instance "
             "stages within a block's shared memory (kernel_supports)")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
@@ -195,7 +224,7 @@ def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
 
 def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
-    global launches, wide_launches
+    global launches, wide_launches, long_launches
     _check(qkv, mask, num_heads)
     if qkv.device.type == "cpu":
         return mhsa_plain(qkv, mask, num_heads)
@@ -212,6 +241,7 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Ten
         raise RuntimeError(f"nrl_mhsa_fwd launch failed: cudaError {rc}")
     launches += 1
     wide_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
+    long_launches += long_instance(l, d3 // 3, num_heads)
     return out
 
 
@@ -220,8 +250,9 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     """The checked backward, d(loss)/d(qkv) given d(loss)/d(context):
     ``mhsa_backward`` on the CPU, the backward kernel elsewhere.  ``grad_out``
     may be any layout (autograd hands over expanded or strided ones); it is
-    made contiguous here."""
-    global bwd_launches, wide_bwd_launches
+    made contiguous here.  The long instances' per-row statistics go to a
+    workspace of ``nrl_mhsa_bwd_workspace`` bytes from torch's allocator."""
+    global bwd_launches, wide_bwd_launches, long_bwd_launches
     _check(qkv, mask, num_heads)
     u, l, d3 = qkv.shape
     if grad_out.shape != (u, l, d3 // 3):
@@ -238,15 +269,18 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     dqkv = torch.empty_like(qkv)
     if u == 0:
         return dqkv
+    args = (u, l, d3 // 3, num_heads, _DTYPES[qkv.dtype])
+    workspace = torch.empty(_kernel("nrl_mhsa_bwd_workspace")(*args), dtype=torch.uint8,
+                            device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("nrl_mhsa_bwd")(qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(),
-                                     dqkv.data_ptr(), u, l, d3 // 3, num_heads,
-                                     _DTYPES[qkv.dtype], stream)
+                                     dqkv.data_ptr(), workspace.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"nrl_mhsa_bwd launch failed: cudaError {rc}")
     bwd_launches += 1
     wide_bwd_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
+    long_bwd_launches += long_instance(l, d3 // 3, num_heads)
     return dqkv
 
 
@@ -276,8 +310,11 @@ def fused_small_mhsa(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> t
 
 # ctypes argument types of the C entry points (csrc/mhsa.cu)
 _SIGNATURES = {
-    "nrl_mhsa_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "nrl_mhsa_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "nrl_mhsa_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                     ctypes.c_int),
+    "nrl_mhsa_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                     ctypes.c_int),
+    "nrl_mhsa_bwd_workspace": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
 
@@ -286,6 +323,5 @@ def _kernel(name: str):
 
     fn = getattr(load_library("mhsa"), name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = _SIGNATURES[name]
     return fn

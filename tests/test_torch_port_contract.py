@@ -1,10 +1,11 @@
 """The attention kernel's contract at the shapes the card takes since the
 box grew (L up to 128 at head dim up to 64, head dim up to 128 at L up to
-64), on the CPU: the port's ``fused_small_mhsa`` against the TPU kernel
+64; beyond it the long instances take any L and head dims up to 1,024), on
+the CPU: the port's ``fused_small_mhsa`` against the TPU kernel
 itself (Pallas, interpret mode, ``precision=HIGHEST``) and against JAX's
 ``mhsa_reference``, and ``FusedSmallMHSA``'s gradient against ``jax.grad``
 of ``mhsa_reference``, from the same numpy inputs, with partly and fully
-masked sequences; and the wrapper's routing and refusals at the box's edges.
+masked sequences; and the wrapper's routing and refusals at the rule's edges.
 The CUDA kernels themselves are tested on the card
 (``test_torch_port_gpu.py``).
 
@@ -104,17 +105,17 @@ def test_routing_to_the_wide_instances(l, d, h, dtype, wide):
     assert mhsa.kernel_supports(l, d, h, dtype)
 
 
-@pytest.mark.parametrize("l,d,h", [(129, 64, 1), (129, 300, 15), (64, 129, 1), (65, 65, 1),
-                                   (128, 256, 2)])
+@pytest.mark.parametrize("l,d,h", [(129, 1025, 1), (1, 1030, 1), (64, 2050, 2), (300, 4100, 4),
+                                   (16, 1025, 1)])
 @pytest.mark.parametrize("backward", [False, True])
 def test_outside_the_box_raises_with_the_bound_named(l, d, h, backward):
     """Off the CPU (a meta tensor stands for the card) a shape outside the
-    box raises, naming the bound, forward and backward; on the CPU the same
+    kernel's rule, a head dim above 1,024 (the long instances take any L),
+    raises, naming the bound, forward and backward; on the CPU the same
     shape computes."""
     qkv = torch.zeros(2, l, 3 * d, device="meta")
     mask = torch.ones(2, l, dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError, match=r"head dim <= 128 at L <= 64 or head dim <= 64 at "
-                                         r"L <= 128"):
+    with pytest.raises(ValueError, match=r"head dim <= 1024 \(any L\)"):
         if backward:
             mhsa._backward(qkv, mask, h, torch.zeros(2, l, d, device="meta"))
         else:

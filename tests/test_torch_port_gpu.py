@@ -166,35 +166,75 @@ def test_fused_gradient_matches_plain_autograd(cuda, u, l, dtype):
 def test_kernel_raises_on_unsupported_input(cuda):
     qkv, mask = _inputs(2, 129, 24, torch.float32, seed=0)
     with pytest.raises(ValueError):
-        mhsa.fused_small_mhsa(qkv, mask, 4)
+        mhsa.fused_small_mhsa(qkv, mask, 5)
     with pytest.raises(TypeError):
         mhsa.fused_small_mhsa(qkv[:, :16].half().contiguous(), mask[:, :16].contiguous(), 4)
 
 
-@pytest.mark.parametrize("l,d,h,dtype", [(129, 64, 1, torch.float32),
-                                         (129, 300, 15, torch.bfloat16),
-                                         (64, 129, 1, torch.bfloat16),
-                                         (65, 130, 2, torch.float32),
-                                         (128, 256, 2, torch.bfloat16)])
+@pytest.mark.parametrize("l,d,h,dtype", [(200, 300, 15, torch.float16),
+                                         (129, 300, 7, torch.float32),
+                                         (16, 1025, 1, torch.bfloat16),
+                                         (300, 2050, 2, torch.float32)])
 def test_refused_shapes_raise_in_the_wrapper_and_in_the_model(cuda, l, d, h, dtype):
-    """A shape ``kernel_supports`` refuses raises on the card, in the wrapper
-    and in ``MultiHeadSelfAttention``: nothing gives way to the plain
-    version, and nothing is launched.  The shapes outside the box: L = 129,
-    head dim 129, and head dims above 64 at L above 64.  (Head dim 100, L =
-    100 and a bf16 slab of (64, 960), refused before the box grew, run in
-    the wide instances: ``WIDE_SHAPES``.)"""
+    """What ``kernel_supports`` still refuses raises on the card, in the
+    wrapper and in ``MultiHeadSelfAttention``: float16, heads that do not
+    divide D (the module refuses them when built) and head dims above
+    1,024.  Nothing gives way to the plain version, and nothing is
+    launched.  (L = 129, head dim 129 and head dims above 64 at L above 64,
+    refused before the long instances: ``LONG_SHAPES``.)"""
     from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
 
     assert not mhsa.kernel_supports(l, d, h, dtype)
-    qkv, mask = _inputs(3, l, d, dtype, seed=l)
+    qkv = torch.zeros((3, l, 3 * d), dtype=dtype, device=cuda)
+    mask = torch.ones((3, l), dtype=torch.bool, device=cuda)
     before = mhsa.launches
-    with pytest.raises(ValueError, match="kernel does not take"):
+    with pytest.raises((ValueError, TypeError)):
         mhsa.fused_small_mhsa(qkv, mask, h)
-    module = MultiHeadSelfAttention(d, h).to(cuda, dtype)
-    x = torch.zeros((3, l, d), dtype=dtype, device=cuda)
-    with pytest.raises(ValueError, match="kernel does not take"):
-        module(x, mask)
+    if d % h:
+        with pytest.raises(ValueError, match="divisible"):
+            MultiHeadSelfAttention(d, h)
+    else:
+        module = MultiHeadSelfAttention(d, h).to(cuda, dtype)
+        with pytest.raises((ValueError, TypeError)):
+            module(torch.zeros((3, l, d), dtype=dtype, device=cuda), mask)
     assert mhsa.launches == before
+
+
+# The long instances (``long_instance``): the shapes refused before them
+# (L = 129, head dim 129, head dims above 64 at L above 64), NRMS's user
+# encoder at history 200, the PLM head at 257 tokens, CAUM's default head
+# dim 100 at L = 100, head dims 150 and 1,024, L = 1 and 300.
+LONG_SHAPES = [(7, 129, 64, 1), (9, 129, 300, 15), (5, 64, 129, 1), (6, 65, 130, 2),
+               (4, 128, 256, 2), (9, 200, 300, 15), (5, 257, 768, 16), (6, 100, 400, 4),
+               (5, 200, 300, 2), (3, 129, 1024, 1), (4, 300, 600, 2), (11, 1, 2048, 2)]
+
+
+@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l,d,h", LONG_SHAPES)
+def test_long_shapes_run_in_the_wrapper_and_in_the_model(cuda, u, l, d, h, dtype, masking):
+    """The long instances on the card: the forward kernel against
+    ``mhsa_plain``, the backward kernel against ``mhsa_backward`` and
+    autograd of ``mhsa_plain`` (fully masked rows: no q or k gradient), one
+    long launch each way; and ``MultiHeadSelfAttention`` against the same
+    module on the plain attention."""
+    from newsreclib_tpu_torch.models.components.attention import MultiHeadSelfAttention
+
+    assert mhsa.long_instance(l, d, h) and mhsa.kernel_supports(l, d, h, dtype)
+    qkv, mask = _edge_inputs(u, l, d, dtype, seed=u * 3 + l, masking=masking)
+    before = mhsa.long_launches, mhsa.long_bwd_launches
+    _check_against_plain(qkv, mask, h)
+    got = _check_backward(qkv, mask, h, _grad_out(u, l, d, dtype, seed=l + 5))
+    assert bool((got[~mask.any(dim=1)][:, :, :2 * d] == 0).all())
+    assert (mhsa.long_launches, mhsa.long_bwd_launches) == (before[0] + 1, before[1] + 1)
+    module = MultiHeadSelfAttention(d, h, torch.Generator().manual_seed(l)).to(cuda, dtype)
+    plain = copy.deepcopy(module)
+    plain.attention = mhsa.mhsa_plain
+    x = torch.randn((u, l, d), generator=torch.Generator().manual_seed(d)).to(cuda, dtype)
+    with torch.no_grad():
+        torch.testing.assert_close(module(x, mask).float(), plain(x, mask).float(),
+                                   **TOL[dtype])
+    assert mhsa.long_launches == before[0] + 2
 
 
 def _plain_model(model):

@@ -132,26 +132,24 @@ def test_wrapper_on_cpu_stays_differentiable():
     (64, 303, 101, torch.float32, True), (64, 600, 20, torch.float32, True),
     (64, 600, 20, torch.bfloat16, True), (64, 606, 101, torch.bfloat16, True),
     (128, 64, 1, torch.float32, True), (64, 128, 1, torch.float32, True),
-    (128, 128, 1, torch.float32, False)])
+    (128, 128, 1, torch.float32, True), (200, 1024, 1, torch.bfloat16, True)])
 def test_wrapper_refuses_what_one_block_cannot_stage(l, d, h, dtype, fits):
     """Each kernel instance stages its own share: a bf16 one at head dim up
-    to 32 one sequence's (L, 3D) slab, the others one head's columns.
-    ``kernel_supports`` refuses a shape whose staging does not fit one
-    block's shared memory, and the wrapper raises on it off the CPU (a meta
-    tensor stands for the card here); on the CPU it computes every shape.
-    float32 stages little, so (64, 600) and (64, 303), refused by the
-    whole-slab rule of earlier versions, fit; a bf16 slab too large for one
-    block, (64, 606) with 101 heads, runs in the wide instances, which stage
-    one head.  Inside the box every shape fits, up to the f32 backward's
-    (128, 64) and (64, 128); its corner (128, 128), outside, would not."""
+    to 32 one sequence's (L, 3D) slab, the wide ones one head's columns, the
+    long ones tiles of rows.  ``kernel_supports`` takes a shape only if its
+    staging fits one block's shared memory, and on the CPU the wrapper
+    computes every shape.  float32 stages little, so (64, 600) and (64,
+    303), refused by the whole-slab rule of earlier versions, fit; a bf16
+    slab too large for one block, (64, 606) with 101 heads, runs in the wide
+    instances, which stage one head.  Inside the box every shape fits, up to
+    the f32 backward's (128, 64) and (64, 128); its corner (128, 128),
+    outside, runs in the long instances, whose tiles shrink with the head
+    dim so that one block fits up to head dim 1,024 at any L."""
     assert (mhsa.smem_bytes(l, d, h, dtype) <= 232448) == fits
     assert mhsa.kernel_supports(l, d, h, dtype) == fits
     qkv = torch.zeros(2, l, 3 * d, dtype=dtype)
     mask = torch.ones(2, l, dtype=torch.bool)
     assert mhsa.fused_small_mhsa(qkv, mask, h).shape == (2, l, d)
-    if not fits:
-        with pytest.raises(ValueError, match="shared memory"):
-            mhsa.fused_small_mhsa(qkv.to("meta"), mask.to("meta"), h)
 
 
 def _bad_inputs():
@@ -224,23 +222,29 @@ def test_fused_backward_returns_the_input_type():
     (50, 300, 6, torch.bfloat16, True), (30, 400, 20, torch.float32, True),
     (64, 960, 32, torch.bfloat16, True), (64, 960, 32, torch.float32, True),
     (64, 4096, 64, torch.bfloat16, True), (50, 400, 4, torch.float32, True),
-    # the box: L up to 128 at head dim up to 64, head dim up to 128 at L <= 64
+    # the old box (L up to 128 at head dim up to 64, head dim up to 128 at
+    # L <= 64) and beyond it, in the long instances
     (128, 64, 1, torch.float32, True), (128, 64, 1, torch.bfloat16, True),
-    (129, 64, 1, torch.float32, False), (129, 64, 1, torch.bfloat16, False),
-    (129, 300, 15, torch.float32, False),
+    (129, 64, 1, torch.float32, True), (129, 64, 1, torch.bfloat16, True),
+    (129, 300, 15, torch.float32, True),
     (64, 128, 1, torch.float32, True), (64, 128, 1, torch.bfloat16, True),
-    (64, 129, 1, torch.float32, False), (64, 129, 1, torch.bfloat16, False),
-    (65, 65, 1, torch.float32, False), (65, 65, 1, torch.bfloat16, False),
-    (128, 128, 1, torch.bfloat16, False), (96, 768, 16, torch.float32, True),
-    (96, 768, 16, torch.bfloat16, True), (100, 300, 15, torch.bfloat16, True)])
+    (64, 129, 1, torch.float32, True), (64, 129, 1, torch.bfloat16, True),
+    (65, 65, 1, torch.float32, True), (65, 65, 1, torch.bfloat16, True),
+    (128, 128, 1, torch.bfloat16, True), (96, 768, 16, torch.float32, True),
+    (96, 768, 16, torch.bfloat16, True), (100, 300, 15, torch.bfloat16, True),
+    (200, 300, 15, torch.float32, True), (256, 768, 16, torch.bfloat16, True),
+    (512, 1024, 1, torch.float32, True), (3000, 2048, 2, torch.bfloat16, True),
+    (16, 1025, 1, torch.float32, False), (300, 2050, 2, torch.bfloat16, False)])
 def test_kernel_supports_at_the_edges(l, d, h, dtype, supported):
-    """float32 or bfloat16, heads dividing D, head dim up to 128 at L <= 64
-    and up to 64 at L <= 128, and what the instance stages within shared
-    memory (always, inside that box): MINS's 6 heads of 50, CenNewsRec's and
-    CAUM's D = 400 with 20 heads, the PLM head's 16 heads of 48 at L = 96,
-    CAUM's default head dim 100, and a bf16 slab of (64, 960), which the
-    wide instances stage one head at a time, in both types; L = 129 and
-    head dim 129, and head dims above 64 at L above 64, refused."""
+    """float32 or bfloat16, heads dividing D, any L, head dim up to 1,024,
+    and what the instance stages within shared memory (always): MINS's 6
+    heads of 50, CenNewsRec's and CAUM's D = 400 with 20 heads, the PLM
+    head's 16 heads of 48 at L = 96 and 256, CAUM's default head dim 100, a
+    bf16 slab of (64, 960), which the wide instances stage one head at a
+    time, NRMS's user encoder at history 200, L = 129 and head dim 129,
+    head dims above 64 at L above 64 and head dim 1,024 at any L (the long
+    instances), in both types; head dims above 1,024, float16 and heads
+    that do not divide D refused."""
     assert mhsa.kernel_supports(l, d, h, dtype) == supported
 
 
@@ -250,7 +254,7 @@ ZOO_SHAPES = {  # (L, D, heads, kernel_supports): the zoo's attentions on the ed
     "plm_text": (32, 768, 16, True),
     "plm_text_96": (96, 768, 16, True),  # PLM-mode titles, tokenizer_max_len 96
     "long_history": (100, 300, 15, True),
-    "beyond_the_box": (130, 300, 15, False),
+    "beyond_the_box": (130, 300, 15, True),  # the long instances
 }
 
 
@@ -260,8 +264,8 @@ def test_mhsa_module_matches_jax_where_the_kernel_does_not_go(name):
     module at the zoo's shapes on the edge of ``kernel_supports``: MINS's
     user encoder, the PLM tower's MHSA at L = 32 and 96, head dim 100 and
     L = 100, which the kernel's wide instances take on the card, and
-    L = 130, beyond the box, which it refuses.  On the CPU any shape
-    computes."""
+    L = 130, beyond the box, which its long instances take.  On the CPU any
+    shape computes."""
     import jax
 
     from newsreclib_tpu.models.components.attention import (
@@ -296,14 +300,14 @@ def test_kernel_library_is_keyed_by_source_and_built_under_build():
 
 
 # The parts compile at once, so the stand-in nvcc of each appends its line to
-# the log in whatever order they finish: "shuffled" makes them finish 3, 1, 2.
-PART_DELAYS = {"as_started": {}, "shuffled": {3: 0.0, 1: 0.3, 2: 0.6}}
+# the log in whatever order they finish: "shuffled" makes them finish 4, 3, 1, 2.
+PART_DELAYS = {"as_started": {}, "shuffled": {4: 0.0, 3: 0.3, 1: 0.6, 2: 0.9}}
 
 
 @pytest.mark.parametrize("order", sorted(PART_DELAYS))
 def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch, order):
     """``csrc/mhsa.cu`` builds as ``PARTS["mhsa"]`` nvcc compilations with
-    ``NRL_PART`` 1, 2, 3 for sm_90a, then one link of their objects, in part
+    ``NRL_PART`` 1 to 4 for sm_90a, then one link of their objects, in part
     order, into the library; the objects are removed.  A stand-in nvcc
     records each command and writes its output; each part's line is found
     by its ``-DNRL_PART=k``, whatever order the parts logged in."""
@@ -410,11 +414,14 @@ def test_backward_raises_on_a_wrong_grad_out(case):
 
 def test_backward_raises_off_the_cpu_where_the_kernel_does_not_go():
     """On a device other than the CPU (a meta tensor stands for the card)
-    the backward takes the kernel's shape rule, as the forward does."""
+    the backward takes the kernel's shape rule, as the forward does: head
+    dim 1,025 is refused; L = 129, which the long instances take, only
+    finds no kernel for the meta device."""
+    qkv = torch.zeros(2, 16, 3 * 1025, device="meta")
+    mask = torch.ones(2, 16, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="kernel does not take"):
+        mhsa._backward(qkv, mask, 1, torch.zeros(2, 16, 1025, device="meta"))
     qkv = torch.zeros(2, 129, 900, device="meta")
     mask = torch.ones(2, 129, dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError, match="kernel does not take"):
-        mhsa._backward(qkv, mask, 15, torch.zeros(2, 129, 300, device="meta"))
-    qkv, mask = qkv[:, :16].contiguous(), mask[:, :16].contiguous()
     with pytest.raises(ValueError, match="no kernel for device"):
-        mhsa._backward(qkv, mask, 15, torch.zeros(2, 16, 300, device="meta"))
+        mhsa._backward(qkv, mask, 15, torch.zeros(2, 129, 300, device="meta"))
