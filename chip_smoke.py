@@ -242,9 +242,9 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    with its collectives, phase 18's per rank under
    ``two_rank_launches_per_rank``; the long instances' own entries
    ``fused_small_mhsa_long`` / ``_backward``: phase 19b's launches, the
-   times at the train user encoder's (64, 200, 300, 15) and, under
-   ``u<U>_l<L>_d<D>_*``, at the other ``LONG_TIMED`` shapes) and, last,
-   ``{"ok": true, ...}``.
+   times at the train user encoder's (64, 200, 300, 15) with their share
+   of the bound (``pct_of_bound``) and, under ``u<U>_l<L>_d<D>_*``, at the
+   other ``LONG_TIMED`` shapes) and, last, ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
@@ -3078,6 +3078,7 @@ def main() -> int:
                 by_shape.update({key + tag + "ms": r[prefix + "ms"],
                                  key + tag + "bound_ms": r[prefix + "bound_ms"],
                                  key + tag + "bound_by": r[prefix + "bound_by"],
+                                 key + tag + "pct_of_bound": r[prefix + "pct_of_bound"],
                                  key + tag + "plain_ms": r["plain_" + prefix + "ms"],
                                  key + tag + "library_ms": r["library_" + prefix + "ms"]})
         runs = [long_run["serving"]] if not prefix else []

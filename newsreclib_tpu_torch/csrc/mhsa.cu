@@ -2455,28 +2455,902 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
 // Like the TPU kernel (_attention_kernel, ops/mhsa.py:105), the forward
 // streams the keys with an online softmax whose running max starts at the
 // finite -1e30 (never -inf): a tile whose keys are all masked then leaves
-// the running state as it was, and a fully masked sequence ends with the
-// uniform mean of v over its L keys, however many tiles they span.
+// the running state as it was once a valid key has been seen, and a fully
+// masked sequence ends with the uniform mean of v over its L keys, however
+// many tiles they span.  Masked keys take the bias -1e30, keys past L -inf
+// (p = 0).
 //
 // What bounds it on the H100.  At the train user encoder's (64, 200, 300,
-// 15) the products: 4 U L^2 D = 3.1 GFLOP against 23 MB of qkv and
-// context, so 0.046 ms at the f32 CUDA-core rate against 0.007 ms of bytes
-// (bf16: 0.0031 ms on the tensor cores, 0.0052 ms of bytes).  This first
-// version is the simple one, without tensor cores: every product runs
-// in f32 FMA on the CUDA cores, from tiles staged in shared memory as f32
-// (bf16 is upcast when staged), so both types get the plain version's f32
-// sums in another order (float32 within 1e-5; bf16 rounds once, at the
-// output).  Making it fast (mma.sync / wgmma, TMA, a ring of tiles) is
-// later work.  The design:
+// 15) the forward's products are 4 U L^2 D = 3.1 GFLOP against 23 MB of
+// qkv and context: 0.0031 ms on the bf16 tensor cores against 0.0052 ms of
+// bytes (f32: 0.046 ms at the CUDA-core rate, 0.0063 ms in TF32 on the
+// tensor cores).  Neither is near: at head dim 20 a warp's products are
+// 16 x 64 x 32 tiles, so the kernel is bound by latency and instruction
+// issue (fragment loads, the softmax's ex2 and shuffles, barriers), not by
+// the tensor cores' rate or the bytes.  The design (the tensor-core
+// instances, head dims up to kLongTcMaxHeadDim = 256):
 //
-// * Tiles of T rows, T from the head dim (long_tile: 64 up to head dim 64,
-//   32 up to 256, 16 up to 512, 8 up to 1,024), so that the largest block
-//   (the dK/dV kernel's six T x hd tiles and two T x T ones) fits the
+// * Tiles of R = 64 rows (32 for float32 above head dim 128, so that the
+//   dK / dV kernel's six tiles fit), a warp per 16-row strip, R / 16 warps
+//   a block.  Every array is staged in its storage type (bf16 stays bf16)
+//   with the wide instances' padded rows (wide_stride: 16 ceil(hd / 16) + 8
+//   bf16 values or 8 ceil(hd / 8) + 4 floats, so that ldmatrix and the f32
+//   fragment reads fall in distinct banks); the head dim is zero-padded to
+//   the mma k-step (hd = 20: 32 in bf16, 24 in f32), and rows past L are
+//   staged as zeros.  All offsets into qkv, dO and the outputs are 64-bit
+//   (U L 3D passes 2^31 values at PLM widths).
+// * The streamed tiles (keys and values, or queries and dO) go through a
+//   two-stage cp.async ring: after the barrier that makes tile j visible,
+//   the copies of tile j + 1 are issued into the other stage and the warps
+//   compute on tile j while they land (16-byte cp.async where every run
+//   allows it, else 8 or 4 bytes; 2-byte bf16 values off a 4-byte boundary,
+//   odd head dims, by plain copies).  One barrier a tile.
+// * bf16: every product on mma.sync.m16n8k16 (bf16 in, f32 sums), operands
+//   by ldmatrix from the staged tiles; P and dS rounded to bf16 as A
+//   operands, P into dV = P^T dO and dS into dK = dS^T Q as bf16 hi + lo
+//   pairs (sums over every query; tc_dkv).  f32: split TF32 ("3xTF32", mma.sync.m16n8k8), with P and
+//   dS going back as A operands straight from the accumulators (k index c
+//   as key 2c, c + 4 as key 2c + 1).  Every k8 step of a product sums its
+//   main part and its corrections in fresh accumulators, added in f32
+//   (mma3_add: the tensor cores truncate their sums).  One product leaves
+//   the tensor cores in f32: dV = P^T dO, as one FMA chain a value over the
+//   queries in order, which is how the plain version's exact-f32 product
+//   rounds it; split-TF32 sums missed the f32 check against the plain
+//   version at (512, 256, 768, 16) (tc_dkv).
+// * Forward: one block per (sequence, head, query tile, column group).  A
+//   warp's 16 x R logits sit in its accumulator fragments; the online
+//   softmax keeps each row's max and sum in registers (the max over the
+//   quad by two shuffles, the sum as per-lane partials added at the end),
+//   rescales the output accumulators, and P goes into P V from the
+//   accumulators without touching shared memory.
+// * Column groups: a warp's output accumulators cover 4 n8 tiles (head
+//   dim up to 32) or 8 (64 columns) of the head dim; wider heads run
+//   ceil(hd / 64) column groups as separate blocks, each forming the
+//   logits over the whole head dim.  So registers stay within one 16-row
+//   strip's budget up to head dim 256 (the dK / dV kernel: 64 accumulators
+//   of dK and dV, 16 of S^T and dP^T; at most 127 registers a thread in
+//   bf16, 167 in f32 and 214 for f32's 32-row tiles, no spill, nvcc 12.8
+//   for sm_90a).  The bound kLongTcMaxHeadDim is 256, the widest power of
+//   two whose blocks fit: the dK / dV kernel's six staged tiles fit 232,448
+//   bytes up to head dim 288 (bf16, 64 rows) and 296 (f32, 32 rows), and
+//   beyond 256 the column groups would form the logits five times and more.
+//   Above it the FMA instances below run (head dims 257 to 1,024, outside
+//   every model of the repo).
+// * Backward, FlashAttention-2's split, three launches, no atomics:
+//   (1) statistics: one block per (sequence, head, query tile) streams the
+//   key tiles, forms S = Q K^T and dP = dO V^T per 16-key chunk and keeps
+//   per row its max (log2 units), sum and D = rowsum(P * dP) online
+//   (rescaled by the same factor as the sum), written as max, 1 / sum and
+//   D / sum into a workspace of U H L x 3 floats; (2) dQ: one block per
+//   (sequence, head, query tile, column group) streams the key tiles: S
+//   and dP again, P from the statistics, dS = P (dP - D) (0 at masked
+//   keys), dQ += dS K; (3) dK / dV: one block per (sequence, head, key
+//   tile, column group) streams the query tiles with their statistics,
+//   keys as the rows: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as A
+//   operands, dV += P^T dO, dK += dS^T Q.  D is formed from the same dP
+//   values, the same products in the same order, that (2) and (3) subtract
+//   it from, and P in (2) and (3) is the same bits (S and dP are summed in
+//   the same k order whichever side holds the queries): so dP - D cancels
+//   where one key takes all the attention as it does in the plain version.
+//   D = rowsum(dO * O) from the forward's output, FlashAttention's choice,
+//   did not cancel within the f32 tolerance at (512, 256, 768, 16).  Keeping
+//   the statistics launch costs two products a pair; the forward's
+//   log-sum-exp alone would not spare it, since D needs both.  A fully
+//   masked sequence gets dS = 0 (no gradient on q and k) and dV = the mean
+//   of dO.
+constexpr int kLongTcMaxHeadDim = 256;
+
+// Whether head dim hd runs in the tensor-core long instances.
+__host__ __device__ inline bool long_tc(int hd) { return hd <= kLongTcMaxHeadDim; }
+// Rows of a tile of the tensor-core instances.
+__host__ __device__ inline int tc_rows(int hd, int es) { return es == 4 && hd > 128 ? 32 : 64; }
+// n8 column tiles of a column group, and the column groups of head dim hd.
+__host__ __device__ inline int tc_ntc(int hd) { return hd <= 32 ? 4 : 8; }
+__host__ __device__ inline int tc_groups(int hd) {
+  return ((hd + 7) / 8 + tc_ntc(hd) - 1) / tc_ntc(hd);
+}
+// Shared memory of a tensor-core kernel: kind 0 the forward (the query
+// tile, two stages of key and value tiles, two stages of key biases), 1 the
+// statistics and dQ kernels (the query and dO tiles, the same ring), 2 the
+// dK / dV kernel (the block's key and value tiles, two stages of query and
+// dO tiles and of their rows' statistics).
+__host__ __device__ inline size_t tc_smem(int hd, int es, int kind) {
+  const size_t R = tc_rows(hd, es), arr = R * wide_stride(hd, es) * es;
+  return (kind == 0 ? 5 : 6) * arr + (kind == 2 ? 6 : 2) * R * 4;
+}
+// Blocks an SM that the register budget is set for, counted as blocks of
+// 64 rows: 128 registers a thread in bf16, 168 in f32; blocks of 32 rows
+// may use twice as many (at 168 the f32 dK / dV kernel of 32 rows spilled
+// 48 bytes).
+template <typename E>
+__host__ __device__ constexpr int tc_min_blocks() {
+  return 65536 / (128 * (sizeof(E) == 4 ? 168 : 128));
+}
+
+// Rows r0 .. r0 + R - 1 of `parts` runs of hd values (run p of row r at
+// src + r * src_row + p * src_part) into `parts` arrays of R rows of `st`
+// values at dst (array p at dst + p R st): rows below L by cp.async of the
+// widest of 16, 8 and 4 bytes that every run allows, not committed (the
+// caller commits a tile's copies as one group); 2-byte values off a 4-byte
+// boundary by plain copies; rows at or past L as zeros.  Columns hd and up
+// are tc_zero_pad's.
+template <typename S>
+__device__ void tc_stage(S* dst, const S* src, int r0, int R, int L, int parts, int hd,
+                         size_t src_row, size_t src_part, int st) {
+  constexpr int es = sizeof(S);
+  const uintptr_t a = (uintptr_t)src | (src_row * es) | (src_part * es) | ((uintptr_t)hd * es);
+  const int V = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : es;
+  const int per = hd * es / V;  // copies a run
+  const int n = R * parts * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int run = i / per, j = i - run * per;
+    const int r = run / parts, p = run - r * parts;
+    char* to = reinterpret_cast<char*>(dst + ((size_t)p * R + r) * st) + j * V;
+    if (r0 + r < L) {
+      const char* from =
+          reinterpret_cast<const char*>(src + (size_t)(r0 + r) * src_row + p * src_part) + j * V;
+      if (V == 16)
+        cp_async16(to, from);
+      else if (V == 8)
+        cp_async8(to, from);
+      else if (V == 4)
+        cp_async4(to, from);
+      else
+        *reinterpret_cast<S*>(to) = *reinterpret_cast<const S*>(from);
+    } else {
+      for (int b = 0; b < V; b += es) *reinterpret_cast<S*>(to + b) = S(0);
+    }
+  }
+}
+
+// Zero columns hd .. hdp - 1 of `rows` staged rows of `st` values: the
+// head dim's padding to the k-step, which no copy writes.
+template <typename S>
+__device__ void tc_zero_pad(S* dst, int rows, int hd, int hdp, int st) {
+  const int pc = hdp - hd;
+  for (int i = threadIdx.x; i < rows * pc; i += blockDim.x) {
+    const int r = i / pc;
+    dst[(size_t)r * st + hd + (i - r * pc)] = S(0);
+  }
+}
+
+// Key biases of keys k0 .. k0 + T - 1: 0 (valid), -1e30 (masked), -inf (past L).
+__device__ void long_biases(float* sbias, const uint8_t* msk, int k0, int T, int L) {
+  for (int j = threadIdx.x; j < T; j += blockDim.x)
+    sbias[j] = k0 + j < L ? (msk[k0 + j] ? 0.f : kMaskMin) : -INFINITY;
+}
+
+// The statistics of query rows q0 .. q0 + R - 1 (max, 1 / sum, D per row in
+// `stats`) as three planes of R floats at dst, by 4-byte cp.async (not
+// committed); 0 past L, so that P recomputed from them is 0.
+__device__ void tc_stage_stats(float* dst, const float* stats, int q0, int R, int L) {
+  for (int i = threadIdx.x; i < 3 * R; i += blockDim.x) {
+    const int r = i / 3, k = i - 3 * r;
+    if (q0 + r < L)
+      cp_async4(dst + k * R + r, stats + 3 * (size_t)(q0 + r) + k);
+    else
+      dst[k * R + r] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// The block's (sequence, head, tile, column group) from blockIdx.x, column
+// groups fastest, then tiles.
+struct TcBlock {
+  size_t u;
+  int h, t0, cg;
+};
+__device__ __forceinline__ TcBlock tc_block(int H, int ntiles, int R, int ncg) {
+  const size_t b = blockIdx.x;
+  const size_t bt = b / ncg;
+  const size_t uh = bt / ntiles;
+  return TcBlock{uh / H, (int)(uh % H), (int)(bt % ntiles) * R, (int)(b % ncg)};
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// acc += a b in split TF32 with each sum the tensor cores form kept to one
+// k8 step: the main product a_hi b_hi and the two corrections (a_lo b_hi,
+// then a_hi b_lo) in fresh accumulators, added to acc in f32.  The tensor
+// cores align a sum's terms to the largest and truncate: chained through
+// one accumulator over the head dim and the keys, the forward's output was
+// 2.98e-6 off the plain version at (64, 200, 300, 15) on the H100, 1.37e-6
+// with the sums kept short.  mma3_add_t is the same sum with the operands'
+// roles swapped (a the key side, b the query side), each term the same
+// product in the same order: S and dP come out the same bits with keys or
+// queries as rows.
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const FragA& a, const FragB& b) {
+  float m[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(m, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += m[e] + c[e];
+}
+__device__ __forceinline__ void mma3_add_t(float (&acc)[4], const FragA& a, const FragB& b) {
+  float m[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(m, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += m[e] + c[e];
+}
+
+// S = q k^T of the 16 rows r0 of q against the first nj n8 tiles of the R
+// keys of k (the rest left 0), over the head dim: bf16 k16 steps.
+template <int NJ>
+__device__ __forceinline__ void tc_logits(float (&sc)[NJ][4], const unsigned short* q,
+                                          const unsigned short* k, int st, int r0, int hd,
+                                          int nj) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  const int hk = (hd + 15) / 16;
+  for (int ks = 0; ks < hk; ++ks) {
+    uint32_t a[4];
+    tile_a(a, q, st, r0, ks * 16);
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      if (2 * kk < nj) {
+        uint32_t b[4];
+        tile_b(b, k, st, kk * 16, ks * 16);
+        mma_bf16(sc[2 * kk], a, b[0], b[1]);
+        if (2 * kk + 1 < nj) mma_bf16(sc[2 * kk + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+// The same in split TF32 (k8 steps, mma3_add).
+template <int NJ>
+__device__ __forceinline__ void tc_logits(float (&sc)[NJ][4], const float* q, const float* k,
+                                          int st, int r0, int hd, int nj) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const float* q0 = q + (r0 + g) * st + c;
+  const float* q1 = q0 + 8 * st;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  const int nks = (hd + 7) / 8;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8;
+    const FragA a = frag_a(q0[d], q1[d], q0[d + 4], q1[d + 4]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nj) {
+        const float* kr = k + (j * 8 + g) * st + c + d;
+        mma3_add(sc[j], a, frag_b(kr[0], kr[4]));
+      }
+  }
+}
+
+// o += p v for the first nj n8 key tiles of p (16 rows x R keys, in the
+// accumulator layout) and the ntg n8 column tiles of v from column col0.
+template <int NJ, int NTC>
+__device__ __forceinline__ void tc_pv(float (&o)[NTC][4], const float (&p)[NJ][4],
+                                      const unsigned short* v, int st, int col0, int ntg,
+                                      int nj) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    if (2 * kk < nj) {
+      uint32_t a[4];
+      pack_a(a, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NTC / 2; ++np) {
+        if (2 * np < ntg) {
+          uint32_t b[4];
+          tile_bt(b, v, st, kk * 16, col0 + np * 16);
+          mma_bf16(o[2 * np], a, b[0], b[1]);
+          if (2 * np + 1 < ntg) mma_bf16(o[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+template <int NJ, int NTC>
+__device__ __forceinline__ void tc_pv(float (&o)[NTC][4], const float (&p)[NJ][4], const float* v,
+                                      int st, int col0, int ntg, int nj) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j < nj) {
+      const FragA pa = frag_a(p[j][0], p[j][2], p[j][1], p[j][3]);
+      const float* v0 = v + (j * 8 + 2 * c) * st + col0 + g;
+      const float* v1 = v0 + st;
+#pragma unroll
+      for (int nt = 0; nt < NTC; ++nt)
+        if (nt < ntg) mma3_add(o[nt], pa, frag_b(v0[nt * 8], v1[nt * 8]));
+    }
+  }
+}
+
+// S = q k^T and dP = dO v^T of the 16 rows r0 (q, dO) and the 16 keys n0
+// (k, v): two n8 tiles each.  bf16: chunk2_bf16; f32: mma3_add.
+__device__ __forceinline__ void tc_chunk2(float (&s)[2][4], float (&dp)[2][4],
+                                          const unsigned short* q, const unsigned short* k,
+                                          const unsigned short* dout, const unsigned short* v,
+                                          int st, int r0, int n0, int hd) {
+  chunk2_bf16(s, q, k, dp, dout, v, st, r0, n0, (hd + 15) / 16);
+}
+__device__ __forceinline__ void tc_chunk2(float (&s)[2][4], float (&dp)[2][4], const float* q,
+                                          const float* k, const float* dout, const float* v,
+                                          int st, int r0, int n0, int hd) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+  const int nks = (hd + 7) / 8;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8 + c;
+    const float* q0 = q + (r0 + g) * st + d;
+    const float* o0 = dout + (r0 + g) * st + d;
+    const FragA qa = frag_a(q0[0], q0[8 * st], q0[4], q0[8 * st + 4]);
+    const FragA oa = frag_a(o0[0], o0[8 * st], o0[4], o0[8 * st + 4]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* kr = k + (n0 + 8 * n + g) * st + d;
+      const float* vr = v + (n0 + 8 * n + g) * st + d;
+      mma3_add(s[n], qa, frag_b(kr[0], kr[4]));
+      mma3_add(dp[n], oa, frag_b(vr[0], vr[4]));
+    }
+  }
+}
+
+// S^T = k q^T and dP^T = v dO^T of the 16 keys r0 (k, v) and the 16 queries
+// n0 (q, dO), each value the bits tc_chunk2 forms for S and dP: bf16
+// chunk2_bf16 with the operands swapped; f32 mma3_add_t.
+__device__ __forceinline__ void tc_chunk2_t(float (&pt)[2][4], float (&dpt)[2][4],
+                                            const unsigned short* k, const unsigned short* v,
+                                            const unsigned short* q, const unsigned short* dout,
+                                            int st, int r0, int n0, int hd) {
+  chunk2_bf16(pt, k, q, dpt, v, dout, st, r0, n0, (hd + 15) / 16);
+}
+__device__ __forceinline__ void tc_chunk2_t(float (&pt)[2][4], float (&dpt)[2][4], const float* k,
+                                            const float* v, const float* q, const float* dout,
+                                            int st, int r0, int n0, int hd) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const float* k0 = k + (r0 + g) * st + c;
+  const float* v0 = v + (r0 + g) * st + c;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = 0.f;
+  const int nks = (hd + 7) / 8;
+  for (int ks = 0; ks < nks; ++ks) {
+    const int d = ks * 8;
+    const FragA ka = frag_a(k0[d], k0[8 * st + d], k0[d + 4], k0[8 * st + d + 4]);
+    const FragA va = frag_a(v0[d], v0[8 * st + d], v0[d + 4], v0[8 * st + d + 4]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* qr = q + (n0 + 8 * n + g) * st + c + d;
+      const float* orow = dout + (n0 + 8 * n + g) * st + c + d;
+      mma3_add_t(pt[n], ka, frag_b(qr[0], qr[4]));
+      mma3_add_t(dpt[n], va, frag_b(orow[0], orow[4]));
+    }
+  }
+}
+
+// acc += ds b for one 16-row x 16-key chunk of dS (accumulator layout, two
+// n8 tiles) and the 16 rows n0 of b (keys: dQ = dS K), its ntg n8 column
+// tiles from col0.
+template <int NTC>
+__device__ __forceinline__ void tc_ds_b(float (&acc)[NTC][4], const float (&ds)[2][4],
+                                        const unsigned short* b, int st, int n0, int col0,
+                                        int ntg) {
+  uint32_t a[4];
+  pack_a(a, ds[0], ds[1]);
+#pragma unroll
+  for (int np = 0; np < NTC / 2; ++np) {
+    if (2 * np < ntg) {
+      uint32_t f[4];
+      tile_bt(f, b, st, n0, col0 + np * 16);
+      mma_bf16(acc[2 * np], a, f[0], f[1]);
+      if (2 * np + 1 < ntg) mma_bf16(acc[2 * np + 1], a, f[2], f[3]);
+    }
+  }
+}
+template <int NTC>
+__device__ __forceinline__ void tc_ds_b(float (&acc)[NTC][4], const float (&ds)[2][4],
+                                        const float* b, int st, int n0, int col0, int ntg) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const FragA da = frag_a(ds[n][0], ds[n][2], ds[n][1], ds[n][3]);
+    const float* r0 = b + (n0 + n * 8 + 2 * c) * st + col0 + g;
+    const float* r1 = r0 + st;
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt) {
+      if (nt < ntg) mma3_add(acc[nt], da, frag_b(r0[nt * 8], r1[nt * 8]));
+    }
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q for one 16-key x 16-query chunk (P^T and
+// dS^T in the accumulator layout, keys as rows) and the 16 query rows n0 of
+// dO and Q, their ntg n8 column tiles from col0.  bf16: P^T and dS^T each
+// as a hi + lo pair of bf16 operands.  dS^T rounded once failed the bf16
+// check of dK against the plain version at (512, 256, 768, 16), a sum over
+// 256 queries (0.0625 off it, H100); as a pair dK is 0.52 of the tolerance
+// off it there, and dQ = dS K, with dS rounded once, 0.51
+// (kernel_bench --components).
+template <int NTC>
+__device__ __forceinline__ void tc_dkv(float (&av)[NTC][4], float (&ak)[NTC][4],
+                                       const float (&pt)[2][4], const float (&dst)[2][4],
+                                       const unsigned short* dout, const unsigned short* q,
+                                       int st, int n0, int col0, int ntg) {
+  uint32_t hi[4], lo[4], sa[4], sl[4];
+  split_bf16(pt[0][0], pt[0][1], hi[0], lo[0]);
+  split_bf16(pt[0][2], pt[0][3], hi[1], lo[1]);
+  split_bf16(pt[1][0], pt[1][1], hi[2], lo[2]);
+  split_bf16(pt[1][2], pt[1][3], hi[3], lo[3]);
+  split_bf16(dst[0][0], dst[0][1], sa[0], sl[0]);
+  split_bf16(dst[0][2], dst[0][3], sa[1], sl[1]);
+  split_bf16(dst[1][0], dst[1][1], sa[2], sl[2]);
+  split_bf16(dst[1][2], dst[1][3], sa[3], sl[3]);
+#pragma unroll
+  for (int np = 0; np < NTC / 2; ++np) {
+    if (2 * np < ntg) {
+      const bool two = 2 * np + 1 < ntg;
+      uint32_t b[4];
+      tile_bt(b, dout, st, n0, col0 + np * 16);
+      mma_bf16(av[2 * np], hi, b[0], b[1]);
+      mma_bf16(av[2 * np], lo, b[0], b[1]);
+      if (two) {
+        mma_bf16(av[2 * np + 1], hi, b[2], b[3]);
+        mma_bf16(av[2 * np + 1], lo, b[2], b[3]);
+      }
+      tile_bt(b, q, st, n0, col0 + np * 16);
+      mma_bf16(ak[2 * np], sa, b[0], b[1]);
+      mma_bf16(ak[2 * np], sl, b[0], b[1]);
+      if (two) {
+        mma_bf16(ak[2 * np + 1], sa, b[2], b[3]);
+        mma_bf16(ak[2 * np + 1], sl, b[2], b[3]);
+      }
+    }
+  }
+}
+// f32: dK on the tensor cores (mma3_add); dV = P^T dO as one FMA chain per
+// value over the queries in order (each lane gathers its key rows' P of
+// the chunk's 16 queries from its quad by shuffles), as cuBLAS's exact-f32
+// product, the plain version's, sums it.  The plain version's own dV is
+// that chain's rounding: at (512, 256, 768, 16) it is 1.31 of the 1e-5 +
+// 1e-5 |x| tolerance off a float64 reference where one key takes most of
+// many queries' attention (kernel_bench --components, H100), and
+// split-TF32 sums were 2.67e-5 off it there, past the check; the chain is
+// 0.31 of the tolerance off it.
+template <int NTC>
+__device__ __forceinline__ void tc_dkv(float (&av)[NTC][4], float (&ak)[NTC][4],
+                                       const float (&pt)[2][4], const float (&dst)[2][4],
+                                       const float* dout, const float* q, int st, int n0,
+                                       int col0, int ntg) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const FragA sa = frag_a(dst[n][0], dst[n][2], dst[n][1], dst[n][3]);
+    const float* q0 = q + (n0 + n * 8 + 2 * c) * st + col0 + g;  // queries 2c, 2c + 1
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt)
+      if (nt < ntg) mma3_add(ak[nt], sa, frag_b(q0[nt * 8], q0[st + nt * 8]));
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int cs = 0; cs < 4; ++cs)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // query n0 + 8 n + 2 cs + e, in order
+        const int src = (lane & ~3) | cs;
+        const float p0 = __shfl_sync(0xffffffffu, pt[n][e], src);
+        const float p1 = __shfl_sync(0xffffffffu, pt[n][2 + e], src);
+        const float* o = dout + (n0 + 8 * n + 2 * cs + e) * st + col0 + 2 * c;
+#pragma unroll
+        for (int nt = 0; nt < NTC; ++nt) {
+          if (nt < ntg) {
+            const float2 y = *reinterpret_cast<const float2*>(o + nt * 8);
+            av[nt][0] = fmaf(p0, y.x, av[nt][0]);
+            av[nt][1] = fmaf(p0, y.y, av[nt][1]);
+            av[nt][2] = fmaf(p1, y.x, av[nt][2]);
+            av[nt][3] = fmaf(p1, y.y, av[nt][3]);
+          }
+        }
+      }
+}
+
+// Rows r0, r0 + 8 (this lane's) of a 16-row strip's accumulators, times
+// s0 / s1, to rows of stride `row` of out (columns col0 + 8 nt + 2c of its
+// ntg tiles, below hd), rows at or past L skipped.
+template <int NTC, typename E>
+__device__ __forceinline__ void tc_store(E* out, size_t row, const float (&acc)[NTC][4], int r0,
+                                         int L, int col0, int ntg, int hd, float s0, float s1) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < NTC; ++nt) {
+    const int col = col0 + nt * 8 + 2 * c;
+    if (nt < ntg) {
+      if (r0 < L) put_pair(out + (size_t)r0 * row + col, col, hd, acc[nt][0] * s0, acc[nt][1] * s0);
+      if (r0 + 8 < L)
+        put_pair(out + (size_t)(r0 + 8) * row + col, col, hd, acc[nt][2] * s1, acc[nt][3] * s1);
+    }
+  }
+}
+
+// Forward: one block per (sequence, head, query tile of R rows, column
+// group), warp w the rows 16 w ..; the key and value tiles stream through
+// the ring, the online softmax and the output accumulators in registers.
+template <typename E, int NTC, int R>
+__global__ void __launch_bounds__(2 * R, tc_min_blocks<E>())
+    mhsa_long_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                     E* __restrict__ out, int L, int D, int H, float scale_log2) {
+  using S = typename Staged<E>::type;
+  constexpr int NJ = R / 8, es = sizeof(E);
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, st = wide_stride(hd, es);
+  const int hdp = es == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+  const int ntiles = (L + R - 1) / R;
+  const TcBlock blk = tc_block(H, ntiles, R, tc_groups(hd));
+  S* sq = reinterpret_cast<S*>(smem);
+  S* ring = sq + R * st;  // stage s: keys at ring + 2 s R st, values R st further
+  float* sbias = reinterpret_cast<float*>(ring + 4 * R * st);
+  const S* base = reinterpret_cast<const S*>(qkv) + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const uint8_t* msk = mask + blk.u * L;
+  tc_zero_pad(sq, 5 * R, hd, hdp, st);
+  tc_stage(sq, base, blk.t0, R, L, 1, hd, 3 * (size_t)D, 0, st);
+  tc_stage(ring, base + D, 0, R, L, 2, hd, 3 * (size_t)D, (size_t)D, st);
+  long_biases(sbias, msk, 0, R, L);
+  cp_async_commit();
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int r0 = blk.t0 + warp * 16 + ((threadIdx.x & 31) >> 2);
+  const bool active = blk.t0 + warp * 16 < L;
+  const int col0 = blk.cg * 8 * NTC;
+  const int ntg = min(NTC, (hd + 7) / 8 - blk.cg * NTC);
+  float o[NTC][4];
+#pragma unroll
+  for (int nt = 0; nt < NTC; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m0 = kMaskMin, m1 = kMaskMin, l0 = 0.f, l1 = 0.f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt + 1 < ntiles) {
+      const int nx = (kt + 1) & 1;
+      tc_stage(ring + 2 * nx * R * st, base + D, (kt + 1) * R, R, L, 2, hd, 3 * (size_t)D,
+               (size_t)D, st);
+      long_biases(sbias + nx * R, msk, (kt + 1) * R, R, L);
+    }
+    cp_async_commit();
+    if (!active) continue;
+    const S* sk = ring + 2 * (kt & 1) * R * st;
+    const float* bias = sbias + (kt & 1) * R;
+    const int nj = min(NJ, (L - kt * R + 7) / 8);
+    float sc[NJ][4];
+    tc_logits<NJ>(sc, sq, sk, st, warp * 16, hd, nj);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
+        sc[j][0] = fmaf(sc[j][0], scale_log2, b.x);
+        sc[j][1] = fmaf(sc[j][1], scale_log2, b.y);
+        sc[j][2] = fmaf(sc[j][2], scale_log2, b.x);
+        sc[j][3] = fmaf(sc[j][3], scale_log2, b.y);
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+    }
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const bool on = j < nj;
+      sc[j][0] = on ? ex2(sc[j][0] - n0) : 0.f;
+      sc[j][1] = on ? ex2(sc[j][1] - n0) : 0.f;
+      sc[j][2] = on ? ex2(sc[j][2] - n1) : 0.f;
+      sc[j][3] = on ? ex2(sc[j][3] - n1) : 0.f;
+      s0 += sc[j][0] + sc[j][1];
+      s1 += sc[j][2] + sc[j][3];
+    }
+    l0 = l0 * a0 + s0;  // this lane's part of the row sums
+    l1 = l1 * a1 + s1;
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt) {
+      o[nt][0] *= a0;
+      o[nt][1] *= a0;
+      o[nt][2] *= a1;
+      o[nt][3] *= a1;
+    }
+    tc_pv<NJ, NTC>(o, sc, sk + R * st, st, col0, ntg, nj);
+  }
+  l0 = quad_sum(l0);  // >= 1: the max term is 2^0
+  l1 = quad_sum(l1);
+  if (active)
+    tc_store<NTC>(out + blk.u * L * D + (size_t)blk.h * hd, (size_t)D, o, r0, L, col0, ntg, hd,
+                  1.f / l0, 1.f / l1);
+}
+
+// The query tile and its dO rows, and the first key and value tile, of the
+// statistics and dQ kernels, into their shared memory (kind 1).
+template <typename S, int R>
+struct TcQuery {
+  S *sq, *sdo, *ring;
+  float* sbias;
+  const S* base;
+  const uint8_t* msk;
+  __device__ TcQuery(char* smem, const S* qkv, const uint8_t* mask, const S* dout, const TcBlock& b,
+                     int L, int D, int hd, int st) {
+    const int hdp = sizeof(S) == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+    sq = reinterpret_cast<S*>(smem);
+    sdo = sq + R * st;
+    ring = sdo + R * st;
+    sbias = reinterpret_cast<float*>(ring + 4 * R * st);
+    base = qkv + b.u * L * 3 * D + (size_t)b.h * hd;
+    msk = mask + b.u * L;
+    tc_zero_pad(sq, 6 * R, hd, hdp, st);
+    tc_stage(sq, base, b.t0, R, L, 1, hd, 3 * (size_t)D, 0, st);
+    tc_stage(sdo, dout + b.u * L * D + (size_t)b.h * hd, b.t0, R, L, 1, hd, (size_t)D, 0, st);
+    next(0, L, D, hd, st);
+  }
+  // Stage key tile kt (and its biases) into stage kt % 2, then commit.
+  __device__ void next(int kt, int L, int D, int hd, int st) {
+    if (kt * R < L) {
+      tc_stage(ring + 2 * (kt & 1) * R * st, base + D, kt * R, R, L, 2, hd, 3 * (size_t)D,
+               (size_t)D, st);
+      long_biases(sbias + (kt & 1) * R, msk, kt * R, R, L);
+    }
+    cp_async_commit();
+  }
+};
+
+// Backward, (1) the row statistics: one block per (sequence, head, query
+// tile); per row its max (log2 units), 1 / sum and D = rowsum(P * dP) into
+// stats ((U, H, L) x 3 floats), each 16-key chunk's S and dP folded into
+// the online max, sum and D.
+template <typename E, int R>
+__global__ void __launch_bounds__(2 * R, tc_min_blocks<E>())
+    mhsa_long_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                           const E* __restrict__ dout, float* __restrict__ stats, int L, int D,
+                           int H, float scale_log2) {
+  using S = typename Staged<E>::type;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, st = wide_stride(hd, sizeof(E));
+  const int ntiles = (L + R - 1) / R;
+  const TcBlock blk = tc_block(H, ntiles, R, 1);
+  TcQuery<S, R> t(smem, reinterpret_cast<const S*>(qkv), mask, reinterpret_cast<const S*>(dout),
+                  blk, L, D, hd, st);
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int r0 = blk.t0 + warp * 16 + ((threadIdx.x & 31) >> 2);
+  const bool active = blk.t0 + warp * 16 < L;
+  float m0 = kMaskMin, m1 = kMaskMin, l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    t.next(kt + 1, L, D, hd, st);
+    if (!active) continue;
+    const S* sk = t.ring + 2 * (kt & 1) * R * st;
+    const float* bias = t.sbias + (kt & 1) * R;
+    for (int kk = 0; kk < R / 16 && kt * R + kk * 16 < L; ++kk) {
+      float s[2][4], dp[2][4];
+      tc_chunk2(s, dp, t.sq, sk, t.sdo, sk + R * st, st, warp * 16, kk * 16, hd);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + kk * 16 + n * 8 + 2 * c);
+        s[n][0] = fmaf(s[n][0], scale_log2, b.x);
+        s[n][1] = fmaf(s[n][1], scale_log2, b.y);
+        s[n][2] = fmaf(s[n][2], scale_log2, b.x);
+        s[n][3] = fmaf(s[n][3], scale_log2, b.y);
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float s0 = 0.f, s1 = 0.f, e0 = 0.f, e1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float p0 = ex2(s[n][0] - n0), p1 = ex2(s[n][1] - n0);
+        const float p2 = ex2(s[n][2] - n1), p3 = ex2(s[n][3] - n1);
+        s0 += p0 + p1;
+        s1 += p2 + p3;
+        e0 += p0 * dp[n][0] + p1 * dp[n][1];
+        e1 += p2 * dp[n][2] + p3 * dp[n][3];
+      }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+      d0 = d0 * a0 + e0;
+      d1 = d1 * a1 + e1;
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  if (active && c == 0) {
+    float* row = stats + (blk.u * H + blk.h) * L * 3;
+    if (r0 < L) {
+      row[3 * (size_t)r0] = m0;
+      row[3 * (size_t)r0 + 1] = 1.f / l0;
+      row[3 * (size_t)r0 + 2] = d0 / l0;
+    }
+    if (r0 + 8 < L) {
+      row[3 * (size_t)(r0 + 8)] = m1;
+      row[3 * (size_t)(r0 + 8) + 1] = 1.f / l1;
+      row[3 * (size_t)(r0 + 8) + 2] = d1 / l1;
+    }
+  }
+}
+
+// P and dS of one logit s (dot product) from its key's bias and its query's
+// statistics: the same expression in the dQ and the dK / dV kernels.
+__device__ __forceinline__ void tc_p_ds(float& s, float& dp, float bias, float m, float inv,
+                                        float dd, float scale_log2) {
+  s = ex2(fmaf(s, scale_log2, bias) - m) * inv;
+  dp = bias == 0.f ? s * (dp - dd) : 0.f;
+}
+
+// Backward, (2) dQ: one block per (sequence, head, query tile, column
+// group), the key tiles streamed: dQ = scale sum over keys of dS K.
+template <typename E, int NTC, int R>
+__global__ void __launch_bounds__(2 * R, tc_min_blocks<E>())
+    mhsa_long_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                        const E* __restrict__ dout, const float* __restrict__ stats,
+                        E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
+                        float scale) {
+  using S = typename Staged<E>::type;
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, st = wide_stride(hd, sizeof(E));
+  const int ntiles = (L + R - 1) / R;
+  const TcBlock blk = tc_block(H, ntiles, R, tc_groups(hd));
+  TcQuery<S, R> t(smem, reinterpret_cast<const S*>(qkv), mask, reinterpret_cast<const S*>(dout),
+                  blk, L, D, hd, st);
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int r0 = blk.t0 + warp * 16 + ((threadIdx.x & 31) >> 2);
+  const bool active = blk.t0 + warp * 16 < L;
+  const int col0 = blk.cg * 8 * NTC;
+  const int ntg = min(NTC, (hd + 7) / 8 - blk.cg * NTC);
+  const float* row = stats + (blk.u * H + blk.h) * L * 3;
+  float st0[3] = {0.f, 0.f, 0.f}, st1[3] = {0.f, 0.f, 0.f};  // max, 1 / sum, D
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (r0 < L) st0[k] = row[3 * (size_t)r0 + k];
+    if (r0 + 8 < L) st1[k] = row[3 * (size_t)(r0 + 8) + k];
+  }
+  float acc[NTC][4];
+#pragma unroll
+  for (int nt = 0; nt < NTC; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    t.next(kt + 1, L, D, hd, st);
+    if (!active) continue;
+    const S* sk = t.ring + 2 * (kt & 1) * R * st;
+    const float* bias = t.sbias + (kt & 1) * R;
+    for (int kk = 0; kk < R / 16 && kt * R + kk * 16 < L; ++kk) {
+      float s[2][4], dp[2][4];
+      tc_chunk2(s, dp, t.sq, sk, t.sdo, sk + R * st, st, warp * 16, kk * 16, hd);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + kk * 16 + n * 8 + 2 * c);
+        tc_p_ds(s[n][0], dp[n][0], b.x, st0[0], st0[1], st0[2], scale_log2);
+        tc_p_ds(s[n][1], dp[n][1], b.y, st0[0], st0[1], st0[2], scale_log2);
+        tc_p_ds(s[n][2], dp[n][2], b.x, st1[0], st1[1], st1[2], scale_log2);
+        tc_p_ds(s[n][3], dp[n][3], b.y, st1[0], st1[1], st1[2], scale_log2);
+      }
+      tc_ds_b<NTC>(acc, dp, sk, st, kk * 16, col0, ntg);
+    }
+  }
+  if (active)
+    tc_store<NTC>(dqkv + blk.u * L * 3 * D + (size_t)blk.h * hd, 3 * (size_t)D, acc, r0, L, col0,
+                  ntg, hd, scale, scale);
+}
+
+// Backward, (3) dK and dV: one block per (sequence, head, key tile, column
+// group), warp w the keys 16 w ..; the query tiles, their dO rows and their
+// statistics streamed through the ring: dV = sum over queries of P^T dO,
+// dK = scale sum of dS^T Q.
+template <typename E, int NTC, int R>
+__global__ void __launch_bounds__(2 * R, tc_min_blocks<E>())
+    mhsa_long_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                         const E* __restrict__ dout, const float* __restrict__ stats,
+                         E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
+                         float scale) {
+  using S = typename Staged<E>::type;
+  constexpr int es = sizeof(E);
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, st = wide_stride(hd, es);
+  const int hdp = es == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+  const int ntiles = (L + R - 1) / R;
+  const TcBlock blk = tc_block(H, ntiles, R, tc_groups(hd));
+  S* sk = reinterpret_cast<S*>(smem);
+  S* sv = sk + R * st;
+  S* ring = sv + R * st;  // stage s: queries at ring + 2 s R st, dO R st further
+  float* sstat = reinterpret_cast<float*>(ring + 4 * R * st);  // stage s: 3 R floats at 3 s R
+  const S* base = reinterpret_cast<const S*>(qkv) + blk.u * L * 3 * D + (size_t)blk.h * hd;
+  const S* gbase = reinterpret_cast<const S*>(dout) + blk.u * L * D + (size_t)blk.h * hd;
+  const float* srow = stats + (blk.u * H + blk.h) * L * 3;
+  tc_zero_pad(sk, 6 * R, hd, hdp, st);
+  tc_stage(sk, base + D, blk.t0, R, L, 2, hd, 3 * (size_t)D, (size_t)D, st);
+  auto next = [&](int qt) {
+    if (qt * R < L) {
+      S* q = ring + 2 * (qt & 1) * R * st;
+      tc_stage(q, base, qt * R, R, L, 1, hd, 3 * (size_t)D, 0, st);
+      tc_stage(q + R * st, gbase, qt * R, R, L, 1, hd, (size_t)D, 0, st);
+      tc_stage_stats(sstat + 3 * (qt & 1) * R, srow, qt * R, R, L);
+    }
+    cp_async_commit();
+  };
+  next(0);
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int k0 = blk.t0 + warp * 16 + ((threadIdx.x & 31) >> 2);  // this lane's key rows
+  const bool active = blk.t0 + warp * 16 < L;
+  const uint8_t* msk = mask + blk.u * L;
+  const float b0 = k0 < L ? (msk[k0] ? 0.f : kMaskMin) : -INFINITY;
+  const float b1 = k0 + 8 < L ? (msk[k0 + 8] ? 0.f : kMaskMin) : -INFINITY;
+  const int col0 = blk.cg * 8 * NTC;
+  const int ntg = min(NTC, (hd + 7) / 8 - blk.cg * NTC);
+  float av[NTC][4], ak[NTC][4];
+#pragma unroll
+  for (int nt = 0; nt < NTC; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+  for (int qt = 0; qt < ntiles; ++qt) {
+    cp_async_wait_all();
+    __syncthreads();
+    next(qt + 1);
+    if (!active) continue;
+    const S* sq = ring + 2 * (qt & 1) * R * st;
+    const S* sdo = sq + R * st;
+    const float* sm = sstat + 3 * (qt & 1) * R;
+    for (int qc = 0; qc < R / 16 && qt * R + qc * 16 < L; ++qc) {
+      float pt[2][4], dst[2][4];  // P^T and dP^T, then dS^T: keys as rows
+      tc_chunk2_t(pt, dst, sk, sv, sq, sdo, st, warp * 16, qc * 16, hd);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = qc * 16 + n * 8 + 2 * c + e;
+          const float m = sm[qi], iv = sm[R + qi], dd = sm[2 * R + qi];
+          tc_p_ds(pt[n][e], dst[n][e], b0, m, iv, dd, scale_log2);
+          tc_p_ds(pt[n][2 + e], dst[n][2 + e], b1, m, iv, dd, scale_log2);
+        }
+      }
+      tc_dkv<NTC>(av, ak, pt, dst, sdo, sq, st, qc * 16, col0, ntg);
+    }
+  }
+  if (active) {
+    E* g = dqkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
+    tc_store<NTC>(g + D, 3 * (size_t)D, ak, k0, L, col0, ntg, hd, scale, scale);
+    tc_store<NTC>(g + 2 * D, 3 * (size_t)D, av, k0, L, col0, ntg, hd, 1.f, 1.f);
+  }
+}
+
+// ------------------------------------------------------------ long, FMA ---
+//
+// Head dims above kLongTcMaxHeadDim (257 .. 1,024) keep the first long
+// instances, without tensor cores: every product in f32 FMA on the CUDA
+// cores, from tiles staged in shared memory as f32 (bf16 upcast when
+// staged), so both types get the plain version's f32 sums in another order
+// (float32 within 1e-5; bf16 rounds once, at the output).  A 16-row strip's
+// output accumulators would need 128 registers and more a thread there.
+//
+// * Tiles of T rows (long_tile: 16 up to head dim 512, 8 up to 1,024), so
+//   that the dK/dV kernel's six T x hd tiles and two T x T ones fit the
 //   232,448 bytes of shared memory.  Rows are staged with an odd stride
 //   (hd | 1 floats), so the column reads of the products fall in distinct
-//   banks.  Rows past L are staged as zeros; keys past L take the bias
-//   -inf (p = 0), masked keys -1e30.  All offsets into qkv, dO and the
-//   outputs are 64-bit: U L 3D passes 2^31 values at PLM widths.
+//   banks.  Rows past L are staged as zeros.
 // * 128 threads a block.  The T x T logit tile is computed in registers,
 //   a thread holding T / 16 rows (rows ty + 16 a) by T / 8 keys (tx + 8 b);
 //   the 8 threads of a row are neighbouring lanes, so the row max and sum
@@ -2484,33 +3358,23 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
 //   goes to shared memory, and the T x hd product with v (or k, q, dO)
 //   accumulates into an f32 tile in shared memory, each thread a 4 x 4
 //   block of it (rows r + T / 4 a, columns 4 c .. 4 c + 3) per turn.
-// * Forward: one block per (sequence, head, query tile); the key and value
-//   tiles stream through shared memory.
-// * Backward, FlashAttention-2's split, three launches, no atomics:
-//   (1) one block per query tile streams the keys as the forward does and
-//   writes per query row its max (in log2 units), 1 / sum and D =
-//   rowsum(dP * P), summed online, into a workspace of U H L x 3 floats
-//   (nrl_mhsa_bwd_workspace; the wrapper allocates it through torch's
-//   allocator); (2) one block per query tile: P from those
-//   statistics, dP = dO V^T, dS = P (dP - D) and 0 at masked keys, dQ +=
-//   dS K over the key tiles; (3) one block per key tile: the same P^T and
-//   dS^T with keys as the rows, dV += P^T dO and dK += dS^T Q over the
-//   query tiles.  (2) and (3) form each logit as the same chain of FMAs in
-//   the same order, so P is the same bits in both, and (1) forms dP as
-//   they do, so dP - D cancels as in the plain version.  A fully masked
-//   sequence gets dS = 0, so no gradient on q and k, and dV = the mean of
-//   dO.
+// * The launches and the split are the tensor-core instances': forward
+//   one block per (sequence, head, query tile); backward (1) statistics,
+//   (2) dQ per query tile, (3) dK / dV per key tile, the statistics in the
+//   same workspace.  (2) and (3) form each logit as the same chain of FMAs
+//   in the same order, so P is the same bits in both, and (1) forms dP as
+//   they do, so dP - D cancels as in the plain version.
 constexpr int kLongThreads = 128;
 
-// Rows of a tile, from the head dim.
-__host__ __device__ inline int long_tile(int hd) {
-  return hd <= 64 ? 64 : hd <= 256 ? 32 : hd <= 512 ? 16 : 8;
-}
-// Shared memory of the long kernels: 0 the forward (the backward's
-// statistics kernel needs less), 1 the dQ kernel, 2 the dK / dV kernel (the
-// largest): T x hs tiles (hs = hd | 1 floats a row), T x (T + 1) tiles of p
-// or dS, and four vectors of T floats.
-__host__ __device__ inline size_t long_smem(int hd, int kind) {
+// Rows of an FMA instance's tiles, from the head dim.
+__host__ __device__ inline int long_tile(int hd) { return hd <= 512 ? 16 : 8; }
+// Shared memory of a long instance: the tensor-core kernels' (tc_smem);
+// FMA: kind 0 the forward (the backward's statistics kernel needs less), 1
+// the dQ kernel, 2 the dK / dV kernel (the largest): T x hs tiles (hs =
+// hd | 1 floats a row), T x (T + 1) tiles of p or dS, and four vectors of
+// T floats.
+__host__ __device__ inline size_t long_smem(int hd, int es, int kind) {
+  if (long_tc(hd)) return tc_smem(hd, es, kind);
   const size_t T = long_tile(hd), hs = hd | 1;
   return 4 * ((kind + 4) * T * hs + (kind == 2 ? 2 : 1) * T * (T + 1) + 4 * T);
 }
@@ -2535,12 +3399,6 @@ __device__ void long_stage(float* dst, const E* src, size_t row, int r0, int T, 
       for (int c = lane; c < hd; c += 32) dst[r * hs + c] = 0.f;
     }
   }
-}
-
-// Key biases of keys k0 .. k0 + T - 1: 0 (valid), -1e30 (masked), -inf (past L).
-__device__ void long_biases(float* sbias, const uint8_t* msk, int k0, int T, int L) {
-  for (int j = threadIdx.x; j < T; j += kLongThreads)
-    sbias[j] = k0 + j < L ? (msk[k0 + j] ? 0.f : kMaskMin) : -INFINITY;
 }
 
 // Per query row q0 + i of the tile: max (log2 units), 1 / sum and D from
@@ -2664,7 +3522,7 @@ __device__ __forceinline__ LongBlock long_block(int H, int ntiles, int T) {
 // streamed with the online softmax.
 template <typename E, int T>
 __global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+    mhsa_long_fma_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
                      E* __restrict__ out, int L, int D, int H, float scale_log2) {
   using LT = LongTile<T>;
   extern __shared__ __align__(16) char smem[];
@@ -2747,7 +3605,7 @@ __global__ void __launch_bounds__(kLongThreads)
 // as it does in the plain version (a row with one valid key gets dS = 0).
 template <typename E, int T>
 __global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+    mhsa_long_fma_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
                            const E* __restrict__ dout, float* __restrict__ stats, int L, int D,
                            int H, float scale_log2) {
   using LT = LongTile<T>;
@@ -2830,7 +3688,7 @@ __device__ __forceinline__ void long_p_ds(float s, float dp, float bias, float m
 // streamed: dQ = scale sum over keys of dS K.
 template <typename E, int T>
 __global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+    mhsa_long_fma_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
                         const E* __restrict__ dout, const float* __restrict__ stats,
                         E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
                         float scale) {
@@ -2893,7 +3751,7 @@ __global__ void __launch_bounds__(kLongThreads)
 // of P^T dO, dK = scale sum of dS^T Q.
 template <typename E, int T>
 __global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+    mhsa_long_fma_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
                          const E* __restrict__ dout, const float* __restrict__ stats,
                          E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
                          float scale) {
@@ -3047,55 +3905,94 @@ cudaError_t launch_bwd_wide_inst(const void* qkv, const uint8_t* mask, const voi
   return cudaGetLastError();
 }
 
-// The long instances, either type: U H ceil(L / T) blocks of kLongThreads,
-// with the shared memory of long_smem (opted in once per kernel and
-// device).  The backward's three launches share the workspace of per-row
-// statistics.
-template <typename E, int T>
-cudaError_t launch_long_inst(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                             int H, int dev, cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {false};
-  auto kernel = mhsa_long_kernel<E, T>;
-  cudaError_t err = allow_smem(kernel, dev, smem_set);
+// Launch `kernel` with all of a block's shared memory opted in (once per
+// device, `done` the kernel's own record); the launch's error.
+template <typename K, typename... A>
+cudaError_t launch_opted(K kernel, bool (&done)[kMaxDevices], int dev, size_t grid, int threads,
+                         size_t smem, cudaStream_t stream, A... args) {
+  cudaError_t err = allow_smem(kernel, dev, done);
   if (err != cudaSuccess) return err;
-  const int hd = D / H;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  const unsigned grid = (unsigned)((size_t)U * H * ((L + T - 1) / T));
-  kernel<<<grid, kLongThreads, long_smem(hd, 0), stream>>>(
-      static_cast<const E*>(qkv), mask, static_cast<E*>(out), L, D, H, scale_log2);
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename E, int T>
-cudaError_t launch_bwd_long_inst(const void* qkv, const uint8_t* mask, const void* dout,
-                                 void* dqkv, void* workspace, int U, int L, int D, int H, int dev,
-                                 cudaStream_t stream) {
-  static bool stats_set[kMaxDevices] = {false}, dq_set[kMaxDevices] = {false},
-              dkv_set[kMaxDevices] = {false};
-  auto stats_kernel = mhsa_long_stats_kernel<E, T>;
-  auto dq_kernel = mhsa_long_dq_kernel<E, T>;
-  auto dkv_kernel = mhsa_long_dkv_kernel<E, T>;
-  cudaError_t err = allow_smem(stats_kernel, dev, stats_set);
-  if (err == cudaSuccess) err = allow_smem(dq_kernel, dev, dq_set);
-  if (err == cudaSuccess) err = allow_smem(dkv_kernel, dev, dkv_set);
-  if (err != cudaSuccess) return err;
+// The long instances, either type, with the shared memory of long_smem.
+// Tensor-core: U H ceil(L / R) blocks of 2 R threads, times the column
+// groups (not for the statistics kernel); FMA: U H ceil(L / T) blocks of
+// kLongThreads.  The backward's three launches share the workspace of
+// per-row statistics.
+template <typename E, int NTC, int R>
+cudaError_t launch_long_tc(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                           int H, int dev, cudaStream_t stream) {
+  static bool set[kMaxDevices] = {false};
   const int hd = D / H;
-  const float scale = 1.f / sqrtf((float)hd);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
-  const unsigned grid = (unsigned)((size_t)U * H * ((L + T - 1) / T));
+  const size_t grid = (size_t)U * H * ((L + R - 1) / R) * tc_groups(hd);
+  return launch_opted(mhsa_long_kernel<E, NTC, R>, set, dev, grid, 2 * R,
+                      long_smem(hd, sizeof(E), 0), stream, static_cast<const E*>(qkv), mask,
+                      static_cast<E*>(out), L, D, H, 1.4426950408889634f / sqrtf((float)hd));
+}
+
+template <typename E, int NTC, int R>
+cudaError_t launch_bwd_long_tc(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                               void* workspace, int U, int L, int D, int H, int dev,
+                               cudaStream_t stream) {
+  static bool set[3][kMaxDevices] = {};
+  const int hd = D / H, es = sizeof(E);
+  const size_t tiles = (size_t)U * H * ((L + R - 1) / R), grid = tiles * tc_groups(hd);
+  const float scale = 1.f / sqrtf((float)hd), scale_log2 = 1.4426950408889634f * scale;
   const E* q = static_cast<const E*>(qkv);
   const E* g = static_cast<const E*>(dout);
   E* dq = static_cast<E*>(dqkv);
   float* st = static_cast<float*>(workspace);
-  stats_kernel<<<grid, kLongThreads, long_smem(hd, 0), stream>>>(q, mask, g, st, L, D, H,
-                                                                  scale_log2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_kernel<<<grid, kLongThreads, long_smem(hd, 1), stream>>>(q, mask, g, st, dq, L, D, H,
-                                                               scale_log2, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkv_kernel<<<grid, kLongThreads, long_smem(hd, 2), stream>>>(q, mask, g, st, dq, L, D, H,
-                                                                scale_log2, scale);
-  return cudaGetLastError();
+  cudaError_t err = launch_opted(mhsa_long_stats_kernel<E, R>, set[0], dev, tiles, 2 * R,
+                                 long_smem(hd, es, 1), stream, q, mask, g, st, L, D, H,
+                                 scale_log2);
+  if (err == cudaSuccess)
+    err = launch_opted(mhsa_long_dq_kernel<E, NTC, R>, set[1], dev, grid, 2 * R,
+                       long_smem(hd, es, 1), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       scale);
+  if (err == cudaSuccess)
+    err = launch_opted(mhsa_long_dkv_kernel<E, NTC, R>, set[2], dev, grid, 2 * R,
+                       long_smem(hd, es, 2), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       scale);
+  return err;
+}
+
+template <typename E, int T>
+cudaError_t launch_long_fma(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                            int H, int dev, cudaStream_t stream) {
+  static bool set[kMaxDevices] = {false};
+  const int hd = D / H;
+  const size_t grid = (size_t)U * H * ((L + T - 1) / T);
+  return launch_opted(mhsa_long_fma_kernel<E, T>, set, dev, grid, kLongThreads,
+                      long_smem(hd, sizeof(E), 0), stream, static_cast<const E*>(qkv), mask,
+                      static_cast<E*>(out), L, D, H, 1.4426950408889634f / sqrtf((float)hd));
+}
+
+template <typename E, int T>
+cudaError_t launch_bwd_long_fma(const void* qkv, const uint8_t* mask, const void* dout,
+                                void* dqkv, void* workspace, int U, int L, int D, int H, int dev,
+                                cudaStream_t stream) {
+  static bool set[3][kMaxDevices] = {};
+  const int hd = D / H, es = sizeof(E);
+  const size_t grid = (size_t)U * H * ((L + T - 1) / T);
+  const float scale = 1.f / sqrtf((float)hd), scale_log2 = 1.4426950408889634f * scale;
+  const E* q = static_cast<const E*>(qkv);
+  const E* g = static_cast<const E*>(dout);
+  E* dq = static_cast<E*>(dqkv);
+  float* st = static_cast<float*>(workspace);
+  cudaError_t err = launch_opted(mhsa_long_fma_stats_kernel<E, T>, set[0], dev, grid,
+                                 kLongThreads, long_smem(hd, es, 0), stream, q, mask, g, st, L, D,
+                                 H, scale_log2);
+  if (err == cudaSuccess)
+    err = launch_opted(mhsa_long_fma_dq_kernel<E, T>, set[1], dev, grid, kLongThreads,
+                       long_smem(hd, es, 1), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       scale);
+  if (err == cudaSuccess)
+    err = launch_opted(mhsa_long_fma_dkv_kernel<E, T>, set[2], dev, grid, kLongThreads,
+                       long_smem(hd, es, 2), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       scale);
+  return err;
 }
 
 }  // namespace
@@ -3170,31 +4067,42 @@ cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* do
                             cudaStream_t stream);
 
 #if NRL_BUILDS(4)
+// Tensor-core instances by head dim: (NTC, R) = (4, 64) up to 32, (8, 64)
+// up to 256, (8, 32) for float32 above 128 (tc_ntc, tc_rows); the FMA
+// instances by tile rows above 256.
+#define NRL_LONG(TC, FMA)                                              \
+  const int hd = D / H;                                                \
+  if (hd <= 32) return TC(4, 64);                                      \
+  if (long_tc(hd)) {                                                   \
+    if constexpr (sizeof(T) == 4)                                      \
+      if (hd > 128) return TC(8, 32);                                  \
+    return TC(8, 64);                                                  \
+  }                                                                    \
+  return long_tile(hd) == 16 ? FMA(16) : FMA(8);
+
 template <typename T>
 cudaError_t launch_long(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                         int H, int dev, cudaStream_t stream) {
-  switch (long_tile(D / H)) {
-    case 64: return launch_long_inst<T, 64>(qkv, mask, out, U, L, D, H, dev, stream);
-    case 32: return launch_long_inst<T, 32>(qkv, mask, out, U, L, D, H, dev, stream);
-    case 16: return launch_long_inst<T, 16>(qkv, mask, out, U, L, D, H, dev, stream);
-    default: return launch_long_inst<T, 8>(qkv, mask, out, U, L, D, H, dev, stream);
-  }
+#define NRL_TC(NTC, R) launch_long_tc<T, NTC, R>(qkv, mask, out, U, L, D, H, dev, stream)
+#define NRL_FMA(R) launch_long_fma<T, R>(qkv, mask, out, U, L, D, H, dev, stream)
+  NRL_LONG(NRL_TC, NRL_FMA)
+#undef NRL_TC
+#undef NRL_FMA
 }
 
 template <typename T>
 cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                             void* workspace, int U, int L, int D, int H, int dev,
                             cudaStream_t stream) {
-#define NRL_BWD_LONG(R) \
-  launch_bwd_long_inst<T, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
-  switch (long_tile(D / H)) {
-    case 64: return NRL_BWD_LONG(64);
-    case 32: return NRL_BWD_LONG(32);
-    case 16: return NRL_BWD_LONG(16);
-    default: return NRL_BWD_LONG(8);
-  }
-#undef NRL_BWD_LONG
+#define NRL_TC(NTC, R) \
+  launch_bwd_long_tc<T, NTC, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
+#define NRL_FMA(R) \
+  launch_bwd_long_fma<T, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
+  NRL_LONG(NRL_TC, NRL_FMA)
+#undef NRL_TC
+#undef NRL_FMA
 }
+#undef NRL_LONG
 
 template cudaError_t launch_long<__nv_bfloat16>(const void*, const uint8_t*, void*, int, int, int,
                                                 int, int, cudaStream_t);
@@ -3386,7 +4294,7 @@ cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dou
 // sequence (smem_bytes).
 size_t instance_smem(int L, int D, int H, int es) {
   const int hd = D / H;
-  if (long_instance(L, D, H)) return long_smem(hd, 2);
+  if (long_instance(L, D, H)) return long_smem(hd, es, 2);
   if (wide_instance(L, D, H, es)) return wide_smem(L, hd, es, true);
   if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kNarrowMaxLen * 4;
   return smem_bytes(1, L, D, es);
@@ -3403,9 +4311,9 @@ int check_args(int U, int L, int D, int H, int dtype) {
     return (int)cudaErrorInvalidValue;
   if (instance_smem(L, D, H, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  const int T = long_tile(D / H);
-  if (long_instance(L, D, H) && (size_t)U * H * ((L + T - 1) / T) > 0x7fffffffu)
-    return (int)cudaErrorInvalidValue;
+  const int hd = D / H, R = long_tc(hd) ? tc_rows(hd, dtype == 0 ? 4 : 2) : long_tile(hd);
+  const size_t blocks = (size_t)U * H * ((L + R - 1) / R) * (long_tc(hd) ? tc_groups(hd) : 1);
+  if (long_instance(L, D, H) && blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
   return 0;
 }
 

@@ -5,6 +5,8 @@ version and a library call, at the shapes the serving path gives it.
         [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
         [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
+    python3 -m newsreclib_tpu_torch.kernel_bench --components [--baseline OLD.cu] [--dtype T]
+        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
 two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
@@ -37,7 +39,13 @@ beyond the wide instances' box):
   port never calls SDPA (and SDPA gives NaN on a fully masked row);
 * ``bound_ms`` is the larger of the bytes (qkv and mask read once, the
   context written once, at 3.35 TB/s) and the q.k and p.v operations (at
-  989 TFLOP/s bf16 or 67 TFLOP/s f32).
+  989 TFLOP/s bf16 or 67 TFLOP/s f32, the CUDA cores' rate);
+  ``pct_of_bound`` is ``bound_ms`` as a percentage of ``ms``.  A float32
+  record also gives ``tf32x3_bound_ms`` (and its ``tf32x3_pct_of_bound``):
+  the operations at 165 TFLOP/s, split TF32 on the tensor cores (three
+  TF32 products at 495 TFLOP/s for one f32 product, as the kernel's f32
+  instances run them), which moves the least time where the operations
+  bound it.
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
@@ -59,7 +67,17 @@ the context once each way plus the output gradient and dqkv, and the
 products of the forward (q.k, p.v) and of the backward (dP, dQ, dK, dV):
 12 U H L^2 hd operations.  ``bwd_bound_ms`` is the backward alone's: qkv,
 the mask and dO read, dqkv written, and q.k recomputed with the four
-backward products, 10 U H L^2 hd operations.
+backward products, 10 U H L^2 hd operations.  Each of the three times
+gets its ``pct_of_bound`` (``bwd_pct_of_bound``, ``fwd_pct_of_bound``) and,
+in float32, its split-TF32 bound as above.
+
+``--components`` times nothing: it splits the backward kernel's gradient
+into dQ, dK and dV and gives, for each, its largest error over the
+tolerance against autograd of ``mhsa_plain``, ``mhsa_backward`` and a
+float64 reference, and that of autograd of ``mhsa_plain`` itself against
+float64 (``gradient_components``): where the plain version is itself
+further from float64 than the tolerance, a kernel can pass the check only
+by rounding as it does.
 
 ``--baseline`` builds another version of ``csrc/mhsa.cu`` (same C entry
 points), checks it the same way and times it in turns with the kernel
@@ -146,6 +164,9 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores, bf16 tensor cores
+# float32 at f32 accuracy on the tensor cores: split TF32 runs three TF32
+# products (495 TFLOP/s) for one f32 product, as the kernel's f32 instances do.
+PEAK_TF32X3_FLOPS = 495e12 / 3
 ROTATE_BYTES = 256 << 20
 LIBRARY_BACKEND = "EFFICIENT_ATTENTION"
 ITERS, WARMUP = 20, 3
@@ -178,7 +199,7 @@ def bound(u, l, name, part="forward", d=D, h=H) -> tuple:
     """(least ms on the card, "bytes" or "operations") for the attention of
     (U, L, D, heads) in type ``name``: its ``"forward"``, its ``"backward"``
     alone or ``"both"`` (see module doc)."""
-    es = 4 if name == "float32" else 2
+    es = 2 if name == "bfloat16" else 4
     qkv, ctx, mask = u * l * 3 * d * es, u * l * d * es, u * l
     product = 2 * u * h * l * l * (d // h)  # operations of one (L, L) x (L, hd) product
     nbytes, flops = {
@@ -186,8 +207,27 @@ def bound(u, l, name, part="forward", d=D, h=H) -> tuple:
         "backward": (qkv + mask + ctx + qkv, 5 * product),
         "both": (2 * (qkv + mask + ctx) + qkv, 6 * product),
     }[part]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
+    peak = PEAK_TF32X3_FLOPS if name == "tf32x3" else PEAK_FLOPS[name]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def add_bound_shares(rec: dict, parts) -> None:
+    """For each ``(prefix, part)`` of ``parts`` (prefix "" / "bwd_" / "fwd_",
+    part as ``bound``): ``<prefix>pct_of_bound``, the bound as a percentage
+    of the measured ``<prefix>ms``; for float32 also the bound with the
+    operations at split TF32's rate on the tensor cores
+    (``<prefix>tf32x3_bound_ms``) and the same share of it.  The float32
+    ``bound_ms`` keeps dividing by the CUDA cores' 67 TFLOP/s."""
+    for prefix, part in parts:
+        ms = rec.get(prefix + "ms")
+        if not isinstance(ms, float) or ms <= 0:
+            continue
+        rec[prefix + "pct_of_bound"] = 100 * rec[prefix + "bound_ms"] / ms
+        if rec["dtype"] == "float32":
+            b, _ = bound(rec["U"], rec["L"], "tf32x3", part, rec["D"], rec["H"])
+            rec[prefix + "tf32x3_bound_ms"] = b
+            rec[prefix + "tf32x3_pct_of_bound"] = 100 * b / ms
 
 
 def event_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
@@ -383,6 +423,7 @@ def measure_shape(u, l, dtype, variants, library=True, unchecked=(), d=D, h=H) -
         rec["library_backend"] = LIBRARY_BACKEND
         del calls
     rec["bound_ms"], rec["bound_by"] = bound(u, l, name, d=d, h=h)
+    add_bound_shares(rec, (("", "forward"),))
     rec["rotated_sets"] = n
     return rec
 
@@ -426,6 +467,52 @@ def _plain_grad(x, mask, grad_out, h=H):
 
     x = x.detach().requires_grad_(True)
     return torch.autograd.grad(mhsa_plain(x, mask, h), x, grad_out)[0]
+
+
+def _float64_grad(qkv, mask, grad_out, h):
+    """d(sum(attention(qkv) * grad_out)) / d qkv computed in float64."""
+    x = qkv.double().requires_grad_(True)
+    u, l, d3 = x.shape
+    d = d3 // 3
+    q, k, v = (t.reshape(u, l, h, d // h).transpose(1, 2) for t in x.split(d, dim=-1))
+    s = torch.where(mask[:, None, None, :], q @ k.transpose(-1, -2) / math.sqrt(d // h), -1e30)
+    out = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(u, l, d)
+    return torch.autograd.grad(out, x, grad_out.double())[0]
+
+
+def gradient_components(u, l, dtype, baseline=None, d=D, h=H) -> dict:
+    """The backward kernel's gradient at (U, L) split into dQ, dK and dV,
+    held against autograd of ``mhsa_plain`` (``autograd``),
+    ``mhsa_backward`` (``backward``) and a float64 reference
+    (``float64``), and autograd of ``mhsa_plain`` itself against the
+    float64 one (``plain_float64``), for the output gradients of
+    ``check_backward`` (seeded with L) and of ``chip_smoke``'s phase 19a
+    (seeded with U).  ``<ref>_<part>`` is the largest error over the
+    tolerance, ATOL + RTOL |ref| (above 1 fails it); ``baseline``, another
+    build's backward (``raw_backward``), gets ``baseline_<ref>_<part>``."""
+    from newsreclib_tpu_torch.ops.mhsa import _backward, mhsa_backward
+
+    name = dtype_name(dtype)
+    qkv, mask = mhsa_inputs(u, l, dtype, seed=u + l, d=d)
+    rec = dict(U=u, L=l, D=d, H=h, dtype=name)
+    for tag, seed in (("seed_l", l), ("seed_u", u)):
+        g = torch.randn((u, l, d), generator=torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda").to(dtype)
+        refs = {"autograd": _plain_grad(qkv, mask, g, h), "backward": mhsa_backward(qkv, mask, h, g),
+                "float64": _float64_grad(qkv, mask, g, h)}
+        grads = {"": _backward(qkv, mask, h, g), "plain_": refs["autograd"]}
+        if baseline is not None:
+            grads["baseline_"] = baseline(qkv, mask, h, g)
+        for prefix, got in grads.items():
+            for ref, want in refs.items():
+                if prefix == "plain_" and ref != "float64":
+                    continue
+                for i, part in enumerate(("dq", "dk", "dv")):
+                    a = got[..., i * d:(i + 1) * d].double()
+                    b = want[..., i * d:(i + 1) * d].double()
+                    ratio = ((a - b).abs() / (ATOL[name] + RTOL[name] * b.abs())).max().item()
+                    rec[f"{tag}_{prefix}{ref}_{part}"] = ratio
+    return rec
 
 
 def check_backward(u, l, dtype, backward=None, forward=None, checked=True,
@@ -533,6 +620,7 @@ def measure_backward(u, l, dtype, baseline=None, unchecked=False, d=D, h=H) -> d
     rec["bound_ms"], rec["bound_by"] = bound(u, l, rec["dtype"], "both", d, h)
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(u, l, rec["dtype"], "backward", d, h)
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(u, l, rec["dtype"], "forward", d, h)
+    add_bound_shares(rec, (("", "both"), ("bwd_", "backward"), ("fwd_", "forward")))
     rec["rotated_sets"] = n
     return rec
 
@@ -549,6 +637,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix", "long"), default="all",
                     help="manner: MANNER_SHAPES alone; plm_statfix: plm_statfix_shapes(); "
                          "long: LONG_SHAPES")
+    ap.add_argument("--components", action="store_true",
+                    help="the backward's dQ, dK and dV against the plain versions and float64 "
+                         "(gradient_components), no timing")
     ap.add_argument("--json", type=Path, help="also write the records here, one per line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -577,13 +668,15 @@ def main(argv=None) -> int:
         for u, l, d, h in shapes:
             # an older source may refuse a shape: its row says so
             takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)
-            if args.backward:
+            if args.components:
+                rec = gradient_components(u, l, dtype, baseline[1] if takes else None, d=d, h=h)
+            elif args.backward:
                 rec = measure_backward(u, l, dtype, baseline if takes else None,
                                        unchecked=args.unchecked, d=d, h=h)
             else:
                 rec = measure_shape(u, l, dtype, variants if takes else variants[:1], d=d, h=h,
                                     unchecked=("baseline",) if args.unchecked else ())
-            if baseline is not None and not takes:
+            if baseline is not None and not takes and not args.components:
                 for key in (("baseline_ms", "baseline_bwd_ms", "baseline_fwd_ms")
                             if args.backward else ("baseline_ms",)):
                     rec[key] = "refused"
@@ -593,10 +686,14 @@ def main(argv=None) -> int:
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text("".join(json.dumps(r) + "\n" for r in records))
-    cols = ["U", "L", "D", "H", "dtype", "ms", "bound_ms", "plain_ms", "library_ms", "event_ms",
-            "max_abs_err"]
-    cols[4:4] = (["bwd_ms", "baseline_bwd_ms", "bwd_bound_ms", "plain_bwd_ms", "library_bwd_ms",
-                  "fwd_ms", "baseline_fwd_ms", "fwd_bound_ms", "library_fwd_ms", "baseline_ms"]
+    if args.components:
+        print(f"card: {card}")
+        return 0
+    cols = ["U", "L", "D", "H", "dtype", "ms", "bound_ms", "pct_of_bound", "plain_ms",
+            "library_ms", "event_ms", "max_abs_err"]
+    cols[4:4] = (["bwd_ms", "baseline_bwd_ms", "bwd_bound_ms", "bwd_pct_of_bound",
+                  "plain_bwd_ms", "library_bwd_ms", "fwd_ms", "baseline_fwd_ms", "fwd_bound_ms",
+                  "fwd_pct_of_bound", "library_fwd_ms", "baseline_ms"]
                  if args.backward else ["baseline_ms"])
     print(" | ".join(cols))
     for r in records:

@@ -42,6 +42,7 @@ NARROW_MAX_LEN = 64
 BOX_LONG_HEAD_DIM = 64
 NARROW_HEAD_DIM = 32  # head dims above it run the kernel's wide instances
 MAX_HEAD_DIM = 1024  # the long instances' bound (bert-large's width as one head)
+LONG_TC_MAX_HEAD_DIM = 256  # the long instances on the tensor cores; FMA above
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -137,9 +138,21 @@ def wide_instance(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
         or (dtype == torch.bfloat16 and _narrow_bf16_bytes(l, d) > _SMEM_LIMIT))
 
 
-def long_tile(hd: int) -> int:
-    """Rows of a long instance's tiles at head dim ``hd`` (``long_tile``)."""
-    return 64 if hd <= 64 else 32 if hd <= 256 else 16 if hd <= 512 else 8
+def long_tc(hd: int) -> bool:
+    """Whether a long instance at head dim ``hd`` runs on the tensor cores
+    (``csrc/mhsa.cu``, ``long_tc``): head dims up to ``LONG_TC_MAX_HEAD_DIM``.
+    Above it a 16-row strip's output accumulators would need 128 registers
+    and more a thread, and the FMA instances run."""
+    return hd <= LONG_TC_MAX_HEAD_DIM
+
+
+def long_tile(hd: int, dtype: torch.dtype) -> int:
+    """Rows of a long instance's tiles at head dim ``hd`` (``tc_rows``, or
+    ``long_tile`` of the FMA instances): 64 on the tensor cores (32 for
+    float32 above head dim 128), 16 up to head dim 512, 8 above."""
+    if long_tc(hd):
+        return 32 if dtype == torch.float32 and hd > 128 else 64
+    return 16 if hd <= 512 else 8
 
 
 def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
@@ -147,9 +160,12 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     ``dtype``, the larger of its forward's and backward's: what that
     instance stages (``csrc/mhsa.cu``, ``instance_smem``).
 
-    * long (``long_instance``): the dK / dV kernel's six T x hd tiles in
-      float32 with rows of hd | 1 floats, two T x (T + 1) tiles and four
-      vectors of T floats, T = ``long_tile(hd)``;
+    * long (``long_instance``), the dK / dV kernel's: on the tensor cores
+      (``long_tc``) six tiles of R = ``long_tile(hd, dtype)`` rows in the
+      input type, rows padded as the wide instances', and 6 R float32 row
+      statistics; above head dim 256 (FMA) six T x hd tiles in float32 with
+      rows of hd | 1 floats, two T x (T + 1) tiles and four vectors of T
+      floats, T = ``long_tile(hd, dtype)``;
     * wide (``wide_instance``): one head's q, k, v and dO columns in the
       input type, Lp = 16 ceil(L / 16) rows each, padded to
       16 ceil(hd / 16) + 8 values (bfloat16) or 8 ceil(hd / 8) + 4
@@ -159,15 +175,14 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     * bfloat16, head dim up to 32: the whole (L, 3D) slab of one sequence
       plus 16 bytes of alignment slack, plus 64 key biases."""
     hd = d // num_heads
+    row = ((hd + 15) // 16 * 16 + 8) * 2 if dtype == torch.bfloat16 else ((hd + 7) // 8 * 8 + 4) * 4
     if long_instance(l, d, num_heads):
-        t = long_tile(hd)
+        t = long_tile(hd, dtype)
+        if long_tc(hd):
+            return 6 * t * row + 6 * t * 4
         return 4 * (6 * t * (hd | 1) + 2 * t * (t + 1) + 4 * t)
     if wide_instance(l, d, num_heads, dtype):
         lp = (l + 15) // 16 * 16
-        if dtype == torch.bfloat16:
-            row = ((hd + 15) // 16 * 16 + 8) * 2
-        else:
-            row = ((hd + 7) // 8 * 8 + 4) * 4
         return 4 * lp * row + 4 * lp * 4
     if dtype == torch.float32:
         return _align16(l * 3 * hd * 4) + _align16(l * hd * 4) + NARROW_MAX_LEN * 4

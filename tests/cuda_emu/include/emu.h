@@ -1,25 +1,34 @@
 // A CPU emulation of the CUDA features csrc/mhsa.cu uses, so that its kernels
 // run under g++ on a machine without a card (tests/test_torch_port_emulated.py).
-// One std::thread per CUDA thread; the blocks of a launch run one after
-// another; __syncthreads is a barrier of the block, and the warp collectives
-// (shuffles, mma.sync, ldmatrix, movmatrix) exchange each lane's operands
-// through a buffer of the warp between two barriers of its 32 threads, then
-// compute each lane's result with the PTX fragment layouts.  cp.async is a
-// copy (checked for its alignment); ex2.approx is exp2f with subnormals
-// flushed; a TF32 operand is its f32 bits with the low 13 cleared.  The
-// tensor cores' own rounding is not modelled: products sum in f32 in k
-// order.  Shared memory starts filled with 0xff bytes (NaN as f32), so a
-// read of a value no thread wrote shows.
+// The threads of a block are cooperative fibers on the calling OS thread,
+// each on its own stack; the blocks of a launch run one after another.
+// __syncthreads is a barrier of the block and each warp collective
+// (shuffles, mma.sync, ldmatrix, movmatrix, __syncwarp) a barrier of the
+// warp's 32 lanes: a fiber that arrives where others are still due switches
+// to the next runnable fiber, and the last to arrive releases the rest.  A
+// collective's lanes exchange their operands through a buffer of the warp
+// (two, alternating by the barrier's generation), then each lane computes
+// its result with the PTX fragment layouts (an mma's, the first lane past
+// the barrier for all 32).  Lanes of one warp that meet at
+// different collectives, and a barrier that can never complete (a lane
+// exited, or waits at another barrier), stop the launch at once: the
+// message names the block, warp and lane, and cudaGetLastError() returns
+// cudaErrorLaunchFailure.  cp.async is a copy (checked for its alignment);
+// ex2.approx is exp2f with subnormals flushed; a TF32 operand is its f32
+// bits with the low 13 cleared.  The tensor cores' own rounding is not
+// modelled: products sum in f32 in k order.  Shared memory starts filled
+// with 0xff bytes (NaN as f32), so a read of a value no thread wrote shows.
 #pragma once
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
+#include <functional>
 #include <vector>
+
+#include <sys/mman.h>
 
 #define __global__
 #define __device__
@@ -94,31 +103,162 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// Switch stacks: save the callee-saved registers and the stack pointer of
+// the running fiber at *save, resume the one whose stack pointer is `to`.
+// Weak: each translation unit of a build in parts defines it.
+extern "C" void emu_switch(void** save, void* to);
+asm(R"(
+    .text
+    .weak emu_switch
+    .hidden emu_switch
+    .type emu_switch, @function
+emu_switch:
+    pushq %rbp
+    pushq %rbx
+    pushq %r12
+    pushq %r13
+    pushq %r14
+    pushq %r15
+    movq %rsp, (%rdi)
+    movq %rsi, %rsp
+    popq %r15
+    popq %r14
+    popq %r13
+    popq %r12
+    popq %rbx
+    popq %rbp
+    ret
+    .size emu_switch, .-emu_switch
+)");
 
 namespace emu {
+enum { cudaErrorLaunchFailure = 719 };
+inline thread_local int error = cudaSuccess;
+
+// What a lane waits at: a warp collective of one kind, or the block's barrier.
+enum Kind { kNone, kShfl, kMma, kLdmatrix, kMovmatrix, kSyncwarp, kSyncthreads };
+inline const char* kind_name(int k) {
+  static const char* names[] = {"nothing",   "__shfl_sync", "mma.sync",      "ldmatrix",
+                                "movmatrix", "__syncwarp",  "__syncthreads"};
+  return names[k];
+}
+
+struct Barrier {
+  unsigned need = 0, count = 0, gen = 0;
+  int kind = kNone;  // of the generation in progress
+};
 struct Warp {
-  std::barrier<> bar{32};
-  uint32_t buf[32][16];
-  const char* addr[32];
+  Barrier bar;
+  uint32_t buf[2][32][16];
+  const char* addr[2][32];
+  float result[2][32][4];        // an mma's result for every lane
+  unsigned result_gen[2] = {0, 0};  // 1 + the generation it was computed for
+};
+struct Fiber {
+  void* sp = nullptr;
+  char* stack = nullptr;
+  bool done = false;
+  Barrier* waits = nullptr;  // the barrier it waits at, or none
+  int kind = kNone;
 };
 struct Block {
-  std::unique_ptr<std::barrier<>> bar;
-  std::vector<std::unique_ptr<Warp>> warps;
+  Barrier bar;
+  std::vector<Warp> warps;
   char* smem;
 };
+
+constexpr size_t kStack = 256 * 1024, kGuard = 4096;
+
+// The fibers of one block and the loop that runs them.
+struct Scheduler {
+  std::vector<Fiber> fibers;
+  void* main_sp = nullptr;
+  unsigned cur = 0, block = 0;
+  bool failed = false;
+  std::function<void()> body;
+};
+inline thread_local Scheduler* sched;
 inline thread_local Block* tb;
 inline thread_local Warp* tw;
 inline thread_local int lane;
 inline char* block_smem() { return tb->smem; }
 
+inline void yield() {
+  Fiber& f = sched->fibers[sched->cur];
+  emu_switch(&f.sp, sched->main_sp);
+}
+
+// Stop the launch: report, flag the error and never resume this fiber.
+inline void fail() {
+  sched->failed = true;
+  error = cudaErrorLaunchFailure;
+  for (;;) yield();
+}
+
+// Arrive at `b` for a wait of kind `kind`; return once every participant
+// has arrived at the same generation.
+inline void arrive(Barrier& b, int kind) {
+  Fiber& me = sched->fibers[sched->cur];
+  if (b.count == 0) {
+    b.kind = kind;
+  } else if (b.kind != kind) {
+    fprintf(stderr,
+            "emulated block %u: warp %u lane %d reaches %s where the other lanes of its warp "
+            "wait at %s (a diverged collective)\n",
+            sched->block, sched->cur / 32, (int)(sched->cur % 32), kind_name(kind),
+            kind_name(b.kind));
+    fail();
+  }
+  if (++b.count == b.need) {
+    b.count = 0;
+    ++b.gen;
+    for (Fiber& f : sched->fibers)
+      if (f.waits == &b) f.waits = nullptr;
+    return;
+  }
+  me.waits = &b;
+  me.kind = kind;
+  while (me.waits) yield();
+}
+
+inline void entry() {
+  sched->body();
+  sched->fibers[sched->cur].done = true;
+  for (;;) yield();
+}
+
+// A barrier that can never complete: name the first fiber that is not
+// waiting at it (exited, or waiting at another barrier).
+inline void report_deadlock() {
+  auto& fs = sched->fibers;
+  for (unsigned i = 0; i < fs.size(); ++i) {
+    if (!fs[i].waits) continue;
+    const Barrier* b = fs[i].waits;
+    const bool warp_bar = fs[i].kind != kSyncthreads;
+    for (unsigned j = 0; j < fs.size(); ++j) {
+      if ((warp_bar && j / 32 != i / 32) || fs[j].waits == b) continue;
+      char where[64] = "of the block";
+      if (warp_bar) snprintf(where, sizeof where, "of warp %u", i / 32);
+      char what[64] = "has exited";
+      if (!fs[j].done) snprintf(what, sizeof what, "waits at %s", kind_name(fs[j].kind));
+      fprintf(stderr,
+              "emulated block %u: the %s %s can never complete: warp %u lane %u waits at it "
+              "while warp %u lane %u %s\n",
+              sched->block, kind_name(fs[i].kind), where, i / 32, i % 32, j / 32, j % 32, what);
+      return;
+    }
+  }
+}
+
 // Every lane's N words of `mine`, for every lane of the warp.
 template <int N>
-inline void exchange(const uint32_t* mine, uint32_t (&all)[32][N]) {
-  memcpy(tw->buf[lane], mine, N * 4);
-  tw->bar.arrive_and_wait();
-  for (int l = 0; l < 32; ++l) memcpy(all[l], tw->buf[l], N * 4);
-  tw->bar.arrive_and_wait();
+inline void exchange(const uint32_t* mine, uint32_t (&all)[32][N], int kind) {
+  Warp* w = tw;
+  const unsigned par = w->bar.gen & 1;
+  memcpy(w->buf[par][lane], mine, N * 4);
+  arrive(w->bar, kind);
+  for (int l = 0; l < 32; ++l) memcpy(all[l], w->buf[par][l], N * 4);
 }
 
 template <class... P>
@@ -128,28 +268,72 @@ struct Launch {
   size_t smem;
   template <class... A>
   void operator()(A... args) {
+    if (error != cudaSuccess) return;  // an earlier launch failed
     std::vector<char> mem(smem + 256);
     char* base = (char*)(((uintptr_t)mem.data() + 127) & ~uintptr_t(127));
-    for (unsigned b = 0; b < grid; ++b) {
+    Scheduler s;
+    s.fibers.resize(block);
+    for (auto& f : s.fibers) {
+      void* m = mmap(nullptr, kStack + kGuard, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+      if (m == MAP_FAILED) {
+        fprintf(stderr, "emulated launch: no memory for a fiber's stack\n");
+        abort();
+      }
+      mprotect(m, kGuard, PROT_NONE);  // a stack overflow faults
+      f.stack = (char*)m;
+    }
+    s.body = [&] { kernel(args...); };
+    Scheduler* outer = sched;
+    sched = &s;
+    for (unsigned b = 0; b < grid && !s.failed; ++b) {
       Block blk;
-      blk.bar = std::make_unique<std::barrier<>>(block);
-      for (unsigned w = 0; w < block / 32; ++w) blk.warps.push_back(std::make_unique<Warp>());
+      blk.bar.need = block;
+      blk.warps.resize(block / 32);
+      for (auto& w : blk.warps) w.bar.need = 32;
       memset(base, 0xff, smem);
       blk.smem = base;
-      std::vector<std::thread> threads;
-      for (unsigned t = 0; t < block; ++t)
-        threads.emplace_back([&, t, b] {
+      s.block = b;
+      for (auto& f : s.fibers) {
+        // the first switch pops six registers and returns into entry()
+        void** sp = (void**)(f.stack + kGuard + kStack);
+        *--sp = nullptr;  // entry()'s return address slot: the ABI's alignment
+        *--sp = (void*)&entry;
+        for (int r = 0; r < 6; ++r) *--sp = nullptr;
+        f.sp = sp;
+        f.done = false;
+        f.waits = nullptr;
+        f.kind = kNone;
+      }
+      tb = &blk;
+      unsigned live = block;
+      while (live && !s.failed) {
+        bool ran = false;
+        live = 0;
+        for (unsigned t = 0; t < block && !s.failed; ++t) {
+          Fiber& f = s.fibers[t];
+          if (f.done) continue;
+          ++live;
+          if (f.waits) continue;
           threadIdx.x = t;
           blockIdx.x = b;
           blockDim.x = block;
           gridDim.x = grid;
-          tb = &blk;
-          tw = blk.warps[t / 32].get();
+          tw = &blk.warps[t / 32];
           lane = t % 32;
-          kernel(args...);
-        });
-      for (auto& th : threads) th.join();
+          s.cur = t;
+          emu_switch(&s.main_sp, f.sp);
+          ran = true;
+        }
+        if (live && !ran && !s.failed) {
+          report_deadlock();
+          s.failed = true;
+          error = cudaErrorLaunchFailure;
+        }
+      }
     }
+    sched = outer;
+    for (auto& f : s.fibers) munmap(f.stack, kStack + kGuard);
   }
 };
 
@@ -168,14 +352,19 @@ inline float bf(uint32_t x, int high) {
 inline float tf(uint32_t x) { return __uint_as_float(x & 0xffffe000u); }
 }  // namespace emu
 
-inline void __syncthreads() { emu::tb->bar->arrive_and_wait(); }
-inline void __syncwarp() { emu::tw->bar.arrive_and_wait(); }
+inline cudaError_t cudaGetLastError() {
+  const int e = emu::error;
+  emu::error = cudaSuccess;
+  return e;
+}
+inline void __syncthreads() { emu::arrive(emu::tb->bar, emu::kSyncthreads); }
+inline void __syncwarp() { emu::arrive(emu::tw->bar, emu::kSyncwarp); }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) {
   static_assert(sizeof(T) == 4, "4-byte shuffles only");
   uint32_t all[32][1], m;
   memcpy(&m, &v, 4);
-  emu::exchange<1>(&m, all);
+  emu::exchange<1>(&m, all, emu::kShfl);
   T r;
   memcpy(&r, &all[src & 31][0], 4);
   return r;
@@ -198,41 +387,53 @@ inline float emu_ex2(float x) {
   return fabsf(y) < 1.17549435e-38f ? 0.f : y;
 }
 
-// d += a b for one m16n8k16 (bf16) or m16n8k8 (tf32) product of the warp.
+// d += a b for one m16n8k16 (bf16) or m16n8k8 (tf32) product of the warp:
+// the first lane past the barrier computes every lane's result into the
+// warp's buffer, and each lane takes its own.
 template <bool BF16>
 inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  uint32_t mine[10] = {a[0], a[1], a[2], a[3], b0, b1, f2u(d[0]), f2u(d[1]), f2u(d[2]), f2u(d[3])};
-  uint32_t all[32][10];
-  emu::exchange<10>(mine, all);
-  constexpr int K = BF16 ? 16 : 8;
-  float A[16][K], B[K][8];
-  for (int l = 0; l < 32; ++l) {
-    const int g = l >> 2, c = l & 3;
-    if (BF16) {
-      for (int e = 0; e < 2; ++e) {
-        A[g][2 * c + e] = emu::bf(all[l][0], e);
-        A[g + 8][2 * c + e] = emu::bf(all[l][1], e);
-        A[g][2 * c + 8 + e] = emu::bf(all[l][2], e);
-        A[g + 8][2 * c + 8 + e] = emu::bf(all[l][3], e);
-        B[2 * c + e][g] = emu::bf(all[l][4], e);
-        B[2 * c + 8 + e][g] = emu::bf(all[l][5], e);
+  emu::Warp* w = emu::tw;
+  const unsigned gen = w->bar.gen, par = gen & 1;
+  uint32_t* mine = w->buf[par][emu::lane];
+  const uint32_t in[10] = {a[0], a[1], a[2], a[3], b0, b1, f2u(d[0]), f2u(d[1]), f2u(d[2]), f2u(d[3])};
+  memcpy(mine, in, sizeof in);
+  emu::arrive(w->bar, emu::kMma);
+  if (w->result_gen[par] != gen + 1) {
+    constexpr int K = BF16 ? 16 : 8;
+    float A[16][K], B[K][8];
+    const uint32_t(&all)[32][16] = w->buf[par];
+    for (int l = 0; l < 32; ++l) {
+      const int g = l >> 2, c = l & 3;
+      if (BF16) {
+        for (int e = 0; e < 2; ++e) {
+          A[g][2 * c + e] = emu::bf(all[l][0], e);
+          A[g + 8][2 * c + e] = emu::bf(all[l][1], e);
+          A[g][2 * c + 8 + e] = emu::bf(all[l][2], e);
+          A[g + 8][2 * c + 8 + e] = emu::bf(all[l][3], e);
+          B[2 * c + e][g] = emu::bf(all[l][4], e);
+          B[2 * c + 8 + e][g] = emu::bf(all[l][5], e);
+        }
+      } else {
+        A[g][c] = emu::tf(all[l][0]);
+        A[g + 8][c] = emu::tf(all[l][1]);
+        A[g][c + 4] = emu::tf(all[l][2]);
+        A[g + 8][c + 4] = emu::tf(all[l][3]);
+        B[c][g] = emu::tf(all[l][4]);
+        B[c + 4][g] = emu::tf(all[l][5]);
       }
-    } else {
-      A[g][c] = emu::tf(all[l][0]);
-      A[g + 8][c] = emu::tf(all[l][1]);
-      A[g][c + 4] = emu::tf(all[l][2]);
-      A[g + 8][c + 4] = emu::tf(all[l][3]);
-      B[c][g] = emu::tf(all[l][4]);
-      B[c + 4][g] = emu::tf(all[l][5]);
     }
+    for (int l = 0; l < 32; ++l) {
+      const int g = l >> 2, c = l & 3;
+      const int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * c, 2 * c + 1, 2 * c, 2 * c + 1};
+      for (int i = 0; i < 4; ++i) {
+        float s = __uint_as_float(all[l][6 + i]);
+        for (int k = 0; k < K; ++k) s += A[rows[i]][k] * B[k][cols[i]];
+        w->result[par][l][i] = s;
+      }
+    }
+    w->result_gen[par] = gen + 1;
   }
-  const int g = emu::lane >> 2, c = emu::lane & 3;
-  const int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * c, 2 * c + 1, 2 * c, 2 * c + 1};
-  for (int i = 0; i < 4; ++i) {
-    float s = d[i];
-    for (int k = 0; k < K; ++k) s += A[rows[i]][k] * B[k][cols[i]];
-    d[i] = s;
-  }
+  for (int i = 0; i < 4; ++i) d[i] = w->result[par][emu::lane][i];
 }
 
 // movmatrix.m8n8.trans.b16: each lane holds row lane / 4, columns 2 (lane %
@@ -240,7 +441,7 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t
 // same places of the transpose.
 inline uint32_t emu_transpose8(uint32_t x) {
   uint32_t all[32][1];
-  emu::exchange<1>(&x, all);
+  emu::exchange<1>(&x, all, emu::kMovmatrix);
   auto el = [&](int r, int col) {
     const uint32_t v = all[r * 4 + col / 2][0];
     return (col & 1) ? v >> 16 : v & 0xffffu;
@@ -252,11 +453,12 @@ inline uint32_t emu_transpose8(uint32_t x) {
 // ldmatrix.m8n8.x4 (.trans): matrix i's rows at the addresses of lanes
 // 8 i .. 8 i + 7, each 16 bytes, 16-byte aligned.
 inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
-  emu::tw->addr[emu::lane] = (const char*)p;
-  emu::tw->bar.arrive_and_wait();
+  emu::Warp* w = emu::tw;
+  const unsigned par = w->bar.gen & 1;
+  w->addr[par][emu::lane] = (const char*)p;
+  emu::arrive(w->bar, emu::kLdmatrix);
   const char* ad[32];
-  for (int l = 0; l < 32; ++l) ad[l] = emu::tw->addr[l];
-  emu::tw->bar.arrive_and_wait();
+  for (int l = 0; l < 32; ++l) ad[l] = w->addr[par][l];
   for (int l = 0; l < 32; ++l)
     if ((uintptr_t)ad[l] & 15) {
       fprintf(stderr, "ldmatrix row address off 16 bytes\n");

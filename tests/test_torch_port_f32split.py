@@ -159,3 +159,119 @@ def test_tf32_rounding_is_cvt_rna():
     assert torch.isfinite(got).all()
     assert got[6].item() == 3.0 and tf32(x - got)[6].item() == 0.0
     assert abs(got[5].item() + 1e30) <= 1e30 * ulp
+
+
+# The long instances (L above 128; ``csrc/mhsa.cu``, "long"): keys stream in
+# tiles of 64 with an online softmax, and the backward takes each row's
+# max, sum and D = rowsum(P * dP) online over 16-key chunks, then sums dQ
+# over 8-key products and dK, dV over 8-query products, each in split TF32.
+LONG_SHAPES = [(4, 200, 300, 15), (2, 256, 768, 16), (3, 150, 300, 2)]
+LONG_TILE = 64
+
+
+def _heads_of(t, h):
+    u, l, d = t.shape
+    return t.reshape(u, l, h, d // h).transpose(1, 2)
+
+
+def _unheads_of(t):
+    u, h, l, hd = t.shape
+    return t.transpose(1, 2).reshape(u, l, h * hd)
+
+
+def long_forward(qkv, mask, h, mm):
+    """The long forward's float32 arithmetic: per key tile the logits in
+    log2 units (-1e30 at masked keys), the running max from -1e30, the
+    running sum and output rescaled by 2^(old max - new max)."""
+    u, l, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (_heads_of(t, h) for t in qkv.split(d, dim=-1))
+    scale_log2 = math.log2(math.e) / math.sqrt(d // h)
+    bias = torch.where(mask, 0.0, -1e30)[:, None, None, :]
+    m = torch.full((u, h, l, 1), -1e30)
+    s = torch.zeros((u, h, l, 1))
+    o = torch.zeros((u, h, l, d // h))
+    for k0 in range(0, l, LONG_TILE):
+        t = slice(k0, k0 + LONG_TILE)
+        x = mm(q, k[:, :, t].transpose(-1, -2)) * scale_log2 + bias[..., t]
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        s = s * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + mm(p, v[:, :, t])
+        m = m_new
+    return _unheads_of(o / s)
+
+
+def long_backward(qkv, mask, grad_out, h, mm):
+    """The long backward's float32 arithmetic: the statistics pass (max,
+    sum and D summed online over 16-key chunks from S and dP), then P from
+    them, dS = P (dP - D) and 0 at masked keys, dQ over 8-key products, dK
+    and dV over 8-query products, each product summed alone and added."""
+    u, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // h
+    scale = 1.0 / math.sqrt(hd)
+    scale_log2 = math.log2(math.e) * scale
+    q, k, v = (_heads_of(t, h) for t in qkv.split(d, dim=-1))
+    do = _heads_of(grad_out, h)
+    bias = torch.where(mask, 0.0, -1e30)[:, None, None, :]
+    x = mm(q, k.transpose(-1, -2)) * scale_log2 + bias
+    dp = mm(do, v.transpose(-1, -2))
+    m = torch.full((u, h, l, 1), -1e30)
+    s = torch.zeros((u, h, l, 1))
+    dd = torch.zeros((u, h, l, 1))
+    for k0 in range(0, l, 16):
+        c = slice(k0, k0 + 16)
+        m_new = torch.maximum(m, x[..., c].amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x[..., c] - m_new)
+        s = s * alpha + p.sum(dim=-1, keepdim=True)
+        dd = dd * alpha + (p * dp[..., c]).sum(dim=-1, keepdim=True)
+        m = m_new
+    p = torch.exp2(x - m) * (1 / s)
+    ds = torch.where(mask[:, None, None, :], p * (dp - dd / s), 0.0)
+    dq = sum(mm(ds[..., c:c + 8], k[:, :, c:c + 8]) for c in range(0, l, 8)) * scale
+    dk = sum(mm(ds[:, :, c:c + 8].transpose(-1, -2), q[:, :, c:c + 8])
+             for c in range(0, l, 8)) * scale
+    dv = sum(mm(p[:, :, c:c + 8].transpose(-1, -2), do[:, :, c:c + 8]) for c in range(0, l, 8))
+    return torch.cat([_unheads_of(g) for g in (dq, dk, dv)], dim=-1)
+
+
+def _float64_reference(qkv, mask, grad_out, h):
+    """The attention and d(sum(out * grad_out)) / d qkv in float64."""
+    x = torch.from_numpy(qkv).double().requires_grad_(True)
+    d = qkv.shape[-1] // 3
+    q, k, v = (_heads_of(t, h) for t in x.split(d, dim=-1))
+    logits = q @ k.transpose(-1, -2) / math.sqrt(d // h)
+    logits = torch.where(torch.from_numpy(mask)[:, None, None, :], logits, -1e30)
+    out = _unheads_of(torch.softmax(logits, dim=-1) @ v)
+    (grad,) = torch.autograd.grad(out, x, torch.from_numpy(grad_out).double())
+    return out.detach().numpy(), grad.numpy()
+
+
+@pytest.mark.parametrize("u,l,d,h", LONG_SHAPES)
+def test_long_split_tf32_matches_float64_and_one_rounding_does_not(u, l, d, h):
+    """The long instances' streamed float32 arithmetic in split TF32 holds
+    the attention and its gradient within 1e-5 + 1e-5 |x| of float64 at L =
+    150 to 256 (head dims 20, 48 and 150), a fully masked sequence
+    included (dQ = dK = 0); one TF32 rounding of each operand does not."""
+    rng = np.random.default_rng(u * l + d)
+    qkv = rng.normal(size=(u, l, 3 * d)).astype(np.float32)
+    mask = rng.random((u, l)) < 0.6
+    mask[:, LONG_TILE:2 * LONG_TILE] = False  # a whole tile masked between valid keys
+    mask[0] = False
+    mask[1, 0] = True
+    grad_out = rng.normal(size=(u, l, d)).astype(np.float32)
+    want_out, want_grad = _float64_reference(qkv, mask, grad_out, h)
+    x, m, g = torch.from_numpy(qkv), torch.from_numpy(mask), torch.from_numpy(grad_out)
+
+    out = long_forward(x, m, h, split_mm).numpy()
+    grad = long_backward(x, m, g, h, split_mm).numpy()
+    assert np.all(np.isfinite(out)) and np.all(np.isfinite(grad))
+    np.testing.assert_allclose(out, want_out, **TOL)
+    np.testing.assert_allclose(grad, want_grad, **TOL)
+    assert np.all(grad[0, :, :2 * d] == 0)
+
+    assert not _within(long_forward(x, m, h, single_mm).numpy(), want_out)
+    assert not _within(long_backward(x, m, g, h, single_mm).numpy(), want_grad)

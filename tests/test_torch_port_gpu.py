@@ -68,13 +68,18 @@ def test_kernel_matches_plain(cuda, u, l, d, h, dtype):
 
 def _edge_inputs(u, l, d, dtype, seed, masking):
     """qkv and a key mask with row 0 and every 7th row fully masked; the
-    others hold a prefix ("prefix") or a random subset ("random") of keys."""
+    others hold a prefix ("prefix") or a random subset ("random") of keys,
+    or ("tiles") a random subset with keys 64-127 masked, and in every third
+    row keys 0-139 too."""
     rng = np.random.default_rng(seed)
     qkv = torch.from_numpy(rng.normal(size=(u, l, 3 * d)).astype(np.float32)).to(dtype)
     if masking == "prefix":
         mask = np.arange(l)[None, :] < rng.integers(1, l + 1, size=(u, 1))
     else:
         mask = rng.random((u, l)) < 0.6
+    if masking == "tiles":  # a 64-key tile of masked keys between valid ones, and
+        mask[:, 64:128] = False  # rows whose first tiles are all masked
+        mask[1::3, :140] = False
     mask[::7] = False
     return qkv.cuda(), torch.from_numpy(mask).cuda()
 
@@ -203,13 +208,16 @@ def test_refused_shapes_raise_in_the_wrapper_and_in_the_model(cuda, l, d, h, dty
 # The long instances (``long_instance``): the shapes refused before them
 # (L = 129, head dim 129, head dims above 64 at L above 64), NRMS's user
 # encoder at history 200, the PLM head at 257 tokens, CAUM's default head
-# dim 100 at L = 100, head dims 150 and 1,024, L = 1 and 300.
+# dim 100 at L = 100, head dims 150 and 1,024, L = 1 and 300; the edges of
+# the tensor-core instances: head dim 20 at L = 150, head dim 130 in one
+# partial tile, head dims 255 and 257 (just below and above their bound).
 LONG_SHAPES = [(7, 129, 64, 1), (9, 129, 300, 15), (5, 64, 129, 1), (6, 65, 130, 2),
                (4, 128, 256, 2), (9, 200, 300, 15), (5, 257, 768, 16), (6, 100, 400, 4),
-               (5, 200, 300, 2), (3, 129, 1024, 1), (4, 300, 600, 2), (11, 1, 2048, 2)]
+               (5, 200, 300, 2), (3, 129, 1024, 1), (4, 300, 600, 2), (11, 1, 2048, 2),
+               (5, 150, 60, 3), (4, 40, 260, 2), (3, 100, 255, 1), (3, 70, 514, 2)]
 
 
-@pytest.mark.parametrize("masking", ["prefix", "random"])
+@pytest.mark.parametrize("masking", ["prefix", "random", "tiles"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("u,l,d,h", LONG_SHAPES)
 def test_long_shapes_run_in_the_wrapper_and_in_the_model(cuda, u, l, d, h, dtype, masking):

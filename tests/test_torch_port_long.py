@@ -43,6 +43,7 @@ from newsreclib_tpu_torch.models.general_rec import NRMS
 from newsreclib_tpu_torch.ops import mhsa
 from newsreclib_tpu_torch.training import state as tstate
 from newsreclib_tpu_torch.training import steps as tsteps
+from tests.test_torch_port_zoo import few_torch_threads  # noqa: F401 (fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # (U, L, D, heads): NRMS's head dim 20 at L = 200, the PLM head's 48 at

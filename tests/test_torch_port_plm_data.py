@@ -47,6 +47,7 @@ from tests.test_torch_port_data import assert_same_impressions, assert_same_stor
 from tests.test_torch_port_datasets import ADRESSA_DEMO, ADRESSA_FILES
 from tests.test_torch_port_plm import both_routes
 from tests.test_torch_port_plm_tokenizer import TEXTS
+from tests.test_torch_port_zoo import few_torch_threads  # noqa: F401 (fixture)
 
 TOKENIZER_MAX_LEN = 24
 KINDS = ("wordpiece", "bpe")

@@ -234,10 +234,10 @@ CODE_POINTS = [chr(c) for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
 CHUNK = 2048
 
 
-def _differing(fn_want, fn_got, pattern):
+def _differing(fn_want, fn_got, pattern, code_points=CODE_POINTS):
     bad = []
-    for i in range(0, len(CODE_POINTS), CHUNK):
-        chunk = CODE_POINTS[i:i + CHUNK]
+    for i in range(0, len(code_points), CHUNK):
+        chunk = code_points[i:i + CHUNK]
         if fn_want(pattern(chunk)) != fn_got(pattern(chunk)):
             bad += [hex(ord(c)) for c in chunk if fn_want(pattern([c])) != fn_got(pattern([c]))]
     return bad
@@ -262,14 +262,24 @@ def test_bert_pre_tokenizer_matches_at_every_code_point():
                       lambda cs: "".join(f"a{c}b " for c in cs)) == []
 
 
-def test_byte_level_split_matches_at_every_code_point():
+BYTE_LEVEL_PATTERNS = {"between_letters": lambda cs: "".join(f"a{c}b " for c in cs),
+                       "doubled_with_contraction": lambda cs: "".join(f"{c}{c}1'll  {c}x"
+                                                                      for c in cs)}
+
+
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("pattern", BYTE_LEVEL_PATTERNS)
+def test_byte_level_split_matches_at_every_code_point(pattern, half):
+    """Each pattern and each half of the code points is a case of its own,
+    so that the passes over every code point run on several workers."""
     from tokenizers import pre_tokenizers
 
     hf = pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=True)
     ours = pt.ByteLevel(add_prefix_space=False)
-    for pattern in (lambda cs: "".join(f"a{c}b " for c in cs),
-                    lambda cs: "".join(f"{c}{c}1'll  {c}x" for c in cs)):
-        assert _differing(lambda s: [w for w, _ in hf.pre_tokenize_str(s)], ours, pattern) == []
+    cut = len(CODE_POINTS) // 2 // CHUNK * CHUNK
+    assert _differing(lambda s: [w for w, _ in hf.pre_tokenize_str(s)], ours,
+                      BYTE_LEVEL_PATTERNS[pattern],
+                      CODE_POINTS[cut:] if half else CODE_POINTS[:cut]) == []
 
 
 def test_fixture_tokenizers_are_deterministic(tmp_path, tokenizer_dirs):

@@ -27,6 +27,7 @@ from newsreclib_tpu_torch.data.batching import BucketedAssembler, Impressions
 from newsreclib_tpu_torch.data.news_store import NewsStore
 from newsreclib_tpu_torch.models.general_rec import NRMS
 from newsreclib_tpu_torch.serving import CachedScorer, build_news_vector_table, corpus_segments
+from tests.test_torch_port_zoo import few_torch_threads  # noqa: F401 (fixture)
 
 VOCAB, TITLE, N_NEWS, N_IMP = 400, 30, 150, 60
 DIMS = dict(embed_dim=60, num_heads=6, query_dim=16)

@@ -36,6 +36,7 @@ from newsreclib_tpu_torch.models.components.embedding import TokenEmbedding
 from newsreclib_tpu_torch.models.general_rec import NRMS
 from newsreclib_tpu_torch.training import state as tstate
 from newsreclib_tpu_torch.training import steps as tsteps
+from tests.test_torch_port_zoo import few_torch_threads  # noqa: F401 (fixture)
 
 VOCAB, TITLE = 300, 24
 DIMS = dict(embed_dim=60, num_heads=6, query_dim=16)

@@ -79,10 +79,17 @@ MODELS = {
 
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
-    """Two intra-op threads: the suite runs beside other workers."""
+    """Two intra-op threads, and two threads for every OpenMP runtime in the
+    process (scikit-learn's t-SNE has its own): the suite runs beside other
+    workers.  Beside them, with all eight, ``test_tsne_plot_matches_jax``
+    took 342 s (10 s alone) and the planted-signal steps 57 s beside six busy
+    processes (14 s at two threads)."""
+    from threadpoolctl import threadpool_limits
+
     before = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(limits=2, user_api="openmp"):
+        yield
     torch.set_num_threads(before)
 
 
