@@ -209,10 +209,10 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    run;
 19. the long instances (L above 128, head dims beyond the box; phase 19a,
    ``long_kernel_phase``, runs with the profiled phases after step 7's
-   kernel phase, 19b, ``long_phase``, last): both kernels at
+   kernel phase, 19b, ``long_phase``, and 19c last): both kernels at
    ``kernel_bench.LONG_SHAPES`` (NRMS's user encoder at history 200 in a
    train step and a served batch, the PLM head at 256 tokens, head dims
-   100, 150 and 1,024) in float32 and bf16 against ``mhsa_plain``,
+   100, 150, 1,024 and 384) in float32 and bf16 against ``mhsa_plain``,
    ``mhsa_backward`` and autograd of the plain version, timed at
    ``LONG_TIMED`` with the plain versions and SDPA, and a bf16 shape whose
    qkv passes 2^31 values (``LONG_HUGE``) on its first and last sequences;
@@ -222,7 +222,12 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    ``LONG_TRAIN_STEPS`` ``TrainBatcher`` steps at batch 64 in float32 and
    bf16, kernel route against plain route, step 4's route check on a
    planted-signal batch at history 200 with the planted faults, and the
-   demo CLI at history 200 through phase 11's checks;
+   demo CLI at history 200 through phase 11's checks; then (19c,
+   ``xl_phase``, last) the XL instances (head dims above 256, float32
+   above 64) on a main path: NRMS with ``XL_OVERRIDES`` (one head of 300),
+   ``XL_STEPS`` train steps in float32 and bf16 with exact XL launches,
+   kernel route against plain route, and step 4's route check with the
+   planted faults;
 20. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
@@ -244,7 +249,10 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    ``fused_small_mhsa_long`` / ``_backward``: phase 19b's launches, the
    times at the train user encoder's (64, 200, 300, 15) with their share
    of the bound (``pct_of_bound``) and, under ``u<U>_l<L>_d<D>_*``, at the
-   other ``LONG_TIMED`` shapes) and, last, ``{"ok": true, ...}``.
+   other of the first two ``LONG_TIMED`` shapes; the XL instances' own
+   entries ``fused_small_mhsa_long_xl`` / ``_backward``: phase 19c's
+   launches, the times at ``XL_TIMED``, (8, 129, 1024, 1) unprefixed) and,
+   last, ``{"ok": true, ...}``.
 
 Every comparison of training trajectories (kernel route against plain
 route) runs under deterministic algorithms (``reproducible``).
@@ -519,7 +527,15 @@ ANNOTATOR_CLASSIFIERS = {"bpe": 3, "wordpiece": 2}  # tokenizer kind -> labels
 # The other shapes' times: ``kernel_bench --shapes long`` (PERF.md, §6).
 LONG_HISTORY = 200
 LONG_SERVING = dict(SERVING, hist_len=LONG_HISTORY)
-LONG_TIMED = [(64, 200, 300, 15), (512, 200, 300, 15)]
+LONG_TIMED = [(64, 200, 300, 15), (512, 200, 300, 15), (8, 129, 1024, 1), (64, 256, 768, 2)]
+# The XL instances (head dims above 256, ``mhsa.xl_instance``) on a main path
+# (phase 19c): NRMS with ``model.num_heads=1``, one head of 300, so that every
+# attention of its train step (titles at L = 16 / 30, users at L = 50) runs
+# in them; ``XL_STEPS`` steps at batch 64 in float32 and bf16.  Their own
+# times: ``LONG_TIMED``'s last two shapes (19a).
+XL_OVERRIDES = ["model=nrms", "model.num_heads=1"]
+XL_STEPS = 4
+XL_TIMED = [(8, 129, 1024, 1), (64, 256, 768, 2)]
 LONG_HUGE, LONG_HUGE_CHECKED = (2048, 512, 768, 16), 8
 LONG_TRAIN_STEPS = 5
 # The planted faults of the route check at history 200: keys unmasked.  The
@@ -2814,6 +2830,82 @@ def long_phase(card: str) -> dict:
     return out
 
 
+def xl_phase(card: str, store, imp) -> dict:
+    """Phase 19c (module doc): NRMS with ``XL_OVERRIDES`` (one head of 300:
+    every attention in the XL instances), ``XL_STEPS`` ``TrainBatcher``
+    steps at batch 64 in float32 and bf16 compute from the same weights under
+    ``reproducible``, every count set to 0 just before the kernel route and
+    read just after: exact launches (each attention call one XL launch each
+    way), kernel route against plain route within ``ROUTE_ATOL``; then phase
+    4's route check on the planted-signal batch, with the planted faults of
+    ``LONG_ROUTE_FAULTS`` beyond the tolerance.  Returns the launches."""
+    import torch
+
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.data.batch import to_device
+    from newsreclib_tpu_torch.data.batching import TrainBatcher
+    from newsreclib_tpu_torch.models import factory
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.profile_train import DATA, attention_launches, cell_info
+    from newsreclib_tpu_torch.training.state import create_train_state, make_optimizer
+    from newsreclib_tpu_torch.training.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = compose(overrides=XL_OVERRIDES)["model"]
+    batches = [b for _, b in zip(range(XL_STEPS), TrainBatcher(store, imp, batch_size=TRAIN_BATCH,
+                                                                **DATA).epoch(0))]
+    expected = sum(attention_launches(b) for b in batches)
+    batches = [to_device(b, "cuda") for b in batches]
+    planted = [planted_batch()] * ROUTE_STEPS
+
+    def losses(batches, cdtype, attention):
+        with reproducible():
+            state = create_train_state(factory.build_model(cfg, cell_info(), device="cuda", seed=0),
+                                       make_optimizer(PLANTED_LR), dropout_seed=0)
+            step = make_train_step(factory.build_loss(cfg), cdtype)
+            set_attention(state.model, attention)
+            return torch.stack([step(state, b)[1]["loss"] for b in batches]).cpu()
+
+    out = {}
+    for name, cdtype in (("float32", None), ("bfloat16", "bfloat16")):
+        torch.cuda.synchronize()
+        for k in ("launches", "bwd_launches", "xl_launches", "xl_bwd_launches"):
+            setattr(mhsa, k, 0)
+        t0 = time.perf_counter()
+        kernel = losses(batches, cdtype, None)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = dict(fwd=mhsa.launches, bwd=mhsa.bwd_launches, xl=mhsa.xl_launches,
+                   xl_bwd=mhsa.xl_bwd_launches)
+        plain = losses(batches, cdtype, "plain")
+        diff = (kernel - plain).abs().max().item()
+        log(f"XL train steps ({XL_STEPS} at batch {TRAIN_BATCH}, {' '.join(XL_OVERRIDES)}), "
+            f"{name}: launches {json.dumps(got)} ({expected} expected each way, all XL); kernel "
+            f"vs plain route max abs diff {diff:.3g} (tolerance {ROUTE_ATOL[name]}); losses "
+            f"{kernel.tolist()}; {wall_s:.2f} s")
+        if set(got.values()) != {expected}:
+            raise AssertionError(f"XL train launches {got} ({expected} each way expected)")
+        if not bool(torch.isfinite(kernel).all()) or diff > ROUTE_ATOL[name]:
+            raise AssertionError(f"XL train losses differ ({name}): {kernel} vs {plain}")
+        kernel = losses(planted, cdtype, None)
+        plain = losses(planted, cdtype, "plain")
+        route = (kernel - plain).abs().max().item()
+        faults = {f: (losses(planted, cdtype, FAULTS[f]) - plain).abs().max().item()
+                  for f in LONG_ROUTE_FAULTS}
+        log(f"XL route check, {ROUTE_STEPS} steps on the planted-signal batch, {name}: kernel "
+            f"vs plain max abs diff {route:.3g} (tolerance {ROUTE_ATOL[name]}); planted faults "
+            f"{json.dumps(faults)}; kernel {kernel[0].item():.5f} -> {kernel[-1].item():.5f}")
+        if not bool(torch.isfinite(kernel).all()) or route > ROUTE_ATOL[name]:
+            raise AssertionError(f"XL route losses differ ({name}): {kernel} vs {plain}")
+        missed = [f for f, v in faults.items() if not v > ROUTE_ATOL[name]]
+        if missed:
+            raise AssertionError(f"the XL route check ({name}) does not tell the planted faults "
+                                 f"{missed} from the plain attention: {faults}")
+        out[name] = dict(got, diff=diff, route_diff=route, wall_s=wall_s)
+    log(f"XL phase (19c): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     # cuBLAS repeats its results only with a fixed workspace (``reproducible``);
     # set before the first cuBLAS handle is made
@@ -2885,6 +2977,7 @@ def main() -> int:
     dist_cli = distributed_cli_phase(card)
     two_rank = two_rank_phase(card, store, imp)
     long_run = long_phase(card)
+    xl_run = xl_phase(card, store, imp)
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -3071,7 +3164,7 @@ def main() -> int:
                                     ("fused_small_mhsa_long_backward", long_bwd, "bwd_",
                                      long_errs[1])):
         by_shape = {}
-        for shape in LONG_TIMED:
+        for shape in LONG_TIMED[:2]:
             for t, tag in (("bfloat16", ""), ("float32", "f32_")):
                 r = zoo_rec(recs, shape, t)
                 key = "" if shape == LONG_TIMED[0] else f"u{shape[0]}_l{shape[1]}_d{shape[2]}_"
@@ -3100,6 +3193,32 @@ def main() -> int:
             "train_launches": {k: v[key] for k, v in long_run["train"].items()},
             "cli_launches": long_run["cli"][key],
             "cli_wall_s": long_run["cli"]["wall_s"],
+        })
+    for name, recs, prefix in (("fused_small_mhsa_long_xl", long_fwd, ""),
+                               ("fused_small_mhsa_long_xl_backward", long_bwd, "bwd_")):
+        by_shape = {}
+        for shape in XL_TIMED:
+            for t, tag in (("bfloat16", ""), ("float32", "f32_")):
+                r = zoo_rec(recs, shape, t)
+                key = "" if shape == XL_TIMED[0] else f"u{shape[0]}_l{shape[1]}_d{shape[2]}_"
+                by_shape.update({key + tag + k: r[prefix + k] for k in (
+                    "ms", "bound_ms", "bound_by", "pct_of_bound")})
+                by_shape.update({key + tag + "plain_ms": r["plain_" + prefix + "ms"],
+                                 key + tag + "library_ms": r["library_" + prefix + "ms"]})
+        key = "xl_bwd" if prefix else "xl"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "newsreclib_tpu_torch/csrc/mhsa.cu",
+            "replaces": ("newsreclib_tpu/ops/mhsa.py:160" if not prefix else
+                         "newsreclib_tpu/ops/mhsa.py:219 (XLA autodiff of mhsa_reference)")
+                        + " at head dims above 256",
+            "launches": sum(run[key] for run in xl_run.values()),
+            "max_abs_err": max(zoo_rec(recs, s_, t)["max_abs_err"] for s_ in XL_TIMED
+                               for t in ("bfloat16", "float32")),
+            **by_shape,
+            "shape": list(XL_TIMED[0]),
+            "train_launches": {k: v[key] for k, v in xl_run.items()},
         })
     log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
     log("MANNeR ensemble served metrics: " + json.dumps(ensemble_metrics))

@@ -148,12 +148,17 @@
 // tensor cores).  The plain version (mhsa_backward) runs about 30 kernels
 // over f32 (U, H, L, L) tensors (4.8 ms there).  The design:
 //
-// * The forward's staging and plan.  bf16: the same S sequences per block
-//   and the same shared memory (slab + key biases), so that every shape the
-//   forward takes, the backward takes; dO is not staged: each warp reads its
-//   head's columns of dO from global memory (through L1).  Blocks of 8
-//   warps.  f32: one (sequence, head) a block, with that head's dO columns
-//   staged beside its q, k and v columns.
+// * bf16: persistent blocks walking groups of work through a two-stage
+//   cp.async ring (bwd_plan, mhsa_bwd_bf16_kernel): the copies of the next
+//   group land while the block computes the current one and the previous
+//   one's dqkv stores drain.  A group is S whole sequences, their qkv and
+//   dO slabs staged as they lie (16-byte cp.async), where the card's
+//   blocks all get one; at small U, HG heads of one sequence, their q, k,
+//   v and dO columns staged as padded rows, so that U x H warp tasks still
+//   spread over the SMs.  The key mask goes through registers into key
+//   biases.  Blocks of 8 warps (16 at L = 17 .. 32).  f32: one (sequence,
+//   head) a block, with that head's dO columns staged beside its q, k and v
+//   columns.
 // * One warp task per (sequence, head).  bf16: the five products on tensor
 //   cores (mma.sync m16n8k16, bf16 in, f32 sums).  Per 16-row query tile:
 //   q.k^T and dO.v^T, the exact softmax of the forward (then normalised),
@@ -187,10 +192,10 @@
 //   of the shuffles ran from 2% faster to 14% slower (PERF.md, §6).
 // * Each task writes dQ over its own staged q values (after the tile's
 //   last read of them) and dK, dV over its k and v values (after the last
-//   tile); after a barrier the block copies its whole staged slab, now
-//   dqkv, to the output in one coalesced run.  No atomics: each output
-//   value is written by one lane, so the gradient is the same bits from
-//   run to run.
+//   tile); after a barrier the block copies the group's staged rows, now
+//   dqkv, to the output (a whole-sequence group's slab in one coalesced
+//   run).  No atomics: each output value is written by one lane, so the
+//   gradient is the same bits from run to run.
 //
 //   int nrl_mhsa_bwd(const void* qkv, const uint8_t* mask, const void* dout,
 //                    void* dqkv, void* workspace, int U, int L, int D, int H,
@@ -206,10 +211,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// Built whole by default.  ops/build.py compiles it in four parts at once
-// and links them (the wide instances are most of the build time): NRL_PART
-// 1 holds the hd <= 32 instances, the shape rule and the C entry points,
-// 2 the wide bf16 instances, 3 the wide f32 ones, 4 the long ones.
+// Built whole by default.  ops/build.py compiles it in six parts at once
+// and links them: NRL_PART 1 holds the hd <= 32 forward and f32 backward
+// instances, the shape rule and the C entry points, 2 the wide bf16
+// instances, 3 the wide f32 ones, 4 the long ones, 5 and 6 the hd <= 32
+// bf16 backward ones (L <= 32, L above).
 #ifndef NRL_PART
 #define NRL_PART 0
 #endif
@@ -248,6 +254,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Copy n bytes from global src to shared dst, where dst == src (mod 16):
 // 16-byte cp.async for the aligned body, bytes for the ends; the copies are
@@ -547,8 +565,13 @@ __global__ void __launch_bounds__(bf16_warps(KT) * 32, 2)
 
 // ------------------------------------------------------------ backward ---
 
-// Warps of a backward block: one (sequence, head) task each.
-constexpr int kBwdWarps = 8;
+// Warps of a backward block of whole sequences (one (sequence, head) task
+// each): 8 at L <= 16 (two blocks an SM) and above L = 32 (one block, up to
+// 255 registers a thread), 16 at L = 17 .. 32 (one block, whose ring of
+// two whole sequences of L = 30 takes 144 KB).  128 registers a thread up
+// to L = 32.
+__host__ __device__ constexpr int bwd_block_warps(int KT) { return KT == 2 ? 16 : 8; }
+__host__ __device__ constexpr int bwd_min_blocks(int KT) { return KT == 1 ? 2 : 1; }
 
 // The 8x8 transpose of a matrix of 16-bit values held one 32-bit pair a
 // lane (row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1, as in the
@@ -580,8 +603,10 @@ __device__ __forceinline__ void st_pair(unsigned short* s, int off, int d, int h
   }
 }
 
-// One backward warp task, bf16: head h of the sequence whose staged rows
-// start at `s`, with its output gradient `dout` (global, rows of D).  Per
+// One backward warp task, bf16: head hl of a sequence whose staged rows
+// start at `s` (row stride rs; the head's q, k and v columns at hl hd, ko +
+// hl hd and 2 ko + hl hd) with its output gradient staged at `dsm` (row
+// stride drs, the head's columns at hl hd).  Per
 // query tile of 16 rows it recomputes the logits and the exact softmax as
 // the forward does, adds the tile's share of dV = P^T dO, then computes
 // dP = dO V^T, the row sums of dP * P, dS and the tile's dQ = scale dS K,
@@ -593,16 +618,16 @@ __device__ __forceinline__ void st_pair(unsigned short* s, int off, int d, int h
 // add nothing to dK and dV.  dQ goes over the tile's own q values once they
 // are read; dK and dV over the k and v values after the last tile.
 template <int KT, int NT, int HDX, bool PAIR>
-__device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bias,
-                                              const unsigned short* dout, int h, int L, int D,
-                                              int hd_rt, float scale_log2, float scale) {
+__device__ __forceinline__ void bf16_bwd_head(unsigned short* s, int rs, int ko,
+                                              const unsigned short* dsm, int drs,
+                                              const float* bias, int hl, int L, int hd_rt,
+                                              float scale_log2, float scale) {
   constexpr int HK = (NT * 8 + 15) / 16;
   constexpr int NJ = 2 * KT;
   const int hd = HDX > 0 ? HDX : hd_rt;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int D3 = 3 * D;
-  const int qcol = h * hd, kcol = D + qcol, vcol = 2 * D + qcol;
+  const int qcol = hl * hd, kcol = ko + qcol, vcol = 2 * ko + qcol;
   const bool last_on = (NJ - 1) * 8 < L;
 
   float dk[KT][NT][4], dv[KT][NT][4];
@@ -616,7 +641,7 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
   const int mts = (L + 15) / 16;
   for (int mt = 0; mt < mts; ++mt) {
     const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const int q0 = min(r0, L - 1) * D3 + qcol, q1 = min(r1, L - 1) * D3 + qcol;
+    const int q0 = min(r0, L - 1) * rs + qcol, q1 = min(r1, L - 1) * rs + qcol;
     const bool in0 = r0 < L, in1 = r1 < L;
 
     // p = softmax(q.k^T scale), exactly as the forward computes it, then
@@ -636,7 +661,7 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
       for (int j = 0; j < NJ; ++j) {
         p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
         if (j < NJ - 1 || last_on) {
-          const int off = min(j * 8 + g, L - 1) * D3 + kcol;
+          const int off = min(j * 8 + g, L - 1) * rs + kcol;
 #pragma unroll
           for (int ks = 0; ks < HK; ++ks)
             mma_bf16(p[j], qa[ks], ld_pair<PAIR>(s, off, ks * 16 + 2 * c, hd),
@@ -668,11 +693,11 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
       for (int nt = 0; nt < NT; ++nt) {
         const int d = nt * 8 + g;
         const bool ok = d < hd;
-        const unsigned short* dc = dout + qcol + d;
-        ob[nt][0] = pack_bits(ok && k0 < L ? dc[k0 * D] : (unsigned short)0,
-                              ok && k0 + 1 < L ? dc[(k0 + 1) * D] : (unsigned short)0);
-        ob[nt][1] = pack_bits(ok && k0 + 8 < L ? dc[(k0 + 8) * D] : (unsigned short)0,
-                              ok && k0 + 9 < L ? dc[(k0 + 9) * D] : (unsigned short)0);
+        const unsigned short* dc = dsm + qcol + d;
+        ob[nt][0] = pack_bits(ok && k0 < L ? dc[k0 * drs] : (unsigned short)0,
+                              ok && k0 + 1 < L ? dc[(k0 + 1) * drs] : (unsigned short)0);
+        ob[nt][1] = pack_bits(ok && k0 + 8 < L ? dc[(k0 + 8) * drs] : (unsigned short)0,
+                              ok && k0 + 9 < L ? dc[(k0 + 9) * drs] : (unsigned short)0);
       }
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
@@ -701,16 +726,16 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
 #pragma unroll
       for (int ks = 0; ks < HK; ++ks) {
         const int d = ks * 16 + 2 * c;
-        oa[ks][0] = in0 ? ld_pair<PAIR>(dout, r0 * D + qcol, d, hd) : 0u;
-        oa[ks][1] = in1 ? ld_pair<PAIR>(dout, r1 * D + qcol, d, hd) : 0u;
-        oa[ks][2] = in0 ? ld_pair<PAIR>(dout, r0 * D + qcol, d + 8, hd) : 0u;
-        oa[ks][3] = in1 ? ld_pair<PAIR>(dout, r1 * D + qcol, d + 8, hd) : 0u;
+        oa[ks][0] = in0 ? ld_pair<PAIR>(dsm, r0 * drs + qcol, d, hd) : 0u;
+        oa[ks][1] = in1 ? ld_pair<PAIR>(dsm, r1 * drs + qcol, d, hd) : 0u;
+        oa[ks][2] = in0 ? ld_pair<PAIR>(dsm, r0 * drs + qcol, d + 8, hd) : 0u;
+        oa[ks][3] = in1 ? ld_pair<PAIR>(dsm, r1 * drs + qcol, d + 8, hd) : 0u;
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
         if (j < NJ - 1 || last_on) {
-          const int off = min(j * 8 + g, L - 1) * D3 + vcol;
+          const int off = min(j * 8 + g, L - 1) * rs + vcol;
 #pragma unroll
           for (int ks = 0; ks < HK; ++ks)
             mma_bf16(dp[j], oa[ks], ld_pair<PAIR>(s, off, ks * 16 + 2 * c, hd),
@@ -756,8 +781,8 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
       const int k0 = kt * 16 + 2 * c;
-      const int o0 = min(k0, L - 1) * D3 + kcol, o1 = min(k0 + 1, L - 1) * D3 + kcol;
-      const int o8 = min(k0 + 8, L - 1) * D3 + kcol, o9 = min(k0 + 9, L - 1) * D3 + kcol;
+      const int o0 = min(k0, L - 1) * rs + kcol, o1 = min(k0 + 1, L - 1) * rs + kcol;
+      const int o8 = min(k0 + 8, L - 1) * rs + kcol, o9 = min(k0 + 9, L - 1) * rs + kcol;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int d = nt * 8 + g;
@@ -771,8 +796,8 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
     // the clamped rows past L have ds = 0).
     {
       const int k0 = mt * 16 + 2 * c;
-      const int o0 = min(k0, L - 1) * D3 + qcol, o1 = min(k0 + 1, L - 1) * D3 + qcol;
-      const int o8 = min(k0 + 8, L - 1) * D3 + qcol, o9 = min(k0 + 9, L - 1) * D3 + qcol;
+      const int o0 = min(k0, L - 1) * rs + qcol, o1 = min(k0 + 1, L - 1) * rs + qcol;
+      const int o8 = min(k0 + 8, L - 1) * rs + qcol, o9 = min(k0 + 9, L - 1) * rs + qcol;
       uint32_t qb[NT][2];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -809,46 +834,249 @@ __device__ __forceinline__ void bf16_bwd_head(unsigned short* s, const float* bi
     for (int nt = 0; nt < NT; ++nt) {
       const int d = nt * 8 + 2 * c;
       if (k0 < L) {
-        st_pair<PAIR>(s, k0 * D3 + kcol, d, hd, dk[kt][nt][0] * scale, dk[kt][nt][1] * scale);
-        st_pair<PAIR>(s, k0 * D3 + vcol, d, hd, dv[kt][nt][0], dv[kt][nt][1]);
+        st_pair<PAIR>(s, k0 * rs + kcol, d, hd, dk[kt][nt][0] * scale, dk[kt][nt][1] * scale);
+        st_pair<PAIR>(s, k0 * rs + vcol, d, hd, dv[kt][nt][0], dv[kt][nt][1]);
       }
       if (k1 < L) {
-        st_pair<PAIR>(s, k1 * D3 + kcol, d, hd, dk[kt][nt][2] * scale, dk[kt][nt][3] * scale);
-        st_pair<PAIR>(s, k1 * D3 + vcol, d, hd, dv[kt][nt][2], dv[kt][nt][3]);
+        st_pair<PAIR>(s, k1 * rs + kcol, d, hd, dk[kt][nt][2] * scale, dk[kt][nt][3] * scale);
+        st_pair<PAIR>(s, k1 * rs + vcol, d, hd, dv[kt][nt][2], dv[kt][nt][3]);
       }
     }
   }
 }
 
+// Shared memory of one stage of the backward's ring (bwd_plan): a group of
+// S whole sequences (HG = H) stages its qkv and dO slabs as they lie (each
+// with 16 bytes of slack: it starts at its source's address mod 16) and 64
+// key biases a sequence; a group of HG heads of one sequence stages their
+// q, k, v and dO columns as four arrays of L rows of wide_stride(HG hd, 2)
+// values (tc_stage) and 64 key biases.
+// Row stride, in values, of a staged head array (the wide and long
+// instances', and a head group's here): an odd number of 16-byte units, so
+// that the eight rows of an ldmatrix or a fragment read fall in distinct
+// banks.
+__host__ __device__ inline int wide_stride(int hd, int es) {
+  return es == 2 ? (hd + 15) / 16 * 16 + 8 : (hd + 7) / 8 * 8 + 4;
+}
+__host__ __device__ inline size_t bwd_stage_bytes(int S, int HG, int L, int D, int H) {
+  if (HG == H)
+    return align16(16 + (size_t)S * L * 3 * D * 2) + align16(16 + (size_t)S * L * D * 2) +
+           (size_t)S * kNarrowMaxLen * 4;
+  return (size_t)4 * L * wide_stride(HG * (D / H), 2) * 2 + kNarrowMaxLen * 4;
+}
+
+// Rows r0 .. r0 + R - 1 of `parts` runs of hd values (run p of row r at
+// src + r * src_row + p * src_part) into `parts` arrays of R rows of `st`
+// values at dst (array p at dst + p R st): rows below L by cp.async of the
+// widest of 16, 8 and 4 bytes that every run allows, not committed (the
+// caller commits a tile's copies as one group); 2-byte values off a 4-byte
+// boundary by plain copies; rows at or past L as zeros.  Columns hd and up
+// are tc_zero_pad's.
+template <typename S>
+__device__ void tc_stage(S* dst, const S* src, int r0, int R, int L, int parts, int hd,
+                         size_t src_row, size_t src_part, int st) {
+  constexpr int es = sizeof(S);
+  const uintptr_t a = (uintptr_t)src | (src_row * es) | (src_part * es) | ((uintptr_t)hd * es);
+  const int V = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : es;
+  const int per = hd * es / V;  // copies a run
+  const int n = R * parts * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int run = i / per, j = i - run * per;
+    const int r = run / parts, p = run - r * parts;
+    char* to = reinterpret_cast<char*>(dst + ((size_t)p * R + r) * st) + j * V;
+    if (r0 + r < L) {
+      const char* from =
+          reinterpret_cast<const char*>(src + (size_t)(r0 + r) * src_row + p * src_part) + j * V;
+      if (V == 16)
+        cp_async16(to, from);
+      else if (V == 8)
+        cp_async8(to, from);
+      else if (V == 4)
+        cp_async4(to, from);
+      else
+        *reinterpret_cast<S*>(to) = *reinterpret_cast<const S*>(from);
+    } else {
+      for (int b = 0; b < V; b += es) *reinterpret_cast<S*>(to + b) = S(0);
+    }
+  }
+}
+
+// The first n values of the `rows` rows of `parts` staged arrays of 16-bit
+// values (row r of array p at src + p src_part + r src_row) back to dst + r
+// dst_row + p dst_part, in the widest stores, 16, 8, 4 or 2 bytes, that
+// every address allows.
+__device__ void write_runs16(unsigned short* dst, const unsigned short* src, int rows, int parts,
+                             int n, size_t dst_row, size_t dst_part, int src_row, int src_part) {
+  const uintptr_t a = (uintptr_t)src | (uintptr_t)dst | (dst_row * 2) | (dst_part * 2) |
+                      ((uintptr_t)n * 2) | ((uintptr_t)src_row * 2) | ((uintptr_t)src_part * 2);
+  const int V = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : 2;
+  const int per = n * 2 / V;
+  const int total = rows * parts * per;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int run = i / per, j = i - run * per;
+    const int r = run / parts, p = run - r * parts;
+    const char* from = reinterpret_cast<const char*>(src + p * src_part + r * src_row) + j * V;
+    char* to = reinterpret_cast<char*>(dst + r * dst_row + p * dst_part) + j * V;
+    if (V == 16)
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    else if (V == 8)
+      *reinterpret_cast<uint64_t*>(to) = *reinterpret_cast<const uint64_t*>(from);
+    else if (V == 4)
+      *reinterpret_cast<uint32_t*>(to) = *reinterpret_cast<const uint32_t*>(from);
+    else
+      *reinterpret_cast<unsigned short*>(to) = *reinterpret_cast<const unsigned short*>(from);
+  }
+}
+
+// Where a group of the backward's plan lies: its sequences and heads, and
+// its staged rows in stage `st` (qkv rows of rs values, k at ko and v at 2
+// ko within a row; dO rows of drs values; 64 key biases a sequence).
+struct BwdGroup {
+  unsigned short *s, *d;
+  float* bias;
+  int u0, ns, h0, nh, rs, ko, drs;
+};
+__device__ __forceinline__ BwdGroup bwd_group(int grp, int st, char* smem, int stage_bytes,
+                                              const __nv_bfloat16* qkv,
+                                              const __nv_bfloat16* dout, int U, int L, int D,
+                                              int H, int S, int HG) {
+  BwdGroup g;
+  char* base = smem + (size_t)st * stage_bytes;
+  if (HG == H) {
+    g.u0 = grp * S;
+    g.ns = min(S, U - g.u0);
+    g.h0 = 0;
+    g.nh = H;
+    g.rs = 3 * D;
+    g.ko = D;
+    g.drs = D;
+    char* dbase = base + align16(16 + (size_t)S * L * 3 * D * 2);
+    g.s = reinterpret_cast<unsigned short*>(
+        base + ((uintptr_t)(qkv + (size_t)g.u0 * L * 3 * D) & 15));
+    g.d = reinterpret_cast<unsigned short*>(dbase + ((uintptr_t)(dout + (size_t)g.u0 * L * D) & 15));
+    g.bias = reinterpret_cast<float*>(dbase + align16(16 + (size_t)S * L * D * 2));
+  } else {  // arrays of q, k, v and dO rows: k and v at one and two arrays from q
+    const int nhg = (H + HG - 1) / HG;
+    g.u0 = grp / nhg;
+    g.ns = 1;
+    g.h0 = (grp - g.u0 * nhg) * HG;
+    g.nh = min(HG, H - g.h0);
+    g.rs = g.drs = wide_stride(HG * (D / H), 2);
+    g.ko = L * g.rs;
+    g.s = reinterpret_cast<unsigned short*>(base);
+    g.d = g.s + 3 * g.ko;
+    g.bias = reinterpret_cast<float*>(g.d + g.ko);
+  }
+  return g;
+}
+
+// The narrow bf16 backward: persistent blocks walk the plan's groups (whole
+// sequences, or head groups of one sequence; group blockIdx.x, then every
+// gridDim.x-th) through a two-stage cp.async ring.  At the top of a turn
+// the group whose copies were issued last turn has landed; the block then
+// writes the previous group's dqkv (left over its staged q, k and v) out of
+// the other stage, issues the next group's copies into it, and computes the
+// current group, one (sequence, head) warp task at a time, while they land
+// and the stores drain.  The next group's key mask is read into registers
+// when its copies are issued and turned into key biases after the compute,
+// so no warp waits on it.  A head group's rows are padded to wide_stride, so
+// that the fragment reads of a warp's eight rows fall in distinct banks.
 template <int KT, int NT, int HDX, bool PAIR>
-__global__ void __launch_bounds__(kBwdWarps * 32, KT <= 2 ? 2 : 1)
+__global__ void __launch_bounds__(bwd_block_warps(KT) * 32, bwd_min_blocks(KT))
     mhsa_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const uint8_t* __restrict__ mask,
                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dqkv,
-                         int U, int L, int D, int H, int S, float scale_log2, float scale) {
+                         int U, int L, int D, int H, int S, int HG, int stage_bytes,
+                         float scale_log2, float scale) {
   extern __shared__ __align__(16) char smem[];
-  const int ns = min(S, U - (int)blockIdx.x * S);
-  __nv_bfloat16* slab = stage_slab(qkv, ns, S, L, D, smem);
-  float* sbias = reinterpret_cast<float*>(smem + slab_bytes(S, L, D, 2));
-  const uint8_t* msk = mask + (size_t)blockIdx.x * S * L;
-  for (int i = threadIdx.x; i < ns * kNarrowMaxLen; i += blockDim.x) {
-    const int sq = i / kNarrowMaxLen, key = i - sq * kNarrowMaxLen;
-    sbias[i] = key < L ? (msk[sq * L + key] ? 0.f : kMaskMin) : -INFINITY;
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  const int hd = D / H;
+  const int groups = HG == H ? (U + S - 1) / S : U * ((H + HG - 1) / HG);
+  auto where = [&](int grp, int st) {
+    return bwd_group(grp, st, smem, stage_bytes, qkv, dout, U, L, D, H, S, HG);
+  };
+  auto load = [&](const BwdGroup& g) {
+    const unsigned short* gq = reinterpret_cast<const unsigned short*>(qkv);
+    const unsigned short* gd = reinterpret_cast<const unsigned short*>(dout);
+    if (HG == H) {  // stage() commits its copies
+      stage(reinterpret_cast<char*>(g.s),
+            reinterpret_cast<const char*>(gq + (size_t)g.u0 * L * 3 * D),
+            (size_t)g.ns * L * 3 * D * 2);
+      stage(reinterpret_cast<char*>(g.d), reinterpret_cast<const char*>(gd + (size_t)g.u0 * L * D),
+            (size_t)g.ns * L * D * 2);
+    } else {
+      tc_stage(g.s, gq + (size_t)g.u0 * L * 3 * D + (size_t)g.h0 * hd, 0, L, L, 3, g.nh * hd,
+               3 * (size_t)D, D, g.rs);
+      tc_stage(g.d, gd + (size_t)g.u0 * L * D + (size_t)g.h0 * hd, 0, L, L, 1, g.nh * hd, D, 0,
+               g.rs);
+      cp_async_commit();
+    }
+  };
+  // Key-bias slots threadIdx.x and threadIdx.x + blockDim.x (sequence i / 64,
+  // key i % 64) of the next group: the raw mask byte, and whether the key
+  // lies below L.
+  uint8_t raw[2];
+  bool in[2];
+  auto read_mask = [&](const BwdGroup& g) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = threadIdx.x + k * blockDim.x, sq = i / kNarrowMaxLen;
+      const int key = i - sq * kNarrowMaxLen;
+      in[k] = sq < g.ns && key < L;
+      raw[k] = in[k] ? mask[(size_t)(g.u0 + sq) * L + key] : 0;
+    }
+  };
+  auto put_biases = [&](const BwdGroup& g) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < g.ns * kNarrowMaxLen) g.bias[i] = in[k] ? (raw[k] ? 0.f : kMaskMin) : -INFINITY;
+    }
+  };
+  auto write_back = [&](const BwdGroup& g) {
+    if (HG == H)
+      write_rows(dqkv + (size_t)g.u0 * L * 3 * D, reinterpret_cast<const __nv_bfloat16*>(g.s), 1,
+                 g.ns * L * 3 * D);
+    else
+      write_runs16(reinterpret_cast<unsigned short*>(dqkv) + (size_t)g.u0 * L * 3 * D +
+                       (size_t)g.h0 * hd,
+                   g.s, L, 3, g.nh * hd, 3 * (size_t)D, D, g.rs, g.ko);
+  };
 
+  if ((int)blockIdx.x >= groups) return;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  unsigned short* bits = reinterpret_cast<unsigned short*>(slab);
-  const unsigned short* go = reinterpret_cast<const unsigned short*>(dout);
-  for (int t = warp; t < ns * H; t += nwarps) {
-    const int sq = t / H;
-    bf16_bwd_head<KT, NT, HDX, PAIR>(bits + (size_t)sq * L * 3 * D, sbias + sq * kNarrowMaxLen,
-                                     go + ((size_t)blockIdx.x * S + sq) * L * D, t - sq * H, L,
-                                     D, D / H, scale_log2, scale);
+  {
+    const BwdGroup g = where(blockIdx.x, 0);
+    load(g);
+    read_mask(g);
+    put_biases(g);
+  }
+  int it = 0;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (it > 0) {
+      write_back(where(grp - gridDim.x, (it + 1) & 1));
+      __syncthreads();  // its reads of the other stage are done
+    }
+    const int nx = grp + gridDim.x;
+    if (nx < groups) {
+      const BwdGroup g = where(nx, (it + 1) & 1);
+      load(g);
+      read_mask(g);
+    }
+    {
+      const BwdGroup g = where(grp, it & 1);
+      for (int t = warp; t < g.ns * g.nh; t += nwarps) {
+        const int sq = t / g.nh;
+        bf16_bwd_head<KT, NT, HDX, PAIR>(g.s + (size_t)sq * L * g.rs, g.rs, g.ko,
+                                         g.d + (size_t)sq * L * g.drs, g.drs,
+                                         g.bias + sq * kNarrowMaxLen, t - sq * g.nh, L, hd,
+                                         scale_log2, scale);
+      }
+    }
+    if (nx < groups) put_biases(where(nx, (it + 1) & 1));
   }
   __syncthreads();
-  // The block's dqkv rows are one contiguous run laid out as its staged slab.
-  write_rows(dqkv + (size_t)blockIdx.x * S * L * 3 * D, slab, 1, ns * L * 3 * D);
+  write_back(where(blockIdx.x + (it - 1) * gridDim.x, (it + 1) & 1));
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -915,11 +1143,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB&
 // row[d], 0 past the head dimension.
 __device__ __forceinline__ float ld(const float* row, int d, int hd) {
   return d < hd ? row[d] : 0.f;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 // Stage `rows` rows of `parts` runs of w floats: run (r, p) of the source,
@@ -1437,18 +1660,9 @@ __host__ __device__ inline bool kernel_box(int L, int hd) {
                                (L <= kBoxMaxLen && hd <= kBoxLongHeadDim));
 }
 
-// Row stride, in values, of a staged head array.
-__host__ __device__ inline int wide_stride(int hd, int es) {
-  return es == 2 ? (hd + 15) / 16 * 16 + 8 : (hd + 7) / 8 * 8 + 4;
-}
 __host__ __device__ inline size_t wide_smem(int L, int hd, int es, bool bwd) {
   const size_t Lp = (L + 15) / 16 * 16;
   return (bwd ? 4 : 3) * Lp * wide_stride(hd, es) * es + (bwd ? 4 : 1) * Lp * 4;
-}
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
 // Stage `parts` runs of hd values of each of L rows: run (r, p) of the
@@ -2470,8 +2684,7 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
 // the tensor cores' rate or the bytes.  The design (the tensor-core
 // instances, head dims up to kLongTcMaxHeadDim = 256):
 //
-// * Tiles of R = 64 rows (32 for float32 above head dim 128, so that the
-//   dK / dV kernel's six tiles fit), a warp per 16-row strip, R / 16 warps
+// * Tiles of R = 64 rows (kTcRows), a warp per 16-row strip, R / 16 warps
 //   a block.  Every array is staged in its storage type (bf16 stays bf16)
 //   with the wide instances' padded rows (wide_stride: 16 ceil(hd / 16) + 8
 //   bf16 values or 8 ceil(hd / 8) + 4 floats, so that ldmatrix and the f32
@@ -2509,13 +2722,13 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
 //   logits over the whole head dim.  So registers stay within one 16-row
 //   strip's budget up to head dim 256 (the dK / dV kernel: 64 accumulators
 //   of dK and dV, 16 of S^T and dP^T; at most 127 registers a thread in
-//   bf16, 167 in f32 and 214 for f32's 32-row tiles, no spill, nvcc 12.8
-//   for sm_90a).  The bound kLongTcMaxHeadDim is 256, the widest power of
-//   two whose blocks fit: the dK / dV kernel's six staged tiles fit 232,448
-//   bytes up to head dim 288 (bf16, 64 rows) and 296 (f32, 32 rows), and
-//   beyond 256 the column groups would form the logits five times and more.
-//   Above it the FMA instances below run (head dims 257 to 1,024, outside
-//   every model of the repo).
+//   bf16 and 167 in f32, no spill, nvcc 12.8 for sm_90a).  The bound
+//   kLongTcMaxHeadDim is 256, the widest power of two whose blocks fit: the
+//   dK / dV kernel's six staged bf16 tiles fit 232,448 bytes up to head dim
+//   288, and beyond 256 the column groups would form the logits five times
+//   and more.  Above it the XL instances below run (head dims up to 1,024,
+//   outside every model of the repo), and in float32 above head dim 64
+//   (kLongTcMaxHeadDimF32), where they were faster.
 // * Backward, FlashAttention-2's split, three launches, no atomics:
 //   (1) statistics: one block per (sequence, head, query tile) streams the
 //   key tiles, forms S = Q K^T and dP = dO V^T per 16-key chunk and keeps
@@ -2539,11 +2752,19 @@ __global__ void __launch_bounds__(32 * KT, wide_min_blocks<T, true>(KT))
 //   masked sequence gets dS = 0 (no gradient on q and k) and dV = the mean
 //   of dO.
 constexpr int kLongTcMaxHeadDim = 256;
+// float32 above this head dim runs in the XL instances: on an H100 (700 W)
+// they took 0.1365 / 0.6162 ms (forward / backward) at (64, 100, 400, 4)
+// and 0.4531 / 1.7193 at (64, 200, 300, 2) against these instances' 0.3335
+// / 1.1253 and 1.8572 / 8.4719 (64-row tiles at head dim 100, 32-row ones
+// at 150: one block of 2-4 warps an SM; PERF.md, §6).
+constexpr int kLongTcMaxHeadDimF32 = 64;
+constexpr int kTcRows = 64;  // rows of a tile of the tensor-core instances
 
-// Whether head dim hd runs in the tensor-core long instances.
-__host__ __device__ inline bool long_tc(int hd) { return hd <= kLongTcMaxHeadDim; }
-// Rows of a tile of the tensor-core instances.
-__host__ __device__ inline int tc_rows(int hd, int es) { return es == 4 && hd > 128 ? 32 : 64; }
+// Whether head dim hd runs in the tensor-core long instances in the type of
+// element size es (ops/mhsa.py::long_tc); else the XL instances.
+__host__ __device__ inline bool long_tc(int hd, int es) {
+  return hd <= (es == 4 ? kLongTcMaxHeadDimF32 : kLongTcMaxHeadDim);
+}
 // n8 column tiles of a column group, and the column groups of head dim hd.
 __host__ __device__ inline int tc_ntc(int hd) { return hd <= 32 ? 4 : 8; }
 __host__ __device__ inline int tc_groups(int hd) {
@@ -2555,52 +2776,14 @@ __host__ __device__ inline int tc_groups(int hd) {
 // dK / dV kernel (the block's key and value tiles, two stages of query and
 // dO tiles and of their rows' statistics).
 __host__ __device__ inline size_t tc_smem(int hd, int es, int kind) {
-  const size_t R = tc_rows(hd, es), arr = R * wide_stride(hd, es) * es;
+  const size_t R = kTcRows, arr = R * wide_stride(hd, es) * es;
   return (kind == 0 ? 5 : 6) * arr + (kind == 2 ? 6 : 2) * R * 4;
 }
-// Blocks an SM that the register budget is set for, counted as blocks of
-// 64 rows: 128 registers a thread in bf16, 168 in f32; blocks of 32 rows
-// may use twice as many (at 168 the f32 dK / dV kernel of 32 rows spilled
-// 48 bytes).
+// Blocks an SM that the register budget is set for: 128 registers a thread
+// in bf16, 168 in f32.
 template <typename E>
 __host__ __device__ constexpr int tc_min_blocks() {
   return 65536 / (128 * (sizeof(E) == 4 ? 168 : 128));
-}
-
-// Rows r0 .. r0 + R - 1 of `parts` runs of hd values (run p of row r at
-// src + r * src_row + p * src_part) into `parts` arrays of R rows of `st`
-// values at dst (array p at dst + p R st): rows below L by cp.async of the
-// widest of 16, 8 and 4 bytes that every run allows, not committed (the
-// caller commits a tile's copies as one group); 2-byte values off a 4-byte
-// boundary by plain copies; rows at or past L as zeros.  Columns hd and up
-// are tc_zero_pad's.
-template <typename S>
-__device__ void tc_stage(S* dst, const S* src, int r0, int R, int L, int parts, int hd,
-                         size_t src_row, size_t src_part, int st) {
-  constexpr int es = sizeof(S);
-  const uintptr_t a = (uintptr_t)src | (src_row * es) | (src_part * es) | ((uintptr_t)hd * es);
-  const int V = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : es;
-  const int per = hd * es / V;  // copies a run
-  const int n = R * parts * per;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int run = i / per, j = i - run * per;
-    const int r = run / parts, p = run - r * parts;
-    char* to = reinterpret_cast<char*>(dst + ((size_t)p * R + r) * st) + j * V;
-    if (r0 + r < L) {
-      const char* from =
-          reinterpret_cast<const char*>(src + (size_t)(r0 + r) * src_row + p * src_part) + j * V;
-      if (V == 16)
-        cp_async16(to, from);
-      else if (V == 8)
-        cp_async8(to, from);
-      else if (V == 4)
-        cp_async4(to, from);
-      else
-        *reinterpret_cast<S*>(to) = *reinterpret_cast<const S*>(from);
-    } else {
-      for (int b = 0; b < V; b += es) *reinterpret_cast<S*>(to + b) = S(0);
-    }
-  }
 }
 
 // Zero columns hd .. hdp - 1 of `rows` staged rows of `st` values: the
@@ -2632,8 +2815,6 @@ __device__ void tc_stage_stats(float* dst, const float* stats, int q0, int R, in
       dst[k * R + r] = 0.f;
   }
 }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // The block's (sequence, head, tile, column group) from blockIdx.x, column
 // groups fastest, then tiles.
@@ -2779,13 +2960,14 @@ __device__ __forceinline__ void tc_chunk2(float (&s)[2][4], float (&dp)[2][4],
                                           int st, int r0, int n0, int hd) {
   chunk2_bf16(s, q, k, dp, dout, v, st, r0, n0, (hd + 15) / 16);
 }
-__device__ __forceinline__ void tc_chunk2(float (&s)[2][4], float (&dp)[2][4], const float* q,
+template <int NH>
+__device__ __forceinline__ void tc_chunk2(float (&s)[NH][4], float (&dp)[NH][4], const float* q,
                                           const float* k, const float* dout, const float* v,
                                           int st, int r0, int n0, int hd) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
   const int nks = (hd + 7) / 8;
@@ -2796,7 +2978,7 @@ __device__ __forceinline__ void tc_chunk2(float (&s)[2][4], float (&dp)[2][4], c
     const FragA qa = frag_a(q0[0], q0[8 * st], q0[4], q0[8 * st + 4]);
     const FragA oa = frag_a(o0[0], o0[8 * st], o0[4], o0[8 * st + 4]);
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NH; ++n) {
       const float* kr = k + (n0 + 8 * n + g) * st + d;
       const float* vr = v + (n0 + 8 * n + g) * st + d;
       mma3_add(s[n], qa, frag_b(kr[0], kr[4]));
@@ -2814,15 +2996,16 @@ __device__ __forceinline__ void tc_chunk2_t(float (&pt)[2][4], float (&dpt)[2][4
                                             int st, int r0, int n0, int hd) {
   chunk2_bf16(pt, k, q, dpt, v, dout, st, r0, n0, (hd + 15) / 16);
 }
-__device__ __forceinline__ void tc_chunk2_t(float (&pt)[2][4], float (&dpt)[2][4], const float* k,
-                                            const float* v, const float* q, const float* dout,
-                                            int st, int r0, int n0, int hd) {
+template <int NH>
+__device__ __forceinline__ void tc_chunk2_t(float (&pt)[NH][4], float (&dpt)[NH][4],
+                                            const float* k, const float* v, const float* q,
+                                            const float* dout, int st, int r0, int n0, int hd) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const float* k0 = k + (r0 + g) * st + c;
   const float* v0 = v + (r0 + g) * st + c;
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = 0.f;
   const int nks = (hd + 7) / 8;
@@ -2831,7 +3014,7 @@ __device__ __forceinline__ void tc_chunk2_t(float (&pt)[2][4], float (&dpt)[2][4
     const FragA ka = frag_a(k0[d], k0[8 * st + d], k0[d + 4], k0[8 * st + d + 4]);
     const FragA va = frag_a(v0[d], v0[8 * st + d], v0[d + 4], v0[8 * st + d + 4]);
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NH; ++n) {
       const float* qr = q + (n0 + 8 * n + g) * st + c + d;
       const float* orow = dout + (n0 + 8 * n + g) * st + c + d;
       mma3_add_t(pt[n], ka, frag_b(qr[0], qr[4]));
@@ -2859,13 +3042,13 @@ __device__ __forceinline__ void tc_ds_b(float (&acc)[NTC][4], const float (&ds)[
     }
   }
 }
-template <int NTC>
-__device__ __forceinline__ void tc_ds_b(float (&acc)[NTC][4], const float (&ds)[2][4],
+template <int NTC, int NH>
+__device__ __forceinline__ void tc_ds_b(float (&acc)[NTC][4], const float (&ds)[NH][4],
                                         const float* b, int st, int n0, int col0, int ntg) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int n = 0; n < 2; ++n) {
+  for (int n = 0; n < NH; ++n) {
     const FragA da = frag_a(ds[n][0], ds[n][2], ds[n][1], ds[n][3]);
     const float* r0 = b + (n0 + n * 8 + 2 * c) * st + col0 + g;
     const float* r1 = r0 + st;
@@ -2929,15 +3112,15 @@ __device__ __forceinline__ void tc_dkv(float (&av)[NTC][4], float (&ak)[NTC][4],
 // many queries' attention (kernel_bench --components, H100), and
 // split-TF32 sums were 2.67e-5 off it there, past the check; the chain is
 // 0.31 of the tolerance off it.
-template <int NTC>
+template <int NTC, int NH>
 __device__ __forceinline__ void tc_dkv(float (&av)[NTC][4], float (&ak)[NTC][4],
-                                       const float (&pt)[2][4], const float (&dst)[2][4],
+                                       const float (&pt)[NH][4], const float (&dst)[NH][4],
                                        const float* dout, const float* q, int st, int n0,
                                        int col0, int ntg) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int n = 0; n < 2; ++n) {
+  for (int n = 0; n < NH; ++n) {
     const FragA sa = frag_a(dst[n][0], dst[n][2], dst[n][1], dst[n][3]);
     const float* q0 = q + (n0 + n * 8 + 2 * c) * st + col0 + g;  // queries 2c, 2c + 1
 #pragma unroll
@@ -2945,7 +3128,7 @@ __device__ __forceinline__ void tc_dkv(float (&av)[NTC][4], float (&ak)[NTC][4],
       if (nt < ntg) mma3_add(ak[nt], sa, frag_b(q0[nt * 8], q0[st + nt * 8]));
   }
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
     for (int cs = 0; cs < 4; ++cs)
 #pragma unroll
@@ -3337,484 +3520,512 @@ __global__ void __launch_bounds__(2 * R, tc_min_blocks<E>())
   }
 }
 
-// ------------------------------------------------------------ long, FMA ---
+// ------------------------------------------------------------- long, XL ---
 //
-// Head dims above kLongTcMaxHeadDim (257 .. 1,024) keep the first long
-// instances, without tensor cores: every product in f32 FMA on the CUDA
-// cores, from tiles staged in shared memory as f32 (bf16 upcast when
-// staged), so both types get the plain version's f32 sums in another order
-// (float32 within 1e-5; bf16 rounds once, at the output).  A 16-row strip's
-// output accumulators would need 128 registers and more a thread there.
+// Head dims above the tensor-core instances' bound (257 .. 1,024 in bf16,
+// above kLongTcMaxHeadDimF32 in float32: long_tc) run in the XL instances,
+// on the tensor cores too.  There a 16-row strip's output accumulators for
+// the whole head would need 128 registers and more a thread, and column
+// groups as separate blocks would form the logits once per group (16 times
+// at head dim 1,024).  So one block splits the head dim over its warps and
+// forms the logits of each pair of tiles once:
 //
-// * Tiles of T rows (long_tile: 16 up to head dim 512, 8 up to 1,024), so
-//   that the dK/dV kernel's six T x hd tiles and two T x T ones fit the
-//   232,448 bytes of shared memory.  Rows are staged with an odd stride
-//   (hd | 1 floats), so the column reads of the products fall in distinct
-//   banks.  Rows past L are staged as zeros.
-// * 128 threads a block.  The T x T logit tile is computed in registers,
-//   a thread holding T / 16 rows (rows ty + 16 a) by T / 8 keys (tx + 8 b);
-//   the 8 threads of a row are neighbouring lanes, so the row max and sum
-//   of the online softmax are three shuffles each.  The p (or dS) tile then
-//   goes to shared memory, and the T x hd product with v (or k, q, dO)
-//   accumulates into an f32 tile in shared memory, each thread a 4 x 4
-//   block of it (rows r + T / 4 a, columns 4 c .. 4 c + 3) per turn.
-// * The launches and the split are the tensor-core instances': forward
-//   one block per (sequence, head, query tile); backward (1) statistics,
-//   (2) dQ per query tile, (3) dK / dV per key tile, the statistics in the
-//   same workspace.  (2) and (3) form each logit as the same chain of FMAs
-//   in the same order, so P is the same bits in both, and (1) forms dP as
-//   they do, so dP - D cancels as in the plain version.
-constexpr int kLongThreads = 128;
+// * One block per (sequence, head, 16-row tile): xl_warps(hd) = ceil(hd /
+//   64) warps, warp w the 64 columns 64 w .. of every product (the last
+//   group zero-padded to the k step).  The block's own rows (queries, or
+//   keys in the dK / dV kernel) stay staged; the streamed tiles (keys and
+//   values, or queries and dO with their statistics) go through the
+//   tensor-core instances' two-stage cp.async ring, one stage where two do
+//   not fit 232,448 bytes (xl_stages: float32's backward kernels from head
+//   dim 841 up).  Streamed tiles are T = 16 rows in bf16 and 8 in float32
+//   (XlTile): the k step of P V, dS K and the dK / dV products.  Staged in
+//   the input type with the wide instances' padded rows (wide_stride).
+// * The logits of a (16-row tile, T-row tile) pair are formed once: each
+//   warp forms the partial dot products over its 64 columns (bf16
+//   mma.sync m16n8k16 by ldmatrix, float32 split TF32, as the tensor-core
+//   instances), writes them to shared memory, and after a barrier the
+//   block's threads sum them over the warps in order, one element each
+//   (xl_reduce).  dP = dO V^T in the backward the same way.  After a second
+//   barrier every warp reads the sums in its accumulator layout: the
+//   forward's online softmax (each warp keeps the same running max and sum)
+//   and P V into its columns; the backward's P and dS from the row
+//   statistics, then dQ += dS K, or dV += P^T dO and dK += dS^T Q, into its
+//   columns, as the tensor-core instances (bf16 P and dS into dV and dK as
+//   hi + lo pairs, float32 dV by in-order FMA chains: tc_dkv).
+// * The same logits in all three backward kernels: each warp's partial is
+//   the tensor-core instances' bits with queries or keys as rows
+//   (chunk2_bf16 with the operands swapped, mma3_add / mma3_add_t), and the
+//   sum over the warps runs in the same order in each kernel, so P is the
+//   same bits in the statistics, dQ and dK / dV kernels and dP - D cancels
+//   where one key takes all the attention.
+// * Shared memory at head dim 1,024 (xl_smem): bf16 181,632 bytes (the
+//   forward), 231,040 (statistics, dQ) and 231,296 (dK / dV), all two
+//   stages; float32 205,632 (the forward, two stages), 213,792 and 213,856
+//   (one stage).  At most 128 registers a thread (16 warps a block).
+constexpr int kXlCols = 64;                          // columns of a warp
+constexpr int kXlMaxWarps = kMaxHeadDim / kXlCols;  // warps a block at head dim 1,024
 
-// Rows of an FMA instance's tiles, from the head dim.
-__host__ __device__ inline int long_tile(int hd) { return hd <= 512 ? 16 : 8; }
-// Shared memory of a long instance: the tensor-core kernels' (tc_smem);
-// FMA: kind 0 the forward (the backward's statistics kernel needs less), 1
-// the dQ kernel, 2 the dK / dV kernel (the largest): T x hs tiles (hs =
-// hd | 1 floats a row), T x (T + 1) tiles of p or dS, and four vectors of
-// T floats.
-__host__ __device__ inline size_t long_smem(int hd, int es, int kind) {
-  if (long_tc(hd)) return tc_smem(hd, es, kind);
-  const size_t T = long_tile(hd), hs = hd | 1;
-  return 4 * ((kind + 4) * T * hs + (kind == 2 ? 2 : 1) * T * (T + 1) + 4 * T);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// Rows r0 .. r0 + T - 1 of one head's hd columns of a sequence (`src`: its
-// row 0 at the head's first column, rows `row` values apart) into `dst` as
-// f32 (T rows of hs floats), rows at or past L as zeros; a warp a row.
+// Rows of a streamed tile of the XL instances, and its n8 tiles.
 template <typename E>
-__device__ void long_stage(float* dst, const E* src, size_t row, int r0, int T, int L, int hd,
-                           int hs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < T; r += kLongThreads / 32) {
-    if (r0 + r < L) {
-      const E* s = src + (size_t)(r0 + r) * row;
-      for (int c = lane; c < hd; c += 32) dst[r * hs + c] = to_f32(s[c]);
-    } else {
-      for (int c = lane; c < hd; c += 32) dst[r * hs + c] = 0.f;
-    }
-  }
-}
-
-// Per query row q0 + i of the tile: max (log2 units), 1 / sum and D from
-// the workspace, 0 past L (so that P recomputed from them is 0).
-__device__ void long_load_stats(float* sm, float* sinv, float* sdd, const float* stats, int q0,
-                                int T, int L) {
-  for (int i = threadIdx.x; i < T; i += kLongThreads) {
-    const bool on = q0 + i < L;
-    sm[i] = on ? stats[3 * (size_t)(q0 + i)] : 0.f;
-    sinv[i] = on ? stats[3 * (size_t)(q0 + i) + 1] : 0.f;
-    sdd[i] = on ? stats[3 * (size_t)(q0 + i) + 2] : 0.f;
-  }
-}
-
-template <int T>
-struct LongTile {
-  static constexpr int TM = T >= 16 ? T / 16 : 1;  // rows of a thread (ty + 16 a)
-  static constexpr int TN = T / 8;                 // columns of a thread (tx + 8 b)
-  static constexpr int RT = T >= 16 ? 16 : T;      // threads down the rows (ty < RT)
+struct XlTile {
+  static constexpr int T = sizeof(E) == 2 ? 16 : 8;
+  static constexpr int NH = T / 8;
 };
+__host__ __device__ inline int xl_warps(int hd) { return (hd + kXlCols - 1) / kXlCols; }
+// Shared memory of an XL kernel with `stages` stages of the ring: kind 0
+// the forward (the query tile, key and value tiles, key biases, one plane
+// of partial logits), 1 the statistics and dQ kernels (the query and dO
+// tiles, the same ring, two planes: S and dP), 2 the dK / dV kernel (the
+// block's key and value tiles, query and dO tiles, their statistics, two
+// planes).  A plane holds each warp's 16 x T partial sums.
+__host__ __device__ inline size_t xl_smem(int hd, int es, int kind, int stages) {
+  const size_t T = es == 2 ? 16 : 8, row = (size_t)wide_stride(hd, es) * es;
+  const size_t own = (kind == 0 ? 1 : 2) * 16 * row, ring = (size_t)stages * 2 * T * row;
+  const size_t side = (size_t)stages * (kind == 2 ? 3 : 1) * T * 4;
+  return own + ring + side + (kind == 0 ? 1 : 2) * (size_t)xl_warps(hd) * 16 * T * 4;
+}
+__host__ __device__ inline int xl_stages(int hd, int es, int kind) {
+  return xl_smem(hd, es, kind, 2) <= (size_t)kSmemLimit ? 2 : 1;
+}
+// The largest of the three kernels' shared memory.
+__host__ __device__ inline size_t xl_instance_smem(int hd, int es) {
+  size_t m = 0;
+  for (int kind = 0; kind < 3; ++kind) {
+    const size_t b = xl_smem(hd, es, kind, xl_stages(hd, es, kind));
+    m = b > m ? b : m;
+  }
+  return m;
+}
 
-// NP tiles of dot products at once: acc[p][a][b] = sum over k < hd of
-// ra[p][row a] * cb[p][row b], one FMA chain in k order (so the same logit
-// comes out the same bits whichever side holds the queries).
-template <int T, int NP>
-__device__ __forceinline__ void long_dots(float (&acc)[NP][LongTile<T>::TM][LongTile<T>::TN],
-                                          const float* const (&ra)[NP],
-                                          const float* const (&cb)[NP], int ty, int tx, int hd,
-                                          int hs) {
-  using LT = LongTile<T>;
+// A warp's NH n8 tiles of 16 x T sums (accumulator layout) to rows of T
+// floats at `part`, and back.
+template <int NH>
+__device__ __forceinline__ void xl_put(float* part, const float (&x)[NH][4]) {
+  constexpr int T = 8 * NH;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+  for (int n = 0; n < NH; ++n) {
+    *reinterpret_cast<float2*>(part + g * T + 8 * n + 2 * c) = make_float2(x[n][0], x[n][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * T + 8 * n + 2 * c) = make_float2(x[n][2], x[n][3]);
+  }
+}
+template <int NH>
+__device__ __forceinline__ void xl_get(float (&x)[NH][4], const float* part) {
+  constexpr int T = 8 * NH;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
-    for (int a = 0; a < LT::TM; ++a)
-#pragma unroll
-      for (int b = 0; b < LT::TN; ++b) acc[p][a][b] = 0.f;
-  for (int k = 0; k < hd; ++k) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      float x[LT::TM], y[LT::TN];
-#pragma unroll
-      for (int a = 0; a < LT::TM; ++a) x[a] = ra[p][(ty + 16 * a) * hs + k];
-#pragma unroll
-      for (int b = 0; b < LT::TN; ++b) y[b] = cb[p][(tx + 8 * b) * hs + k];
-#pragma unroll
-      for (int a = 0; a < LT::TM; ++a)
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) acc[p][a][b] = fmaf(x[a], y[b], acc[p][a][b]);
-    }
+  for (int n = 0; n < NH; ++n) {
+    const float2 a = *reinterpret_cast<const float2*>(part + g * T + 8 * n + 2 * c);
+    const float2 b = *reinterpret_cast<const float2*>(part + (g + 8) * T + 8 * n + 2 * c);
+    x[n][0] = a.x;
+    x[n][1] = a.y;
+    x[n][2] = b.x;
+    x[n][3] = b.y;
   }
 }
 
-// acc (T x hd, rows of hs) = acc * rowscale[i] (where given) + A B, with A
-// a T x T tile (rows of T + 1) and B T x hd (rows of hs); a thread a 4 x 4
-// block per turn: rows r + T / 4 a, columns 4 c .. 4 c + 3 below hd.
-template <int T>
-__device__ void long_accum(float* acc, const float* A, const float* B, const float* rowscale,
-                           int hd, int hs) {
-  constexpr int RG = T / 4;
-  const int blocks = RG * ((hd + 3) / 4);
-  for (int t = threadIdx.x; t < blocks; t += kLongThreads) {
-    const int r = t % RG, c0 = t / RG * 4;
-    int col[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) col[b] = c0 + b < hd ? c0 + b : hd - 1;
-    float o[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = r + RG * a;
-      const float s = rowscale ? rowscale[i] : 1.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) o[a][b] = acc[i * hs + col[b]] * s;
-    }
-    for (int j = 0; j < T; ++j) {
-      float x[4], y[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) x[a] = A[(r + RG * a) * (T + 1) + j];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) y[b] = B[j * hs + col[b]];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) o[a][b] = fmaf(x[a], y[b], o[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (c0 + b < hd) acc[(r + RG * a) * hs + c0 + b] = o[a][b];
+// Sum `planes` planes of `warps` slots of n floats each (slot w of plane p
+// at part + (p warps + w) n) over the slots, in slot order, into slot 0;
+// one element a thread.
+__device__ void xl_reduce(float* part, int n, int warps, int planes) {
+  for (int i = threadIdx.x; i < planes * n; i += blockDim.x) {
+    const int p = i / n;
+    float* x = part + (size_t)p * warps * n + (i - p * n);
+    float s = x[0];
+    for (int w = 1; w < warps; ++w) s += x[(size_t)w * n];
+    x[0] = s;
   }
 }
 
-// Zero n floats of shared memory.
-__device__ void long_zero(float* dst, int n) {
-  for (int i = threadIdx.x; i < n; i += kLongThreads) dst[i] = 0.f;
-}
-
-// Sum over the 8 neighbouring lanes of a row (max with MAX).
-template <bool MAX>
-__device__ __forceinline__ float row8(float x) {
-#pragma unroll
-  for (int o = 1; o <= 4; o <<= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = MAX ? fmaxf(x, y) : x + y;
-  }
+// The block's (sequence, head, 16-row tile), its warp's first column and
+// columns, and their n8 tiles.
+struct XlWarp {
+  TcBlock blk;
+  int col0, cols, ntg;
+};
+__device__ __forceinline__ XlWarp xl_warp(int L, int H, int hd) {
+  XlWarp x;
+  x.blk = tc_block(H, (L + 15) / 16, 16, 1);
+  x.col0 = (threadIdx.x >> 5) * kXlCols;
+  x.cols = min(kXlCols, hd - x.col0);
+  x.ntg = (x.cols + 7) / 8;
   return x;
 }
 
-// The block's (sequence, head, tile) from blockIdx.x, tiles fastest.
-struct LongBlock {
-  size_t u;
-  int h, t0;
+// Forward: the key and value tiles streamed, the online softmax of the
+// tensor-core forward over the summed logits, P V into the warp's columns.
+template <typename E>
+__global__ void __launch_bounds__(kXlMaxWarps * 32)
+    mhsa_long_xl_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                        E* __restrict__ out, int L, int D, int H, int stages, float scale_log2) {
+  using S = typename Staged<E>::type;
+  constexpr int T = XlTile<E>::T, NH = XlTile<E>::NH, es = sizeof(E);
+  extern __shared__ __align__(16) char smem[];
+  const int hd = D / H, st = wide_stride(hd, es), nw = xl_warps(hd);
+  const int hdp = es == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+  const XlWarp x = xl_warp(L, H, hd);
+  S* sq = reinterpret_cast<S*>(smem);
+  S* ring = sq + 16 * st;  // stage s: keys at ring + 2 s T st, values T st further
+  float* sbias = reinterpret_cast<float*>(ring + 2 * stages * T * st);
+  float* part = sbias + stages * T;
+  const S* base = reinterpret_cast<const S*>(qkv) + x.blk.u * L * 3 * D + (size_t)x.blk.h * hd;
+  const uint8_t* msk = mask + x.blk.u * L;
+  tc_zero_pad(sq, 16 + 2 * stages * T, hd, hdp, st);
+  tc_stage(sq, base, x.blk.t0, 16, L, 1, hd, 3 * (size_t)D, 0, st);
+  auto next = [&](int kt) {
+    if (kt * T < L) {
+      const int s = kt % stages;
+      tc_stage(ring + 2 * s * T * st, base + D, kt * T, T, L, 2, hd, 3 * (size_t)D, (size_t)D, st);
+      long_biases(sbias + s * T, msk, kt * T, T, L);
+    }
+    cp_async_commit();
+  };
+  next(0);
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int r0 = x.blk.t0 + ((threadIdx.x & 31) >> 2);
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m0 = kMaskMin, m1 = kMaskMin, l0 = 0.f, l1 = 0.f;
+  const int nk = (L + T - 1) / T;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (stages == 2) next(kt + 1);
+    const S* sk = ring + 2 * (kt % stages) * T * st;
+    const float* bias = sbias + (kt % stages) * T;
+    float sc[NH][4];
+    tc_logits<NH>(sc, sq + x.col0, sk + x.col0, st, 0, x.cols, NH);
+    xl_put<NH>(part + warp * 16 * T, sc);
+    __syncthreads();
+    xl_reduce(part, 16 * T, nw, 1);
+    __syncthreads();
+    xl_get<NH>(sc, part);
+    const int nj = min(NH, (L - kt * T + 7) / 8);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      if (j < nj) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * c);
+        sc[j][0] = fmaf(sc[j][0], scale_log2, b.x);
+        sc[j][1] = fmaf(sc[j][1], scale_log2, b.y);
+        sc[j][2] = fmaf(sc[j][2], scale_log2, b.x);
+        sc[j][3] = fmaf(sc[j][3], scale_log2, b.y);
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+    }
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const bool on = j < nj;
+      sc[j][0] = on ? ex2(sc[j][0] - n0) : 0.f;
+      sc[j][1] = on ? ex2(sc[j][1] - n0) : 0.f;
+      sc[j][2] = on ? ex2(sc[j][2] - n1) : 0.f;
+      sc[j][3] = on ? ex2(sc[j][3] - n1) : 0.f;
+      s0 += sc[j][0] + sc[j][1];
+      s1 += sc[j][2] + sc[j][3];
+    }
+    l0 = l0 * a0 + s0;
+    l1 = l1 * a1 + s1;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      o[nt][0] *= a0;
+      o[nt][1] *= a0;
+      o[nt][2] *= a1;
+      o[nt][3] *= a1;
+    }
+    tc_pv<NH, 8>(o, sc, sk + T * st, st, x.col0, x.ntg, nj);
+    if (stages == 1) {
+      __syncthreads();
+      next(kt + 1);
+    }
+  }
+  l0 = quad_sum(l0);  // >= 1: the max term is 2^0
+  l1 = quad_sum(l1);
+  tc_store<8>(out + x.blk.u * L * D + (size_t)x.blk.h * hd, (size_t)D, o, r0, L, x.col0, x.ntg, hd,
+              1.f / l0, 1.f / l1);
+}
+
+// The statistics and dQ kernels' shared memory (kind 1): the query and dO
+// tiles of the block's 16 rows, then the key and value tiles streamed.
+template <typename E>
+struct XlQuery {
+  using S = typename Staged<E>::type;
+  static constexpr int T = XlTile<E>::T;
+  S *sq, *sdo, *ring;
+  float *sbias, *part;
+  const S* base;
+  const uint8_t* msk;
+  int stages;
+  __device__ XlQuery(char* smem, const E* qkv, const uint8_t* mask, const E* dout,
+                     const TcBlock& b, int L, int D, int hd, int st, int stages_)
+      : stages(stages_) {
+    const int hdp = sizeof(E) == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+    sq = reinterpret_cast<S*>(smem);
+    sdo = sq + 16 * st;
+    ring = sdo + 16 * st;
+    sbias = reinterpret_cast<float*>(ring + 2 * stages * T * st);
+    part = sbias + stages * T;
+    base = reinterpret_cast<const S*>(qkv) + b.u * L * 3 * D + (size_t)b.h * hd;
+    msk = mask + b.u * L;
+    tc_zero_pad(sq, 32 + 2 * stages * T, hd, hdp, st);
+    tc_stage(sq, base, b.t0, 16, L, 1, hd, 3 * (size_t)D, 0, st);
+    tc_stage(sdo, reinterpret_cast<const S*>(dout) + b.u * L * D + (size_t)b.h * hd, b.t0, 16, L,
+             1, hd, (size_t)D, 0, st);
+    next(0, L, D, hd, st);
+  }
+  // Stage key tile kt (and its biases) into stage kt % stages, then commit.
+  __device__ void next(int kt, int L, int D, int hd, int st) {
+    if (kt * T < L) {
+      const int s = kt % stages;
+      tc_stage(ring + 2 * s * T * st, base + D, kt * T, T, L, 2, hd, 3 * (size_t)D, (size_t)D,
+               st);
+      long_biases(sbias + s * T, msk, kt * T, T, L);
+    }
+    cp_async_commit();
+  }
+  // After the tile's barrier: S and dP of the 16 rows and key tile kt, the
+  // partial sums of every warp summed, in each warp's accumulator layout
+  // (`all` false: warp 0 alone reads them).
+  template <int NH>
+  __device__ void logits(float (&s)[NH][4], float (&dp)[NH][4], int kt, int st, int nw,
+                         const XlWarp& x, bool all) {
+    const S* sk = ring + 2 * (kt % stages) * T * st;
+    tc_chunk2(s, dp, sq + x.col0, sk + x.col0, sdo + x.col0, sk + T * st + x.col0, st, 0, 0,
+              x.cols);
+    const int warp = threadIdx.x >> 5;
+    xl_put<NH>(part + warp * 16 * T, s);
+    xl_put<NH>(part + (nw + warp) * 16 * T, dp);
+    __syncthreads();
+    xl_reduce(part, 16 * T, nw, 2);
+    __syncthreads();
+    if (all || warp == 0) {
+      xl_get<NH>(s, part);
+      xl_get<NH>(dp, part + nw * 16 * T);
+    }
+  }
 };
-__device__ __forceinline__ LongBlock long_block(int H, int ntiles, int T) {
-  const size_t b = blockIdx.x;
-  const size_t uh = b / ntiles;
-  return LongBlock{uh / H, (int)(uh % H), (int)(b % ntiles) * T};
-}
 
-// Forward: one block per (sequence, head, query tile), the key tiles
-// streamed with the online softmax.
-template <typename E, int T>
-__global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_fma_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                     E* __restrict__ out, int L, int D, int H, float scale_log2) {
-  using LT = LongTile<T>;
+// Backward, (1) the row statistics: one block per (sequence, head, query
+// tile of 16), the key tiles streamed; warp 0 folds each tile's summed S
+// and dP into the online max, sum and D and writes them as the tensor-core
+// statistics kernel does.
+template <typename E>
+__global__ void __launch_bounds__(kXlMaxWarps * 32)
+    mhsa_long_xl_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                              const E* __restrict__ dout, float* __restrict__ stats, int L, int D,
+                              int H, int stages, float scale_log2) {
+  constexpr int T = XlTile<E>::T, NH = XlTile<E>::NH;
   extern __shared__ __align__(16) char smem[];
-  const int hd = D / H, hs = hd | 1;
-  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
-  float* sq = reinterpret_cast<float*>(smem);
-  float* so = sq + T * hs;
-  float* sk = so + T * hs;
-  float* sv = sk + T * hs;
-  float* sp = sv + T * hs;
-  float* sbias = sp + T * (T + 1);
-  float* salpha = sbias + T;
-  float* sinv = salpha + T;
-  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
-  const uint8_t* msk = mask + blk.u * L;
-  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
-  long_zero(so, T * hs);
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const bool on = ty < LT::RT;
-  float m_run[LT::TM], l_run[LT::TM];
-#pragma unroll
-  for (int a = 0; a < LT::TM; ++a) {
-    m_run[a] = kMaskMin;
-    l_run[a] = 0.f;
-  }
-  for (int k0 = 0; k0 < L; k0 += T) {
-    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_biases(sbias, msk, k0, T, L);
+  const int hd = D / H, st = wide_stride(hd, sizeof(E)), nw = xl_warps(hd);
+  const XlWarp x = xl_warp(L, H, hd);
+  XlQuery<E> t(smem, qkv, mask, dout, x.blk, L, D, hd, st, stages);
+  const int c = threadIdx.x & 3;
+  const int r0 = x.blk.t0 + ((threadIdx.x & 31) >> 2);
+  float m0 = kMaskMin, m1 = kMaskMin, l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+  const int nk = (L + T - 1) / T;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_all();
     __syncthreads();
-    if (on) {
-      float s[1][LT::TM][LT::TN];
-      const float* const ra[1] = {sq};
-      const float* const cb[1] = {sk};
-      long_dots<T, 1>(s, ra, cb, ty, tx, hd, hs);
+    if (stages == 2) t.next(kt + 1, L, D, hd, st);
+    float s[NH][4], dp[NH][4];
+    t.template logits<NH>(s, dp, kt, st, nw, x, false);
+    if (threadIdx.x < 32) {
+      const float* bias = t.sbias + (kt % stages) * T;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int a = 0; a < LT::TM; ++a) {
-        const int i = ty + 16 * a;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          s[0][a][b] = fmaf(s[0][a][b], scale_log2, sbias[tx + 8 * b]);
-          mx = fmaxf(mx, s[0][a][b]);
-        }
-        const float m_new = fmaxf(m_run[a], row8<true>(mx));
-        const float alpha = ex2(m_run[a] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          const float p = ex2(s[0][a][b] - m_new);
-          sp[i * (T + 1) + tx + 8 * b] = p;
-          sum += p;
-        }
-        l_run[a] = l_run[a] * alpha + row8<false>(sum);
-        m_run[a] = m_new;
-        if (tx == 0) salpha[i] = alpha;
+      for (int n = 0; n < NH; ++n) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + n * 8 + 2 * c);
+        s[n][0] = fmaf(s[n][0], scale_log2, b.x);
+        s[n][1] = fmaf(s[n][1], scale_log2, b.y);
+        s[n][2] = fmaf(s[n][2], scale_log2, b.x);
+        s[n][3] = fmaf(s[n][3], scale_log2, b.y);
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
-    }
-    __syncthreads();
-    long_accum<T>(so, sp, sv, salpha, hd, hs);
-    __syncthreads();
-  }
-  if (on && tx == 0) {
+      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float s0 = 0.f, s1 = 0.f, e0 = 0.f, e1 = 0.f;
 #pragma unroll
-    for (int a = 0; a < LT::TM; ++a) sinv[ty + 16 * a] = 1.f / l_run[a];  // >= 1: 2^0 is a term
+      for (int n = 0; n < NH; ++n) {
+        const float p0 = ex2(s[n][0] - n0), p1 = ex2(s[n][1] - n0);
+        const float p2 = ex2(s[n][2] - n1), p3 = ex2(s[n][3] - n1);
+        s0 += p0 + p1;
+        s1 += p2 + p3;
+        e0 += p0 * dp[n][0] + p1 * dp[n][1];
+        e1 += p2 * dp[n][2] + p3 * dp[n][3];
+      }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+      d0 = d0 * a0 + e0;
+      d1 = d1 * a1 + e1;
+    }
+    if (stages == 1) {
+      __syncthreads();
+      t.next(kt + 1, L, D, hd, st);
+    }
   }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
-  E* o = out + (blk.u * L + blk.t0) * D + (size_t)blk.h * hd;
-  for (int i = warp; i < rows; i += kLongThreads / 32)
-    for (int c = lane; c < hd; c += 32) from_f32(o + (size_t)i * D + c, so[i * hs + c] * sinv[i]);
+  if (threadIdx.x >= 32) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  if (c == 0) {
+    float* row = stats + (x.blk.u * H + x.blk.h) * L * 3;
+    if (r0 < L) {
+      row[3 * (size_t)r0] = m0;
+      row[3 * (size_t)r0 + 1] = 1.f / l0;
+      row[3 * (size_t)r0 + 2] = d0 / l0;
+    }
+    if (r0 + 8 < L) {
+      row[3 * (size_t)(r0 + 8)] = m1;
+      row[3 * (size_t)(r0 + 8) + 1] = 1.f / l1;
+      row[3 * (size_t)(r0 + 8) + 2] = d1 / l1;
+    }
+  }
 }
 
-// Backward, the row statistics: one block per (sequence, head, query
-// tile), the key tiles streamed; per query row its max (log2 units), 1 /
-// sum and D = rowsum(dP * P) into stats ((U, H, L) x 3 floats).  D sums
-// p dP online as the forward sums p v, with dP = dO V^T formed by the same
-// FMA chains as the dQ and dK / dV kernels form it, so that dP - D cancels
-// as it does in the plain version (a row with one valid key gets dS = 0).
-template <typename E, int T>
-__global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_fma_stats_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                           const E* __restrict__ dout, float* __restrict__ stats, int L, int D,
-                           int H, float scale_log2) {
-  using LT = LongTile<T>;
+// Backward, (2) dQ: one block per (sequence, head, query tile of 16), the
+// key tiles streamed: dQ = scale sum over keys of dS K, the warp's columns.
+template <typename E>
+__global__ void __launch_bounds__(kXlMaxWarps * 32)
+    mhsa_long_xl_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                           const E* __restrict__ dout, const float* __restrict__ stats,
+                           E* __restrict__ dqkv, int L, int D, int H, int stages,
+                           float scale_log2, float scale) {
+  constexpr int T = XlTile<E>::T, NH = XlTile<E>::NH;
   extern __shared__ __align__(16) char smem[];
-  const int hd = D / H, hs = hd | 1;
-  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sdo = sq + T * hs;
-  float* sk = sdo + T * hs;
-  float* sv = sk + T * hs;
-  float* sbias = sv + T * hs;
-  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
-  const uint8_t* msk = mask + blk.u * L;
-  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
-  long_stage(sdo, dout + blk.u * L * D + (size_t)blk.h * hd, (size_t)D, blk.t0, T, L, hd, hs);
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const bool on = ty < LT::RT;
-  float m_run[LT::TM], l_run[LT::TM], d_run[LT::TM];
+  const int hd = D / H, st = wide_stride(hd, sizeof(E)), nw = xl_warps(hd);
+  const XlWarp x = xl_warp(L, H, hd);
+  XlQuery<E> t(smem, qkv, mask, dout, x.blk, L, D, hd, st, stages);
+  const int c = threadIdx.x & 3;
+  const int r0 = x.blk.t0 + ((threadIdx.x & 31) >> 2);
+  const float* row = stats + (x.blk.u * H + x.blk.h) * L * 3;
+  float st0[3] = {0.f, 0.f, 0.f}, st1[3] = {0.f, 0.f, 0.f};  // max, 1 / sum, D
 #pragma unroll
-  for (int a = 0; a < LT::TM; ++a) {
-    m_run[a] = kMaskMin;
-    l_run[a] = d_run[a] = 0.f;
+  for (int k = 0; k < 3; ++k) {
+    if (r0 < L) st0[k] = row[3 * (size_t)r0 + k];
+    if (r0 + 8 < L) st1[k] = row[3 * (size_t)(r0 + 8) + k];
   }
-  for (int k0 = 0; k0 < L; k0 += T) {
-    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_biases(sbias, msk, k0, T, L);
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int nk = (L + T - 1) / T;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_all();
     __syncthreads();
-    if (on) {
-      float x[2][LT::TM][LT::TN];
-      const float* const ra[2] = {sq, sdo};
-      const float* const cb[2] = {sk, sv};
-      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
+    if (stages == 2) t.next(kt + 1, L, D, hd, st);
+    float s[NH][4], dp[NH][4];
+    t.template logits<NH>(s, dp, kt, st, nw, x, true);
+    const float* bias = t.sbias + (kt % stages) * T;
 #pragma unroll
-      for (int a = 0; a < LT::TM; ++a) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          x[0][a][b] = fmaf(x[0][a][b], scale_log2, sbias[tx + 8 * b]);
-          mx = fmaxf(mx, x[0][a][b]);
-        }
-        const float m_new = fmaxf(m_run[a], row8<true>(mx));
-        const float alpha = ex2(m_run[a] - m_new);
-        float sum = 0.f, dsum = 0.f;
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          const float p = ex2(x[0][a][b] - m_new);
-          sum += p;
-          dsum = fmaf(p, x[1][a][b], dsum);
-        }
-        l_run[a] = l_run[a] * alpha + row8<false>(sum);
-        d_run[a] = d_run[a] * alpha + row8<false>(dsum);
-        m_run[a] = m_new;
-      }
+    for (int n = 0; n < NH; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + n * 8 + 2 * c);
+      tc_p_ds(s[n][0], dp[n][0], b.x, st0[0], st0[1], st0[2], scale_log2);
+      tc_p_ds(s[n][1], dp[n][1], b.y, st0[0], st0[1], st0[2], scale_log2);
+      tc_p_ds(s[n][2], dp[n][2], b.x, st1[0], st1[1], st1[2], scale_log2);
+      tc_p_ds(s[n][3], dp[n][3], b.y, st1[0], st1[1], st1[2], scale_log2);
     }
-    __syncthreads();
-  }
-  if (on && tx == 0) {
-    float* st = stats + ((blk.u * H + blk.h) * L + blk.t0) * 3;
-#pragma unroll
-    for (int a = 0; a < LT::TM; ++a) {
-      const int i = ty + 16 * a;
-      if (blk.t0 + i < L) {
-        st[3 * i] = m_run[a];
-        st[3 * i + 1] = 1.f / l_run[a];
-        st[3 * i + 2] = d_run[a] / l_run[a];
-      }
+    tc_ds_b<8>(acc, dp, t.ring + 2 * (kt % stages) * T * st, st, 0, x.col0, x.ntg);
+    if (stages == 1) {
+      __syncthreads();
+      t.next(kt + 1, L, D, hd, st);
     }
   }
+  tc_store<8>(dqkv + x.blk.u * L * 3 * D + (size_t)x.blk.h * hd, 3 * (size_t)D, acc, r0, L, x.col0,
+              x.ntg, hd, scale, scale);
 }
 
-// P and dS of one logit from its dot products, bias and query statistics.
-__device__ __forceinline__ void long_p_ds(float s, float dp, float bias, float m, float inv,
-                                          float dd, float scale_log2, float& p, float& ds) {
-  p = ex2(fmaf(s, scale_log2, bias) - m) * inv;
-  ds = bias == 0.f ? p * (dp - dd) : 0.f;
-}
-
-// Backward, dQ: one block per (sequence, head, query tile), the key tiles
-// streamed: dQ = scale sum over keys of dS K.
-template <typename E, int T>
-__global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_fma_dq_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                        const E* __restrict__ dout, const float* __restrict__ stats,
-                        E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
-                        float scale) {
-  using LT = LongTile<T>;
+// Backward, (3) dK and dV: one block per (sequence, head, key tile of 16),
+// the query tiles, their dO rows and statistics streamed, keys as the rows:
+// dV = sum over queries of P^T dO, dK = scale sum of dS^T Q, the warp's
+// columns.
+template <typename E>
+__global__ void __launch_bounds__(kXlMaxWarps * 32)
+    mhsa_long_xl_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                            const E* __restrict__ dout, const float* __restrict__ stats,
+                            E* __restrict__ dqkv, int L, int D, int H, int stages,
+                            float scale_log2, float scale) {
+  using S = typename Staged<E>::type;
+  constexpr int T = XlTile<E>::T, NH = XlTile<E>::NH, es = sizeof(E);
   extern __shared__ __align__(16) char smem[];
-  const int hd = D / H, hs = hd | 1;
-  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sdo = sq + T * hs;
-  float* sdq = sdo + T * hs;
-  float* sk = sdq + T * hs;
-  float* sv = sk + T * hs;
-  float* sds = sv + T * hs;
-  float* sbias = sds + T * (T + 1);
-  float* sm = sbias + T;
-  float* sinv = sm + T;
-  float* sdd = sinv + T;
-  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
-  const uint8_t* msk = mask + blk.u * L;
-  long_stage(sq, base, 3 * (size_t)D, blk.t0, T, L, hd, hs);
-  long_stage(sdo, dout + blk.u * L * D + (size_t)blk.h * hd, (size_t)D, blk.t0, T, L, hd, hs);
-  long_zero(sdq, T * hs);
-  long_load_stats(sm, sinv, sdd, stats + (blk.u * H + blk.h) * L * 3, blk.t0, T, L);
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  for (int k0 = 0; k0 < L; k0 += T) {
-    long_stage(sk, base + D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_stage(sv, base + 2 * D, 3 * (size_t)D, k0, T, L, hd, hs);
-    long_biases(sbias, msk, k0, T, L);
+  const int hd = D / H, st = wide_stride(hd, es), nw = xl_warps(hd);
+  const int hdp = es == 2 ? (hd + 15) / 16 * 16 : (hd + 7) / 8 * 8;
+  const XlWarp x = xl_warp(L, H, hd);
+  S* sk = reinterpret_cast<S*>(smem);
+  S* sv = sk + 16 * st;
+  S* ring = sv + 16 * st;  // stage s: queries at ring + 2 s T st, dO T st further
+  float* sstat = reinterpret_cast<float*>(ring + 2 * stages * T * st);  // stage s: 3 T at 3 s T
+  float* part = sstat + 3 * stages * T;
+  const S* base = reinterpret_cast<const S*>(qkv) + x.blk.u * L * 3 * D + (size_t)x.blk.h * hd;
+  const S* gbase = reinterpret_cast<const S*>(dout) + x.blk.u * L * D + (size_t)x.blk.h * hd;
+  const float* srow = stats + (x.blk.u * H + x.blk.h) * L * 3;
+  tc_zero_pad(sk, 32 + 2 * stages * T, hd, hdp, st);
+  tc_stage(sk, base + D, x.blk.t0, 16, L, 2, hd, 3 * (size_t)D, (size_t)D, st);
+  auto next = [&](int qt) {
+    if (qt * T < L) {
+      const int s = qt % stages;
+      S* q = ring + 2 * s * T * st;
+      tc_stage(q, base, qt * T, T, L, 1, hd, 3 * (size_t)D, 0, st);
+      tc_stage(q + T * st, gbase, qt * T, T, L, 1, hd, (size_t)D, 0, st);
+      tc_stage_stats(sstat + 3 * s * T, srow, qt * T, T, L);
+    }
+    cp_async_commit();
+  };
+  next(0);
+  const int warp = threadIdx.x >> 5, c = threadIdx.x & 3;
+  const int k0 = x.blk.t0 + ((threadIdx.x & 31) >> 2);  // this lane's key rows
+  const uint8_t* msk = mask + x.blk.u * L;
+  const float b0 = k0 < L ? (msk[k0] ? 0.f : kMaskMin) : -INFINITY;
+  const float b1 = k0 + 8 < L ? (msk[k0 + 8] ? 0.f : kMaskMin) : -INFINITY;
+  float av[8][4], ak[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+  const int nq = (L + T - 1) / T;
+  for (int qt = 0; qt < nq; ++qt) {
+    cp_async_wait_all();
     __syncthreads();
-    if (ty < LT::RT) {
-      float x[2][LT::TM][LT::TN];
-      const float* const ra[2] = {sq, sdo};
-      const float* const cb[2] = {sk, sv};
-      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
+    if (stages == 2) next(qt + 1);
+    const S* sq = ring + 2 * (qt % stages) * T * st;
+    const S* sdo = sq + T * st;
+    const float* sm = sstat + 3 * (qt % stages) * T;
+    float pt[NH][4], dst[NH][4];  // P^T and dP^T, then dS^T: keys as rows
+    tc_chunk2_t(pt, dst, sk + x.col0, sv + x.col0, sq + x.col0, sdo + x.col0, st, 0, 0, x.cols);
+    xl_put<NH>(part + warp * 16 * T, pt);
+    xl_put<NH>(part + (nw + warp) * 16 * T, dst);
+    __syncthreads();
+    xl_reduce(part, 16 * T, nw, 2);
+    __syncthreads();
+    xl_get<NH>(pt, part);
+    xl_get<NH>(dst, part + nw * 16 * T);
 #pragma unroll
-      for (int a = 0; a < LT::TM; ++a) {
-        const int i = ty + 16 * a;
+    for (int n = 0; n < NH; ++n) {
 #pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          const int j = tx + 8 * b;
-          float p, ds;
-          long_p_ds(x[0][a][b], x[1][a][b], sbias[j], sm[i], sinv[i], sdd[i], scale_log2, p, ds);
-          sds[i * (T + 1) + j] = ds;
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int qi = n * 8 + 2 * c + e;
+        const float m = sm[qi], iv = sm[T + qi], dd = sm[2 * T + qi];
+        tc_p_ds(pt[n][e], dst[n][e], b0, m, iv, dd, scale_log2);
+        tc_p_ds(pt[n][2 + e], dst[n][2 + e], b1, m, iv, dd, scale_log2);
       }
     }
-    __syncthreads();
-    long_accum<T>(sdq, sds, sk, nullptr, hd, hs);
-    __syncthreads();
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
-  E* g = dqkv + (blk.u * L + blk.t0) * 3 * D + (size_t)blk.h * hd;
-  for (int i = warp; i < rows; i += kLongThreads / 32)
-    for (int c = lane; c < hd; c += 32) from_f32(g + (size_t)i * 3 * D + c, sdq[i * hs + c] * scale);
-}
-
-// Backward, dK and dV: one block per (sequence, head, key tile), the query
-// tiles streamed, keys as the rows of the logit tile: dV = sum over queries
-// of P^T dO, dK = scale sum of dS^T Q.
-template <typename E, int T>
-__global__ void __launch_bounds__(kLongThreads)
-    mhsa_long_fma_dkv_kernel(const E* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                         const E* __restrict__ dout, const float* __restrict__ stats,
-                         E* __restrict__ dqkv, int L, int D, int H, float scale_log2,
-                         float scale) {
-  using LT = LongTile<T>;
-  extern __shared__ __align__(16) char smem[];
-  const int hd = D / H, hs = hd | 1;
-  const LongBlock blk = long_block(H, (L + T - 1) / T, T);
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + T * hs;
-  float* sdk = sv + T * hs;
-  float* sdv = sdk + T * hs;
-  float* sq = sdv + T * hs;
-  float* sdo = sq + T * hs;
-  float* sp = sdo + T * hs;
-  float* sds = sp + T * (T + 1);
-  float* sbias = sds + T * (T + 1);
-  float* sm = sbias + T;
-  float* sinv = sm + T;
-  float* sdd = sinv + T;
-  const E* base = qkv + blk.u * L * 3 * D + (size_t)blk.h * hd;
-  const E* gbase = dout + blk.u * L * D + (size_t)blk.h * hd;
-  const float* st = stats + (blk.u * H + blk.h) * L * 3;
-  long_stage(sk, base + D, 3 * (size_t)D, blk.t0, T, L, hd, hs);
-  long_stage(sv, base + 2 * D, 3 * (size_t)D, blk.t0, T, L, hd, hs);
-  long_biases(sbias, mask + blk.u * L, blk.t0, T, L);
-  long_zero(sdk, 2 * T * hs);  // dK and dV
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  for (int q0 = 0; q0 < L; q0 += T) {
-    long_stage(sq, base, 3 * (size_t)D, q0, T, L, hd, hs);
-    long_stage(sdo, gbase, (size_t)D, q0, T, L, hd, hs);
-    long_load_stats(sm, sinv, sdd, st, q0, T, L);
-    __syncthreads();
-    if (ty < LT::RT) {
-      float x[2][LT::TM][LT::TN];
-      const float* const ra[2] = {sk, sv};
-      const float* const cb[2] = {sq, sdo};
-      long_dots<T, 2>(x, ra, cb, ty, tx, hd, hs);
-#pragma unroll
-      for (int a = 0; a < LT::TM; ++a) {
-        const int j = ty + 16 * a;
-#pragma unroll
-        for (int b = 0; b < LT::TN; ++b) {
-          const int i = tx + 8 * b;
-          float p, ds;
-          long_p_ds(x[0][a][b], x[1][a][b], sbias[j], sm[i], sinv[i], sdd[i], scale_log2, p, ds);
-          sp[j * (T + 1) + i] = p;
-          sds[j * (T + 1) + i] = ds;
-        }
-      }
+    tc_dkv<8>(av, ak, pt, dst, sdo, sq, st, 0, x.col0, x.ntg);
+    if (stages == 1) {
+      __syncthreads();
+      next(qt + 1);
     }
-    __syncthreads();
-    long_accum<T>(sdv, sp, sdo, nullptr, hd, hs);
-    long_accum<T>(sdk, sds, sq, nullptr, hd, hs);
-    __syncthreads();
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = L - blk.t0 < T ? L - blk.t0 : T;
-  E* g = dqkv + (blk.u * L + blk.t0) * 3 * D + (size_t)blk.h * hd;
-  for (int i = warp; i < rows; i += kLongThreads / 32)
-    for (int c = lane; c < hd; c += 32) {
-      from_f32(g + (size_t)i * 3 * D + D + c, sdk[i * hs + c] * scale);
-      from_f32(g + (size_t)i * 3 * D + 2 * D + c, sdv[i * hs + c]);
-    }
+  E* g = dqkv + x.blk.u * L * 3 * D + (size_t)x.blk.h * hd;
+  tc_store<8>(g + D, 3 * (size_t)D, ak, k0, L, x.col0, x.ntg, hd, scale, scale);
+  tc_store<8>(g + 2 * D, 3 * (size_t)D, av, k0, L, x.col0, x.ntg, hd, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------- host ---
@@ -3856,6 +4067,69 @@ Launch plan(int U, int L, int D, int es, int dev) {
   const int cap = U / (2 * num_sms(dev));
   if (S > cap) S = cap > 1 ? cap : 1;
   return Launch{S, (U + S - 1) / S, smem_bytes(S, L, D, es)};
+}
+
+// The narrow bf16 backward's launch (mhsa_bwd_bf16_kernel): groups of S
+// whole sequences (HG = H) or of HG heads of one sequence (S = 1), W warps a
+// block, a persistent grid of `grid` blocks, `stage` bytes a stage of its
+// two-stage ring (bwd_stage_bytes).
+struct BwdPlan {
+  int S, HG, W, grid;
+  size_t stage;
+};
+constexpr int kBwdMaxSeqs = 4;        // sequences of a whole-sequence group
+constexpr int kBwdMaxHeads = 8;       // heads of a head group
+constexpr size_t kSmemPerSm = 233472;  // shared memory an SM, 1 KB of it reserved a block
+
+// Blocks of W warps an SM holds at `smem` bytes of shared memory each: the
+// registers allow 16 warps up to L = 32 (128 a thread) and 8 above, and
+// the shared memory kSmemPerSm.
+int bwd_blocks_per_sm(int KT, int W, size_t smem) {
+  const int by_regs = (KT <= 2 ? 16 : 8) / W;
+  const int by_smem = (int)(kSmemPerSm / (smem + 1024));
+  return by_regs < by_smem ? by_regs : by_smem;
+}
+
+// The rule (ops/mhsa.py::narrow_bwd_plan states it too).  Whole sequences,
+// as many to a group as fit twice in a block's share of the SM (two blocks
+// an SM up to L = 16, one above) up to kBwdMaxSeqs, bwd_block_warps(KT)
+// warps a block, when the groups give every block of a full grid
+// (occupancy x SMs) one at least.  Otherwise groups of HG = ceil(H / n)
+// heads of one sequence, a warp each, for n from ceil(H / 8) up: the
+// largest HG whose use of the grid's slots (groups over waves x blocks of a
+// full grid) is within 10% of the best split's.  On the H100 (132 SMs) at
+// D = 300, 15 heads: whole sequences at L = 16 from U = 264 (the train
+// step's (1792, 16) and up) and at L = 30 from U = 132, heads 8 + 7 at
+// (64, 50) and (256, 50), 5 at (32, 50).
+BwdPlan bwd_plan(int U, int L, int D, int H, int sms) {
+  const int KT = (L + 15) / 16, W = bwd_block_warps(KT);
+  const size_t budget = KT == 1 ? (size_t)kSmemTarget : (size_t)kSmemLimit;
+  for (int S = kBwdMaxSeqs; S >= 1; --S) {
+    const size_t stage = bwd_stage_bytes(S, H, L, D, H);
+    if (2 * stage > budget) continue;
+    const int grid = sms * bwd_blocks_per_sm(KT, W, 2 * stage);
+    if ((U + S - 1) / S >= grid) return BwdPlan{S, H, W, grid, stage};
+  }
+  BwdPlan cand[kBwdMaxHeads];
+  double use[kBwdMaxHeads], best = 0.;
+  int nc = 0;
+  for (int n = (H + kBwdMaxHeads - 1) / kBwdMaxHeads, last = 0; n <= H; ++n) {
+    const int HG = (H + n - 1) / n;
+    if (HG == last) continue;
+    last = HG;
+    const size_t stage = bwd_stage_bytes(1, HG, L, D, H);
+    const long slots = (long)sms * bwd_blocks_per_sm(KT, HG, 2 * stage);
+    if (slots == 0) continue;  // its two stages do not fit an SM
+    const long groups = (long)U * ((H + HG - 1) / HG);
+    const long waves = (groups + slots - 1) / slots;
+    cand[nc] = BwdPlan{1, HG, HG, (int)(groups < slots ? groups : slots), stage};
+    use[nc] = (double)groups / (double)(waves * slots);
+    best = use[nc] > best ? use[nc] : best;
+    ++nc;
+  }
+  int i = 0;
+  while (use[i] < 0.9 * best) ++i;
+  return cand[i];
 }
 
 // Whether (L, D, H) runs in the long instances: outside the box of
@@ -3916,11 +4190,11 @@ cudaError_t launch_opted(K kernel, bool (&done)[kMaxDevices], int dev, size_t gr
   return cudaGetLastError();
 }
 
-// The long instances, either type, with the shared memory of long_smem.
-// Tensor-core: U H ceil(L / R) blocks of 2 R threads, times the column
-// groups (not for the statistics kernel); FMA: U H ceil(L / T) blocks of
-// kLongThreads.  The backward's three launches share the workspace of
-// per-row statistics.
+// The long instances, either type.  Tensor-core: U H ceil(L / R) blocks of
+// 2 R threads, times the column groups (not for the statistics kernel), the
+// shared memory of tc_smem; XL: U H ceil(L / 16) blocks of xl_warps(hd)
+// warps, the shared memory of xl_smem with xl_stages stages.  The
+// backward's three launches share the workspace of per-row statistics.
 template <typename E, int NTC, int R>
 cudaError_t launch_long_tc(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                            int H, int dev, cudaStream_t stream) {
@@ -3928,7 +4202,7 @@ cudaError_t launch_long_tc(const void* qkv, const uint8_t* mask, void* out, int 
   const int hd = D / H;
   const size_t grid = (size_t)U * H * ((L + R - 1) / R) * tc_groups(hd);
   return launch_opted(mhsa_long_kernel<E, NTC, R>, set, dev, grid, 2 * R,
-                      long_smem(hd, sizeof(E), 0), stream, static_cast<const E*>(qkv), mask,
+                      tc_smem(hd, sizeof(E), 0), stream, static_cast<const E*>(qkv), mask,
                       static_cast<E*>(out), L, D, H, 1.4426950408889634f / sqrtf((float)hd));
 }
 
@@ -3945,53 +4219,55 @@ cudaError_t launch_bwd_long_tc(const void* qkv, const uint8_t* mask, const void*
   E* dq = static_cast<E*>(dqkv);
   float* st = static_cast<float*>(workspace);
   cudaError_t err = launch_opted(mhsa_long_stats_kernel<E, R>, set[0], dev, tiles, 2 * R,
-                                 long_smem(hd, es, 1), stream, q, mask, g, st, L, D, H,
+                                 tc_smem(hd, es, 1), stream, q, mask, g, st, L, D, H,
                                  scale_log2);
   if (err == cudaSuccess)
     err = launch_opted(mhsa_long_dq_kernel<E, NTC, R>, set[1], dev, grid, 2 * R,
-                       long_smem(hd, es, 1), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       tc_smem(hd, es, 1), stream, q, mask, g, st, dq, L, D, H, scale_log2,
                        scale);
   if (err == cudaSuccess)
     err = launch_opted(mhsa_long_dkv_kernel<E, NTC, R>, set[2], dev, grid, 2 * R,
-                       long_smem(hd, es, 2), stream, q, mask, g, st, dq, L, D, H, scale_log2,
+                       tc_smem(hd, es, 2), stream, q, mask, g, st, dq, L, D, H, scale_log2,
                        scale);
   return err;
 }
 
-template <typename E, int T>
-cudaError_t launch_long_fma(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
-                            int H, int dev, cudaStream_t stream) {
+template <typename E>
+cudaError_t launch_long_xl(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
+                           int H, int dev, cudaStream_t stream) {
   static bool set[kMaxDevices] = {false};
-  const int hd = D / H;
-  const size_t grid = (size_t)U * H * ((L + T - 1) / T);
-  return launch_opted(mhsa_long_fma_kernel<E, T>, set, dev, grid, kLongThreads,
-                      long_smem(hd, sizeof(E), 0), stream, static_cast<const E*>(qkv), mask,
-                      static_cast<E*>(out), L, D, H, 1.4426950408889634f / sqrtf((float)hd));
+  const int hd = D / H, es = sizeof(E), stages = xl_stages(hd, es, 0);
+  const size_t grid = (size_t)U * H * ((L + 15) / 16);
+  return launch_opted(mhsa_long_xl_kernel<E>, set, dev, grid, 32 * xl_warps(hd),
+                      xl_smem(hd, es, 0, stages), stream, static_cast<const E*>(qkv), mask,
+                      static_cast<E*>(out), L, D, H, stages,
+                      1.4426950408889634f / sqrtf((float)hd));
 }
 
-template <typename E, int T>
-cudaError_t launch_bwd_long_fma(const void* qkv, const uint8_t* mask, const void* dout,
-                                void* dqkv, void* workspace, int U, int L, int D, int H, int dev,
-                                cudaStream_t stream) {
+template <typename E>
+cudaError_t launch_bwd_long_xl(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
+                               void* workspace, int U, int L, int D, int H, int dev,
+                               cudaStream_t stream) {
   static bool set[3][kMaxDevices] = {};
-  const int hd = D / H, es = sizeof(E);
-  const size_t grid = (size_t)U * H * ((L + T - 1) / T);
+  const int hd = D / H, es = sizeof(E), threads = 32 * xl_warps(hd);
+  const int s1 = xl_stages(hd, es, 1), s2 = xl_stages(hd, es, 2);
+  const size_t grid = (size_t)U * H * ((L + 15) / 16);
   const float scale = 1.f / sqrtf((float)hd), scale_log2 = 1.4426950408889634f * scale;
   const E* q = static_cast<const E*>(qkv);
   const E* g = static_cast<const E*>(dout);
   E* dq = static_cast<E*>(dqkv);
   float* st = static_cast<float*>(workspace);
-  cudaError_t err = launch_opted(mhsa_long_fma_stats_kernel<E, T>, set[0], dev, grid,
-                                 kLongThreads, long_smem(hd, es, 0), stream, q, mask, g, st, L, D,
-                                 H, scale_log2);
+  cudaError_t err = launch_opted(mhsa_long_xl_stats_kernel<E>, set[0], dev, grid, threads,
+                                 xl_smem(hd, es, 1, s1), stream, q, mask, g, st, L, D, H, s1,
+                                 scale_log2);
   if (err == cudaSuccess)
-    err = launch_opted(mhsa_long_fma_dq_kernel<E, T>, set[1], dev, grid, kLongThreads,
-                       long_smem(hd, es, 1), stream, q, mask, g, st, dq, L, D, H, scale_log2,
-                       scale);
+    err = launch_opted(mhsa_long_xl_dq_kernel<E>, set[1], dev, grid, threads,
+                       xl_smem(hd, es, 1, s1), stream, q, mask, g, st, dq, L, D, H, s1,
+                       scale_log2, scale);
   if (err == cudaSuccess)
-    err = launch_opted(mhsa_long_fma_dkv_kernel<E, T>, set[2], dev, grid, kLongThreads,
-                       long_smem(hd, es, 2), stream, q, mask, g, st, dq, L, D, H, scale_log2,
-                       scale);
+    err = launch_opted(mhsa_long_xl_dkv_kernel<E>, set[2], dev, grid, threads,
+                       xl_smem(hd, es, 2, s2), stream, q, mask, g, st, dq, L, D, H, s2,
+                       scale_log2, scale);
   return err;
 }
 
@@ -4057,6 +4333,66 @@ template cudaError_t launch_bwd_wide<float>(const void*, const uint8_t*, const v
                                             int, int, int, int, cudaStream_t);
 #endif
 
+// The narrow bf16 backward's launch at KT = ceil(L / 16), by head dim; part
+// 1 dispatches by KT (launch_bwd_bf16).  Its instances, the longest to
+// build, compile in part 5 (KT 1, 2) and part 6 (KT 3, 4).
+template <int KT>
+cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void* dout,
+                               void* dqkv, int U, int L, int D, int H, int dev,
+                               cudaStream_t stream);
+
+#if NRL_PART == 0 || NRL_PART >= 5
+// The backward's launches follow bwd_plan: a persistent grid walking whole
+// sequences or head groups, both staged with their dO.
+template <int KT, int NT, int HDX, bool PAIR>
+cudaError_t launch_bwd_bf16_inst(const void* qkv, const uint8_t* mask, const void* dout,
+                                 void* dqkv, int U, int L, int D, int H, int dev,
+                                 cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {false};
+  auto kernel = mhsa_bwd_bf16_kernel<KT, NT, HDX, PAIR>;
+  cudaError_t err = allow_smem(kernel, dev, smem_set);
+  if (err != cudaSuccess) return err;
+  const BwdPlan p = bwd_plan(U, L, D, H, num_sms(dev));
+  const float scale = 1.f / sqrtf((float)(D / H));
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)(D / H));
+  kernel<<<p.grid, p.W * 32, 2 * p.stage, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(dqkv), U, L, D, H, p.S, p.HG, (int)p.stage, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void* dout,
+                               void* dqkv, int U, int L, int D, int H, int dev,
+                               cudaStream_t stream) {
+  const int hd = D / H;
+  if (hd == 20 && ((uintptr_t)qkv & 3) == 0 && ((uintptr_t)dout & 3) == 0)
+    return launch_bwd_bf16_inst<KT, 3, 20, true>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  switch ((hd + 7) / 8) {
+    case 1:
+      return launch_bwd_bf16_inst<KT, 1, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 2:
+      return launch_bwd_bf16_inst<KT, 2, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 3:
+      return launch_bwd_bf16_inst<KT, 3, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    default:
+      return launch_bwd_bf16_inst<KT, 4, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+  }
+}
+#endif
+#if NRL_BUILDS(5)
+template cudaError_t launch_bwd_bf16_kt<1>(const void*, const uint8_t*, const void*, void*, int,
+                                           int, int, int, int, cudaStream_t);
+template cudaError_t launch_bwd_bf16_kt<2>(const void*, const uint8_t*, const void*, void*, int,
+                                           int, int, int, int, cudaStream_t);
+#endif
+#if NRL_BUILDS(6)
+template cudaError_t launch_bwd_bf16_kt<3>(const void*, const uint8_t*, const void*, void*, int,
+                                           int, int, int, int, cudaStream_t);
+template cudaError_t launch_bwd_bf16_kt<4>(const void*, const uint8_t*, const void*, void*, int,
+                                           int, int, int, int, cudaStream_t);
+#endif
+
 // The long instances' dispatch by tile rows, both types in part 4.
 template <typename T>
 cudaError_t launch_long(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
@@ -4067,27 +4403,19 @@ cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* do
                             cudaStream_t stream);
 
 #if NRL_BUILDS(4)
-// Tensor-core instances by head dim: (NTC, R) = (4, 64) up to 32, (8, 64)
-// up to 256, (8, 32) for float32 above 128 (tc_ntc, tc_rows); the FMA
-// instances by tile rows above 256.
-#define NRL_LONG(TC, FMA)                                              \
+// Tensor-core instances by head dim: NTC = 4 n8 tiles a column group up
+// to head dim 32, 8 above (tc_ntc); the XL instances above long_tc's bound.
+#define NRL_LONG(TC, XL)                                               \
   const int hd = D / H;                                                \
-  if (hd <= 32) return TC(4, 64);                                      \
-  if (long_tc(hd)) {                                                   \
-    if constexpr (sizeof(T) == 4)                                      \
-      if (hd > 128) return TC(8, 32);                                  \
-    return TC(8, 64);                                                  \
-  }                                                                    \
-  return long_tile(hd) == 16 ? FMA(16) : FMA(8);
+  if (!long_tc(hd, sizeof(T))) return XL;                              \
+  return hd <= 32 ? TC(4, kTcRows) : TC(8, kTcRows);
 
 template <typename T>
 cudaError_t launch_long(const void* qkv, const uint8_t* mask, void* out, int U, int L, int D,
                         int H, int dev, cudaStream_t stream) {
 #define NRL_TC(NTC, R) launch_long_tc<T, NTC, R>(qkv, mask, out, U, L, D, H, dev, stream)
-#define NRL_FMA(R) launch_long_fma<T, R>(qkv, mask, out, U, L, D, H, dev, stream)
-  NRL_LONG(NRL_TC, NRL_FMA)
+  NRL_LONG(NRL_TC, (launch_long_xl<T>(qkv, mask, out, U, L, D, H, dev, stream)))
 #undef NRL_TC
-#undef NRL_FMA
 }
 
 template <typename T>
@@ -4096,11 +4424,9 @@ cudaError_t launch_bwd_long(const void* qkv, const uint8_t* mask, const void* do
                             cudaStream_t stream) {
 #define NRL_TC(NTC, R) \
   launch_bwd_long_tc<T, NTC, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
-#define NRL_FMA(R) \
-  launch_bwd_long_fma<T, R>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)
-  NRL_LONG(NRL_TC, NRL_FMA)
+  NRL_LONG(NRL_TC,
+           (launch_bwd_long_xl<T>(qkv, mask, dout, dqkv, workspace, U, L, D, H, dev, stream)))
 #undef NRL_TC
-#undef NRL_FMA
 }
 #undef NRL_LONG
 
@@ -4166,56 +4492,16 @@ cudaError_t launch_bf16(const void* qkv, const uint8_t* mask, void* out, int U, 
   }
 }
 
-// The backward's launches take the forward's plan (sequences per block,
-// shared memory) with kBwdWarps warps, so that it takes every shape the
-// forward takes: dO is read from global memory, not staged.
-template <int KT, int NT, int HDX, bool PAIR>
-cudaError_t launch_bwd_bf16_inst(const void* qkv, const uint8_t* mask, const void* dout,
-                                 void* dqkv, int U, int L, int D, int H, int dev,
-                                 cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {false};
-  auto kernel = mhsa_bwd_bf16_kernel<KT, NT, HDX, PAIR>;
-  cudaError_t err = allow_smem(kernel, dev, smem_set);
-  if (err != cudaSuccess) return err;
-  const Launch p = plan(U, L, D, 2, dev);
-  const int warps = p.S * H < kBwdWarps ? p.S * H : kBwdWarps;
-  const float scale = 1.f / sqrtf((float)(D / H));
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)(D / H));
-  kernel<<<p.blocks, warps * 32, p.smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dqkv), U, L, D, H, p.S, scale_log2, scale);
-  return cudaGetLastError();
-}
-
-template <int KT>
-cudaError_t launch_bwd_bf16_kt(const void* qkv, const uint8_t* mask, const void* dout,
-                               void* dqkv, int U, int L, int D, int H, int dev,
-                               cudaStream_t stream) {
-  const int hd = D / H;
-  if (hd == 20 && ((uintptr_t)qkv & 3) == 0 && ((uintptr_t)dout & 3) == 0)
-    return launch_bwd_bf16_inst<KT, 3, 20, true>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  switch ((hd + 7) / 8) {
-    case 1:
-      return launch_bwd_bf16_inst<KT, 1, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 2:
-      return launch_bwd_bf16_inst<KT, 2, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 3:
-      return launch_bwd_bf16_inst<KT, 3, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    default:
-      return launch_bwd_bf16_inst<KT, 4, 0, false>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-  }
-}
-
 cudaError_t launch_bwd_bf16(const void* qkv, const uint8_t* mask, const void* dout, void* dqkv,
                             int U, int L, int D, int H, int dev, cudaStream_t stream) {
   if (wide_instance(L, D, H, 2))
     return nrl_mhsa::launch_bwd_wide<__nv_bfloat16>(qkv, mask, dout, dqkv, U, L, D, H, dev,
                                                      stream);
   switch ((L + 15) / 16) {
-    case 1: return launch_bwd_bf16_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 2: return launch_bwd_bf16_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    case 3: return launch_bwd_bf16_kt<3>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
-    default: return launch_bwd_bf16_kt<4>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 1: return nrl_mhsa::launch_bwd_bf16_kt<1>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 2: return nrl_mhsa::launch_bwd_bf16_kt<2>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    case 3: return nrl_mhsa::launch_bwd_bf16_kt<3>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
+    default: return nrl_mhsa::launch_bwd_bf16_kt<4>(qkv, mask, dout, dqkv, U, L, D, H, dev, stream);
   }
 }
 
@@ -4287,14 +4573,16 @@ cudaError_t launch_bwd_f32(const void* qkv, const uint8_t* mask, const void* dou
 }
 // The shared memory of the instance that runs (L, D, H) in the type of
 // element size es, the larger of its forward and backward: what it stages.
-// Long (long_instance): the dK / dV kernel's tiles (long_smem); wide
+// Long (long_instance): the dK / dV kernel's tiles (tc_smem) or the largest
+// XL kernel's (xl_instance_smem); wide
 // (wide_instance): one head's q, k, v and dO columns in the input type
 // and the row statistics (wide_smem); f32 up to hd = 32: one head's q, k, v
-// and dO columns; bf16 up to hd = 32: the whole (L, 3D) slab of one
-// sequence (smem_bytes).
+// and dO columns; bf16 up to hd = 32: the forward's whole (L, 3D) slab of
+// one sequence (smem_bytes; the backward's plan picks groups that fit, down
+// to one head of one sequence).
 size_t instance_smem(int L, int D, int H, int es) {
   const int hd = D / H;
-  if (long_instance(L, D, H)) return long_smem(hd, es, 2);
+  if (long_instance(L, D, H)) return long_tc(hd, es) ? tc_smem(hd, es, 2) : xl_instance_smem(hd, es);
   if (wide_instance(L, D, H, es)) return wide_smem(L, hd, es, true);
   if (es == 4) return f32_qkv_bytes(L, hd) + f32_do_bytes(L, hd) + kNarrowMaxLen * 4;
   return smem_bytes(1, L, D, es);
@@ -4311,8 +4599,9 @@ int check_args(int U, int L, int D, int H, int dtype) {
     return (int)cudaErrorInvalidValue;
   if (instance_smem(L, D, H, dtype == 0 ? 4 : 2) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  const int hd = D / H, R = long_tc(hd) ? tc_rows(hd, dtype == 0 ? 4 : 2) : long_tile(hd);
-  const size_t blocks = (size_t)U * H * ((L + R - 1) / R) * (long_tc(hd) ? tc_groups(hd) : 1);
+  const int hd = D / H, es = dtype == 0 ? 4 : 2, tc = long_tc(hd, es);
+  const int R = tc ? kTcRows : 16;
+  const size_t blocks = (size_t)U * H * ((L + R - 1) / R) * (tc ? tc_groups(hd) : 1);
   if (long_instance(L, D, H) && blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
   return 0;
 }

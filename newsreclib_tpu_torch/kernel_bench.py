@@ -2,11 +2,11 @@
 version and a library call, at the shapes the serving path gives it.
 
     python3 -m newsreclib_tpu_torch.kernel_bench [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix,long,narrow}] [--only U,L,D,H ...] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --backward [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix,long,narrow}] [--json OUT.jsonl]
     python3 -m newsreclib_tpu_torch.kernel_bench --components [--baseline OLD.cu] [--dtype T]
-        [--shapes {all,manner,plm_statfix,long}] [--json OUT.jsonl]
+        [--shapes {all,manner,plm_statfix,long,narrow}] [--json OUT.jsonl]
 
 For every (U, L) of the NRMS serving epoch (D = 300, 15 heads of 20), the
 two extra shapes (1024, 30) and (256, 50), the zoo's user-encoder shapes
@@ -49,7 +49,9 @@ beyond the wide instances' box):
 
 ``--backward`` times forward + backward instead, at the shapes the NRMS
 train step gives the kernel (``TRAIN_SHAPES``: batch 64 and batch 256 of
-``profile_train.py``), at ``ZOO_SHAPES``, ``PLM_SHAPES`` and
+``profile_train.py``) and the global-row route's (``RANK_SHAPES``; both
+``NARROW_BWD_SHAPES``, the narrow bf16 backward's, ``--shapes narrow``), at
+``ZOO_SHAPES``, ``PLM_SHAPES`` and
 ``MANNER_SHAPES``, in bfloat16
 and float32.  The output is held against
 ``mhsa_plain`` and the gradient against autograd of it (same tolerances;
@@ -115,6 +117,12 @@ EXTRA_SHAPES = [(1024, 30), (256, 50)]
 # (7168, 16) + (1024, 30) and (256, 50).
 TRAIN_SHAPES = [(3584, 16), (1792, 16), (512, 30), (256, 30), (64, 50),
                 (7168, 16), (1024, 30), (256, 50)]
+# (U, L) of the global-row route's attentions (``chip_smoke.global_row_shapes``
+# at batch 64, two ranks): the densified table of title rows and one rank's
+# users.  With TRAIN_SHAPES, the narrow bf16 backward's shapes
+# (``NARROW_BWD_SHAPES``, ``--shapes narrow``).
+RANK_SHAPES = [(4096, 30), (32, 50)]
+NARROW_BWD_SHAPES = TRAIN_SHAPES + RANK_SHAPES
 # (U, L, D, heads) of the other GloVe models' user encoders at batch 64, K =
 # 4: MINS (6 heads of 50, the wide instances), CenNewsRec (D = 400, 20 heads)
 # and CAUM (the 5 candidates folded into the batch).
@@ -136,9 +144,10 @@ PLM_D, PLM_H = 768, 16  # the PLM head's MHSA and NRMS's user encoder over it
 # encoder at data.max_history_len=200 in a train step (batch 64) and in a
 # served impression batch (512 users), the PLM head at tokenizer_max_len=256
 # (512 news rows), CAUM's default head dim 100 at L = 100, two heads over 300
-# (head dim 150) at L = 200, and head dim 1,024 (one head) at L = 129.
+# (head dim 150) at L = 200, head dim 1,024 (one head) at L = 129 and head dim
+# 384 (two heads over 768) at L = 256: the last two in the XL instances.
 LONG_SHAPES = [(64, 200, 300, 15), (512, 200, 300, 15), (512, 256, 768, 16),
-               (64, 100, 400, 4), (64, 200, 300, 2), (8, 129, 1024, 1)]
+               (64, 100, 400, 4), (64, 200, 300, 2), (8, 129, 1024, 1), (64, 256, 768, 2)]
 
 
 def plm_statfix_shapes(batches: int = 50) -> list:
@@ -634,9 +643,13 @@ def main(argv=None) -> int:
                     help="time forward + backward at the train step's shapes")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="only this type (default: both)")
-    ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix", "long"), default="all",
+    ap.add_argument("--shapes", choices=("all", "manner", "plm_statfix", "long", "narrow"),
+                    default="all",
                     help="manner: MANNER_SHAPES alone; plm_statfix: plm_statfix_shapes(); "
-                         "long: LONG_SHAPES")
+                         "long: LONG_SHAPES; narrow: NARROW_BWD_SHAPES with --backward, the "
+                         "serving, extra and rank shapes without")
+    ap.add_argument("--only", action="append", metavar="U,L,D,H",
+                    help="time these shapes (repeatable) in place of the --shapes list")
     ap.add_argument("--components", action="store_true",
                     help="the backward's dQ, dK and dV against the plain versions and float64 "
                          "(gradient_components), no timing")
@@ -661,10 +674,13 @@ def main(argv=None) -> int:
     records = []
     dtypes = (torch.bfloat16, torch.float32)
     for dtype in dtypes if args.dtype is None else (getattr(torch, args.dtype),):
-        nrms = TRAIN_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES
+        nrms = NARROW_BWD_SHAPES if args.backward else SERVING_SHAPES + EXTRA_SHAPES + RANK_SHAPES
         shapes = {"all": lambda: [(u, l, D, H) for u, l in nrms] + ZOO_SHAPES + PLM_SHAPES
                   + MANNER_SHAPES, "manner": lambda: MANNER_SHAPES,
-                  "plm_statfix": plm_statfix_shapes, "long": lambda: LONG_SHAPES}[args.shapes]()
+                  "plm_statfix": plm_statfix_shapes, "long": lambda: LONG_SHAPES,
+                  "narrow": lambda: [(u, l, D, H) for u, l in nrms]}[args.shapes]()
+        if args.only:
+            shapes = [tuple(int(x) for x in o.split(",")) for o in args.only]
         for u, l, d, h in shapes:
             # an older source may refuse a shape: its row says so
             takes = baseline is not None and baseline_takes(baseline[0], l, d, h, dtype)

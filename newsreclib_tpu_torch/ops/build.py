@@ -9,9 +9,10 @@ so one build takes seconds rather than the minutes of
 all at once, and waits for them together.  A source named in ``PARTS``
 compiles as that many parts at once (nvcc ``-c`` with ``NRL_PART`` set to
 1, 2, ...; the source decides what each part holds) and is linked into its
-one library: ``csrc/mhsa.cu`` builds in four parts (its hd <= 32
-instances and entry points, its wide bf16 and wide f32 instances, its long
-ones) in about half the time of one whole compilation.
+one library: ``csrc/mhsa.cu`` builds in six parts (its hd <= 32 forward
+and f32 backward instances and entry points, its wide bf16 and wide f32
+instances, its long ones, its hd <= 32 bf16 backward ones in two) in about
+half the time of one whole compilation.
 
 Nothing here runs at import time, so the port imports on a machine
 without nvcc: a kernel is built when it is first launched on a CUDA tensor,
@@ -35,7 +36,7 @@ COMPILE_FLAGS = (
 )
 NVCC_FLAGS = COMPILE_FLAGS + ("-shared",)
 # Sources built in parts (the number of parts): see the module doc.
-PARTS = {"mhsa": 4}
+PARTS = {"mhsa": 6}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

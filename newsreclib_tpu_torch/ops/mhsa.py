@@ -42,21 +42,27 @@ NARROW_MAX_LEN = 64
 BOX_LONG_HEAD_DIM = 64
 NARROW_HEAD_DIM = 32  # head dims above it run the kernel's wide instances
 MAX_HEAD_DIM = 1024  # the long instances' bound (bert-large's width as one head)
-LONG_TC_MAX_HEAD_DIM = 256  # the long instances on the tensor cores; FMA above
+LONG_TC_MAX_HEAD_DIM = 256  # the long instances' tensor-core tiles (bf16); XL above
+LONG_TC_MAX_HEAD_DIM_F32 = 64  # ... in float32 (the XL instances were faster above it)
+TC_ROWS = 64  # rows of a tile of the long instances on the tensor-core tiles
+XL_COLS = 64  # head dim columns of a warp of the XL instances
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the forward and of the backward kernel since the last reset,
-# and of those, the launches of the wide instances (``wide_instance``) and
-# of the long ones (``long_instance``); the CPU path counts none.  One
-# backward counts once, whatever it launches inside (the long instances'
-# backward is three kernels).
+# and of those, the launches of the wide instances (``wide_instance``), of
+# the long ones (``long_instance``) and, among those, of the XL ones
+# (``xl_instance``); the CPU path counts none.  One backward counts once,
+# whatever it launches inside (the long instances' backward is three
+# kernels).
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
 long_launches = 0
 long_bwd_launches = 0
+xl_launches = 0
+xl_bwd_launches = 0
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -114,6 +120,65 @@ def _narrow_bf16_bytes(l: int, d: int) -> int:
     return _align16(16 + l * 3 * d * 2) + NARROW_MAX_LEN * 4
 
 
+_SMEM_TARGET = 113 * 1024  # a block's share when two share an SM
+_SMEM_PER_SM = 233472  # shared memory of an H100 SM, 1 KB of it reserved a block
+NARROW_BWD_MAX_HEADS = 8  # heads of a head group of the narrow bf16 backward
+NARROW_BWD_MAX_SEQS = 4  # sequences of a whole-sequence group
+
+
+def _bwd_stage_bytes(s: int, hg: int, l: int, d: int, h: int) -> int:
+    """One stage of the narrow bf16 backward's ring (``bwd_stage_bytes``):
+    whole sequences' qkv and dO slabs, or a head group's q, k, v and dO rows
+    padded as the wide instances', and 64 key biases a sequence."""
+    if hg == h:
+        return _align16(16 + s * l * 3 * d * 2) + _align16(16 + s * l * d * 2) + s * NARROW_MAX_LEN * 4
+    row = (hg * (d // h) + 15) // 16 * 16 + 8
+    return 4 * l * row * 2 + NARROW_MAX_LEN * 4
+
+
+def narrow_bwd_plan(u: int, l: int, d: int, num_heads: int, sms: int = 132) -> tuple:
+    """``(sequences, heads, warps, blocks)`` of the narrow bfloat16
+    backward's launch on a card of ``sms`` SMs (``csrc/mhsa.cu``,
+    ``bwd_plan``, the same rule): groups of whole sequences, as many as fit
+    twice (the ring's two stages) in a block's share of an SM (two blocks
+    up to L = 16, one above) up to 4, 8 warps a block (16 at L = 17 to 32),
+    when the groups give every block of a full persistent grid one at
+    least; else groups of ceil(H / n) heads of one sequence, a warp each, n
+    from ceil(H / 8) up: the largest group whose use of the grid's slots
+    (groups over waves x blocks) is within 10% of the best split's.  On the
+    H100 at D = 300, 15 heads: whole sequences at L = 16 from U = 264 and at
+    L = 30 from U = 132, 8 + 7 heads at (64, 50) and (256, 50), 5 at
+    (32, 50)."""
+    h = num_heads
+    kt = (l + 15) // 16
+    budget = _SMEM_TARGET if kt == 1 else _SMEM_LIMIT
+    warps = 16 if kt == 2 else 8
+
+    def blocks_per_sm(w, smem):
+        return min((16 if kt <= 2 else 8) // w, _SMEM_PER_SM // (smem + 1024))
+
+    for s in range(NARROW_BWD_MAX_SEQS, 0, -1):
+        stage = _bwd_stage_bytes(s, h, l, d, h)
+        if 2 * stage > budget:
+            continue
+        grid = sms * blocks_per_sm(warps, 2 * stage)
+        if -(-u // s) >= grid:
+            return s, h, warps, grid
+    cands, last = [], 0
+    for n in range(-(-h // NARROW_BWD_MAX_HEADS), h + 1):
+        hg = -(-h // n)
+        if hg == last:
+            continue
+        last = hg
+        slots = sms * blocks_per_sm(hg, 2 * _bwd_stage_bytes(1, hg, l, d, h))
+        if slots == 0:  # its two stages do not fit an SM
+            continue
+        groups = u * -(-h // hg)
+        cands.append(((1, hg, hg, min(groups, slots)), groups / (-(-groups // slots) * slots)))
+    best = max(use for _, use in cands)
+    return next(plan for plan, use in cands if use >= 0.9 * best)
+
+
 def in_box(l: int, hd: int) -> bool:
     """The shapes the narrow and wide instances take: head dim up to 128 at
     L <= 64, up to 64 at L <= 128."""
@@ -138,21 +203,44 @@ def wide_instance(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
         or (dtype == torch.bfloat16 and _narrow_bf16_bytes(l, d) > _SMEM_LIMIT))
 
 
-def long_tc(hd: int) -> bool:
-    """Whether a long instance at head dim ``hd`` runs on the tensor cores
-    (``csrc/mhsa.cu``, ``long_tc``): head dims up to ``LONG_TC_MAX_HEAD_DIM``.
-    Above it a 16-row strip's output accumulators would need 128 registers
-    and more a thread, and the FMA instances run."""
-    return hd <= LONG_TC_MAX_HEAD_DIM
+def long_tc(hd: int, dtype: torch.dtype) -> bool:
+    """Whether a long instance at head dim ``hd`` in ``dtype`` runs in the
+    tensor-core tiles of ``TC_ROWS`` rows (``csrc/mhsa.cu``, ``long_tc``):
+    head dims up to ``LONG_TC_MAX_HEAD_DIM`` in bfloat16 and
+    ``LONG_TC_MAX_HEAD_DIM_F32`` in float32.  Above it a 16-row strip's
+    output accumulators would need 128 registers and more a thread, and the
+    XL instances run: a block's warps split the head dim in groups of 64
+    columns and form each tile pair's logits once."""
+    return hd <= (LONG_TC_MAX_HEAD_DIM_F32 if dtype == torch.float32 else LONG_TC_MAX_HEAD_DIM)
 
 
-def long_tile(hd: int, dtype: torch.dtype) -> int:
-    """Rows of a long instance's tiles at head dim ``hd`` (``tc_rows``, or
-    ``long_tile`` of the FMA instances): 64 on the tensor cores (32 for
-    float32 above head dim 128), 16 up to head dim 512, 8 above."""
-    if long_tc(hd):
-        return 32 if dtype == torch.float32 and hd > 128 else 64
-    return 16 if hd <= 512 else 8
+def xl_instance(l: int, d: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether (L, D, heads) in ``dtype`` runs in the XL instances: a long
+    instance above ``long_tc``'s head dims."""
+    return long_instance(l, d, num_heads) and not long_tc(d // num_heads, dtype)
+
+
+def xl_smem(hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of the largest XL kernel at head dim ``hd``
+    (``xl_instance_smem``): of the forward (kind 0), the statistics and dQ
+    kernels (1) and the dK / dV kernel (2), each with two stages of its ring
+    where they fit 232,448 bytes, else one.  A kernel stages its own 16 rows
+    (q; q and dO; k and v), stages of two streamed tiles of T rows (16 in
+    bfloat16, 8 in float32), T key biases (3 T query statistics in kind 2) a
+    stage, and one (kind 0) or two planes of ceil(hd / 64) warps' 16 x T
+    float32 partial sums."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    t = 16 if es == 2 else 8
+    row = ((hd + 15) // 16 * 16 + 8) * 2 if es == 2 else ((hd + 7) // 8 * 8 + 4) * 4
+    warps = (hd + XL_COLS - 1) // XL_COLS
+
+    def kind_bytes(kind, stages):
+        return ((1 if kind == 0 else 2) * 16 * row + stages * 2 * t * row
+                + stages * (3 if kind == 2 else 1) * t * 4
+                + (1 if kind == 0 else 2) * warps * 16 * t * 4)
+
+    return max(kind_bytes(k, 2) if kind_bytes(k, 2) <= _SMEM_LIMIT else kind_bytes(k, 1)
+               for k in range(3))
 
 
 def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
@@ -160,27 +248,25 @@ def smem_bytes(l: int, d: int, num_heads: int, dtype: torch.dtype) -> int:
     ``dtype``, the larger of its forward's and backward's: what that
     instance stages (``csrc/mhsa.cu``, ``instance_smem``).
 
-    * long (``long_instance``), the dK / dV kernel's: on the tensor cores
-      (``long_tc``) six tiles of R = ``long_tile(hd, dtype)`` rows in the
-      input type, rows padded as the wide instances', and 6 R float32 row
-      statistics; above head dim 256 (FMA) six T x hd tiles in float32 with
-      rows of hd | 1 floats, two T x (T + 1) tiles and four vectors of T
-      floats, T = ``long_tile(hd, dtype)``;
+    * long (``long_instance``): on the tensor-core tiles (``long_tc``) the
+      dK / dV kernel's six tiles of ``TC_ROWS`` rows in the input type, rows
+      padded as the wide instances', and 6 ``TC_ROWS`` float32 row
+      statistics; above them the largest XL kernel's (``xl_smem``);
     * wide (``wide_instance``): one head's q, k, v and dO columns in the
       input type, Lp = 16 ceil(L / 16) rows each, padded to
       16 ceil(hd / 16) + 8 values (bfloat16) or 8 ceil(hd / 8) + 4
       (float32), and 4 Lp float32 key biases and row statistics;
     * float32, head dim up to 32: one head's q, k, v and dO columns, each
       rounded up to 16 bytes, plus 64 key biases;
-    * bfloat16, head dim up to 32: the whole (L, 3D) slab of one sequence
-      plus 16 bytes of alignment slack, plus 64 key biases."""
+    * bfloat16, head dim up to 32: the forward's whole (L, 3D) slab of one
+      sequence plus 16 bytes of alignment slack, plus 64 key biases (the
+      backward's plan, ``narrow_bwd_plan``, picks groups that fit)."""
     hd = d // num_heads
     row = ((hd + 15) // 16 * 16 + 8) * 2 if dtype == torch.bfloat16 else ((hd + 7) // 8 * 8 + 4) * 4
     if long_instance(l, d, num_heads):
-        t = long_tile(hd, dtype)
-        if long_tc(hd):
-            return 6 * t * row + 6 * t * 4
-        return 4 * (6 * t * (hd | 1) + 2 * t * (t + 1) + 4 * t)
+        if long_tc(hd, dtype):
+            return 6 * TC_ROWS * row + 6 * TC_ROWS * 4
+        return xl_smem(hd, dtype)
     if wide_instance(l, d, num_heads, dtype):
         lp = (l + 15) // 16 * 16
         return 4 * lp * row + 4 * lp * 4
@@ -239,7 +325,7 @@ def _require_kernel(qkv: torch.Tensor, num_heads: int) -> None:
 
 def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The checked forward: ``mhsa_plain`` on the CPU, the kernel elsewhere."""
-    global launches, wide_launches, long_launches
+    global launches, wide_launches, long_launches, xl_launches
     _check(qkv, mask, num_heads)
     if qkv.device.type == "cpu":
         return mhsa_plain(qkv, mask, num_heads)
@@ -257,6 +343,7 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> torch.Ten
     launches += 1
     wide_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
     long_launches += long_instance(l, d3 // 3, num_heads)
+    xl_launches += xl_instance(l, d3 // 3, num_heads, qkv.dtype)
     return out
 
 
@@ -267,7 +354,7 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     may be any layout (autograd hands over expanded or strided ones); it is
     made contiguous here.  The long instances' per-row statistics go to a
     workspace of ``nrl_mhsa_bwd_workspace`` bytes from torch's allocator."""
-    global bwd_launches, wide_bwd_launches, long_bwd_launches
+    global bwd_launches, wide_bwd_launches, long_bwd_launches, xl_bwd_launches
     _check(qkv, mask, num_heads)
     u, l, d3 = qkv.shape
     if grad_out.shape != (u, l, d3 // 3):
@@ -296,6 +383,7 @@ def _backward(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
     bwd_launches += 1
     wide_bwd_launches += wide_instance(l, d3 // 3, num_heads, qkv.dtype)
     long_bwd_launches += long_instance(l, d3 // 3, num_heads)
+    xl_bwd_launches += xl_instance(l, d3 // 3, num_heads, qkv.dtype)
     return dqkv
 
 

@@ -11,7 +11,9 @@ against ``mhsa_plain`` / ``mhsa_backward`` (whose agreement with the JAX
 package ``test_torch_port_ops.py`` and ``test_torch_port_contract.py``
 hold), the narrow instances, the wide ones and the long ones (L above 128,
 head dims beyond the box, up to 1,024: the tensor-core instances up to head
-dim 256, across masked key tiles, and the FMA ones above); the emulator's
+dim 256, across masked key tiles, and the XL ones above, whose warps split
+the head dim; the narrow bf16 backward's persistent blocks in both grid
+modes); the emulator's
 own stop of a barrier that cannot complete; and the source's shape rule
 (``check_args``, ``instance_smem``, ``wide_instance``, ``long_instance``,
 the backward's workspace) against the wrapper's (``kernel_supports``,
@@ -63,6 +65,13 @@ extern "C" int nrl_emu_wide_instance(int L, int D, int H, int es) {
 }
 extern "C" int nrl_emu_long_instance(int L, int D, int H) {
   return long_instance(L, D, H);
+}
+extern "C" void nrl_emu_bwd_plan(int U, int L, int D, int H, int* out) {
+  const BwdPlan p = bwd_plan(U, L, D, H, 132);
+  out[0] = p.S;
+  out[1] = p.HG;
+  out[2] = p.W;
+  out[3] = p.grid;
 }
 #endif
 """
@@ -140,6 +149,7 @@ def lib():
     so.nrl_mhsa_bwd_workspace.argtypes = [ctypes.c_int] * 5
     so.nrl_mhsa_bwd_workspace.restype = ctypes.c_size_t
     so.nrl_emu_instance_smem.restype = ctypes.c_long
+    so.nrl_emu_bwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return so
 
 
@@ -177,7 +187,8 @@ SHAPES = [(3, 16, 60, 3, 0), (3, 30, 96, 6, 0), (2, 50, 100, 2, 0), (2, 96, 96, 
 # 70; float32 in 32-row tiles) and 256 (L = 129), in column groups of 64,
 # with storage offsets; head dim 130 in one partial tile; head dims 255 and
 # 257, just below and above the tensor-core instances' bound (256); head
-# dims 300 and 1,024 (the FMA instances' tiles of 16 and 8 rows) at short L.
+# dims 300 and 1,024 (the XL instances: 5 and 16 warps splitting the head
+# dim) at short L.
 LONG_SHAPES = [(2, 129, 60, 3, 0), (2, 200, 96, 2, 1), (2, 257, 65, 1, 0), (2, 129, 200, 2, 1),
                (2, 70, 300, 2, 1), (2, 129, 256, 1, 0), (2, 20, 600, 2, 0), (2, 9, 1024, 1, 1),
                (2, 40, 260, 2, 0), (2, 100, 255, 1, 1), (2, 70, 514, 2, 0)]
@@ -233,6 +244,74 @@ def test_emulated_long_kernels_across_masked_tiles(lib, u, l, d, h, dtype):
     mask[2] = False
     assert bool(mask[0, :64].any() and mask[0, 128:].any() and mask[1, 140:].any())
     _check(lib, qkv, mask, grad_out, h, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,l,d,h", [(3, 40, 300, 1), (3, 37, 1200, 2), (3, 33, 1024, 1)])
+def test_emulated_xl_kernels_across_masked_tiles(lib, u, l, d, h, dtype):
+    """The XL instances (head dims 300, 600 and 1,024: a block's warps split
+    the head dim, the logits of each tile pair summed over them) across
+    masked streamed tiles (16 keys in bf16, 8 in float32): in every
+    sequence keys 16-31 are masked between valid ones; in sequence 1 keys
+    0-23 too, so its running state starts from masked keys and must drop
+    them at the first valid key; sequence 2 is fully masked."""
+    assert mhsa.long_instance(l, d, h) and not mhsa.long_tc(d // h, dtype)
+    qkv, mask, grad_out = _inputs(u, l, d, dtype, seed=l + d, shift=0)
+    mask[:] = torch.rand((u, l), generator=torch.Generator().manual_seed(d)) < 0.6
+    mask[:, 16:32] = False
+    mask[1, :24] = False
+    mask[2] = False
+    assert bool(mask[0, :16].any() and mask[0, 32:].any() and mask[1, 32:].any())
+    _check(lib, qkv, mask, grad_out, h, dtype)
+
+
+# The narrow bf16 backward (hd <= 32, L <= 64) in both of its grid modes
+# (``narrow_bwd_plan``), at L = 1, 9, 16, 30 and 50: (U, L, D, heads, whole
+# sequences?, several groups a block?).  At U = 3 a sequence's 15 heads
+# split into groups of 8 + 7 (NRMS's widths); at U = 200 and L = 16 the
+# same groups outnumber the persistent grid's blocks, which walk them
+# through their ring; above the threshold whole sequences, four to a group
+# (3 heads of 8, to keep the emulation short), outnumber them too.
+NARROW_BWD_SHAPES = [(3, 1, 300, 15, False, False), (1100, 1, 24, 3, True, True),
+                     (3, 9, 300, 15, False, False), (1100, 9, 24, 3, True, True),
+                     (3, 16, 300, 15, False, False), (200, 16, 300, 15, False, True),
+                     (1100, 16, 24, 3, True, True), (3, 30, 300, 15, False, False),
+                     (540, 30, 24, 3, True, True), (3, 50, 300, 15, False, False),
+                     (540, 50, 24, 3, True, True)]
+
+
+def _plan(lib, u, l, d, h):
+    out = (ctypes.c_int * 4)()
+    lib.nrl_emu_bwd_plan(u, l, d, h, out)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("u,l,d,h,whole,ring", NARROW_BWD_SHAPES)
+def test_emulated_narrow_bf16_backward_in_both_grid_modes(lib, u, l, d, h, whole, ring):
+    """The narrow bf16 backward's persistent blocks, whole sequences or head
+    groups through the two-stage ring, against ``mhsa_backward`` (with the
+    forward against ``mhsa_plain``); sequence 0 is fully masked.  The grid
+    mode is the wrapper's rule (``narrow_bwd_plan``), and the source's."""
+    plan = mhsa.narrow_bwd_plan(u, l, d, h)
+    assert _plan(lib, u, l, d, h) == plan
+    sequences, heads, _, blocks = plan
+    assert (heads == h) == whole, plan
+    groups = -(-u // sequences) if whole else u * -(-h // heads)
+    assert (groups > blocks) == ring, plan
+    assert not mhsa.wide_instance(l, d, h, torch.bfloat16) and not mhsa.long_instance(l, d, h)
+    qkv, mask, grad_out = _inputs(u, l, d, torch.bfloat16, seed=u + l + d, shift=0)
+    assert not bool(mask[0].any())
+    _check(lib, qkv, mask, grad_out, h, torch.bfloat16)
+
+
+def test_source_and_wrapper_state_the_same_backward_plan(lib):
+    """``bwd_plan`` of the source against ``narrow_bwd_plan`` of the
+    wrapper over U, L and head counts around the split's bounds."""
+    for u in (1, 3, 32, 64, 131, 132, 133, 256, 263, 264, 265, 1024, 1056, 4096):
+        for l in (1, 16, 17, 30, 32, 33, 50, 64):
+            for d, h in ((300, 15), (20, 1), (60, 3), (256, 8), (96, 6), (400, 20)):
+                if d // h <= 32 and not mhsa.wide_instance(l, d, h, torch.bfloat16):
+                    assert _plan(lib, u, l, d, h) == mhsa.narrow_bwd_plan(u, l, d, h), (u, l, d, h)
 
 
 HEAD_DIMS = (1, 7, 16, 20, 30, 32, 33, 48, 50, 63, 64, 65, 100, 127, 128, 129, 150, 256, 257,

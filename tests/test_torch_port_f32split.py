@@ -165,7 +165,12 @@ def test_tf32_rounding_is_cvt_rna():
 # tiles of 64 with an online softmax, and the backward takes each row's
 # max, sum and D = rowsum(P * dP) online over 16-key chunks, then sums dQ
 # over 8-key products and dK, dV over 8-query products, each in split TF32.
-LONG_SHAPES = [(4, 200, 300, 15), (2, 256, 768, 16), (3, 150, 300, 2)]
+# Above head dim 64 float32 runs in the XL instances: tiles and chunks of 8
+# keys, and the logits and dP summed over the head dim's groups of 64
+# columns, one split product a group.  (U, L, D, heads, tile, chunk, group
+# columns or None.)
+LONG_SHAPES = [(4, 200, 300, 15, 64, 16, None), (2, 256, 768, 16, 64, 16, None),
+               (3, 150, 300, 2, 8, 8, 64)]
 LONG_TILE = 64
 
 
@@ -179,7 +184,16 @@ def _unheads_of(t):
     return t.transpose(1, 2).reshape(u, l, h * hd)
 
 
-def long_forward(qkv, mask, h, mm):
+def _dots(a, b, mm, cols):
+    """a b^T over the last dimension: one product, or (``cols``) one a group
+    of that many columns, summed in order."""
+    if cols is None:
+        return mm(a, b.transpose(-1, -2))
+    return sum(mm(a[..., c:c + cols], b[..., c:c + cols].transpose(-1, -2))
+               for c in range(0, a.shape[-1], cols))
+
+
+def long_forward(qkv, mask, h, mm, tile=LONG_TILE, cols=None):
     """The long forward's float32 arithmetic: per key tile the logits in
     log2 units (-1e30 at masked keys), the running max from -1e30, the
     running sum and output rescaled by 2^(old max - new max)."""
@@ -191,9 +205,9 @@ def long_forward(qkv, mask, h, mm):
     m = torch.full((u, h, l, 1), -1e30)
     s = torch.zeros((u, h, l, 1))
     o = torch.zeros((u, h, l, d // h))
-    for k0 in range(0, l, LONG_TILE):
-        t = slice(k0, k0 + LONG_TILE)
-        x = mm(q, k[:, :, t].transpose(-1, -2)) * scale_log2 + bias[..., t]
+    for k0 in range(0, l, tile):
+        t = slice(k0, k0 + tile)
+        x = _dots(q, k[:, :, t], mm, cols) * scale_log2 + bias[..., t]
         m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
@@ -203,7 +217,7 @@ def long_forward(qkv, mask, h, mm):
     return _unheads_of(o / s)
 
 
-def long_backward(qkv, mask, grad_out, h, mm):
+def long_backward(qkv, mask, grad_out, h, mm, chunk=16, cols=None):
     """The long backward's float32 arithmetic: the statistics pass (max,
     sum and D summed online over 16-key chunks from S and dP), then P from
     them, dS = P (dP - D) and 0 at masked keys, dQ over 8-key products, dK
@@ -216,13 +230,13 @@ def long_backward(qkv, mask, grad_out, h, mm):
     q, k, v = (_heads_of(t, h) for t in qkv.split(d, dim=-1))
     do = _heads_of(grad_out, h)
     bias = torch.where(mask, 0.0, -1e30)[:, None, None, :]
-    x = mm(q, k.transpose(-1, -2)) * scale_log2 + bias
-    dp = mm(do, v.transpose(-1, -2))
+    x = _dots(q, k, mm, cols) * scale_log2 + bias
+    dp = _dots(do, v, mm, cols)
     m = torch.full((u, h, l, 1), -1e30)
     s = torch.zeros((u, h, l, 1))
     dd = torch.zeros((u, h, l, 1))
-    for k0 in range(0, l, 16):
-        c = slice(k0, k0 + 16)
+    for k0 in range(0, l, chunk):
+        c = slice(k0, k0 + chunk)
         m_new = torch.maximum(m, x[..., c].amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x[..., c] - m_new)
@@ -250,12 +264,15 @@ def _float64_reference(qkv, mask, grad_out, h):
     return out.detach().numpy(), grad.numpy()
 
 
-@pytest.mark.parametrize("u,l,d,h", LONG_SHAPES)
-def test_long_split_tf32_matches_float64_and_one_rounding_does_not(u, l, d, h):
+@pytest.mark.parametrize("u,l,d,h,tile,chunk,cols", LONG_SHAPES,
+                         ids=["-".join(map(str, s[:4])) for s in LONG_SHAPES])
+def test_long_split_tf32_matches_float64_and_one_rounding_does_not(u, l, d, h, tile, chunk,
+                                                                    cols):
     """The long instances' streamed float32 arithmetic in split TF32 holds
     the attention and its gradient within 1e-5 + 1e-5 |x| of float64 at L =
-    150 to 256 (head dims 20, 48 and 150), a fully masked sequence
-    included (dQ = dK = 0); one TF32 rounding of each operand does not."""
+    150 to 256 (head dims 20, 48 and 150, the last in the XL instances), a
+    fully masked sequence included (dQ = dK = 0); one TF32 rounding of each
+    operand does not."""
     rng = np.random.default_rng(u * l + d)
     qkv = rng.normal(size=(u, l, 3 * d)).astype(np.float32)
     mask = rng.random((u, l)) < 0.6
@@ -266,12 +283,12 @@ def test_long_split_tf32_matches_float64_and_one_rounding_does_not(u, l, d, h):
     want_out, want_grad = _float64_reference(qkv, mask, grad_out, h)
     x, m, g = torch.from_numpy(qkv), torch.from_numpy(mask), torch.from_numpy(grad_out)
 
-    out = long_forward(x, m, h, split_mm).numpy()
-    grad = long_backward(x, m, g, h, split_mm).numpy()
+    out = long_forward(x, m, h, split_mm, tile, cols).numpy()
+    grad = long_backward(x, m, g, h, split_mm, chunk, cols).numpy()
     assert np.all(np.isfinite(out)) and np.all(np.isfinite(grad))
     np.testing.assert_allclose(out, want_out, **TOL)
     np.testing.assert_allclose(grad, want_grad, **TOL)
     assert np.all(grad[0, :, :2 * d] == 0)
 
-    assert not _within(long_forward(x, m, h, single_mm).numpy(), want_out)
-    assert not _within(long_backward(x, m, g, h, single_mm).numpy(), want_grad)
+    assert not _within(long_forward(x, m, h, single_mm, tile, cols).numpy(), want_out)
+    assert not _within(long_backward(x, m, g, h, single_mm, chunk, cols).numpy(), want_grad)

@@ -300,14 +300,14 @@ def test_kernel_library_is_keyed_by_source_and_built_under_build():
 
 
 # The parts compile at once, so the stand-in nvcc of each appends its line to
-# the log in whatever order they finish: "shuffled" makes them finish 4, 3, 1, 2.
-PART_DELAYS = {"as_started": {}, "shuffled": {4: 0.0, 3: 0.3, 1: 0.6, 2: 0.9}}
+# the log in whatever order they finish: "shuffled" makes them finish 4, 6, 5, 3, 1, 2.
+PART_DELAYS = {"as_started": {}, "shuffled": {4: 0.0, 6: 0.2, 5: 0.4, 3: 0.6, 1: 0.8, 2: 1.0}}
 
 
 @pytest.mark.parametrize("order", sorted(PART_DELAYS))
 def test_build_compiles_the_parts_at_once_and_links_them(tmp_path, monkeypatch, order):
     """``csrc/mhsa.cu`` builds as ``PARTS["mhsa"]`` nvcc compilations with
-    ``NRL_PART`` 1 to 4 for sm_90a, then one link of their objects, in part
+    ``NRL_PART`` 1 to 6 for sm_90a, then one link of their objects, in part
     order, into the library; the objects are removed.  A stand-in nvcc
     records each command and writes its output; each part's line is found
     by its ``-DNRL_PART=k``, whatever order the parts logged in."""

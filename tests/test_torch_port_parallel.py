@@ -402,3 +402,69 @@ def test_multi_host_adversarial_is_refused_in_jax_words(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError,
                        match=r"multi-host adversarial \(SentiDebias\) training is not wired"):
         train._build_run(cfg, _fake_mesh(), torch.device("cpu"), rd)
+
+
+@pytest.mark.parametrize("tp", [False, True])
+def test_row_sharding_leaves_the_plm_word_table_whole(tp):
+    """Row sharding takes only parameters whose names end in
+    ``embedding.weight`` (``mesh.py``'s ``_leaf_spec``): the PLM tower's
+    ``word_embeddings.weight`` (and its position and token-type tables) end
+    in ``embeddings.weight`` and stay whole on every rank, with or without
+    the tensor-parallel tower, as in the JAX package's rule."""
+    import jax
+
+    from newsreclib_tpu_torch.convert import flax_to_state_dict
+    from newsreclib_tpu_torch.parallel.mesh import shard_specs
+
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, _plm_params()))
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    tables = [k for k in shapes if k.endswith("embeddings.weight")]
+    assert "text_encoder_module.encoder.word_embeddings.weight" in tables
+    specs = shard_specs(shapes, 2, row_shard_embeddings=True, tp_transformer=tp)
+    assert not any(k in specs for k in tables)
+    assert all(k.endswith("embedding.weight") or "layer_" in k for k in specs)
+
+
+def _refused_state(module):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(grid=None, model=module, opt=torch.optim.Adam(module.parameters()))
+
+
+def _two_model_ranks():
+    from newsreclib_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(rank=0, world=2, model_axis=2, device=torch.device("cpu"), backend="gloo",
+                data_group=None, model_group=None)
+
+
+def test_place_state_refuses_a_row_sharded_table_that_is_not_a_token_embedding():
+    """A parameter the row rule takes (a name ending in ``embedding.weight``)
+    whose module is not a ``TokenEmbedding`` is refused before anything is
+    cut (``place_state``)."""
+    from newsreclib_tpu_torch.parallel.mesh import place_state
+
+    module = torch.nn.Module()
+    module.embedding = torch.nn.Embedding(10, 4)
+    before = module.embedding.weight.detach().clone()
+    with pytest.raises(NotImplementedError,
+                       match="embedding.weight: row sharding takes TokenEmbedding tables only"):
+        place_state(_refused_state(module), _two_model_ranks(), row_shard_embeddings=True)
+    assert torch.equal(module.embedding.weight, before)
+
+
+def test_place_state_refuses_a_layer_parameter_outside_a_transformer_layer():
+    """A ``layer_`` parameter the tensor-parallel rule takes (``q``, ``k``,
+    ``v``, ``ff1``, ``attn_out``, ``ff2``) whose layer is not the PLM
+    tower's ``TransformerLayer`` is refused before anything is cut."""
+    from newsreclib_tpu_torch.parallel.mesh import place_state
+
+    module = torch.nn.Module()
+    module.layer_0 = torch.nn.Module()
+    module.layer_0.q = torch.nn.Linear(4, 4)
+    before = module.layer_0.q.weight.detach().clone()
+    with pytest.raises(NotImplementedError,
+                       match="layer_0.q.weight: tensor parallelism takes the PLM tower only"):
+        place_state(_refused_state(module), _two_model_ranks(), row_shard_embeddings=False,
+                    tp_transformer=True)
+    assert torch.equal(module.layer_0.q.weight, before)
