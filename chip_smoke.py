@@ -228,7 +228,31 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    ``XL_STEPS`` train steps in float32 and bf16 with exact XL launches,
    kernel route against plain route, and step 4's route check with the
    planted faults;
-20. prints one ``{"kernels": [...]}`` line (the wide instances' own
+20. evaluation and the export split over the data ranks
+   (``dp_eval_phase``): NRMS at full width (random from seed 0, float32,
+   GloVe 300-d) over phase 11's demo copy, ``CachedScorer.evaluate`` (val)
+   and ``export_recommendations`` (test) with encode chunks of
+   ``DP_ENCODE_BATCH`` rows on two ranks sharing ``cuda:0`` over gloo and
+   as rank 0 of one over NCCL: metrics and exported scores within
+   ``DP_EVAL_ATOL`` of one device's (the same keys), each rank's forward
+   launches those of its corpus pieces and batch rows
+   (``serving.corpus_pieces``), the same collectives on every rank (one
+   table gather, one all-reduce of the sums, one gather of the AUC inputs;
+   the export's table and rows gathers), rank 0's JSON written; then the
+   CLI (phase 11's overrides, dropout 0, ``DP_CLI_STEPS`` steps of one
+   epoch) with ``trainer.devices=2 trainer.share_card=true`` against
+   ``trainer.devices=1``: the val / test
+   metrics logged once, the test metrics within ``DP_CLI_ATOL``;
+21. the MLM pretraining behind ``nrms_statfix_plm4_pre`` (``mlm_phase``):
+   ``mlm_pretrain`` at the script's widths (256 wide, 4 layers, 8 heads,
+   FFN 1,024, ``SEQ_LEN`` 48, batch 512) on the demo corpus for
+   ``MLM_STEPS`` steps, the loss falling; its export reloaded
+   bit-identically by ``load_hf_torch_weights``; the fine-tune of
+   ``nrms_statfix_plm4_pre`` over it on the demo copy (one epoch, layers 0-1
+   frozen; the head's 16 heads of 16) through phase 11's checks (exact
+   launches, the restored test); ``plm_frozen_check``: layers 0-1
+   bit-identical, layers 2-3 moved;
+22. prints one ``{"kernels": [...]}`` line (the wide instances' own
    entries, with their times at ``BOX_SHAPES`` under ``plm_*`` and
    ``hd100_*`` and at ``MANNER_SHAPES`` under ``manner_*``,
    ``manner_tail_*`` and ``manner_a_*``; the D = 400 float32 times under
@@ -245,7 +269,10 @@ Imports the port (``newsreclib_tpu_torch``) and nothing of JAX, then:
    without remat) in the wide entries, phase 16's under
    ``annotator_launches``, phase 17's under ``distributed_cli_launches``
    with its collectives, phase 18's per rank under
-   ``two_rank_launches_per_rank``; the long instances' own entries
+   ``two_rank_launches_per_rank``, phase 20's per rank under
+   ``dp_eval_launches_per_rank`` (with ``dp_eval_nccl_launches`` and
+   ``dp_eval_collectives_per_rank``), phase 21's fine-tune under
+   ``mlm_finetune_cli_launches``; the long instances' own entries
    ``fused_small_mhsa_long`` / ``_backward``: phase 19b's launches, the
    times at the train user encoder's (64, 200, 300, 15) with their share
    of the bound (``pct_of_bound``) and, under ``u<U>_l<L>_d<D>_*``, at the
@@ -260,7 +287,8 @@ route) runs under deterministic algorithms (``reproducible``).
 Exits non-zero, printing no result, when no card is present or any phase
 fails.  Writes nothing but the kernel build, the host parser's build, the
 PLM checkpoints, the fixture tokenizers and classifiers, the CLI phases'
-data copies and runs and the sweep's under ``build/``; phase 18's ranks are
+data copies and runs, the sweep's, phase 20's model and exports and phase
+21's checkpoint under ``build/``; phase 18's and phase 20's ranks are
 stopped when the phase ends or fails.
 
     python3 chip_smoke.py --route-spread [MODEL ...]
@@ -274,6 +302,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import math
 import os
@@ -544,6 +573,32 @@ LONG_TRAIN_STEPS = 5
 # (``ELEMENT_FAULTS``).
 LONG_ROUTE_FAULTS = ("unmasked",)
 LONG_CLI_OVERRIDES = [f"data.max_history_len={LONG_HISTORY}"]
+# Phase 20, evaluation and the export split over the data ranks: NRMS at
+# full width (random weights from seed 0, float32) over phase 11's demo
+# copy, served by ``CachedScorer(mesh=...)`` on two ranks sharing cuda:0
+# over gloo and as rank 0 of one over NCCL, against one device.  The corpus
+# chunks are DP_ENCODE_BATCH rows so that both ranks encode pieces (the
+# demo corpus is 121 rows) and the last piece is uneven; then the training
+# CLI with ``trainer.devices=2 trainer.share_card=true`` (dropout 0) against
+# the same run on one device.  The same float32 arithmetic in another
+# order on the same weights: DP_EVAL_ATOL on metrics and scores.  The CLI
+# runs train DP_CLI_STEPS steps of one epoch on the data-parallel step,
+# whose gradient sums differ in rounding from one device's: DP_CLI_ATOL on
+# the test metrics.
+DP_DIR = os.path.join(ROOT, "build", "smoke_dp_eval")
+DP_ENCODE_BATCH, DP_TARGET_CELLS = 32, 1024
+DP_EVAL_ATOL, DP_CLI_ATOL = 1e-4, 1e-3
+DP_CLI_STEPS = 8
+DP_EVAL_CALLS = {"gather_table": 1, "eval_sums": 1, "gather_auc": 1}
+DP_EXPORT_CALLS = {"gather_table": 1, "gather_recs": 1}
+# Phase 21, the MLM pretraining behind nrms_statfix_plm4_pre: the script's
+# widths (256 wide, 4 layers, 8 heads, FFN 1,024, SEQ_LEN 48, batch 512) on
+# the demo corpus for MLM_STEPS steps, the export reloaded, then the
+# fine-tune of nrms_statfix_plm4_pre over it on the demo copy (one epoch,
+# layers 0-1 frozen) through phase 11's checks, and plm_frozen_check.
+MLM_DIR = os.path.join(ROOT, "build", "smoke_mlm")
+MLM_STEPS = 150
+MLM_FINETUNE = ["experiment=nrms_statfix_plm4_pre", "data=mind_demo", "trainer.max_epochs=1"]
 
 
 def log(*a):
@@ -990,7 +1045,8 @@ def drive_cli(card: str, overrides, out_dir: str, caches):
     cfg = compose(overrides=overrides)
     m = cfg["model"]
     log(f"CLI: NRMS D={m['embed_dim']}, {m['num_heads']} heads, query {m['query_dim']}, "
-        + (f"PLM tower of {m['plm_num_layers']} layers, frozen {m['frozen_layers']}, "
+        + (f"PLM tower of {m.get('plm_num_layers', 'its checkpoint')} layers "
+           f"({m['plm_model']}), frozen {m['frozen_layers']}, "
            if m.get("use_plm") else
            f"GloVe {cfg['data']['word_embed_dim']}-d, " if cfg["data"].get("word_embeddings_fpath")
            else "random word embeddings, ")
@@ -2906,6 +2962,232 @@ def xl_phase(card: str, store, imp) -> dict:
     return out
 
 
+def dp_data():
+    """Phase 20's data: the composed CLI config over phase 11's demo copy,
+    its val store and impressions (the evaluation) and test store and
+    impressions (the export), and the data info the factory takes."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+
+    cfg = compose(overrides=CLI_OVERRIDES + ["loggers=[]"])
+    rd = train.load_run_data(cfg)
+    return cfg, rd
+
+
+def dp_launches(store, imp, hist_len: int, size: int, index: int) -> int:
+    """Forward launches of one ``CachedScorer`` epoch on data rank ``index``
+    of ``size`` at phase 20's sizes: one per corpus piece
+    (``serving.corpus_pieces``) and one per impression batch (each rank
+    scores its rows of every batch)."""
+    from newsreclib_tpu_torch.data.batching import BucketedAssembler
+    from newsreclib_tpu_torch.serving import corpus_pieces, corpus_segments
+
+    bs = -(-DP_ENCODE_BATCH // size) * size
+    encode = sum(len(corpus_pieces(len(rows), bs, size, index))
+                 for rows, _ in corpus_segments(store, 16, bs))
+    return encode + sum(1 for _ in BucketedAssembler(imp, hist_len, DP_TARGET_CELLS,
+                                                     batch_multiple=size))
+
+
+def dp_serve(mesh, model_path: str, recs_path: str) -> dict:
+    """One rank of phase 20 (or one device without ``mesh``): the NRMS of
+    ``model_path`` served over the demo val set (metrics, launches,
+    collectives) and its test set exported to ``recs_path`` (rank 0
+    writes)."""
+    import torch
+
+    from newsreclib_tpu_torch.models.components.losses import cross_entropy_loss
+    from newsreclib_tpu_torch.models.factory import build_model
+    from newsreclib_tpu_torch.ops import mhsa
+    from newsreclib_tpu_torch.parallel import collectives
+    from newsreclib_tpu_torch.serving import CachedScorer
+
+    cfg, rd = dp_data()
+    model = build_model(cfg["model"], rd.info, device="cuda", seed=0).eval()
+    model.load_state_dict(torch.load(model_path, map_location="cuda", weights_only=True))
+    kw = dict(max_history_len=cfg["data"]["max_history_len"], encode_batch=DP_ENCODE_BATCH)
+    scorer = CachedScorer(model, device="cuda", loss_fn=cross_entropy_loss, mesh=mesh)
+    torch.cuda.synchronize()
+    collectives.reset_counts()
+    mhsa.launches = 0
+    metrics = scorer.evaluate(rd.store_train, rd.val_imp, target_cells=DP_TARGET_CELLS, **kw)
+    torch.cuda.synchronize()
+    launches, calls = mhsa.launches, dict(collectives.calls)
+    collectives.reset_counts()
+    recs = CachedScorer(model, device="cuda", mesh=mesh).export_recommendations(
+        rd.store_test, rd.test_imp, recs_path, **kw)
+    return {"metrics": metrics, "launches": launches, "calls": calls, "recs": recs,
+            "export_calls": dict(collectives.calls),
+            "backend": None if mesh is None else mesh.backend,
+            "index": 0 if mesh is None else mesh.data_index}
+
+
+def dp_worker(rank: int, world: int) -> dict:
+    """One of phase 20's two ranks: both share ``cuda:0`` over gloo."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from newsreclib_tpu_torch.parallel.mesh import destroy, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_mesh(rank, world, 1, torch.device("cuda", 0), backend="gloo")
+    try:
+        return dp_serve(mesh, os.path.join(DP_DIR, "model.pt"),
+                        os.path.join(DP_DIR, "recs_two.json"))
+    finally:
+        destroy()
+
+
+def dp_compare(name: str, got: dict, want: dict) -> float:
+    """The largest difference of ``got``'s metrics and exported scores from
+    ``want``'s; raises when the keys differ or it passes DP_EVAL_ATOL."""
+    if set(got["metrics"]) != set(want["metrics"]) or got["recs"].keys() != want["recs"].keys():
+        raise AssertionError(f"phase 20 {name}: keys differ")
+    diff = max(abs(got["metrics"][k] - v) for k, v in want["metrics"].items())
+    for u, scores in want["recs"].items():
+        if got["recs"][u].keys() != scores.keys():
+            raise AssertionError(f"phase 20 {name}: the export's candidates of {u} differ")
+        diff = max(diff, max(abs(got["recs"][u][n] - v) for n, v in scores.items()))
+    if not diff <= DP_EVAL_ATOL:
+        raise AssertionError(f"phase 20 {name}: metrics or scores {diff} off one device's")
+    return diff
+
+
+def dp_eval_phase(card: str) -> dict:
+    """Phase 20 (module doc): ``CachedScorer.evaluate`` and
+    ``export_recommendations`` over the data ranks against one device, two
+    ranks on ``cuda:0`` over gloo and rank 0 of one over NCCL, with each
+    rank's launches and collectives counted; then the CLI with
+    ``trainer.devices=2 trainer.share_card=true`` against one device.
+    Returns the launches per rank, the differences and the wall times."""
+    import torch
+
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.config.compose import compose
+    from newsreclib_tpu_torch.models.factory import build_model
+    from newsreclib_tpu_torch.parallel.launch import free_port, spawn
+    from newsreclib_tpu_torch.parallel.mesh import destroy, init_mesh
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    cfg, rd = dp_data()
+    torch.save(build_model(cfg["model"], rd.info, device="cuda", seed=0).state_dict(),
+               os.path.join(DP_DIR, "model.pt"))
+    one = dp_serve(None, os.path.join(DP_DIR, "model.pt"), os.path.join(DP_DIR, "recs_one.json"))
+    hist = cfg["data"]["max_history_len"]
+    if one["launches"] != dp_launches(rd.store_train, rd.val_imp, hist, 1, 0):
+        raise AssertionError(f"phase 20: one device launched {one['launches']} times")
+    t0 = time.perf_counter()
+    ranks = spawn(dp_worker, 2, (), timeout=600)
+    two_s = time.perf_counter() - t0
+    mesh = init_mesh(0, 1, 1, torch.device("cuda", 0), backend="nccl",
+                     init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        nccl = dp_serve(mesh, os.path.join(DP_DIR, "model.pt"),
+                        os.path.join(DP_DIR, "recs_nccl.json"))
+    finally:
+        destroy()
+    diffs = {f"gloo_rank{r['index']}": dp_compare(f"rank {r['index']}", r, one) for r in ranks}
+    diffs["nccl"] = dp_compare("NCCL", nccl, one)
+    with open(os.path.join(DP_DIR, "recs_two.json")) as f:
+        written = json.load(f)
+    if written.keys() != one["recs"].keys():
+        raise AssertionError("phase 20: rank 0's recommendations file differs")
+    want = [dp_launches(rd.store_train, rd.val_imp, hist, 2, i) for i in range(2)]
+    got = [r["launches"] for r in ranks]
+    log(f"data-parallel evaluation (phase 20), NRMS D={cfg['model']['embed_dim']} on the demo "
+        f"copy, encode chunks of {DP_ENCODE_BATCH}: two ranks on cuda:0 over "
+        f"{ranks[0]['backend']} ({two_s:.1f} s with their start) and rank 0 of one over "
+        f"{nccl['backend']}; metrics and exported scores off one device's by "
+        f"{json.dumps(diffs)} (tolerance {DP_EVAL_ATOL}); launches per rank {got} ({want} "
+        f"expected; one device {one['launches']}); collectives per rank "
+        f"{[r['calls'] for r in ranks]}, export {[r['export_calls'] for r in ranks]}; "
+        f"val/auc {one['metrics']['auc']:.6f}")
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"] or nccl["backend"] != "nccl":
+        raise AssertionError(f"phase 20 backends {[r['backend'] for r in ranks]}, "
+                             f"{nccl['backend']}")
+    if got != want or nccl["launches"] != one["launches"]:
+        raise AssertionError(f"phase 20 launches {got} / {nccl['launches']}: {want} / "
+                             f"{one['launches']} expected")
+    for r in ranks + [nccl]:
+        if r["calls"] != DP_EVAL_CALLS or r["export_calls"] != DP_EXPORT_CALLS:
+            raise AssertionError(f"phase 20 collectives {r['calls']} / {r['export_calls']}")
+
+    base = CLI_OVERRIDES[:-1] + ["model.dropout_probability=0", "trainer.max_epochs=1",
+                                 f"trainer.limit_train_batches={DP_CLI_STEPS}"]
+    runs = {}
+    for name, extra in (("one", ["trainer.devices=1"]),
+                        ("two", ["trainer.devices=2", "trainer.share_card=true"])):
+        out = os.path.join(DP_DIR, f"cli_{name}")
+        t0 = time.perf_counter()
+        metrics = train.run(compose(overrides=base + extra + [f"output_dir={out}"]))
+        torch.cuda.synchronize()
+        with open(os.path.join(out, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        logged = {k: sum(1 for row in rows if row.get(k)) for k in ("val/auc", "test/auc")}
+        runs[name] = {"metrics": metrics, "wall_s": time.perf_counter() - t0, "logged": logged}
+    cli_diff = max(abs(runs["two"]["metrics"][k] - v) for k, v in runs["one"]["metrics"].items()
+                   if k.startswith("test/"))
+    log(f"CLI trainer.devices=2 on cuda:0 (phase 20): {runs['two']['wall_s']:.1f} s wall "
+        f"({runs['one']['wall_s']:.1f} s on one device) on {card}; val/auc and test/auc rows "
+        f"logged {runs['two']['logged']} (one device {runs['one']['logged']}); test metrics "
+        f"off one device's by {cli_diff:.3g} (tolerance {DP_CLI_ATOL}); test/auc "
+        f"{runs['two']['metrics']['test/auc']:.6f} against "
+        f"{runs['one']['metrics']['test/auc']:.6f}")
+    once = {"val/auc": 1, "test/auc": 1}
+    if runs["two"]["logged"] != once or runs["one"]["logged"] != once:
+        raise AssertionError(f"phase 20: the two-rank CLI logged {runs['two']['logged']}")
+    if not cli_diff <= DP_CLI_ATOL:
+        raise AssertionError(f"phase 20: two-rank test metrics {cli_diff} off one device's")
+    return {"launches_per_rank": got, "nccl_launches": nccl["launches"],
+            "one_device_launches": one["launches"], "max_diff": diffs, "two_rank_s": two_s,
+            "cli_max_diff": cli_diff, "cli_wall_s": {k: v["wall_s"] for k, v in runs.items()},
+            "collectives_per_rank": [r["calls"] for r in ranks]}
+
+
+def mlm_phase(card: str) -> dict:
+    """Phase 21 (module doc): ``mlm_pretrain`` at the script's widths on the
+    demo corpus for ``MLM_STEPS`` steps (the loss must fall), its export
+    reloaded bit-identically, the fine-tune of ``nrms_statfix_plm4_pre``
+    over it through ``drive_cli`` (exact launches of the head's kernels),
+    and ``plm_frozen_check``: layers 0-1 unchanged, layers 2-3 moved.
+    Returns the MLM record, the fine-tune's launches and wall time."""
+    import torch
+
+    from newsreclib_tpu_torch import mlm_pretrain, plm_frozen_check
+    from newsreclib_tpu_torch.models.components.plm import load_hf_torch_weights
+
+    shutil.rmtree(MLM_DIR, ignore_errors=True)
+    seqs, vocab = mlm_pretrain.build_corpus(CLI_DATA, "demo")
+    model, rec = mlm_pretrain.pretrain(seqs, vocab, steps=MLM_STEPS, log=log)
+    export = mlm_pretrain.export(model, os.path.join(MLM_DIR, "plm4"))
+    state, kwargs = load_hf_torch_weights(export)
+    same = all(torch.equal(state[k], v.cpu()) for k, v in model.encoder.state_dict().items())
+    first, last = rec["history"][0], rec["history"][-1]
+    log(f"MLM (phase 21): {seqs.shape[0]} demo articles, vocab {vocab}, {MLM_STEPS} steps at "
+        f"batch 512 in {rec['seconds']:.2f} s ({rec['steps_per_s']:.1f} steps/s), peak memory "
+        f"{rec['peak_memory_bytes'] / 2**20:.1f} MiB on {card}; mlm_loss {first['mlm_loss']:.4f} "
+        f"-> {last['mlm_loss']:.4f}, masked_acc {last['masked_acc']:.4f}; export reloaded "
+        f"bit-identically: {same} ({kwargs['num_layers']} layers, vocab {kwargs['vocab_size']})")
+    if not last["mlm_loss"] < 0.9 * first["mlm_loss"] or not same:
+        raise AssertionError(f"phase 21: MLM {first} -> {last}, export identical {same}")
+    out = os.path.join(MLM_DIR, "finetune")
+    overrides = MLM_FINETUNE + [
+        f"data.data_dir={CLI_DATA}",
+        f"data.word_embeddings_fpath={os.path.join(CLI_DATA, 'glove_demo.txt')}",
+        f"model.plm_model={export}", f"output_dir={out}"]
+    launches, bwd_launches, wall_s, metrics, _ = drive_cli(card, overrides, out, [])
+    lines = []
+    ok = plm_frozen_check.check(out, export, [0, 1], log=lines.append)
+    log("plm_frozen_check (phase 21): " + "; ".join(lines))
+    if not ok:
+        raise AssertionError("phase 21: the frozen-layer check failed")
+    return {"mlm": {k: rec[k] for k in ("seconds", "steps_per_s", "peak_memory_bytes")},
+            "mlm_first": first, "mlm_last": last, "launches": launches,
+            "bwd_launches": bwd_launches, "wall_s": wall_s, "test_auc": metrics["test/auc"]}
+
+
 def main() -> int:
     # cuBLAS repeats its results only with a fixed workspace (``reproducible``);
     # set before the first cuBLAS handle is made
@@ -2943,41 +3225,72 @@ def main() -> int:
     shapes = main_path_shapes(store)
     log(f"attention shapes (U, L) of the serving path: {shapes}")
 
+    marks = []
+
+    def mark(name):  # each phase's end, in seconds since the start
+        marks.append((name, round(time.time() - t_start, 1)))
+
     # The serving epoch runs before the kernel phase, whose many profiler
     # windows leave the process slower to launch kernels.
     launches = serving_phase(card, store, imp)
+    mark("serving")
     train_launches, bwd_launches, train_step_s, train_shapes, grad_err = training_phase(
         card, store, imp)
+    mark("training")
     row_shapes = global_row_shapes(store, imp)
     checked = list(shapes)
     for s in train_shapes + EXTRA_SHAPES + row_shapes:
         if s not in checked:
             checked.append(s)
     records = kernel_phase(checked)
+    mark("kernels")
     bwd_records = backward_phase(train_shapes + [s for s in row_shapes if s not in train_shapes])
+    mark("backward")
     bwd_main, bwd_f32 = (next(r for r in bwd_records if r["dtype"] == name)
                          for name in ("bfloat16", "float32"))
     zoo_fwd, zoo_bwd = zoo_kernel_phase()
+    mark("zoo kernels")
     long_fwd, long_bwd, long_errs = long_kernel_phase()
+    mark("long kernels (19a)")
     # after the profiled phases: with the CLI phase before them, a profiler
     # window recorded no device time, and with the zoo phase before them six
     # windows in a row recorded fewer kernels than calls (one H100 run each)
     zoo_counts, zoo_by_model = zoo_phase(card, store, imp)
+    mark("zoo")
     fair_counts, fair_by_model = zoo_phase(card, store, imp, FAIR)
+    mark("FairRec")
     aspect_counts, ensemble_metrics = aspect_phase(card, store, imp)
+    mark("aspect")
     plm_counts, plm_epoch_s, plm_peak_mb, plm_shapes = plm_phase(card, store, imp)
+    mark("PLM")
     zoo2_worst = zoo2_phase(card, store, imp)
+    mark("zoo2")
     cli_launches, cli_bwd_launches, cli_s = cli_phase(card)
+    mark("CLI (11)")
     plm_cli_launches, plm_cli_bwd_launches, plm_cli_s = cli_phase(card, PLM_CLI_OVERRIDES)
+    mark("PLM CLI (11)")
     dataset_runs = dataset_cli_phase(card)
+    mark("datasets (12)")
     plm_mode_runs = plm_mode_phase(card)
+    mark("PLM mode (13)")
     sweep_run = sweep_phase(card, cli_launches, cli_bwd_launches)
+    mark("sweep (14)")
     remat = remat_phase(card, store, imp)
+    mark("remat (15)")
     annotator = annotator_phase(card)
+    mark("annotator (16)")
     dist_cli = distributed_cli_phase(card)
+    mark("distributed CLI (17)")
     two_rank = two_rank_phase(card, store, imp)
+    mark("two ranks (18)")
     long_run = long_phase(card)
+    mark("long (19b)")
     xl_run = xl_phase(card, store, imp)
+    mark("XL (19c)")
+    dp_eval = dp_eval_phase(card)
+    mark("dp eval (20)")
+    mlm_run = mlm_phase(card)
+    mark("MLM (21)")
 
     main_shape, main_f32 = (next(r for r in records
                                  if (r["U"], r["L"], r["dtype"]) == (4096, 16, t))
@@ -3018,6 +3331,12 @@ def main() -> int:
                                      for k in ("dp", "rows", "tp")},
         "two_rank_fault_distance": {k: two_rank[k]["fault_distance"] for k in TWO_RANK_FAULTS},
         "global_row_shapes": row_shapes,
+        "dp_eval_launches_per_rank": dp_eval["launches_per_rank"],
+        "dp_eval_nccl_launches": dp_eval["nccl_launches"],
+        "dp_eval_collectives_per_rank": dp_eval["collectives_per_rank"],
+        "dp_cli_wall_s": dp_eval["cli_wall_s"],
+        "mlm_finetune_cli_launches": mlm_run["launches"],
+        "mlm_finetune_cli_wall_s": mlm_run["wall_s"],
     }, {
         "name": "fused_small_mhsa_backward",
         "route": "cuda",
@@ -3032,6 +3351,7 @@ def main() -> int:
         "distributed_cli_launches": dist_cli["bwd_launches"],
         "two_rank_launches_per_rank": {k: two_rank[k]["bwd_launches_per_rank"]
                                        for k in ("dp", "rows", "tp")},
+        "mlm_finetune_cli_launches": mlm_run["bwd_launches"],
         "max_abs_err": max(grad_err, *(r["max_abs_err"] for r in bwd_records)),
         "ms": bwd_main["bwd_ms"],
         "plain_ms": bwd_main["plain_bwd_ms"],
@@ -3222,6 +3542,7 @@ def main() -> int:
         })
     log("zoo models without an MHSA, largest errors: " + json.dumps(zoo2_worst))
     log("MANNeR ensemble served metrics: " + json.dumps(ensemble_metrics))
+    log("phase ends, seconds since the start: " + json.dumps(marks))
     log(f"total {time.time() - t_start:.1f} s; kernel times at U=4096 L=16 (forward) and "
         f"U={bwd_main['U']} L={bwd_main['L']} (backward), bf16 (f32_*: float32), on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,9 @@ layouts, so either package picks up the other's:
 * ``MIND<size>_train/{word,entity,categ,subcateg,sentiment,uid}2index.tsv``:
   the maps built on the train split, read back by the dev split;
 * ``<split>/parsed_news.tsv`` and ``<split>/{train_,val_,}parsed_behaviors.tsv``;
-* ``MIND<size>_train/transformed_{word,entity}_embeddings.npy``;
+* ``MIND<size>_train/transformed_{word,entity}_embeddings.npy`` (the word
+  matrix is built by the first run that names a GloVe file, whether or not
+  it parses the split: ``MINDData.ensure_word_embeddings``);
 * ``<split>/news_store.npz`` (``NewsStore.save``) and
   ``<split>/{train_,val_,}impressions.npz`` (CSR arrays).
 
@@ -272,17 +274,8 @@ class MINDData(PLMTokenizing):
             subcateg2index = _load_idx_map(self.map_path("subcateg2index"))
             sentiment2index = _load_idx_map(self.map_path("sentiment2index"))
 
-        if raw_split == "train" and self.cfg.word_embeddings_fpath:
-            build_embedding_matrix(
-                word2index, self.cfg.word_embeddings_fpath, self.cfg.word_embed_dim,
-                seed=self.cfg.seed, out_fpath=os.path.join(d, "transformed_word_embeddings.npy"),
-            )
-            if self.cfg.use_pretrained_categ_embeddings:
-                build_embedding_matrix(
-                    categ2index, self.cfg.word_embeddings_fpath, self.cfg.categ_embed_dim,
-                    seed=self.cfg.seed,
-                    out_fpath=os.path.join(d, "transformed_categ_embeddings.npy"),
-                )
+        if raw_split == "train":
+            self._glove_matrices(d, {"word2index": word2index, "categ2index": categ2index})
         entity_vec = os.path.join(d, "entity_embedding.vec")
         if raw_split == "train" and os.path.exists(entity_vec):
             build_entity_embedding_matrix(
@@ -299,6 +292,45 @@ class MINDData(PLMTokenizing):
             news[col] = [self._filter_entities(e, entity2index) for e in news[col]]
         _to_tsv(news, parsed)
         return news
+
+    def _glove_matrices(self, d: str, maps: Optional[Dict[str, Dict[str, int]]] = None) -> None:
+        """The train split's matrices of ``word_embeddings_fpath`` in ``d``:
+        the words', and the categories' with
+        ``use_pretrained_categ_embeddings``.  A parse builds them from its
+        id ``maps``; without ``maps`` each one missing is built from the id
+        maps the parse wrote, read with their keys as written: the same
+        matrix."""
+        if not self.cfg.word_embeddings_fpath:
+            return
+        wanted = [("word2index", self.cfg.word_embed_dim, "transformed_word_embeddings.npy")]
+        if self.cfg.use_pretrained_categ_embeddings:
+            wanted.append(("categ2index", self.cfg.categ_embed_dim,
+                           "transformed_categ_embeddings.npy"))
+        for name, dim, fname in wanted:
+            out = os.path.join(d, fname)
+            if maps is None and os.path.exists(out):
+                continue
+            if maps is None:
+                keys, idx = _read_table(self.map_path(name)).values()
+                mapping = dict(zip(keys, (int(v) for v in idx)))
+            else:
+                mapping = maps[name]
+            build_embedding_matrix(mapping, self.cfg.word_embeddings_fpath, dim,
+                                   seed=self.cfg.seed, out_fpath=out)
+
+    def ensure_word_embeddings(self) -> str:
+        """The train split's directory, holding the matrices of
+        ``word_embeddings_fpath`` where one is named: those the first parse
+        did not build (it named no GloVe file) are built now from its id
+        maps (``_glove_matrices``), so the matrices never depend on which
+        run parsed the directory first (``models/factory.py::load_data_info``
+        calls it)."""
+        d = self.split_dir("train")
+        if self.cfg.word_embeddings_fpath:
+            if not os.path.exists(self.map_path("word2index")):
+                self.load_news("train")
+            self._glove_matrices(d)
+        return d
 
     @staticmethod
     def _read_parsed_news(fpath: str) -> Dict[str, list]:

@@ -188,6 +188,7 @@ class XMINDData:
     def ensure_word_embeddings(self) -> Optional[str]:
         """Build (or reuse) the extended embedding matrix and return its
         directory, or None without a base matrix."""
+        self.mind.ensure_word_embeddings()
         base_npy = os.path.join(self.mind.split_dir("train"), "transformed_word_embeddings.npy")
         if not os.path.exists(base_npy):
             return None

@@ -2,11 +2,17 @@
 of ``newsreclib_tpu/metrics/collector.py``).  Names match the JAX
 package's: ``mrr``, ``ndcg@k``, ``categ_div@k``, ``sent_div@k``,
 ``categ_pers@k``, ``sent_pers@k``; the pooled ``auc`` and the ``loss`` are
-reduced over the epoch by ``StreamingEval`` or the cached scorer."""
+reduced over the epoch by ``StreamingEval`` or the cached scorer.
+
+Over data ranks (a ``parallel/mesh.py::Mesh``) each rank holds its rows of
+every batch: ``reduce_over_data`` sums the epoch's float32 totals over the
+data group and gathers the AUC inputs, and ``loss_and_weight`` gives a
+batch's loss with the weight that makes the sum over the ranks one
+device's."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +76,42 @@ class RankingMetrics:
         return out
 
 
+def loss_and_weight(loss_fn: Callable, scores: torch.Tensor, labels: torch.Tensor,
+                    cand_mask: torch.Tensor, valid: torch.Tensor,
+                    mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, weight)`` of a batch, to be accumulated as ``loss * weight``
+    and ``weight``: its loss and its valid impressions.  With ``mesh`` the
+    arguments are this data rank's rows: a loss that is a mean over the
+    valid rows (``mean_over_valid``, as cross-entropy) is taken over them,
+    so the ranks' sums are the global batch's; any other (SupCon's mean
+    over its nonzero rows) is taken over the global batch's rows, gathered
+    (``gather_eval_loss``), and weighted on data rank 0 alone."""
+    if mesh is None or getattr(loss_fn, "mean_over_valid", False):
+        return loss_fn(scores, labels, cand_mask, valid), valid.float().sum()
+    from newsreclib_tpu_torch.parallel.collectives import gather_rows
+
+    g, n, i = mesh.data_group, mesh.data_size, mesh.data_index
+    every = [gather_rows(t, g, n, i, "gather_eval_loss")
+             for t in (scores, labels, cand_mask, valid)]
+    return loss_fn(*every), every[3].float().sum() * float(i == 0)
+
+
+def reduce_over_data(mesh, totals: torch.Tensor, auc_inputs: List[torch.Tensor]):
+    """``(totals, auc_inputs)`` of every data rank: the float32 vector
+    ``totals`` summed over the data group (one ``eval_sums``) and the AUC
+    inputs ``[scores, labels, weights]`` gathered (one ``gather_auc``;
+    none when the list is empty, as it is then on every rank)."""
+    from newsreclib_tpu_torch.parallel.collectives import all_gather_varlen, all_reduce_sums
+
+    totals = all_reduce_sums(totals.float(), mesh.data_group)
+    if auc_inputs:
+        every = all_gather_varlen(torch.stack([t.float() for t in auc_inputs]).reshape(-1),
+                                  mesh.data_group, mesh.data_size, mesh.data_index,
+                                  "gather_auc")
+        auc_inputs = list(torch.cat([t.view(3, -1) for t in every], dim=1))
+    return totals, auc_inputs
+
+
 class StreamingEval:
     """The uncached eval path's accumulator: per batch it adds the valid
     impressions' metric sums, keeps the AUC inputs and the valid-impression
@@ -83,7 +125,10 @@ class StreamingEval:
         self._loss_w: Optional[torch.Tensor] = None
         self._parts: List = []
 
-    def update(self, scores, per_imp, valid, labels=None, cand_mask=None, loss=None) -> None:
+    def update(self, scores, per_imp, valid, labels=None, cand_mask=None, loss=None,
+               loss_weight=None) -> None:
+        """``loss_weight``: the loss's weight (``loss_and_weight``; default
+        the valid impressions)."""
         v = valid.float()
         if self._sums is None:
             self._sums = {k: torch.zeros((), dtype=torch.float32, device=v.device)
@@ -98,30 +143,38 @@ class StreamingEval:
         if loss is not None:
             # weighted by the valid impressions, so the epoch loss does not
             # depend on how the impressions were cut into batches
-            nv = v.sum()
+            nv = v.sum() if loss_weight is None else loss_weight
             if self._loss_sum is None:
                 self._loss_sum, self._loss_w = loss * nv, nv
             else:
                 self._loss_sum = self._loss_sum + loss * nv
                 self._loss_w = self._loss_w + nv
 
-    def finalize(self) -> Dict[str, float]:
+    def finalize(self, mesh=None) -> Dict[str, float]:
+        """The epoch's metrics, fetched once; with ``mesh``, over every data
+        rank's rows (``reduce_over_data``: a collective, every rank calls
+        it and gets the same metrics)."""
         if self._sums is None:
             return {}
         keys = sorted(self._sums)
-        fetch = [self._count] + [self._sums[k] for k in keys]
-        if self._parts:
-            fetch.append(F.binary_auc_weighted(
-                *(torch.cat([p[i] for p in self._parts]) for i in range(3))))
-        if self._loss_sum is not None:
-            fetch += [self._loss_sum, self._loss_w]
-        vals = torch.stack([x.float() for x in fetch]).cpu().numpy().astype(np.float64)
+        totals = [self._count] + [self._sums[k] for k in keys]
+        with_loss = self._loss_sum is not None
+        if with_loss:
+            totals += [self._loss_sum, self._loss_w]
+        totals = torch.stack([x.float() for x in totals])
+        auc_inputs = ([torch.cat([p[i] for p in self._parts]) for i in range(3)]
+                      if self._parts else [])
+        if mesh is not None:
+            totals, auc_inputs = reduce_over_data(mesh, totals, auc_inputs)
+        fetch = [totals]
+        if auc_inputs:
+            fetch.append(F.binary_auc_weighted(*auc_inputs).reshape(1))
+        vals = torch.cat(fetch).cpu().numpy().astype(np.float64)
         count = max(float(vals[0]), 1.0)
         out = {k: float(vals[1 + i]) / count for i, k in enumerate(keys)}
-        cursor = 1 + len(keys)
-        if self._parts:
-            out["auc"] = float(vals[cursor])
-            cursor += 1
-        if self._loss_sum is not None:
+        if auc_inputs:
+            out["auc"] = float(vals[-1])
+        if with_loss:
+            cursor = 1 + len(keys)
             out["loss"] = float(vals[cursor]) / max(float(vals[cursor + 1]), 1.0)
         return out

@@ -43,6 +43,11 @@ def cross_entropy_loss(scores: torch.Tensor, labels: torch.Tensor,
     return (per_row * v).sum() / v.sum().clamp_min(1.0)
 
 
+# a mean over the valid rows: weighted by their count, the sum of the losses
+# of a batch's parts is the whole batch's (metrics/collector.py::loss_and_weight)
+cross_entropy_loss.mean_over_valid = True
+
+
 def supcon_loss(scores: torch.Tensor, labels: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 valid: Optional[torch.Tensor] = None,

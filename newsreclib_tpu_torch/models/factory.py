@@ -391,7 +391,9 @@ def load_data_info(mind_data, cfg_model: Dict) -> DataInfo:
     """DataInfo of a dataset (``MINDData``, ``AdressaData``, ``XMINDData``):
     sizes from its maps, matrices from the train split's
     ``transformed_*_embeddings.npy``; xMIND's word matrix is its extended
-    one (``XMINDData.ensure_word_embeddings``), as in the JAX factory."""
+    one (``XMINDData.ensure_word_embeddings``), as in the JAX factory, and
+    MIND's is built where the first parse did not build it
+    (``MINDData.ensure_word_embeddings``)."""
     classes = mind_data.num_classes()
     use_pretrained_w = cfg_model.get("use_pretrained_embeddings", True)
     train_dir = mind_data.split_dir("train")

@@ -18,7 +18,14 @@ slot (exact: each element is its value plus zeros).
 * ``copy_to_group`` / ``reduce_from_group``: Megatron's conjugate pair for
   the tensor-parallel tower (identity forward and all-reduce backward, and
   the reverse);
-* ``broadcast_value``: rank 0's float to every rank (the monitored metric).
+* ``broadcast_value``: rank 0's float to every rank (the monitored metric);
+* ``all_reduce_sums``: the float32 sum vector of an evaluation (metric
+  sums, impression count, loss sum and weight) over the data group;
+* ``all_gather_varlen``: every rank's 1-D vector of any length, in rank
+  order (the corpus encode's rows, the AUC inputs, the export's rows): a
+  first all-reduce carries the lengths, the vectors travel padded to the
+  longest and come back cut to their own.  Low-precision floats travel as
+  float32 and booleans as int32, both exactly.
 
 ``calls`` counts each collective by name, for the card checks.
 """
@@ -26,7 +33,7 @@ slot (exact: each element is its value plus zeros).
 from __future__ import annotations
 
 from collections import Counter
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -134,3 +141,35 @@ def broadcast_value(value: Optional[float], device, src: int = 0) -> float:
     dist.broadcast(t, src=src)
     calls["broadcast"] += 1
     return float(t.item())
+
+
+def all_reduce_sums(sums: torch.Tensor, group, name: str = "eval_sums") -> torch.Tensor:
+    """The float32 vector ``sums`` summed over ``group``, out of place."""
+    if sums.dtype != torch.float32 or sums.dim() != 1:
+        raise ValueError(f"a float32 vector is summed, not {sums.dtype} of shape {sums.shape}")
+    return all_reduce_(sums.clone(), group, name)
+
+
+_WIRE = {torch.bfloat16: torch.float32, torch.float16: torch.float32, torch.bool: torch.int32}
+
+
+def all_gather_varlen(t: torch.Tensor, group, size: int, index: int,
+                      name: str) -> List[torch.Tensor]:
+    """``[vector of rank 0, ..., vector of rank size - 1]`` of ``group``
+    from this rank's 1-D ``t`` (``index``: its place in the group), each
+    rank's of its own length.  Two all-reduces: the lengths, then a
+    ``(size, longest)`` zero-filled buffer in which each rank fills its
+    row; counted once under ``name``."""
+    if t.dim() != 1:
+        raise ValueError(f"a 1-D vector is gathered, not shape {tuple(t.shape)}")
+    lengths = torch.zeros(size, dtype=torch.int64, device=t.device)
+    lengths[index] = t.numel()
+    dist.all_reduce(lengths, group=group)
+    lens = lengths.tolist()
+    wire = _WIRE.get(t.dtype, t.dtype)
+    buf = torch.zeros((size, max(lens)), dtype=wire, device=t.device)
+    if buf.numel():  # every rank sees the same lengths: all skip it or none
+        buf[index, :t.numel()] = t.to(wire)
+        dist.all_reduce(buf, group=group)
+    calls[name] += 1
+    return [buf[r, :n].to(t.dtype) for r, n in enumerate(lens)]

@@ -12,6 +12,18 @@ JAX package: the transfer-narrowing ``lean`` / ``hydrate`` wire format of its
 remote TPU link is dropped, the ``lax.scan`` over stacked batches is a
 Python loop over batches kept on the device, and ``GlobalEvalBatcher`` is
 ``data/batching.py::BucketedAssembler`` used directly.
+
+``mesh`` (a ``parallel/mesh.py::Mesh``; every rank of it calls the same
+methods): the work is split over the data ranks as the JAX package splits
+it over its mesh's ``data`` axis.  Each data rank encodes its piece of
+every corpus chunk (``corpus_pieces``) and the rows are all-gathered into
+the whole table on every rank; each rank scores its contiguous rows of
+every impression batch (batches rounded to a multiple of the data ranks);
+the epoch's metric sums go into one all-reduce and the AUC is computed on
+every rank from the gathered ``(scores, labels, weights)``; the export
+gathers ``(position, row, score)`` and rank 0 writes the JSON.  Ranks that
+share a data index (``model_axis`` > 1) score the same share with the whole
+model, and every collective runs over the data group.
 """
 
 from __future__ import annotations
@@ -28,7 +40,11 @@ from newsreclib_tpu_torch.data.batching import BucketedAssembler, Impressions
 from newsreclib_tpu_torch.data.news_store import NewsStore
 from newsreclib_tpu_torch.device import resolve_device
 from newsreclib_tpu_torch.metrics import functional as F
-from newsreclib_tpu_torch.metrics.collector import RankingMetrics
+from newsreclib_tpu_torch.metrics.collector import (
+    RankingMetrics,
+    loss_and_weight,
+    reduce_over_data,
+)
 from newsreclib_tpu_torch.models.base import mask_scores
 
 # cached device copies per scorer: a run's val and test sets, corpus and batches
@@ -62,31 +78,77 @@ def corpus_segments(store: NewsStore, split_title_len: Optional[int] = SPLIT_TIT
     return [(np.arange(n), l_full)]
 
 
+def corpus_pieces(n: int, batch_size: int, size: int = 1,
+                  index: int = 0) -> List[Tuple[int, int]]:
+    """``[(lo, hi), ...]``: the non-empty row ranges of a segment of ``n``
+    rows that data rank ``index`` of ``size`` encodes, one encode call each.
+    The segment is cut into chunks of ``batch_size`` rows (rounded up to a
+    multiple of ``size``) and each chunk into ``size`` equal pieces, cut at
+    the segment's end, so a rank may have a piece fewer than another: the
+    JAX package's ``P(None, "data")`` over its stacked chunks
+    (``newsreclib_tpu/serving.py:148-151,189-197``) without its padding
+    rows.  ``size`` 1: the chunks themselves."""
+    bs = -(-batch_size // size) * size
+    per = bs // size
+    out = []
+    for start in range(0, n, bs):
+        lo = start + index * per
+        hi = min(lo + per, n)
+        if lo < hi:
+            out.append((lo, hi))
+    return out
+
+
+def _data_share(mesh) -> Tuple[int, int]:
+    return (1, 0) if mesh is None else (mesh.data_size, mesh.data_index)
+
+
 def _corpus_on_device(store: NewsStore, batch_size: int, split_title_len: Optional[int],
-                      margin: int, device: torch.device) -> list:
-    """``[(rows, [NewsFeatures chunk, ...]), ...]``: each segment's rows of
-    the store (``features_for``: every field the store has, title and its
-    mask cut to the segment's width, as ``newsreclib_tpu/serving.py:160-170``)
-    on ``device``, in chunks of at most ``batch_size`` rows."""
-    parts = []
+                      margin: int, device: torch.device, mesh=None) -> tuple:
+    """``(chunks, rows)``: ``chunks`` is ``[NewsFeatures, ...]``, this data
+    rank's rows of the store (``features_for``: every field the store has,
+    title and its mask cut to the segment's width, as
+    ``newsreclib_tpu/serving.py:160-170``) on ``device``, one chunk per
+    ``corpus_pieces`` range of each segment; ``rows`` the store rows of every
+    rank's chunks in rank order (one rank: its own), the order of the
+    gathered encode, on ``device``."""
+    size, index = _data_share(mesh)
+    batch_size = -(-batch_size // size) * size
+    chunks, order = [], [[] for _ in range(size)]
     for rows, width in corpus_segments(store, split_title_len, batch_size, margin):
-        feats = store.features_for(rows)
+        for r in range(size):
+            order[r] += [rows[lo:hi] for lo, hi in corpus_pieces(len(rows), batch_size, size, r)]
+        pieces = corpus_pieces(len(rows), batch_size, size, index)
+        if not pieces:
+            continue
+        feats = store.features_for(np.concatenate([rows[lo:hi] for lo, hi in pieces]))
         feats = to_device(feats._replace(title=feats.title[:, :width],
                                          title_mask=feats.title_mask[:, :width]), device)
-        chunks = [NewsFeatures(*(None if v is None else v[i:i + batch_size] for v in feats))
-                  for i in range(0, len(rows), batch_size)]
-        parts.append((torch.from_numpy(rows).to(device), chunks))
-    return parts
+        at = 0
+        for lo, hi in pieces:
+            chunks.append(NewsFeatures(*(None if v is None else v[at:at + hi - lo]
+                                         for v in feats)))
+            at += hi - lo
+    rows = np.concatenate([r for o in order for r in o]).astype(np.int64)
+    return chunks, torch.from_numpy(rows).to(device)
 
 
-def _encode_corpus(model, n_rows: int, parts: list, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    table = None
-    for rows, chunks in parts:
-        vecs = torch.cat([model.encode_news(news) for news in chunks])
-        if table is None:
-            table = torch.zeros((n_rows, vecs.shape[-1]), dtype=dtype or vecs.dtype,
-                                device=vecs.device)
-        table[rows] = vecs.to(table.dtype)
+def _encode_corpus(model, n_rows: int, chunks: list, rows: torch.Tensor,
+                   dtype: Optional[torch.dtype], mesh=None) -> torch.Tensor:
+    """The ``(n_rows, D)`` table: this data rank's ``chunks`` encoded, with a
+    ``mesh`` every rank's vectors all-gathered (``gather_table``), scattered
+    once to ``rows``; row 0 zero."""
+    vecs = [model.encode_news(news).reshape(-1) for news in chunks]
+    flat = (torch.cat(vecs) if vecs else
+            torch.zeros(0, dtype=dtype or torch.float32, device=rows.device))
+    if mesh is not None:
+        from newsreclib_tpu_torch.parallel.collectives import all_gather_varlen
+
+        flat = torch.cat(all_gather_varlen(flat, mesh.data_group, mesh.data_size,
+                                           mesh.data_index, "gather_table"))
+    d = flat.numel() // max(rows.numel(), 1)
+    table = torch.zeros((n_rows, d), dtype=dtype or flat.dtype, device=rows.device)
+    table[rows] = flat.view(-1, d).to(table.dtype)
     table[0] = 0.0
     return table
 
@@ -103,6 +165,7 @@ def build_news_vector_table(
     dtype: Optional[torch.dtype] = None,
     split_title_len: Optional[int] = SPLIT_TITLE_LEN,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Encode the whole corpus once -> ``(N+1, D)`` table on ``device``,
     rows in store order, row 0 (padding) zero, in ``dtype`` (default: the
@@ -111,11 +174,12 @@ def build_news_vector_table(
     ``model`` must already lie on ``device``.  Short and long titles are
     encoded in separate chunks of at most ``batch_size`` rows (see
     ``corpus_segments``, with the model's ``TITLE_SPLIT_MARGIN``) and
-    scattered back into row order.
+    scattered back into row order.  ``mesh``: each data rank encodes its
+    pieces of the chunks and every rank gets the whole table (module doc).
     """
-    parts = _corpus_on_device(store, batch_size, split_title_len, _split_margin(model),
-                              resolve_device(device))
-    return _encode_corpus(model, store.title.shape[0], parts, dtype)
+    chunks, rows = _corpus_on_device(store, batch_size, split_title_len, _split_margin(model),
+                                     resolve_device(device), mesh)
+    return _encode_corpus(model, store.title.shape[0], chunks, rows, dtype, mesh)
 
 
 class CachedScorer:
@@ -129,18 +193,21 @@ class CachedScorer:
     encode, or None for one bucket at full width (``corpus_segments``).
     ``loss_fn(scores, labels, cand_mask, valid)``: when given, the metrics
     carry ``loss``, the batches' losses weighted by their valid impressions.
+    ``mesh``: the work split over the data ranks (module doc); every rank
+    returns the same metrics.
     """
 
     def __init__(self, model, ranking: Optional[RankingMetrics] = None,
                  compute_dtype: Optional[Union[str, torch.dtype]] = None,
                  device: Union[str, torch.device] = "cuda",
                  split_title_len: Optional[int] = SPLIT_TITLE_LEN,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None, mesh=None):
         self.device = resolve_device(device)
         self.model = model
         self.ranking = ranking or RankingMetrics()
         self.loss_fn = loss_fn
         self.split_title_len = split_title_len
+        self.mesh = mesh
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
         self.compute_dtype = compute_dtype
@@ -168,6 +235,19 @@ class CachedScorer:
             model = copy.deepcopy(model).to(self.compute_dtype)
         return model
 
+    def _assembler(self, impressions: Impressions, max_history_len: int,
+                   target_cells: int) -> BucketedAssembler:
+        return BucketedAssembler(impressions, max_history_len, target_cells,
+                                 batch_multiple=_data_share(self.mesh)[0])
+
+    def _rows(self, batch: RecBatch) -> RecBatch:
+        """This data rank's rows of a global batch (all of them on one device)."""
+        if self.mesh is None:
+            return batch
+        from newsreclib_tpu_torch.parallel.mesh import shard_batch
+
+        return shard_batch(batch, self.mesh)
+
     @torch.inference_mode()
     def evaluate(self, store: NewsStore, impressions: Impressions, max_history_len: int = 50,
                  target_cells: int = TARGET_CELLS, encode_batch: int = 4096,
@@ -177,13 +257,14 @@ class CachedScorer:
         model.eval()
         try:
             split, margin = self.split_title_len, _split_margin(model)
-            parts, categ, sent = self._cached(
+            (chunks, rows), categ, sent = self._cached(
                 ("corpus", id(store), encode_batch, split, margin), store, lambda: (
-                    _corpus_on_device(store, encode_batch, split, margin, self.device),
+                    _corpus_on_device(store, encode_batch, split, margin, self.device, self.mesh),
                     self._on_device(store.category), self._on_device(store.sentiment),
                 ),
             )
-            table = _encode_corpus(model, store.title.shape[0], parts, self.compute_dtype)
+            table = _encode_corpus(model, store.title.shape[0], chunks, rows,
+                                   self.compute_dtype, self.mesh)
             return self._run(model, impressions, table, categ, sent, max_history_len,
                              target_cells, collect_auc)
         finally:
@@ -193,8 +274,8 @@ class CachedScorer:
                  target_cells: int) -> List[RecBatch]:
         return self._cached(
             ("batches", id(impressions), max_history_len, target_cells), impressions,
-            lambda: [to_device(b, self.device)
-                     for b in BucketedAssembler(impressions, max_history_len, target_cells)],
+            lambda: [to_device(self._rows(b), self.device)
+                     for b in self._assembler(impressions, max_history_len, target_cells)],
         )
 
     def _run(self, model, impressions, table, categ, sent, max_history_len,
@@ -222,24 +303,26 @@ class CachedScorer:
             count += v.sum()
             if self.loss_fn is not None:
                 # weighted by the valid impressions: the loss_fn is a mean over them
-                nv = v.sum()
-                loss_acc += torch.stack([self.loss_fn(scores, b.labels, b.cand_mask,
-                                                      b.impression_valid) * nv, nv])
+                loss, nv = loss_and_weight(self.loss_fn, scores, b.labels, b.cand_mask,
+                                           b.impression_valid, self.mesh)
+                loss_acc += torch.stack([loss * nv, nv])
             if collect_auc:
                 w = (b.cand_mask & b.impression_valid[:, None]).float()
                 auc_parts.append((scores.reshape(-1), (b.labels * w).reshape(-1), w.reshape(-1)))
-        fetch = [count.reshape(1), sums, loss_acc]
-        if auc_parts:
-            fetch.append(F.binary_auc_weighted(
-                *(torch.cat([p[i] for p in auc_parts]) for i in range(3))
-            ).reshape(1))
+        totals = torch.cat([count.reshape(1), sums, loss_acc])
+        auc_inputs = [torch.cat([p[i] for p in auc_parts]) for i in range(3)] if auc_parts else []
+        if self.mesh is not None:
+            totals, auc_inputs = reduce_over_data(self.mesh, totals, auc_inputs)
+        fetch = [totals]
+        if auc_inputs:
+            fetch.append(F.binary_auc_weighted(*auc_inputs).reshape(1))
         vals = torch.cat(fetch).cpu().numpy().astype(np.float64)  # one device sync
         n = max(float(vals[0]), 1.0)
         out = {k: float(vals[1 + i]) / n for i, k in enumerate(names)}
         loss_sum, loss_w = vals[1 + len(names):3 + len(names)]
         if self.loss_fn is not None and loss_w > 0:
             out["loss"] = float(loss_sum) / float(loss_w)
-        if auc_parts:
+        if auc_inputs:
             out["auc"] = float(vals[-1])
         return out
 
@@ -254,39 +337,66 @@ class CachedScorer:
         from the model in ``compute_dtype``.  Batches come from the
         ``BucketedAssembler`` in its bucket order, which tells the
         impression of each batch row (``newsreclib_tpu/serving.py:431-511``;
-        reference ``abstract_recommender.py:159-193``)."""
+        reference ``abstract_recommender.py:159-193``).  With a ``mesh`` each
+        data rank scores its rows of every batch, the ``(position, row,
+        score)`` triples are gathered in the one-device order, every rank
+        returns the same dict and rank 0 alone writes it."""
         model = self._serving_model()
         was_training = model.training
         model.eval()
         try:
             table = build_news_vector_table(model, store, encode_batch, self.compute_dtype,
-                                            self.split_title_len, self.device)
-            assembler = BucketedAssembler(impressions, max_history_len, TARGET_CELLS)
+                                            self.split_title_len, self.device, self.mesh)
+            assembler = self._assembler(impressions, max_history_len, TARGET_CELLS)
             order = np.asarray([i for _, idxs in sorted(assembler.buckets.items())
                                 for i in idxs], dtype=np.int64)
-            all_rows, all_scores, all_imp = [], [], []
+            all_pos, all_rows, all_scores = [], [], []
             cursor = 0
             for batch in assembler:
-                scores = model.score_with_vectors(to_device(batch, self.device), table)
+                n_valid = int(np.sum(batch.impression_valid))  # of the whole batch
+                mine = self._rows(batch)
+                lo = 0 if self.mesh is None else (
+                    self.mesh.data_index * batch.hist_idx.shape[0] // self.mesh.data_size)
+                scores = model.score_with_vectors(to_device(mine, self.device), table)
                 scores = scores.float().cpu().numpy()
-                n_valid = int(np.sum(batch.impression_valid))
-                cand = batch.cand_idx[:n_valid]
-                valid = cand != 0  # (n_valid, C)
-                all_imp.append(np.repeat(order[cursor:cursor + n_valid], valid.sum(axis=1)))
+                k = min(max(n_valid - lo, 0), mine.hist_idx.shape[0])  # this rank's valid rows
+                cand = mine.cand_idx[:k]
+                valid = cand != 0  # (k, C)
+                all_pos.append(np.repeat(cursor + lo + np.arange(k), valid.sum(axis=1)))
                 all_rows.append(cand[valid])
-                all_scores.append(scores[:n_valid][valid])
+                all_scores.append(scores[:k][valid])
                 cursor += n_valid
         finally:
             model.train(was_training)
+        pos = np.concatenate(all_pos) if all_pos else np.zeros(0, np.int64)
         rows = np.concatenate(all_rows) if all_rows else np.zeros(0, np.int32)
         svals = np.concatenate(all_scores) if all_scores else np.zeros(0, np.float32)
-        imps = np.concatenate(all_imp) if all_imp else np.zeros(0, np.int64)
+        if self.mesh is not None:
+            pos, rows, svals = self._gather_recs(pos, rows, svals)
         uids = (impressions.user_ids if impressions.user_ids is not None
-                else impressions.user_idx)[imps]
+                else impressions.user_idx)[order[pos]]
         row2nid = {v: k for k, v in store.nid2row.items()}
         recs: Dict[str, Dict[str, float]] = {}
         for uid, r, v in zip(uids.tolist(), rows.tolist(), svals.tolist()):
             recs.setdefault(f"U{uid}", {})[str(row2nid.get(r, r))] = float(v)
-        with open(fpath, "w") as f:
-            json.dump(recs, f)
+        if self.mesh is None or self.mesh.rank == 0:
+            with open(fpath, "w") as f:
+                json.dump(recs, f)
         return recs
+
+    def _gather_recs(self, pos, rows, svals):
+        """Every data rank's ``(position, row, score)`` triples (one
+        ``gather_recs``, as float64: exact for each), in the one-device
+        order: by position, a rank's candidates of an impression in order."""
+        from newsreclib_tpu_torch.parallel.collectives import all_gather_varlen
+
+        mesh = self.mesh
+        local = torch.from_numpy(np.stack([pos.astype(np.float64), rows.astype(np.float64),
+                                           svals.astype(np.float64)]).reshape(-1))
+        every = all_gather_varlen(local.to(self.device), mesh.data_group, mesh.data_size,
+                                  mesh.data_index, "gather_recs")
+        triples = np.concatenate([t.cpu().numpy().reshape(3, -1) for t in every], axis=1)
+        keep = np.argsort(triples[0], kind="stable")
+        return (triples[0, keep].astype(np.int64), triples[1, keep].astype(np.int32),
+                triples[2, keep].astype(np.float32))
+

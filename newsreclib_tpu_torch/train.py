@@ -32,7 +32,13 @@ process per device:
   (``parallel/launch.py::spawn``); every rank builds the same global batch
   from the same batcher and seed and keeps its rows (JAX's single-host
   mesh).  N is clamped as JAX clamps it: to the cards present, then down
-  until the data axis divides ``data.batch_size``.
+  until the data axis divides ``data.batch_size``.  Evaluation and
+  ``save_recs`` are split over the data ranks as the JAX mesh splits them
+  (``serving.py``, ``Trainer.evaluate``): every rank encodes its share of
+  the corpus and scores its rows of every batch, and every rank gets the
+  same metrics.  ``trainer.share_card=true`` (with an integer N) puts
+  every rank on ``cuda:0`` over gloo, N not clamped to the cards: the
+  multi-rank path on a one-card machine, for its checks.
 * ``trainer.distributed=true``, or the variables torchrun sets (``RANK``,
   ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``):
   multi-host mode, this process is one rank; each data rank takes a strided
@@ -47,7 +53,8 @@ process per device:
 model ranks (``parallel/mesh.py``).  Training batches carry global rows
 whenever there is more than one rank, or with ``data.global_rows``.  Each
 rank uses ``cuda:<local rank>`` (NCCL) or the CPU (gloo); rank 0 alone
-logs, evaluates and writes checkpoints, and ``run`` returns its metrics.
+logs and writes checkpoints (and in multi-host mode evaluates and
+exports), and ``run`` returns its metrics.
 """
 
 from __future__ import annotations
@@ -118,13 +125,16 @@ def local_rank_count(cfg: Dict) -> int:
     """The ranks ``trainer.devices`` asks for on this node, clamped as the
     root ``train.py:195-206`` clamps them: ``all`` (the default) is every
     card (one on the CPU), an integer at most the cards present (any number
-    of CPU ranks), then down until the data axis divides the batch and the
-    model axis divides the count."""
+    of CPU ranks, or of ranks sharing one card with ``trainer.share_card``),
+    then down until the data axis divides the batch and the model axis
+    divides the count."""
     tc = cfg.get("trainer", {})
     want = tc.get("devices", "all")
     every = want in ("all", None, -1)
     if platform_of(cfg) == "cpu":
         n = 1 if every else int(want)
+    elif tc.get("share_card") and not every:  # ranks sharing one card: as many as asked
+        n = int(want)
     else:
         avail = torch.cuda.device_count() if torch.cuda.is_available() else 1
         n = avail if every else min(int(want), avail)
@@ -159,9 +169,11 @@ def setup_parallelism(cfg: Dict, rank: Optional[int] = None, world: Optional[int
         rank, world, local_rank = found
     else:
         local_rank = rank
-    device = rank_device(platform_of(cfg), local_rank)
+    shared = single_node and bool(tc.get("share_card")) and platform_of(cfg) == "cuda"
+    device = rank_device(platform_of(cfg), 0 if shared else local_rank)
+    # NCCL refuses two ranks on one card; gloo takes them
     mesh = init_mesh(rank, world, int(tc.get("model_axis", 1)), device,
-                     replicated_batches=single_node)
+                     backend="gloo" if shared else None, replicated_batches=single_node)
     log.info("rank %d of %d (%s mode): data %d of %d, model %d of %d, %s over %s", rank, world,
              "single-node" if single_node else "multi-host", mesh.data_index, mesh.data_size,
              mesh.model_index, mesh.model_axis, device, mesh.backend)
@@ -292,19 +304,7 @@ def setup_data(cfg: Dict):
 
     if dataset not in ("mind", "xmind"):
         raise _not_ported(f"the {dataset} dataset", "Other datasets")
-    news_tsv = os.path.join(dc["data_dir"], f"MIND{dc['dataset_size']}_train", "news.tsv")
-    if fixture and not os.path.exists(news_tsv):
-        from newsreclib_tpu_torch.data import statfix, testing
-
-        seed = dc.get("seed", 42)
-        writers = {
-            "statfix": lambda: statfix.write_mind_small_statfix(dc["data_dir"], seed=seed),
-            "statfix_v2": lambda: statfix.write_mind_small_statfix_v2(dc["data_dir"], seed=seed),
-        }
-        writer = writers.get(fixture, lambda: testing.write_mind_fixture(
-            dc["data_dir"], dataset_size=dc["dataset_size"]))
-        _timed_fixture(fixture if fixture in writers else "write_mind_fixture", writer,
-                       dc["data_dir"])
+    ensure_mind_fixture(dc)
     mind = MINDData(MINDConfig(
         data_dir=dc["data_dir"],
         dataset_size=dc["dataset_size"],
@@ -340,6 +340,27 @@ def setup_data(cfg: Dict):
         pct_tgt_lang_test=dc.get("pct_tgt_lang_test", 1.0),
         seed=dc.get("seed", 42),
     ))
+
+
+def ensure_mind_fixture(dc: Dict) -> None:
+    """Write the MIND fixture that the data node ``dc`` names
+    (``generate_fixture``: ``statfix``, ``statfix_v2`` or any other for the
+    small demo fixture) into ``data_dir``, unless its train news are there."""
+    fixture = dc.get("generate_fixture")
+    news_tsv = os.path.join(dc["data_dir"], f"MIND{dc['dataset_size']}_train", "news.tsv")
+    if not fixture or os.path.exists(news_tsv):
+        return
+    from newsreclib_tpu_torch.data import statfix, testing
+
+    seed = dc.get("seed", 42)
+    writers = {
+        "statfix": lambda: statfix.write_mind_small_statfix(dc["data_dir"], seed=seed),
+        "statfix_v2": lambda: statfix.write_mind_small_statfix_v2(dc["data_dir"], seed=seed),
+    }
+    writer = writers.get(fixture, lambda: testing.write_mind_fixture(
+        dc["data_dir"], dataset_size=dc["dataset_size"]))
+    _timed_fixture(fixture if fixture in writers else "write_mind_fixture", writer,
+                   dc["data_dir"])
 
 
 def _timed_fixture(name: str, write, data_dir: str) -> None:
@@ -544,6 +565,9 @@ def _build_run(cfg: Dict, mesh, device: torch.device, rd: RunData) -> Run:
         u_bucket = train_batcher.global_u_bucket(dc["batch_size"])
         log.info("global-row training: corpus table %d rows, u_bucket %d",
                  store_train.title.shape[0], u_bucket)
+    if mesh is not None and mesh.replicated_batches:
+        # each data rank scores its rows of every eval batch (root train.py:400)
+        eval_kwargs["batch_multiple"] = mesh.data_size
     val_batcher = EvalBatcher(store_train, rd.val_imp, **eval_kwargs)
     test_batcher = EvalBatcher(store_test, rd.test_imp, **eval_kwargs)
 
@@ -661,14 +685,17 @@ def _local_rank(rank: int, world: int, cfg: Dict) -> Dict[str, float]:
 
 
 def run_rank(cfg: Dict, mesh=None) -> Dict[str, float]:
-    """Fit, test and (``save_recs``, rank 0) export on this rank."""
+    """Fit, test and (``save_recs``) export on this rank: the export is
+    split over the data ranks in single-node mode, rank 0's alone in
+    multi-host mode."""
     r = build_run(cfg, mesh)
     metrics = r.trainer.fit(r.train_batcher, r.val_batcher, resume=bool(cfg.get("ckpt_path")))
     if cfg.get("test_after_train", True):
         metrics.update(r.trainer.test(r.test_batcher))
-    # the one-device model (rank 0's full copy on several ranks)
+    # the one-device model (each rank's full copy on several ranks)
     model = getattr(r.trainer, "_eval_model", None)
-    if cfg.get("save_recs") and hasattr(model, "encode_news"):
+    exports = mesh is None or mesh.replicated_batches or mesh.rank == 0
+    if cfg.get("save_recs") and exports and hasattr(model, "encode_news"):
         export_recommendations(cfg, r, model)
     log.info("final metrics: %s", {k: round(v, 4) for k, v in metrics.items()})
     return metrics
@@ -679,12 +706,14 @@ def export_recommendations(cfg: Dict, r: Run, model) -> str:
     ``{"U<id>": {"N<id>": score}}``, to ``recs_fpath`` (default
     ``<output_dir>/recommendations.json``), from the trainer's parameters
     (the best checkpoint's after the test) in its compute type, as the
-    repository's ``train.py:526-535``."""
+    repository's ``train.py:526-535``; in single-node mode over the data
+    ranks (``CachedScorer(mesh=...)``: every rank calls it, rank 0 writes)."""
     from newsreclib_tpu_torch.serving import CachedScorer
 
     recs_fpath = cfg.get("recs_fpath") or os.path.join(cfg["output_dir"], "recommendations.json")
+    mesh = r.mesh if r.mesh is not None and r.mesh.replicated_batches else None
     CachedScorer(model, compute_dtype=r.trainer.cfg.compute_dtype,
-                 device=next(model.parameters()).device).export_recommendations(
+                 device=next(model.parameters()).device, mesh=mesh).export_recommendations(
         r.data.news_store("test"), r.data.impressions("test"), recs_fpath,
         max_history_len=cfg["data"]["max_history_len"],
     )

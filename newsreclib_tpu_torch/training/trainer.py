@@ -12,12 +12,18 @@ shards (``place_state``), every batch to this rank's rows (a host-dedup
 batch here, a global-row batch inside the step), and the step sums the
 gradients over the data group.  ``corpus`` + ``u_bucket`` select global-row
 training (``data/batch.py::densify``), which multi-host mode requires.
-Evaluation follows the JAX package's multi-host rule (``trainer.py:243-297``):
-every rank joins the gather of a sharded state, then rank 0 scores the full
-set on its own device with a one-device copy of the model, so its metrics
-are one device's; the monitored value is broadcast from rank 0, rank 0
-alone writes the (gathered, full) checkpoints, and a restore cuts them back
-to the shards.
+Evaluation: every rank joins the gather of a sharded state into a
+one-device copy of the model.  In single-node mode (``trainer.devices=N``,
+``mesh.replicated_batches``) every rank then scores its share, as the JAX
+package's one-host mesh does: the cached path through
+``CachedScorer(mesh=...)``, the streaming path on the rank's rows of each
+batch (``shard_batch``, JAX's ``self._shard``) with ``StreamingEval``'s sums
+reduced over the data group, so every rank returns the same metrics.  In
+multi-host mode the JAX package's rule holds (``trainer.py:243-297``):
+rank 0 scores the full set on its own device, so its metrics are one
+device's, and the other ranks return {}.  The monitored value is broadcast
+from rank 0, rank 0 alone writes the (gathered, full) checkpoints, and a
+restore cuts them back to the shards.
 """
 
 from __future__ import annotations
@@ -34,7 +40,11 @@ import numpy as np
 
 from newsreclib_tpu_torch.data.batch import to_device
 from newsreclib_tpu_torch.data.batching import EvalBatcher, TrainBatcher
-from newsreclib_tpu_torch.metrics.collector import RankingMetrics, StreamingEval
+from newsreclib_tpu_torch.metrics.collector import (
+    RankingMetrics,
+    StreamingEval,
+    loss_and_weight,
+)
 from newsreclib_tpu_torch.training.checkpoint import Checkpointer
 from newsreclib_tpu_torch.training.state import TrainState
 from newsreclib_tpu_torch.training.steps import make_eval_step, make_train_step
@@ -103,23 +113,28 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.device = next(state.model.parameters()).device
-        # rank 0 evaluates a sharded run on a one-device copy of the model
+        # a sharded run evaluates on a one-device copy of the model: every
+        # rank's in single-node mode, rank 0's in multi-host mode
         self._eval_model = state.model
+        self._eval_mesh = mesh if mesh is not None and mesh.replicated_batches else None
         if mesh is not None:
             from newsreclib_tpu_torch.parallel.mesh import place_state, shard_specs
 
             specs = shard_specs({n: tuple(p.shape) for n, p in state.model.named_parameters()},
                                 mesh.model_axis, cfg.row_shard_embeddings, cfg.tp_transformer)
             if specs:  # the full model before it is cut to this rank's shards
-                self._eval_model = copy.deepcopy(state.model) if mesh.rank == 0 else None
+                evaluates = mesh.rank == 0 or self._eval_mesh is not None
+                self._eval_model = copy.deepcopy(state.model) if evaluates else None
             state = place_state(state, mesh, cfg.row_shard_embeddings, cfg.tp_transformer)
         self.state = state
         self.model = state.model
         self.loggers = list(loggers)
         self.ranking = ranking or RankingMetrics()
+        self.loss_fn = loss_fn
         self.train_step = make_train_step(loss_fn, compute_dtype=cfg.compute_dtype,
                                           u_bucket=u_bucket)
-        self.eval_step = make_eval_step(loss_fn=loss_fn, ranking=self.ranking,
+        # the streaming eval takes the loss from loss_and_weight
+        self.eval_step = make_eval_step(ranking=self.ranking,
                                         compute_dtype=cfg.compute_dtype)
         self.corpus = None if corpus is None else to_device(corpus, self.device)
         self.collect_auc_inputs = collect_auc_inputs
@@ -133,7 +148,7 @@ class Trainer:
 
             self._cached_scorer = CachedScorer(
                 self._eval_model, ranking=self.ranking, compute_dtype=cfg.compute_dtype,
-                device=self.device, loss_fn=loss_fn,
+                device=self.device, loss_fn=loss_fn, mesh=self._eval_mesh,
             )
 
     @property
@@ -216,13 +231,15 @@ class Trainer:
         }
 
     def evaluate(self, batcher: EvalBatcher, prefix: str = "val") -> Dict[str, float]:
-        """The metrics of ``batcher``'s impressions under ``prefix``; on a
-        multi-rank run rank 0's (the others return {}), after every rank
-        joined the gather of a sharded state."""
+        """The metrics of ``batcher``'s impressions under ``prefix``, after
+        every rank joined the gather of a sharded state: in single-node mode
+        every rank scores its share and returns the same metrics; in
+        multi-host mode rank 0 returns them and the other ranks {} (module
+        doc)."""
         model = self.model
         if self.mesh is not None:
             tree = self._full_state(with_opt=False)  # before the rank gate: a collective
-            if self.rank != 0:
+            if self._eval_mesh is None and self.rank != 0:
                 return {}
             model = self._eval_model
             if tree is not None:
@@ -239,19 +256,28 @@ class Trainer:
             )
             return {f"{prefix}/{k}": v for k, v in metrics.items()}
 
+        mesh = self._eval_mesh
         stream = StreamingEval(collect_auc=self.collect_auc_inputs)
         for i, batch in enumerate(batcher):
             if self.cfg.limit_eval_batches and i >= self.cfg.limit_eval_batches:
                 break
+            if mesh is not None:
+                from newsreclib_tpu_torch.parallel.mesh import shard_batch
+
+                batch = shard_batch(batch, mesh)
             batch = to_device(batch, self.device)
-            scores, per_imp, valid, loss = self.eval_step(SimpleNamespace(model=model), batch)
+            scores, per_imp, valid, _ = self.eval_step(SimpleNamespace(model=model), batch)
+            loss = weight = None
+            if self.loss_fn is not None:
+                loss, weight = loss_and_weight(self.loss_fn, scores, batch.labels,
+                                               batch.cand_mask, valid, mesh)
             stream.update(
                 scores, per_imp, valid,
                 batch.labels if self.collect_auc_inputs else None,
                 batch.cand_mask if self.collect_auc_inputs else None,
-                loss,
+                loss, weight,
             )
-        return {f"{prefix}/{k}": v for k, v in stream.finalize().items()}
+        return {f"{prefix}/{k}": v for k, v in stream.finalize(mesh).items()}
 
     def fit(self, train_batcher: TrainBatcher, val_batcher: Optional[EvalBatcher] = None,
             resume: bool = False) -> Dict[str, float]:

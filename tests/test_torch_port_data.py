@@ -194,6 +194,40 @@ def test_etl_quoting_and_na_fields_match_jax(tmp_path):
     assert tmind.MINDData(configs(tdir, "demo", "glove_demo.txt")[1]).vocab_size() == len(words) + 1
 
 
+@pytest.mark.parametrize("categ", [False, True])
+def test_glove_matrices_do_not_depend_on_the_first_parse(tmp_path, categ):
+    """A directory parsed first without a GloVe file (as ``mlm_pretrain``
+    parses it) and then read by a run that names one gives the model the
+    matrices of a directory parsed with it, bit for bit (the words that
+    the id maps read back as NA keep their rows)."""
+    from dataclasses import replace
+
+    from newsreclib_tpu_torch.models.factory import load_data_info
+
+    infos = []
+    for name, first_glove in (("with", True), ("without", False)):
+        d = tmp_path / name
+        copy_raw(DEMO, d, "demo")
+        for split in ("train", "dev"):
+            news = d / f"MINDdemo_{split}" / "news.tsv"
+            news.write_text(news.read_text() + "\n".join(EDGE_NEWS) + "\n")
+        cfg = replace(configs(d, "demo", "glove_demo.txt")[1],
+                      use_pretrained_categ_embeddings=categ)
+        first = cfg if first_glove else replace(cfg, word_embeddings_fpath=None)
+        tmind.MINDData(first).news_store("train")
+        npys = sorted(p.name for p in (d / "MINDdemo_train").glob("transformed_*.npy"))
+        assert ("transformed_word_embeddings.npy" in npys) == first_glove
+        infos.append(load_data_info(tmind.MINDData(cfg), {}))
+    with_glove, later = infos
+    assert later.pretrained_embeddings is not None
+    np.testing.assert_array_equal(later.pretrained_embeddings, with_glove.pretrained_embeddings)
+    if categ:
+        np.testing.assert_array_equal(later.pretrained_categ_embeddings,
+                                      with_glove.pretrained_categ_embeddings)
+    else:
+        assert later.pretrained_categ_embeddings is None
+
+
 ENTITY_FIELDS = ("title_entities", "abstract_entities")
 
 

@@ -15,7 +15,9 @@ the CLI in PLM mode and an Adressa PLM store with ``transformers``,
 the sweep's console script, the BERT sentiment annotator and the profiling
 and timing utilities with those blocked too; another starts 2 CPU ranks of
 the training CLI through the port's launcher (multi-host mode, the word
-table row-sharded), every interpreter with them blocked.
+table row-sharded), every interpreter with them blocked; another the MLM
+pretraining, the frozen-layer check and a ``trainer.devices=2`` CLI run
+with its evaluation and ``save_recs`` split over the ranks.
 The port's sources, ``chip_smoke.py``
 and the card tests are also searched for such imports."""
 
@@ -495,6 +497,52 @@ def test_multi_rank_training_runs_with_jax_blocked(tmp_path):
     assert "test/auc" in (out / "metrics.csv").read_text()
 
 
+def test_mlm_and_data_parallel_eval_run_with_jax_blocked(tmp_path):
+    """With JAX, flax, optax, pandas, yaml and the JAX package blocked in
+    every interpreter: ``mlm_pretrain`` (3 steps at the script's sizes on
+    the CPU) on a copy of the demo files, exporting a checkpoint; the
+    frozen-layer check imports; and ``trainer.devices=2`` starts 2 CPU
+    ranks of the training CLI whose evaluation and ``save_recs`` are split
+    over them: one metrics file, one recommendations file."""
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sitecustomize.py").write_text(BLOCKER)
+    data = tmp_path / "data"
+    for split in ("MINDdemo_train", "MINDdemo_dev"):
+        (data / split).mkdir(parents=True)
+        for name in ("news.tsv", "behaviors.tsv", "entity_embedding.vec"):
+            (data / split / name).write_bytes((ROOT / "data" / "demo" / split / name)
+                                              .read_bytes())
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path / "site"), str(ROOT)]),
+               OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "NEWSRECLIB_PLATFORM"):
+        env.pop(k, None)
+    mlm = subprocess.run(
+        [sys.executable, "-c", "import json, sys; import newsreclib_tpu_torch.plm_frozen_check; "
+         "from newsreclib_tpu_torch import mlm_pretrain; r = mlm_pretrain.main(sys.argv[1:]); "
+         "print(json.dumps({'last': r['history'][-1], 'loaded': sorted(m for m in sys.modules "
+         "if sys.modules[m] is not None and m.split('.')[0] in %r)}))" % (BLOCKED,),
+         "--data-dir", str(data), "--dataset-size", "demo", "--out", str(tmp_path / "plm"),
+         "--steps", "3", "--batch", "8", "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=200)
+    assert mlm.returncode == 0, mlm.stderr[-3000:]
+    res = json.loads(mlm.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["last"]["step"] == 2
+    assert (tmp_path / "plm" / "config.json").exists()
+    out = tmp_path / "run"
+    proc = subprocess.run(
+        [sys.executable, "-m", "newsreclib_tpu_torch.train", "experiment=nrms_demo",
+         "platform=cpu", "trainer.devices=2", "trainer.max_epochs=1",
+         "trainer.limit_train_batches=2", "save_recs=true", f"data.data_dir={data}",
+         "data.word_embeddings_fpath=null", f"output_dir={out}"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=260,
+        start_new_session=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "test/auc" in (out / "metrics.csv").read_text()
+    with open(out / "recommendations.json") as f:
+        assert len(json.load(f)) > 0
+
+
 # no port module imports a tokenizer library: the BERT sentiment annotator
 # reads its checkpoint with the port's tokenizer reader and tower
 TOKENIZER_LIB_USERS = set()
@@ -521,6 +569,8 @@ def test_port_sources_import_no_jax():
     parallel = ROOT / "newsreclib_tpu_torch" / "parallel"
     assert {parallel / f"{m}.py" for m in ("mesh", "collectives", "embedding", "data",
                                            "launch")} <= set(files)
+    assert {ROOT / "newsreclib_tpu_torch" / f"{m}.py"
+            for m in ("mlm_pretrain", "plm_frozen_check", "serving")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

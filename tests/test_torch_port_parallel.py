@@ -358,6 +358,46 @@ def test_all_devices_without_a_card_is_one_rank(monkeypatch):
     assert train.local_rank_count(_cfg(4, platform="cuda")) == 1
 
 
+def test_share_card_ranks_and_backend(monkeypatch):
+    """``trainer.share_card`` with an integer ``trainer.devices``: that many
+    ranks whatever the cards, every one on ``cuda:0`` over gloo in
+    single-node mode; with ``all`` it counts the cards as without it, and
+    multi-host mode ignores it."""
+    from newsreclib_tpu_torch import train
+    from newsreclib_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.delenv("NEWSRECLIB_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+    def cfg(devices, batch=8):
+        c = _cfg(devices, batch, platform="cuda")
+        c["trainer"]["share_card"] = True
+        return c
+
+    assert train.local_rank_count(cfg(2)) == 2
+    assert train.local_rank_count(cfg(3, batch=6)) == 3
+    assert train.local_rank_count(cfg(4, batch=6)) == 3  # the batch still clamps it
+    assert train.local_rank_count(cfg("all")) == 1
+    assert train.local_rank_count(_cfg(2, platform="cuda")) == 1
+
+    seen = []
+    monkeypatch.setattr(pmesh, "rank_device", lambda platform, i: (platform, i))
+    monkeypatch.setattr(pmesh, "init_mesh", lambda rank, world, model_axis, device, backend=None,
+                        replicated_batches=False: seen.append(
+                            (rank, device, backend, replicated_batches)) or _fake_mesh())
+    train.setup_parallelism(cfg(2), rank=1, world=2)
+    train.setup_parallelism(_cfg(2, platform="cuda"), rank=1, world=2)
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    train.setup_parallelism(cfg(2))
+    assert seen == [(1, ("cuda", 0), "gloo", True), (1, ("cuda", 1), None, True),
+                    (1, ("cuda", 1), None, False)]
+
+
 def _fake_mesh(world=2, model_axis=1, replicated=False):
     from newsreclib_tpu_torch.parallel.mesh import Mesh
 
